@@ -1,0 +1,25 @@
+"""PyTorch / CUDA port of the Monte-Carlo path-tracing framework.
+
+The JAX package ``opencl_montecarlo_path_tracing_tpu`` is the reference;
+this package mirrors its layout and module names so that each module's
+counterpart is easy to find.  It imports ``torch`` and numpy, never
+``jax``.  Ported so far: the ``super`` / ``superlmem`` render path, whose
+whole sample step runs in one hand-written CUDA kernel on the GPU
+(``ops/mega_super.py`` + ``csrc/mega_super.cu``) and in plain PyTorch on
+the CPU.
+
+Layout
+------
+core/      counter-based threefry RNG streams, camera, quirks policy
+scene/     reference text scene formats, bitmap -> SoA expansion,
+           built-in demo scenes
+ops/       primitive intersection (plain PyTorch), the super megakernel
+           wrapper, film quantisation
+models/    shared sample-loop machinery and the super integrator
+utils/     PAM (P7) image IO, the CUDA kernel builder, CLI
+csrc/      CUDA C++ kernel sources, built with nvcc at first use
+"""
+
+__version__ = "0.1.0"
+
+from .api import render, VARIANTS  # noqa: E402,F401

@@ -1,0 +1,56 @@
+"""Unified rendering entry point.
+
+Port of ``opencl_montecarlo_path_tracing_tpu/api.py``.  ``render(variant,
+...)`` keeps the JAX package's call signature and adds ``device``.  The
+``super`` and ``superlmem`` variants are ported; every other variant raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+from .core.rng import make_key
+from .core.quirks import Quirks, DEFAULT
+from .scene.scene import Scene
+
+VARIANTS = ("simplecpu", "simple", "super", "superlmem", "nodof",
+            "trianglegrid", "bidirectional", "metropolis",
+            "metropolis_vlpgrid")
+
+# ROADMAP.md queue A (modules) and queue B (kernels) items of the variants
+# not ported yet
+NOT_PORTED = {
+    "simplecpu": "ROADMAP A10 (utilities and CLI: the NumPy oracle)",
+    "simple": "ROADMAP A7 (simple) with kernel B5",
+    "nodof": "ROADMAP A6 (nodof)",
+    "trianglegrid": "ROADMAP A8 (large meshes) with kernels B2/B3",
+    "bidirectional": "ROADMAP A9 (VLP family) with kernel B4",
+    "metropolis": "ROADMAP A9 (VLP family) with kernel B4",
+    "metropolis_vlpgrid": "ROADMAP A9 (VLP family) with kernel B4",
+}
+
+
+def render(variant: str, scene: Scene | None = None, width: int = 512,
+           height: int = 512, spp: int = 64, seed: int = 0,
+           quirks: Quirks = DEFAULT, as_rgba8: bool = False,
+           device="cuda", **kw):
+    """Render with an integrator on ``device``.
+
+    Returns the pre-ambient float film (H, W, 3) as a tensor on ``device``,
+    or the final RGBA8 image as a numpy (H, W, 4) uint8 array when
+    ``as_rgba8``.  A CUDA ``device`` renders with the CUDA kernels and
+    raises when no GPU is present; it never renders on the CPU instead.
+    """
+    if variant in NOT_PORTED:
+        raise NotImplementedError(
+            f"variant {variant!r} is not ported to PyTorch yet: "
+            f"{NOT_PORTED[variant]}")
+    if variant not in ("super", "superlmem"):
+        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+    key = make_key(seed)
+    from .models.super import render_super
+    film = render_super(key, scene, width, height, spp=spp, quirks=quirks,
+                        device=device, **kw)
+    if as_rgba8:
+        from .ops.reduce import quantize_film
+        return quantize_film(film, wrap=quirks.wrap_uint8).cpu().numpy()
+    return film

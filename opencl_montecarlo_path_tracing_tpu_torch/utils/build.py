@@ -1,0 +1,122 @@
+"""Builds the CUDA kernels at first use and loads them with ctypes.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds),
+under ``_build/`` inside this package; the directory is not committed.
+The library's file name carries a hash of the sources and the flags, so a
+changed source builds anew and an unchanged one is loaded as it is.  The
+C entry points take device pointers and the CUDA stream as ``void*`` and
+return ``cudaGetLastError()``.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, ``--fmad=false`` so that ``a*b+c``
+is not contracted to an FMA (the kernels keep the reference's float
+operation order), and never ``--use_fast_math``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+# C signatures: (restype, argtypes); every pointer and the stream is a
+# c_void_p, or ctypes would pass it as a 32-bit int
+_SIGNATURES = {
+    "mega_super_launch": (_I, [_P, _I, _I, _I, _I, _U, _U, _U, _U, _U,
+                               _I, _I, _I, _I, _I, _P, _P]),
+    "mega_super_error_string": (ctypes.c_char_p, [_I]),
+}
+
+_LIB = None   # the loaded library handle
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildInfo:
+    path: str        # the shared library
+    seconds: float   # nvcc wall time; 0.0 when an earlier build was reused
+    log: str         # nvcc's output (ptxas register / spill report)
+
+
+def sources() -> list[str]:
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc") or "",
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from csrc/ at first use")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as fp:
+            h.update(fp.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> BuildInfo:
+    """Compile ``csrc/*.cu`` unless a library of the same sources exists."""
+    tag = _digest()
+    lib_path = os.path.join(BUILD_DIR, f"libpt_kernels-{tag}.so")
+    log_path = os.path.join(BUILD_DIR, f"build-{tag}.log")
+    if os.path.isfile(lib_path):
+        log = ""
+        if os.path.isfile(log_path):
+            with open(log_path) as fp:
+                log = fp.read()
+        return BuildInfo(lib_path, 0.0, log)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = [p for p in sources() if p.endswith(".cu")]
+    # build under a private name, then rename: concurrent first uses from
+    # several processes never load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+                              capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        with open(log_path, "w") as fp:
+            fp.write(log)
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return BuildInfo(lib_path, seconds, log)
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built at first use; signatures declared."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(build().path)
+        for name, (restype, argtypes) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+        _LIB = lib
+    return _LIB

@@ -1,0 +1,160 @@
+"""Command-line parity with the reference binaries (super variants).
+
+Port of ``opencl_montecarlo_path_tracing_tpu/utils/cli.py`` for the
+``super`` and ``superlmem`` subcommands, with the same positionals:
+
+    python -m opencl_montecarlo_path_tracing_tpu_torch super     [w] [h]
+    python -m opencl_montecarlo_path_tracing_tpu_torch superlmem [w] [h]
+
+Options: --scene-dir (the four reference text files), --spp, --seed,
+--out, --quirks {default,reference}, --pam-maxval {255,65535}, and
+--device (default ``cuda``; a CUDA device renders with the CUDA kernel
+and the command fails when no GPU is present).  The other variants of the
+JAX CLI exit with an error naming the ROADMAP item that ports them.
+
+Output: a PAM (P7) RGBA file (default result.ppm) plus a per-stage timing
+report in the reference's format (e.g. CLSuperPathTracer.c:321-325).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def _positional(args, i, default, cast=int):
+    return cast(args[i]) if len(args) > i else default
+
+
+class _Report:
+    """Per-stage lines in the reference's format:
+    ``name : N items in Xms: Y GB/s``."""
+
+    def __init__(self):
+        self.lines = []
+        self.total = 0.0
+
+    def record(self, name, ms, items, item_label, data_size):
+        gbs = data_size / 1.0e6 / ms if ms > 0 else float("inf")
+        self.lines.append(f"{name} : {items} {item_label} in {ms:g}ms: "
+                          f"{gbs:g} GB/s")
+        self.total += ms
+
+    def print(self):
+        print("\n".join(self.lines + ["", f"Total time: {self.total:g} ms."]))
+
+
+def main(argv=None):
+    from ..api import VARIANTS, NOT_PORTED
+    argv = list(sys.argv[1:] if argv is None else argv)
+    ap = argparse.ArgumentParser(
+        prog="opencl_montecarlo_path_tracing_tpu_torch",
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("variant", choices=VARIANTS)
+    ap.add_argument("positionals", nargs="*")
+    ap.add_argument("--scene-dir", default=".")
+    ap.add_argument("--spp", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--quirks", choices=["default", "reference"],
+                    default="default")
+    ap.add_argument("--pam-maxval", type=int, choices=[255, 65535],
+                    default=255,
+                    help="output sample depth: 255 = the reference's RGBA8; "
+                         "65535 writes 16-bit PAM")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to render on (default: cuda)")
+    ns = ap.parse_args(argv)
+    if ns.variant in NOT_PORTED:
+        print(f"error: variant {ns.variant!r} is not ported to PyTorch yet: "
+              f"{NOT_PORTED[ns.variant]}", file=sys.stderr)
+        return 2
+    pos = ns.positionals
+
+    from ..core.quirks import DEFAULT, REFERENCE, REFERENCE_LMEM
+    from ..core.rng import make_key
+    from ..core.camera import make_camera
+    from ..models.super import render_super
+    from ..ops.reduce import quantize_film, quantize_film16
+    from ..scene.scene import load_scene
+    from .pam import ImgInfo, save_pam
+
+    # superlmem + reference quirks additionally reproduces the lmem
+    # binaries' shadow-trace &t aliasing (core/quirks.py::shadow_carry_t)
+    if ns.quirks == "reference":
+        quirks = REFERENCE_LMEM if ns.variant == "superlmem" else REFERENCE
+    else:
+        quirks = DEFAULT
+    # the reference seeds from time/pid/clock/rdtsc (CLSuperPathTracer.c:209)
+    seed = ns.seed if ns.seed is not None else (time.time_ns() & 0x7FFFFFFF)
+    key = make_key(seed)
+    print(f"Seed: {seed}")
+
+    w = _positional(pos, 0, 512)
+    h = _positional(pos, 1, 512)
+    report = _Report()
+    out_name = ns.out or "result.ppm"
+
+    # camera printout parity (CLSuperPathTracer.c:251)
+    cam = make_camera(z_sign=-1.0)
+    print("Cam values:\nCam_forward %f %f %f\nCam_up %f %f %f\n"
+          "Cam_right %f %f %f\n eye_offset %f %f %f"
+          % (*cam.forward, *cam.up, *cam.right, *cam.eye_offset))
+
+    device = torch.device(ns.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            print(f"error: device {device} requested but no CUDA device is "
+                  "available", file=sys.stderr)
+            return 1
+        print(f"Using device: {device} ({torch.cuda.get_device_name(device)})")
+    else:
+        print(f"Using device: {device}")
+
+    try:
+        scene = load_scene(ns.scene_dir)
+    except FileNotFoundError as e:
+        print(f"error: missing scene file: {e.filename} "
+              f"(looked in {ns.scene_dir!r}; need spheres.txt, "
+              "squares.txt, triangles.txt, lights.txt)", file=sys.stderr)
+        return 1
+    print(f"Number of triangles: {scene.n_triangles}")
+    print(f"Number of lights: {scene.n_lights}")
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    t0 = time.perf_counter()
+    film = render_super(key, scene, w, h, spp=ns.spp, quirks=quirks,
+                        device=device)
+    sync()
+    report.record("rendering", (time.perf_counter() - t0) * 1e3,
+                  items=w * h, item_label="pixels", data_size=w * h * 4)
+
+    # quantise on the film's device, then copy the 4-byte pixels to the host
+    if ns.pam_maxval == 65535:
+        rgba = quantize_film16(film).cpu().numpy().astype(np.uint16)
+    else:
+        rgba = quantize_film(film, wrap=quirks.wrap_uint8).cpu().numpy()
+    t0 = time.perf_counter()
+    save_pam(out_name, ImgInfo(width=w, height=h, channels=4,
+                               maxval=ns.pam_maxval,
+                               depth=8 if ns.pam_maxval == 255 else 16,
+                               data=rgba))
+    report.record("write render data", (time.perf_counter() - t0) * 1e3,
+                  items=w * h * 4, item_label="uchar",
+                  data_size=w * h * 4 * (1 if ns.pam_maxval == 255 else 2))
+    print(f"\nSuccessfully created render image {out_name} in the current "
+          "directory\n")
+    report.print()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
