@@ -5,18 +5,23 @@ this package mirrors its layout and module names so that each module's
 counterpart is easy to find.  It imports ``torch`` and numpy, never
 ``jax``.  Ported so far: the ``super`` / ``superlmem`` render path, whose
 whole sample step runs in one hand-written CUDA kernel on the GPU
-(``ops/mega_super.py`` + ``csrc/mega_super.cu``) and in plain PyTorch on
-the CPU.
+(``ops/mega_super.py`` + ``csrc/mega_super.cu``), and the VLP family -
+``bidirectional``, ``metropolis``, ``metropolis_vlpgrid`` - whose render
+pass runs in a second one (``ops/mega_vlp.py`` + ``csrc/mega_vlp.cu``)
+with a gather kernel for its tier-1 route (``ops/gather_vlp.py`` +
+``csrc/gather_vlp.cu``); on the CPU everything is plain PyTorch.
 
 Layout
 ------
 core/      counter-based threefry RNG streams, camera, quirks policy
 scene/     reference text scene formats, bitmap -> SoA expansion,
            built-in demo scenes
-ops/       primitive intersection (plain PyTorch), the super megakernel
-           wrapper, film quantisation
-models/    shared sample-loop machinery and the super integrator
-utils/     PAM (P7) image IO, the CUDA kernel builder, CLI
+ops/       primitive intersection (plain PyTorch), VLP emission and
+           gathers, the VLP grid, the kernel wrappers, film quantisation
+models/    shared sample-loop machinery, the super, bidirectional and
+           metropolis integrators
+utils/     PAM (P7) image IO, the CUDA kernel builder, CLI, the CRN
+           film contract
 csrc/      CUDA C++ kernel sources, built with nvcc at first use
 """
 

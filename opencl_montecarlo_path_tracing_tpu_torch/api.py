@@ -2,7 +2,8 @@
 
 Port of ``opencl_montecarlo_path_tracing_tpu/api.py``.  ``render(variant,
 ...)`` keeps the JAX package's call signature and adds ``device``.  The
-``super`` and ``superlmem`` variants are ported; every other variant raises
+``super``, ``superlmem``, ``bidirectional``, ``metropolis`` and
+``metropolis_vlpgrid`` variants are ported; every other variant raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
@@ -23,9 +24,6 @@ NOT_PORTED = {
     "simple": "ROADMAP A7 (simple) with kernel B5",
     "nodof": "ROADMAP A6 (nodof)",
     "trianglegrid": "ROADMAP A8 (large meshes) with kernels B2/B3",
-    "bidirectional": "ROADMAP A9 (VLP family) with kernel B4",
-    "metropolis": "ROADMAP A9 (VLP family) with kernel B4",
-    "metropolis_vlpgrid": "ROADMAP A9 (VLP family) with kernel B4",
 }
 
 
@@ -34,6 +32,10 @@ def render(variant: str, scene: Scene | None = None, width: int = 512,
            quirks: Quirks = DEFAULT, as_rgba8: bool = False,
            device="cuda", **kw):
     """Render with an integrator on ``device``.
+
+    Extra options by variant: bidirectional: n_vlp, use_grid,
+    grid_modifier; metropolis*: n_seedpaths, mutation_rounds,
+    grid_modifier, verify_eps, dynamic_grid_res.
 
     Returns the pre-ambient float film (H, W, 3) as a tensor on ``device``,
     or the final RGBA8 image as a numpy (H, W, 4) uint8 array when
@@ -44,12 +46,23 @@ def render(variant: str, scene: Scene | None = None, width: int = 512,
         raise NotImplementedError(
             f"variant {variant!r} is not ported to PyTorch yet: "
             f"{NOT_PORTED[variant]}")
-    if variant not in ("super", "superlmem"):
-        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
     key = make_key(seed)
-    from .models.super import render_super
-    film = render_super(key, scene, width, height, spp=spp, quirks=quirks,
-                        device=device, **kw)
+    if variant in ("super", "superlmem"):
+        from .models.super import render_super
+        film = render_super(key, scene, width, height, spp=spp,
+                            quirks=quirks, device=device, **kw)
+    elif variant == "bidirectional":
+        from .models.bidirectional import render_bidirectional
+        film = render_bidirectional(key, scene, width, height, spp=spp,
+                                    quirks=quirks, device=device, **kw)
+    elif variant in ("metropolis", "metropolis_vlpgrid"):
+        from .models.metropolis import render_metropolis
+        if variant.endswith("vlpgrid"):
+            kw.setdefault("use_grid", True)
+        film = render_metropolis(key, scene, width, height, spp=spp,
+                                 quirks=quirks, device=device, **kw)
+    else:
+        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
     if as_rgba8:
         from .ops.reduce import quantize_film
         return quantize_film(film, wrap=quirks.wrap_uint8).cpu().numpy()

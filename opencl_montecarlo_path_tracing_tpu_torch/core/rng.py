@@ -76,10 +76,18 @@ def bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * _UNIT
 
 
+def _counter(site_id, j: int = 0):
+    """The first counter word of draw ``j`` of site ``site_id`` (a Python
+    int, or an int tensor of per-row sites), modulo 2**32."""
+    if isinstance(site_id, torch.Tensor):
+        return (site_id.to(torch.int64) * _SITE_STRIDE + j) & _MASK
+    return (int(site_id) * _SITE_STRIDE + j) & _MASK
+
+
 def rand2(key, ray_id, site_id):
-    """Two independent U[0,1) float32 tensors shaped like ``ray_id``."""
-    b0, b1 = threefry2x32(key[0], key[1], ray_id,
-                          (int(site_id) * _SITE_STRIDE) & _MASK)
+    """Two independent U[0,1) float32 tensors shaped like ``ray_id``.
+    ``site_id`` may be an int or a tensor of per-row sites."""
+    b0, b1 = threefry2x32(key[0], key[1], ray_id, _counter(site_id))
     return bits_to_unit_float(b0), bits_to_unit_float(b1)
 
 
@@ -87,9 +95,8 @@ def randn_draws(key, ray_id, site_id, n: int):
     """``n`` independent U[0,1) tensors from one site (n <= 16)."""
     if n > 16:
         raise ValueError("one site owns at most 16 uniforms")
-    base = int(site_id) * _SITE_STRIDE
     out = []
     for j in range((n + 1) // 2):
-        b0, b1 = threefry2x32(key[0], key[1], ray_id, (base + j) & _MASK)
+        b0, b1 = threefry2x32(key[0], key[1], ray_id, _counter(site_id, j))
         out.extend([bits_to_unit_float(b0), bits_to_unit_float(b1)])
     return out[:n]

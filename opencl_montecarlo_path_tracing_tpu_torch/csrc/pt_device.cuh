@@ -1,0 +1,320 @@
+// Device code shared by the megakernels (csrc/mega_super.cu, kernel B1;
+// csrc/mega_vlp.cu, kernel B4): the threefry stream, the packed scene in
+// shared memory, the thin-lens primary ray, the closest-hit trace, the
+// capped any-hit occlusion test and the 4-material shading.
+//
+// Everything sits in an anonymous namespace, so every translation unit
+// that includes this header gets its own internal copy and the kernels
+// built into one library never collide on a symbol.  The arithmetic keeps
+// the JAX package's operation order (ops/pallas_super.py); the kernels are
+// built with --fmad=false and without fast math.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kEps = 0.01f;
+constexpr float kBig = 1e9f;
+constexpr float kExposure = 3.5f;
+constexpr int kSiteLight0 = 2;       // models/common.py SITE_LIGHT0
+constexpr uint32_t kSiteStride = 8;  // core/rng.py _SITE_STRIDE
+
+// Packed scene buffer (ops/mega_super.py::pack_scene), float32:
+//   [ntp*12 triangle table][12 camera: up, right, eye_offset, pos]
+//   [nl*4 lights][ns*3 sphere centres][nq square k][nq square z]
+struct Scene {
+  const float* tri;
+  const float* cam;
+  const float* lights;
+  const float* spheres;
+  const float* sq_k;
+  const float* sq_z;
+  int ntp, nl, ns, nq;
+};
+
+__device__ __forceinline__ int scene_floats(int ntp, int nl, int ns, int nq) {
+  return ntp * 12 + 12 + nl * 4 + ns * 3 + 2 * nq;
+}
+
+// Copy the packed scene into shared memory `smem` (all threads of the
+// block take part; the caller synchronises before reading it).
+__device__ __forceinline__ Scene stage_scene(const float* __restrict__ scene,
+                                             float* smem, int ntp, int nl,
+                                             int ns, int nq) {
+  const int n_floats = scene_floats(ntp, nl, ns, nq);
+  for (int i = threadIdx.x; i < n_floats; i += blockDim.x) smem[i] = scene[i];
+  Scene S;
+  S.tri = smem;
+  S.cam = S.tri + ntp * 12;
+  S.lights = S.cam + 12;
+  S.spheres = S.lights + nl * 4;
+  S.sq_k = S.spheres + ns * 3;
+  S.sq_z = S.sq_k + nq;
+  S.ntp = ntp;
+  S.nl = nl;
+  S.ns = ns;
+  S.nq = nq;
+  return S;
+}
+
+__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+// 20-round Threefry-2x32 (core/rng.py::threefry2x32, bit-identical).
+__device__ __forceinline__ void threefry(uint32_t k0, uint32_t k1,
+                                         uint32_t x0, uint32_t x1,
+                                         uint32_t& y0, uint32_t& y1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rots[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl(x1, rots[i % 2][j]) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
+  }
+  y0 = x0;
+  y1 = x1;
+}
+
+// top 24 bits -> [0, 1), exact in float32
+__device__ __forceinline__ float unit(uint32_t bits) {
+  return (float)(bits >> 8) * (1.0f / 16777216.0f);
+}
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+};
+
+// Camera draws (site 0, counters 0 and 1: core/rng.py randn_draws) and
+// the thin-lens primary ray (core/camera.py::primary_rays) of pixel
+// (ii, jj) for sample stream `ray_id`.
+__device__ __forceinline__ Ray primary_ray(const Scene& S, uint32_t k0,
+                                           uint32_t k1, uint32_t ray_id,
+                                           float ii, float jj) {
+  uint32_t b0, b1, b2, b3;
+  threefry(k0, k1, ray_id, 0u, b0, b1);
+  threefry(k0, k1, ray_id, 1u, b2, b3);
+  const float r1 = unit(b0), r2 = unit(b1), r3 = unit(b2), r4 = unit(b3);
+  const float upx = S.cam[0], upy = S.cam[1], upz = S.cam[2];
+  const float rix = S.cam[3], riy = S.cam[4], riz = S.cam[5];
+  const float eyx = S.cam[6], eyy = S.cam[7], eyz = S.cam[8];
+  const float psx = S.cam[9], psy = S.cam[10], psz = S.cam[11];
+  const float e1 = (r1 - 0.5f) * 99.0f;
+  const float e2 = (r2 - 0.5f) * 99.0f;
+  const float dlx = upx * e1 + rix * e2;
+  const float dly = upy * e1 + riy * e2;
+  const float dlz = upz * e1 + riz * e2;
+  Ray r;
+  r.ox = psx + dlx;
+  r.oy = psy + dly;
+  r.oz = psz + dlz;
+  const float ax = r3 + ii;
+  const float ay = jj + r4;
+  float dx = -dlx + (upx * ax + rix * ay + eyx) * 16.0f;
+  float dy = -dly + (upy * ax + riy * ay + eyy) * 16.0f;
+  float dz = -dlz + (upz * ax + riz * ay + eyz) * 16.0f;
+  const float inv_n = 1.0f / sqrtf(dx * dx + dy * dy + dz * dz);
+  r.dx = dx * inv_n;
+  r.dy = dy * inv_n;
+  r.dz = dz * inv_n;
+  return r;
+}
+
+struct Hit {
+  float t;
+  int m;
+  float nx, ny, nz;
+};
+
+// Closest hit (ops/intersect.py::trace_ray, sphere material 3), seeded
+// with the running distance t0; sphere normals are renormalised.
+__device__ Hit trace(const Scene& S, float ox, float oy, float oz,
+                     float dx, float dy, float dz, float t0, bool neg_t) {
+  float t = t0;
+  int m = 0;
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f;
+  bool needs = false;
+  const float inv_dz = 1.0f / dz;
+
+  const float p = -oz * inv_dz;
+  if (p > kEps && p < t) {
+    t = p;
+    m = 1;
+    nz = 1.0f;
+  }
+  for (int q = 0; q < S.nq; ++q) {
+    const float rd = (S.sq_z[q] - oz) * inv_dz;
+    const float ix = ox + dx * rd;
+    const float iy = oy + dy * rd;
+    if (rd < t && fabsf(S.sq_k[q] - ix) < 1.0f && fabsf(iy) < 1.0f &&
+        (neg_t || rd > kEps)) {
+      t = rd;
+      m = 3;
+      nx = 0.0f;
+      ny = 0.0f;
+      nz = 1.0f;
+      needs = false;
+    }
+  }
+  for (int k = 0; k < S.ns; ++k) {
+    const float px = ox - S.spheres[3 * k];
+    const float py = oy - S.spheres[3 * k + 1];
+    const float pz = oz - S.spheres[3 * k + 2];
+    const float b = px * dx + py * dy + pz * dz;
+    const float cc = px * px + py * py + pz * pz - 1.0f;
+    const float q = b * b - cc;
+    const float s = -b - sqrtf(fmaxf(q, 0.0f));
+    if (q > 0.0f && s < t && s > kEps) {
+      t = s;
+      m = 3;
+      nx = px + dx * s;
+      ny = py + dy * s;
+      nz = pz + dz * s;
+      needs = true;
+    }
+  }
+  if (S.ntp) {
+    // division-free scan: the running minimum is carried det-scaled as
+    // (bn, bd); file order decides exact ties (strict <)
+    float bn = t, bd = 1.0f;
+    const float4* rows = reinterpret_cast<const float4*>(S.tri);
+#pragma unroll 2
+    for (int i = 0; i < S.ntp; ++i) {
+      const float4 a = rows[3 * i];      // v0.xyz, e0.x
+      const float4 c = rows[3 * i + 1];  // e0.yz, e2.xy
+      const float4 e = rows[3 * i + 2];  // e2.z, n.xyz
+      const float pvx = dy * e.x - dz * c.w;
+      const float pvy = dz * c.z - dx * e.x;
+      const float pvz = dx * c.w - dy * c.z;
+      const float det = a.w * pvx + c.x * pvy + c.y * pvz;
+      const float tvx = ox - a.x, tvy = oy - a.y, tvz = oz - a.z;
+      const float un = tvx * pvx + tvy * pvy + tvz * pvz;
+      const float qvx = tvy * c.y - tvz * c.x;
+      const float qvy = tvz * a.w - tvx * c.y;
+      const float qvz = tvx * c.x - tvy * a.w;
+      const float vn = dx * qvx + dy * qvy + dz * qvz;
+      const float tn = c.z * qvx + c.w * qvy + e.x * qvz;
+      const float sg = det >= 0.0f ? 1.0f : -1.0f;
+      const float dd = det * sg;
+      const float un_s = un * sg;
+      const float vn_s = vn * sg;
+      const float tn_s = tn * sg;
+      if (dd >= kEps && un_s >= 0.0f && un_s <= dd && vn_s >= 0.0f &&
+          un_s + vn_s <= dd && (neg_t || tn_s > kEps * dd) &&
+          tn_s * bd < bn * dd) {
+        bn = tn_s;
+        bd = dd;
+        m = 4;
+        nx = e.y;
+        ny = e.z;
+        nz = e.w;
+        needs = false;
+      }
+    }
+    t = bn / bd;
+  }
+  if (needs) {
+    const float inv_len =
+        1.0f / sqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
+    nx *= inv_len;
+    ny *= inv_len;
+    nz *= inv_len;
+  }
+  return Hit{t, m, nx, ny, nz};
+}
+
+// Any-hit occlusion with t < t_limit (ops/intersect.py::any_hit): kBig
+// for the super family's uncapped shadow rays, the light distance for
+// the VLP family's.  Stops at the first hit.
+__device__ bool occluded(const Scene& S, float ox, float oy, float oz,
+                         float dx, float dy, float dz, float t_limit,
+                         bool neg_t) {
+  const float inv_dz = 1.0f / dz;
+  const float p = -oz * inv_dz;
+  if (p > kEps && p < t_limit) return true;
+  for (int q = 0; q < S.nq; ++q) {
+    const float rd = (S.sq_z[q] - oz) * inv_dz;
+    const float ix = ox + dx * rd;
+    const float iy = oy + dy * rd;
+    if (rd < t_limit && fabsf(S.sq_k[q] - ix) < 1.0f && fabsf(iy) < 1.0f &&
+        (neg_t || rd > kEps))
+      return true;
+  }
+  for (int k = 0; k < S.ns; ++k) {
+    const float px = ox - S.spheres[3 * k];
+    const float py = oy - S.spheres[3 * k + 1];
+    const float pz = oz - S.spheres[3 * k + 2];
+    const float b = px * dx + py * dy + pz * dz;
+    const float cc = px * px + py * py + pz * pz - 1.0f;
+    const float q = b * b - cc;
+    const float s = -b - sqrtf(fmaxf(q, 0.0f));
+    if (q > 0.0f && s < t_limit && s > kEps) return true;
+  }
+  const float4* rows = reinterpret_cast<const float4*>(S.tri);
+#pragma unroll 2
+  for (int i = 0; i < S.ntp; ++i) {
+    const float4 a = rows[3 * i];
+    const float4 c = rows[3 * i + 1];
+    const float e2z = S.tri[12 * i + 8];
+    const float pvx = dy * e2z - dz * c.w;
+    const float pvy = dz * c.z - dx * e2z;
+    const float pvz = dx * c.w - dy * c.z;
+    const float det = a.w * pvx + c.x * pvy + c.y * pvz;
+    const float tvx = ox - a.x, tvy = oy - a.y, tvz = oz - a.z;
+    const float un = tvx * pvx + tvy * pvy + tvz * pvz;
+    const float qvx = tvy * c.y - tvz * c.x;
+    const float qvy = tvz * a.w - tvx * c.y;
+    const float qvz = tvx * c.x - tvy * a.w;
+    const float vn = dx * qvx + dy * qvy + dz * qvz;
+    const float tn = c.z * qvx + c.w * qvy + e2z * qvz;
+    const float sg = det >= 0.0f ? 1.0f : -1.0f;
+    const float dd = det * sg;
+    const float un_s = un * sg;
+    const float vn_s = vn * sg;
+    const float tn_s = tn * sg;
+    if (dd >= kEps && un_s >= 0.0f && un_s <= dd && vn_s >= 0.0f &&
+        un_s + vn_s <= dd && tn_s < t_limit * dd &&
+        (neg_t || tn_s > kEps * dd))
+      return true;
+  }
+  return false;
+}
+
+// Sky colour (1 - dz)^4 * (0.7, 0.6, 1) (pathtracer.ocl:160).
+__device__ __forceinline__ void shade_sky(float dz, float& r, float& g,
+                                          float& b) {
+  const float skyf = 1.0f - dz;
+  const float sky2 = skyf * skyf;
+  const float sky4 = sky2 * sky2;
+  r = 0.7f * sky4;
+  g = 0.6f * sky4;
+  b = 1.0f * sky4;
+}
+
+// Floor checker (1) or diffuse (3) shading of the illumination ti
+// (pathtracer.ocl:196-200).
+__device__ __forceinline__ void shade_lit(int m, float x, float y, float ti,
+                                          float& r, float& g, float& b) {
+  if (m == 1) {
+    const int sel = (int)(ceilf(x * 0.2f) + ceilf(y * 0.2f)) & 1;
+    r = 3.0f * ti;
+    g = (sel == 1 ? 1.0f : 3.0f) * ti;
+    b = g;
+  } else {
+    r = 2.0f * ti;
+    g = 3.0f * ti;
+    b = 2.0f * ti;
+  }
+}
+
+}  // namespace

@@ -1,0 +1,193 @@
+"""Bidirectional (VPL) tracer - CLSuperBidirectionalPathTracer.
+
+Port of ``opencl_montecarlo_path_tracing_tpu/models/bidirectional.py``.
+Reference pipeline (SURVEY.md section 3.4): pass 1 ``lightTracer`` emits one
+virtual point light per (work item, scene light); pass 2 ``pathTracer``
+gathers ALL VLPs per shading point with no shadow rays (the occlusion test
+is commented out, bidirectionalpathtracer.ocl:179-182), then subtracts a
+soft-shadow correction of 1/nlights per occluded real light (ocl:191-201).
+Here the two passes run one after the other on the film's device; the VLP
+table never leaves it.
+
+Illumination order per bounce (ocl:166-202): VLP gather accumulates into the
+cross-bounce total_illumination, clamp to 1, subtract shadow corrections
+(can go negative - faithful), then /= 4.  The correction's shadow ray is
+capped at the UN-jittered light distance (t = distanceFromLight before the
+jittered direction is traced, ocl:195-197).
+
+Routing of the render pass, decided from the configuration before any
+launch (the JAX package's own routing, bidirectional.py:88-104): on a CUDA
+device the VLP megakernel (kernel B4, ``ops/mega_vlp.py``) when its gate
+passes, else the plain wavefront on the card, whose dense gather is kernel
+B6 for large batches (``ops/vlp.py::gather_vlps``); on the CPU the plain
+wavefront.  The light pass (emission, the Metropolis chain) is plain
+PyTorch on the film's device, as it is plain XLA in the JAX package.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..core import rng as rngmod
+from ..core.quirks import Quirks, DEFAULT
+from ..ops.intersect import SceneArrays, prep_scene, any_hit
+from ..ops import vlp as vlpmod
+from ..scene.scene import Scene
+from . import common as C
+from .super import sample_super
+
+# the tier-1 triangle scan of meshes this large is kernel B7 in the JAX
+# package (ops/intersect.py _MXU_MIN_TRIANGLES)
+_B7_MIN_TRIANGLES = 2048
+
+
+def illum_vlp(key, scn: SceneArrays, quirks: Quirks, vlps, grid, b, x,
+              normal, shading, total_illum, ray_id, t_hit=None, impl=None):
+    """VLP gather + real-light soft-shadow correction (ocl:166-202).
+
+    ``t_hit`` is unused: the bidirectional kernels initialise their shadow
+    trace's t to the light distance themselves (ocl:195-197).  ``impl``
+    picks the dense gather (ops/vlp.py::gather_vlps)."""
+    nlights = int(scn.lights.shape[0])
+
+    if grid is None:
+        vi = vlpmod.gather_vlps(x, normal, vlps, impl=impl)
+    else:
+        vi = vlpmod.gather_vlps_grid(x, normal, vlps, grid)
+    total_illum = torch.where(shading, total_illum + vi, total_illum)
+    total_illum = torch.where(shading, torch.clamp_max(total_illum, 1.0),
+                              total_illum)
+
+    # soft-shadow correction with the real lights (ocl:191-201)
+    last_ldir = torch.zeros_like(x)
+    ldirs, dists = [], []
+    for i in range(nlights):
+        lp = torch.as_tensor(scn.lights[i, :3], device=x.device)
+        u1, u2 = rngmod.rand2(
+            key, ray_id, C.SITE_LIGHT0 + b * C.SITE_STRIDE_BOUNCE + i)
+        jitter = torch.stack([u1, u2, torch.zeros_like(u1)], dim=-1)
+        ldirs.append(C.normalize(lp + jitter - x))
+        q = lp - x
+        dists.append(torch.sqrt(C.dot(q, q)))
+    if nlights:
+        xs = torch.cat([x] * nlights, dim=0)
+        ds = torch.cat(ldirs, dim=0)
+        tl = torch.cat(dists, dim=0)
+        occ_all = any_hit(xs, ds, scn, t_limit=tl,
+                          quirks=quirks).reshape(nlights, -1)
+        inv_nl = float(np.float32(1.0 / nlights))
+        for i in range(nlights):
+            occ = occ_all[i].reshape(x.shape[0])
+            total_illum = torch.where(shading & occ, total_illum - inv_nl,
+                                      total_illum)
+            last_ldir = ldirs[i]
+
+    total_illum = torch.where(shading, total_illum / 4.0, total_illum)
+    return total_illum, last_ldir
+
+
+def film_vlp_plain(key, scn: SceneArrays, vlps, grid, width, height, spp,
+                   spp_offset, spp_total, quirks, max_bounces=C.MAX_BOUNCES,
+                   row_offset=0, rows=None, device="cpu", impl=None):
+    """The plain PyTorch render pass (tier-1 wavefront) on any device."""
+    illum = functools.partial(illum_vlp, key, scn, quirks, vlps, grid,
+                              impl=impl)
+    sample_fn = functools.partial(sample_super, key, scn, quirks, max_bounces,
+                                  illum_fn=illum)
+    return C.accumulate_spp(sample_fn, width, height, spp,
+                            spp_offset=spp_offset, spp_total=spp_total,
+                            row_offset=row_offset, rows=rows, device=device)
+
+
+def check_device(device) -> torch.device:
+    """The film's device; a CUDA request without a GPU raises (the port
+    never renders a CUDA request on the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but torch.cuda.is_available() is "
+            "false; the port never renders a CUDA request on the CPU")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def cuda_route(scn: SceneArrays, quirks: Quirks,
+               max_bounces: int = C.MAX_BOUNCES) -> str:
+    """How a CUDA device renders the VLP pass of this configuration:
+    ``"mega_vlp"`` (kernel B4) when its gate passes, else ``"tier1"`` (the
+    plain wavefront on the card, whose large gathers are kernel B6).
+    Raises ``NotImplementedError`` where the tier-1 route needs a kernel
+    that is not ported."""
+    from ..ops import mega_vlp
+    if mega_vlp.unsupported_reason(scn, quirks, max_bounces) is None:
+        return "mega_vlp"
+    nt = int(scn.tri_v0.shape[0])
+    if nt >= _B7_MIN_TRIANGLES:
+        raise NotImplementedError(
+            f"{nt} triangles on the tier-1 VLP route: its triangle scan is "
+            "kernel B7 (ops/pallas_tri.py), not ported yet (ROADMAP B7)")
+    return "tier1"
+
+
+def film_vlp(key, scn: SceneArrays, vlps, grid, width, height, spp,
+             spp_offset, spp_total, quirks, max_bounces=C.MAX_BOUNCES,
+             row_offset=0, rows=None, device="cpu"):
+    """The VLP render pass of the whole family, routed by device and
+    configuration (module docstring); no fallback after a launch."""
+    device = check_device(device)
+    if device.type == "cuda" and \
+            cuda_route(scn, quirks, max_bounces) == "mega_vlp":
+        from ..ops import mega_vlp
+        return mega_vlp.film_vlp_mega(
+            key, scn, vlps, width, height, spp, spp_offset, spp_total,
+            quirks, row_offset, rows, grid=grid, device=device)
+    return film_vlp_plain(key, scn, vlps, grid, width, height, spp,
+                          spp_offset, spp_total, quirks, max_bounces,
+                          row_offset, rows, device)
+
+
+def film_bidirectional(key, scn: SceneArrays, width, height, spp, spp_offset,
+                       spp_total, n_vlp, quirks,
+                       max_bounces=C.MAX_BOUNCES, use_grid: bool = False,
+                       grid_modifier: float = 3.0, precomputed_vlps=None,
+                       precomputed_grid=None, row_offset=0, rows=None,
+                       device="cpu"):
+    """Both passes on ``device``: emit VLPs, (optionally) build the VLP
+    grid, render.  ``precomputed_vlps``/``precomputed_grid`` let a caller
+    stage the pipeline (or carry the JAX package's light pass across,
+    convert.py)."""
+    device = check_device(device)
+    if precomputed_vlps is not None:
+        vlps = torch.as_tensor(precomputed_vlps, dtype=torch.float32,
+                               device=device)
+    else:
+        vlps = vlpmod.emit_vlps(key, scn, n_vlp, quirks, device=device)
+    grid = precomputed_grid
+    if use_grid and grid is None:
+        res = vlpmod.vlp_grid_static_res(int(vlps.shape[0]), grid_modifier)
+        grid = vlpmod.build_vlp_grid(vlps, res)
+    return film_vlp(key, scn, vlps, grid, width, height, spp, spp_offset,
+                    spp_total, quirks, max_bounces, row_offset, rows, device)
+
+
+def render_bidirectional(key, scene: Scene | SceneArrays, width: int = 512,
+                         height: int = 512, spp: int = 64,
+                         n_vlp: int = 512,
+                         spp_offset: int = 0, spp_total: int | None = None,
+                         quirks: Quirks = DEFAULT,
+                         max_bounces: int = C.MAX_BOUNCES,
+                         use_grid: bool = False,
+                         grid_modifier: float = 3.0, device="cuda"):
+    """Render with VPL light transport; returns the pre-ambient film
+    (H, W, 3) on ``device``.  ``n_vlp`` mirrors the reference CLI's
+    N_VLP-per-light (default 512, .c:246)."""
+    scn = prep_scene(scene) if isinstance(scene, Scene) else scene
+    if spp_total is None:
+        spp_total = spp
+    return film_bidirectional(key, scn, width, height, spp, spp_offset,
+                              spp_total, n_vlp, quirks, max_bounces,
+                              use_grid, grid_modifier, device=device)

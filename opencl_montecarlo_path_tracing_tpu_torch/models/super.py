@@ -97,8 +97,15 @@ def illum_direct(key, scn: SceneArrays, quirks: Quirks, b, x, normal,
 
 
 def sample_super(key, scn: SceneArrays, quirks: Quirks, max_bounces: int,
-                 s, ii, jj, ray_id):
-    """One camera sample per pixel on the full scene; returns (R, 3)."""
+                 s, ii, jj, ray_id, illum_fn=None):
+    """One camera sample per pixel on the full scene; returns (R, 3).
+
+    ``illum_fn(b, x, normal, shading, total_illum, ray_id, t_hit) ->
+    (total_illum, last_ldir)`` replaces the direct-light loop - the
+    bidirectional/metropolis integrators plug their VLP gathers in here
+    (models/bidirectional.py, models/metropolis.py); ``t_hit`` is the
+    primary trace's hit distance (consumed only by the _lmem
+    ``shadow_carry_t`` quirk)."""
     r1, r2, r3, r4 = rngmod.randn_draws(key, ray_id, C.SITE_CAMERA, 4)
     cam = make_camera(z_sign=-1.0)
     o, d = primary_rays(cam, ii, jj, r1, r2, r3, r4)
@@ -115,6 +122,8 @@ def sample_super(key, scn: SceneArrays, quirks: Quirks, max_bounces: int,
         zero3,                                              # result
     )
     diffuse = torch.as_tensor(C.DIFFUSE, device=dev)
+    if illum_fn is None:
+        illum_fn = functools.partial(illum_direct, key, scn, quirks)
 
     def step(b, state):
         alive, o, d, color_fact, div, total_illum, result = state
@@ -127,9 +136,8 @@ def sample_super(key, scn: SceneArrays, quirks: Quirks, max_bounces: int,
         x = o + d * tr.t[..., None]
         shading = alive & (tr.material != 0)
 
-        total_illum, last_ldir = illum_direct(
-            key, scn, quirks, b, x, tr.normal, shading, total_illum, ray_id,
-            tr.t)
+        total_illum, last_ldir = illum_fn(b, x, tr.normal, shading,
+                                          total_illum, ray_id, tr.t)
 
         fl = color_fact + C.floor_color(x) * total_illum[..., None] / div[..., None]
         result = torch.where((m == 1)[..., None], fl, result)

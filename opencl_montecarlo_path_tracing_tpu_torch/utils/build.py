@@ -1,9 +1,12 @@
 """Builds the CUDA kernels at first use and loads them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all of
+them started together, and the objects are linked into one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
 under ``_build/`` inside this package; the directory is not committed.
-The library's file name carries a hash of the sources and the flags, so a
+Device code shared between kernels lives in ``csrc/*.cuh`` headers inside
+anonymous namespaces, so the objects never collide on a symbol.  The
+library's file name carries a hash of the sources and the flags, so a
 changed source builds anew and an unchanged one is loaded as it is.  The
 C entry points take device pointers and the CUDA stream as ``void*`` and
 return ``cudaGetLastError()``.
@@ -28,17 +31,23 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = _ARCH + ("-O3", "--fmad=false", "-std=c++17", "-Xcompiler",
+                      "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # C signatures: (restype, argtypes); every pointer and the stream is a
 # c_void_p, or ctypes would pass it as a 32-bit int
 _SIGNATURES = {
     "mega_super_launch": (_I, [_P, _I, _I, _I, _I, _U, _U, _U, _U, _U,
                                _I, _I, _I, _I, _I, _P, _P]),
     "mega_super_error_string": (ctypes.c_char_p, [_I]),
+    "mega_vlp_launch": (_I, [_P, _I, _I, _I, _I, _U, _U, _U, _U, _U,
+                             _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _F,
+                             _P, _P]),
+    "mega_vlp_error_string": (ctypes.c_char_p, [_I]),
+    "gather_vlp_launch": (_I, [_P, _P, _P, _I, _I, _P, _P]),
+    "gather_vlp_error_string": (ctypes.c_char_p, [_I]),
 }
 
 _LIB = None   # the loaded library handle
@@ -76,7 +85,8 @@ def _digest() -> str:
 
 
 def build() -> BuildInfo:
-    """Compile ``csrc/*.cu`` unless a library of the same sources exists."""
+    """Compile ``csrc/*.cu`` unless a library of the same sources exists:
+    one ``nvcc -c`` per source, all running at once, then one link."""
     tag = _digest()
     lib_path = os.path.join(BUILD_DIR, f"libpt_kernels-{tag}.so")
     log_path = os.path.join(BUILD_DIR, f"build-{tag}.log")
@@ -87,25 +97,38 @@ def build() -> BuildInfo:
                 log = fp.read()
         return BuildInfo(lib_path, 0.0, log)
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     cu = [p for p in sources() if p.endswith(".cu")]
-    # build under a private name, then rename: concurrent first uses from
-    # several processes never load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                              capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
+    # build in a private directory, then rename the library: concurrent
+    # first uses from several processes never load a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(p)[:-3] + ".o")
+                for p in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, p],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(cu, objs)]
+        logs, failed = [], []
+        for p, proc in zip(cu, procs):
+            out, _ = proc.communicate()
+            logs.append(f"== {os.path.basename(p)}\n{out}")
+            if proc.returncode != 0:
+                failed.append(os.path.basename(p))
+        log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp_lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *_ARCH, "-shared", "-o", tmp_lib,
+                               *objs], capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{log}")
+        seconds = time.perf_counter() - t0
         with open(log_path, "w") as fp:
             fp.write(log)
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(tmp_lib, lib_path)
     return BuildInfo(lib_path, seconds, log)
 
 

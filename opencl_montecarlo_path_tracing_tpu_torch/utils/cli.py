@@ -1,16 +1,24 @@
-"""Command-line parity with the reference binaries (super variants).
+"""Command-line parity with the reference binaries (super and VLP variants).
 
 Port of ``opencl_montecarlo_path_tracing_tpu/utils/cli.py`` for the
-``super`` and ``superlmem`` subcommands, with the same positionals:
+ported subcommands, with the same positionals:
 
     python -m opencl_montecarlo_path_tracing_tpu_torch super     [w] [h]
     python -m opencl_montecarlo_path_tracing_tpu_torch superlmem [w] [h]
+    python -m opencl_montecarlo_path_tracing_tpu_torch bidirectional \
+        [w] [h] [N_VLP]
+    python -m opencl_montecarlo_path_tracing_tpu_torch metropolis \
+        [w] [h] [nseedpaths] [mutation_rounds] [CELL_SIZE_MODIFIER]
+    python -m opencl_montecarlo_path_tracing_tpu_torch metropolis_vlpgrid \
+        [w] [h] [nseedpaths] [mutation_rounds] [CELL_SIZE_MODIFIER]
 
 Options: --scene-dir (the four reference text files), --spp, --seed,
---out, --quirks {default,reference}, --pam-maxval {255,65535}, and
---device (default ``cuda``; a CUDA device renders with the CUDA kernel
-and the command fails when no GPU is present).  The other variants of the
-JAX CLI exit with an error naming the ROADMAP item that ports them.
+--out, --quirks {default,reference}, --pam-maxval {255,65535},
+--dynamic-grid-res (metropolis_vlpgrid: the reference's box-derived grid
+resolution, one host read of the VLP box), and --device (default
+``cuda``; a CUDA device renders with the CUDA kernels and the command
+fails when no GPU is present).  The other variants of the JAX CLI exit
+with an error naming the ROADMAP item that ports them.
 
 Output: a PAM (P7) RGBA file (default result.ppm) plus a per-stage timing
 report in the reference's format (e.g. CLSuperPathTracer.c:321-325).
@@ -67,6 +75,10 @@ def main(argv=None):
                     default=255,
                     help="output sample depth: 255 = the reference's RGBA8; "
                          "65535 writes 16-bit PAM")
+    ap.add_argument("--dynamic-grid-res", action="store_true",
+                    help="metropolis_vlpgrid: derive the grid resolution "
+                         "from the VLP box as the reference does (one "
+                         "device->host read)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default: cuda)")
     ns = ap.parse_args(argv)
@@ -79,7 +91,6 @@ def main(argv=None):
     from ..core.quirks import DEFAULT, REFERENCE, REFERENCE_LMEM
     from ..core.rng import make_key
     from ..core.camera import make_camera
-    from ..models.super import render_super
     from ..ops.reduce import quantize_film, quantize_film16
     from ..scene.scene import load_scene
     from .pam import ImgInfo, save_pam
@@ -131,10 +142,30 @@ def main(argv=None):
             torch.cuda.synchronize(device)
 
     t0 = time.perf_counter()
-    film = render_super(key, scene, w, h, spp=ns.spp, quirks=quirks,
-                        device=device)
+    if ns.variant in ("super", "superlmem"):
+        from ..models.super import render_super
+        stage = "rendering"
+        film = render_super(key, scene, w, h, spp=ns.spp, quirks=quirks,
+                            device=device)
+    elif ns.variant == "bidirectional":
+        from ..models.bidirectional import render_bidirectional
+        stage = "light pass + rendering"
+        film = render_bidirectional(key, scene, w, h, spp=ns.spp,
+                                    n_vlp=_positional(pos, 2, 512),
+                                    quirks=quirks, device=device)
+    else:
+        from ..models.metropolis import render_metropolis
+        stage = "light pass + metropolis + rendering"
+        film = render_metropolis(
+            key, scene, w, h, spp=ns.spp,
+            n_seedpaths=_positional(pos, 2, 512),
+            mutation_rounds=_positional(pos, 3, 8),
+            grid_modifier=_positional(pos, 4, 3.0, float),
+            use_grid=ns.variant.endswith("vlpgrid"),
+            dynamic_grid_res=ns.dynamic_grid_res, quirks=quirks,
+            device=device)
     sync()
-    report.record("rendering", (time.perf_counter() - t0) * 1e3,
+    report.record(stage, (time.perf_counter() - t0) * 1e3,
                   items=w * h, item_label="pixels", data_size=w * h * 4)
 
     # quantise on the film's device, then copy the 4-byte pixels to the host

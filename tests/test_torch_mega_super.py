@@ -37,8 +37,8 @@ from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import DEFAULT
 from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_super as M
 from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import prep_scene
 from opencl_montecarlo_path_tracing_tpu_torch.scene.scene import Scene
-from tests.test_torch_gpu import (
-    CASES, CONTENT_ROW, QUIRKS, Q_LIMIT, TIE_LIMIT, crn_stats, small_scene)
+from opencl_montecarlo_path_tracing_tpu_torch.utils.crn import crn_ok
+from tests.test_torch_gpu import CASES, CONTENT_ROW, QUIRKS, small_scene
 
 ATOL = 2e-5
 J_QUIRKS = {"default": J_DEFAULT, "reference": J_REFERENCE,
@@ -61,9 +61,9 @@ def test_plain_matches_jax_megakernel(case):
     assert got.shape == want.shape == (kw.get("rows", h), w, 3)
     if "row_offset" in kw and qname != "reference_lmem":
         assert want.var() > 1e-5   # the band has content, not only sky
-    q, ties = crn_stats(got, want, spp)
-    assert q < Q_LIMIT and ties < TIE_LIMIT, (q, ties)
-    if ties == 0.0:
+    ok, st = crn_ok(got, want, spp)
+    assert ok, st
+    if st["tie_frac"] == 0.0:
         np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 

@@ -37,19 +37,11 @@ from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
     demo_scene, procedural_super_scene, write_scene_files)
 from opencl_montecarlo_path_tracing_tpu_torch.utils import cli
 from opencl_montecarlo_path_tracing_tpu_torch.utils import pam as TP
+from opencl_montecarlo_path_tracing_tpu_torch.utils.crn import crn_ok
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "films.npz")
-Q, Q_LIMIT, TIE_THRESH, TIE_LIMIT = 0.995, 1e-5, 1e-4, 0.006
 PIXEL_AGREE = 0.995
-
-
-def crn_ok(a, b, spp):
-    d = (np.asarray(a, np.float64) - np.asarray(b, np.float64)) \
-        / spp * 64.0 / 255.0
-    dm = np.abs(d).max(axis=-1)
-    q, ties = float(np.quantile(dm, Q)), float((dm > TIE_THRESH).mean())
-    return q < Q_LIMIT and ties < TIE_LIMIT, (q, ties)
 
 
 def pixel_agreement(a, b):
@@ -156,8 +148,8 @@ def test_cli_matches_jax(tmp_path, monkeypatch, capsys):
 
 
 def test_cli_unported_variant_fails(capsys):
-    assert cli.main(["bidirectional", "8", "8", "--device", "cpu"]) == 2
-    assert "ROADMAP A9" in capsys.readouterr().err
+    assert cli.main(["simple", "8", "8", "--device", "cpu"]) == 2
+    assert "ROADMAP A7" in capsys.readouterr().err
 
 
 def test_port_imports_no_jax():
@@ -185,7 +177,7 @@ def test_cuda_request_never_falls_back_to_cpu():
 
 
 @pytest.mark.parametrize("variant", [v for v in tpt.VARIANTS
-                                     if v not in ("super", "superlmem")])
+                                     if v in tpt.api.NOT_PORTED])
 def test_unported_variants_name_their_roadmap_item(variant):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpt.render(variant, demo_scene()[0], 8, 8, spp=1, device="cpu")
