@@ -25,28 +25,55 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    PAM file, and Mpaths/s is timed with CUDA events over 3 runs;
 6. the VLP main paths: ``api.render`` at 512x512 with 256 spp -
    bidirectional, metropolis and metropolis_vlpgrid on ``demo_scene()``,
-   bidirectional on ``dense_vlp_scene()`` - each timed over 3 runs, its
-   light pass and render pass timed apart, and the Metropolis chain's
-   device-busy share read from a profile;
+   bidirectional on ``dense_vlp_scene()`` - each timed over 3 runs after a
+   warm-up, its light pass and render pass timed apart, and the Metropolis
+   chain's device-busy share read from a profile;
 7. the tier-1 VLP route: bidirectional under the REFERENCE_LMEM quirks
    (outside B4's gate) at 256x256x4 runs the plain wavefront on the card,
    whose gather is B6; its film is held to the contract against the same
    render with the plain scan gather;
-8. CLI: ``super``, ``bidirectional`` and ``metropolis_vlpgrid`` at 256x256
-   with 4 spp on a scene written to text files; each must exit 0 and write
-   a valid PAM.
+8. B2/B3 (``mega_blocked``) vs B1 and vs its plain version: forced onto
+   B1's cases and the demo scene (max abs against B1's film), on an
+   1,800-triangle ripple sheet against the plain scan, and against the
+   tier-1 plain film (whose traces are B7's plain version) on the 20,736
+   sheet at 512x512x4, the 262,144 sheet at 512x512, sample 0 of 4, and
+   the 1,048,576 sheet on the top, middle and bottom 16 rows of 512x512,
+   samples 0-1 of 4, all under the contract (and max abs 2e-5 where no
+   pixel ties);
+9. B7 (``tri_closest``) vs its plain version on the 512x512 primary rays
+   of the large-mesh scene x 20,736 triangles, and on the inputs of every
+   B7 call of one bidirectional main-path render there (camera, shadow
+   and light-pass rays): hit/miss and index agreement >= 99.9%, ``t`` at
+   rtol 2e-4 where both take the same triangle; and that render's film
+   against its plain version (plain gather, B7's plain version) under the
+   contract;
+10. the large-mesh main paths through ``api.render``: trianglegrid on
+   ``large_mesh_scene()`` at 512x512x64 (``accel="auto"``: B2/B3), super
+   on it and on the 262,144-triangle sheet at 512x512x4, bidirectional on
+   it at 256x256x16 (the tier-1 route: B7 and B6), each timed over 3 runs;
+   ``accel="dda"`` (the uniform-grid walk) on a band, held against the
+   kernel under the contract;
+11. CLI: ``super``, ``bidirectional`` and ``metropolis_vlpgrid`` at 256x256
+   with 4 spp on a scene written to text files, and ``trianglegrid`` on the
+   large-mesh scene's files; each must exit 0 and write a valid PAM.
 
-Every path phase (5, 6, 7) sets all launch counts to 0 just before it and
-reads them just after; the counts in the ``kernels`` line come from those
-runs.  The last line of standard output is ``{"ok": true, "device":
-{...}}``; the line before it is the card's name and power limit, the line
-before that each kernel's launches, error and times.  The script imports no
-JAX.  It exits non-zero, printing no result, without a GPU or without the
-package beside it.
+Every path phase (5, 6, 7, 10) sets all launch counts to 0 just before it
+and reads them just after; the counts in the ``kernels`` line come from
+those runs.  Each kernel's ``bound_ms`` is the least time the card could
+take for the same work: the larger of its bytes (inputs read once, output
+written once) over 3.35 TB/s and its operations over 3.345e13 FP32 ops/s
+(132 SMs x 128 lanes x 1.98 GHz, one multiply or add an instruction: the
+kernels build with --fmad=false), counting the (ray, triangle) pairs this
+run's data needs.  The last line of standard output is ``{"ok": true,
+"device": {...}}``; the line before it is the card's name and power limit,
+the line before that each kernel's launches, error, times and bound.  The
+script imports no JAX.  It exits non-zero, printing no result, without a
+GPU or without the package beside it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -66,6 +93,20 @@ VW = VH = 512         # the VLP main paths: bench.py:95-101
 VSPP = 256
 TIMED_RUNS = 3
 PKG = "opencl_montecarlo_path_tracing_tpu_torch"
+
+LW = LH = 512          # the large-mesh main paths: bench.py:92-104, 112-163
+LSPP_GRID = 64         # trianglegrid row
+LSPP = 4               # super_largemesh / super_stream rows
+BW = BH = 256          # bidirectional on the large mesh
+BSPP = 16
+
+# the card's ceilings for bound_ms (H100 SXM data sheet; FP32 without FMA
+# contraction: each multiply and add is one instruction per lane)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 132 * 128 * 1.98e9
+PAIR_OPS = 48         # multiplies + adds of one division-free M-T pair test
+B7_PAIR_OPS = 113     # 4 x 13-term dot products + the epilogue
+GATHER_PAIR_OPS = 20  # one (point, VLP) gather term
 
 
 def card_line() -> str:
@@ -93,17 +134,75 @@ def time_ms(fn, runs: int, warm_up: bool = True) -> float:
     return start.elapsed_time(end) / runs
 
 
+def timed_call(fn):
+    """(fn(), its ms on CUDA events) for one call."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def reset_counts():
     from opencl_montecarlo_path_tracing_tpu_torch.ops import (
-        gather_vlp, mega_super, mega_vlp)
-    mega_super.LAUNCHES = mega_vlp.LAUNCHES = gather_vlp.LAUNCHES = 0
+        gather_vlp, mega_super, mega_vlp, tri_closest)
+    mega_super.LAUNCHES = mega_super.BLOCKED_LAUNCHES = 0
+    mega_vlp.LAUNCHES = gather_vlp.LAUNCHES = tri_closest.LAUNCHES = 0
 
 
 def read_counts() -> dict:
     from opencl_montecarlo_path_tracing_tpu_torch.ops import (
-        gather_vlp, mega_super, mega_vlp)
-    return {"mega_super": mega_super.LAUNCHES, "mega_vlp": mega_vlp.LAUNCHES,
-            "gather_vlp": gather_vlp.LAUNCHES}
+        gather_vlp, mega_super, mega_vlp, tri_closest)
+    return {"mega_super": mega_super.LAUNCHES,
+            "mega_blocked": mega_super.BLOCKED_LAUNCHES,
+            "mega_vlp": mega_vlp.LAUNCHES, "gather_vlp": gather_vlp.LAUNCHES,
+            "tri_closest": tri_closest.LAUNCHES}
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of the byte time and the operation
+    time on the card's ceilings."""
+    t_ops = ops / FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def shading_counts(key, scn, w, h, spp, spp_total):
+    """(lit, casts) over samples 0..spp-1 of a w x h super film: primary
+    hits the shading lights (floor, diffuse), and the (hit, light) pairs
+    whose shadow ray the shading uses (front-facing lights) - the plain
+    tier-1 trace on the card, the data behind B1's and B4's bounds."""
+    import torch
+    from opencl_montecarlo_path_tracing_tpu_torch.core import rng as R
+    from opencl_montecarlo_path_tracing_tpu_torch.core.camera import (
+        make_camera, primary_rays)
+    from opencl_montecarlo_path_tracing_tpu_torch.models import common as C
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
+        trace_ray)
+    ii, jj = C.pixel_grid(w, h, device="cuda")
+    pix = (jj * w + ii).to(torch.int64)
+    cam = make_camera(z_sign=-1.0)
+    lit_n = cast_n = 0
+    for s in range(spp):
+        ray_id = (pix * spp_total + s) & 0xFFFFFFFF
+        r = R.randn_draws(key, ray_id, C.SITE_CAMERA, 4)
+        o, d = primary_rays(cam, ii, jj, *r)
+        tr = trace_ray(o, d, scn, sphere_material=3, plain=True)
+        lit = (tr.material == 1) | (tr.material == 3)
+        x = o + d * tr.t[..., None]
+        for i in range(int(scn.lights.shape[0])):
+            u1, u2 = R.rand2(key, ray_id, C.SITE_LIGHT0 + i)
+            lp = torch.as_tensor(scn.lights[i, :3], device="cuda")
+            ldir = C.normalize(
+                lp + torch.stack([u1, u2, torch.zeros_like(u1)], -1) - x)
+            cast_n += int((lit & (C.dot(ldir, tr.normal) >= 0)).sum())
+        lit_n += int(lit.sum())
+    return lit_n, cast_n
 
 
 def gpu_tests():
@@ -116,15 +215,18 @@ def gpu_tests():
     return mod
 
 
-def check_crn(name, a, b, spp, failed) -> float:
+def check_crn(name, a, b, spp, failed, atol=None) -> float:
     """Print the contract's statistics of two films; returns the max abs
-    film difference and records a violation in ``failed``."""
+    film difference and records a violation in ``failed``.  With ``atol``,
+    a pair with no tie pixel must also agree to ``atol``."""
     from opencl_montecarlo_path_tracing_tpu_torch.utils.crn import crn_ok
     a = a.cpu().numpy()
     b = b.cpu().numpy()
     if a.shape != b.shape or not np.isfinite(a).all():
         raise RuntimeError(f"{name}: bad kernel film {a.shape}")
     ok, st = crn_ok(a, b, spp)
+    if atol is not None and st["tie_frac"] == 0.0:
+        ok = ok and st["max_abs"] <= atol
     print(f"  {name}: max {st['max']:.3e} p99.5 {st['q']:.3e} "
           f"ties {st['tie_frac'] * 100:.3f}% max_abs_film "
           f"{st['max_abs']:.3e} {'ok' if ok else 'VIOLATION'}")
@@ -262,9 +364,19 @@ def phase_vlp_kernel_vs_plain(gt, tables) -> dict:
         key, scn, vlps, VW, VH, 2, spp_total=VSPP, device="cuda"), 5)
     p_ms = time_ms(lambda: M.film_vlp_mega_plain(
         key, scn, vlps, VW, VH, 2, spp_total=VSPP, device="cuda"), 2)
+    # work: primary pairs, one capped shadow ray per lit hit and light,
+    # one gather term per (sample, live VLP)
+    R, nt = VW * VH * 2, int(scn.tri_v0.shape[0])
+    lit, _ = shading_counts(key, scn, VW, VH, 2, VSPP)
+    n_live = int((vlps[:, 3] > 0).sum())
+    ops = ((R + lit * int(scn.lights.shape[0])) * nt * PAIR_OPS
+           + R * n_live * GATHER_PAIR_OPS)
+    b_ms, b_by = bound(ops, vlps.shape[0] * 32 + nt * 48 + VW * VH * 12)
     print(f"  {tables[0][0]}, {VW}x{VH}x2: kernel {k_ms:.3f} ms, plain "
-          f"PyTorch {p_ms:.1f} ms")
-    return {"max_abs": worst, "ms": k_ms, "plain_ms": p_ms}
+          f"PyTorch {p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}; {lit} lit "
+          f"hits, {n_live} live VLPs)")
+    return {"max_abs": worst, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 def phase_gather_kernel_vs_plain() -> dict:
@@ -302,8 +414,10 @@ def phase_gather_kernel_vs_plain() -> dict:
               f"{k_ms:.3f} ms, plain PyTorch {p_ms:.1f} ms")
         if not ok:
             raise RuntimeError(f"B6 kernel vs plain differ at V={V}")
+    b_ms, b_by = bound(R * 4096 * GATHER_PAIR_OPS, R * 28 + 4096 * 16)
+    print(f"  bound at {R} x 4096: {b_ms:.4f} ms ({b_by})")
     return {"max_abs": worst_abs, "max_rel": worst_rel, "ms": times[4096][0],
-            "plain_ms": times[4096][1]}
+            "plain_ms": times[4096][1], "bound_ms": b_ms, "bound_by": b_by}
 
 
 def phase_super_main_path(card: str) -> dict:
@@ -376,35 +490,42 @@ def phase_super_main_path(card: str) -> dict:
         times[(w, h, spp)] = (k_ms, p_ms)
         print(f"  {w}x{h}x{spp}: kernel {k_ms:.3f} ms, plain PyTorch "
               f"{p_ms:.1f} ms ({card})")
+    # work at 1024x1024x4: every primary ray scans the mesh, and every
+    # shadow ray the shading uses
+    nt = int(scn.tri_v0.shape[0])
+    _, casts = shading_counts(key, scn, W, H, 4, 4)
+    b_ms, b_by = bound((W * H * 4 + casts) * nt * PAIR_OPS,
+                       nt * 48 + W * H * 12)
+    print(f"  bound at {W}x{H}x4: {b_ms:.4f} ms ({b_by}; {casts} shadow "
+          "rays cast)")
     return {"launches": counts["mega_super"], "ms": times[(W, H, 4)][0],
             "plain_ms": times[(W, H, 4)][1], "render_ms": ms,
-            "mpaths": mpaths}
+            "mpaths": mpaths, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def chain_profile(key, scn) -> str:
-    """One warm Metropolis chain (512 chains per light x 8 rounds) under
-    torch.profiler: host wall time, device kernel time, kernel count."""
+def profiled(name, fn):
+    """(fn(), a line of its torch.profiler summary: host wall time, device
+    kernel time, kernel count)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from opencl_montecarlo_path_tracing_tpu_torch.models.metropolis import (
-        mlt_vlps)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        mlt_vlps(key, scn, 512, 8, device="cuda")
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     if not kernels:
-        return (f"chain: {wall_ms:.1f} ms wall; device time not measured "
-                "(the profiler recorded no kernel)")
-    return (f"chain: {wall_ms:.1f} ms wall, {len(kernels)} kernels, "
-            f"{dev_ms:.1f} ms device-busy ({100 * dev_ms / wall_ms:.2f}%), "
-            f"{1e3 * (wall_ms - dev_ms) / len(kernels):.2f} us of host "
-            "dispatch per kernel")
+        return out, (f"{name}: {wall_ms:.1f} ms wall; device time not "
+                     "measured (the profiler recorded no kernel)")
+    return out, (f"{name}: {wall_ms:.1f} ms wall, {len(kernels)} kernels, "
+                 f"{dev_ms:.1f} ms device-busy "
+                 f"({100 * dev_ms / wall_ms:.2f}%), "
+                 f"{1e3 * (wall_ms - dev_ms) / len(kernels):.2f} us of host "
+                 "dispatch per kernel")
 
 
 def phase_vlp_main_paths(card: str) -> dict:
@@ -464,7 +585,12 @@ def phase_vlp_main_paths(card: str) -> dict:
                     vl, V.vlp_grid_static_res(int(vl.shape[0])))
                     if use_grid else None)
                 return vl, grid
-        vlps, grid = light()
+        if variant == "metropolis":
+            # the chain's device-busy share, on the pass the check needs
+            (vlps, grid), line = profiled("chain", light)
+            print("  " + line)
+        else:
+            vlps, grid = light()
         # the Metropolis chain takes seconds: one more (warm) run times it
         light_ms = time_ms(light, TIMED_RUNS if variant == "bidirectional"
                            else 1, warm_up=False)
@@ -484,8 +610,6 @@ def phase_vlp_main_paths(card: str) -> dict:
               f"pass {light_ms:.1f} ms, render pass {render_ms:.2f} ms "
               f"({n_live} live of {int(vlps.shape[0])} VLPs); film "
               f"mean/spp {float(f.mean()) / VSPP:.4f}, launches {counts}")
-        if variant == "metropolis":
-            print("  " + chain_profile(key, scn))
     return {"launches": total}
 
 
@@ -529,23 +653,365 @@ def phase_tier1_route(card: str) -> int:
     return counts["gather_vlp"]
 
 
+def phase_blocked_kernel_vs_plain(gt, card: str) -> dict:
+    """B2/B3 forced onto B1's cases (against B1's film), on the GPU tests'
+    meshes and an 1,800-triangle sheet (against the plain scan), and on
+    the 20,736 / 262,144 / 1,048,576-triangle sheets (against the tier-1
+    plain film, whose traces are B7's plain version)."""
+    from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import DEFAULT
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_super as M
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
+        prep_scene)
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        demo_scene, large_mesh_scene)
+    print("B2/B3 mega_blocked vs B1 and vs plain:")
+    worst, failed = 0.0, []
+    demo = prep_scene(demo_scene()[0])
+    cases = [(name, prep_scene(make_scene()), seed, shape, kw,
+              gt.QUIRKS[q]) for name, make_scene, seed, shape, kw, q
+             in gt.CASES]
+    cases += [
+        ("demo scene 256x256x4", demo, 0, (256, 256, 4), {}, DEFAULT),
+        ("demo scene 1024x1024, samples 0-1 of 1024", demo, 0, (W, H, 2),
+         dict(spp_total=SPP), DEFAULT)]
+    for name, scn, seed, (w, h, spp), kw, quirks in cases:
+        key = make_key(seed)
+        a = M.film_super_mega(key, scn, w, h, spp, quirks=quirks,
+                              device="cuda", force_blocked=True, **kw)
+        b = M.film_super_mega(key, scn, w, h, spp, quirks=quirks,
+                              device="cuda", **kw)
+        worst = max(worst, check_crn(f"{name}: forced vs B1", a, b, spp,
+                                     failed, atol=2e-5))
+    sheet = gt.sheet_scene(30, 30)
+    cases = [(name, prep_scene(make_scene()), seed, shape, kw,
+              gt.QUIRKS[q]) for name, make_scene, seed, shape, kw, q
+             in gt.BLOCKED_CASES]
+    cases += [("sheet 1800, 512x512 rows 200-263, samples 0-1 of 4",
+               prep_scene(sheet), 0, (512, 512, 2),
+               dict(spp_total=4, row_offset=200, rows=64), DEFAULT)]
+    for name, scn, seed, (w, h, spp), kw, quirks in cases:
+        key = make_key(seed)
+        a = M.film_super_mega(key, scn, w, h, spp, quirks=quirks,
+                              device="cuda", force_blocked=True, **kw)
+        b = M.film_super_mega_plain(key, scn, w, h, spp, quirks=quirks,
+                                    device="cuda", **kw)
+        worst = max(worst, check_crn(f"{name}: vs plain scan", a, b, spp,
+                                     failed, atol=2e-5))
+    key = make_key(0)
+    # against the tier-1 plain film: the 20,736 sheet at the super main
+    # path's full shape (the plain film's time too), the 262,144 sheet over
+    # the full frame at sample 0, the 1,048,576 sheet on 16-row bands at the
+    # frame's top, middle and bottom (the edges graze the sheet)
+    checks = [((144, 72), LSPP, ((0, LH),)),
+              ((512, 256), 1, ((0, LH),)),
+              ((1024, 512), 2, ((0, 16), (248, 16), (LH - 16, 16)))]
+    p_ms = 0.0
+    for nm, spp, bands in checks:
+        scn = prep_scene(large_mesh_scene(*nm))
+        nt = int(scn.tri_v0.shape[0])
+        for row_offset, rows in bands:
+            band = dict(spp_total=LSPP, row_offset=row_offset, rows=rows)
+            a = M.film_super_mega(key, scn, LW, LH, spp, device="cuda",
+                                  **band)
+            b, ms = timed_call(lambda: M.film_super_mega_plain(
+                key, scn, LW, LH, spp, device="cuda", **band))
+            if (nm, spp, rows) == ((144, 72), LSPP, LH):
+                p_ms = ms
+            worst = max(worst, check_crn(
+                f"sheet {nt}, {LW}x{LH} rows {row_offset}-"
+                f"{row_offset + rows - 1}, samples 0-{spp - 1} of {LSPP}: "
+                f"vs tier-1 plain (B7 plain, {ms / 1e3:.1f} s)", a, b, spp,
+                failed, atol=2e-5))
+        # the kernel alone at the super rows' shape (tables cached)
+        k_ms = time_ms(lambda: M.film_super_mega(key, scn, LW, LH, LSPP,
+                                                 device="cuda"), 3)
+        st = M.blocked_stats(key, scn, LW, LH, LSPP)
+        b_ms, b_by = bound(st["needed"] * PAIR_OPS, nt * 64 + LW * LH * 12)
+        n = LW * LH * LSPP
+        print(f"  sheet {nt}, {LW}x{LH}x{LSPP}: kernel {k_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}); a sample: {st['needed'] / n:.0f} "
+              f"needed pairs, {st['tested'] / n:.0f} tested by its warp, "
+              f"{32 * st['macro_tests'] / n:.0f} macro and "
+              f"{32 * st['block_tests'] / n:.0f} block box tests a warp "
+              f"({card})")
+    if failed:
+        raise RuntimeError(f"B2/B3 kernel contract violated: {failed}")
+    # the main path's kernel call: large_mesh_scene() at 512x512x4
+    scn = prep_scene(large_mesh_scene())
+    nt = int(scn.tri_v0.shape[0])
+    k_ms = time_ms(lambda: M.film_super_mega(key, scn, LW, LH, LSPP,
+                                             device="cuda"), 5)
+    pairs = M.blocked_stats(key, scn, LW, LH, LSPP)["needed"]
+    b_ms, b_by = bound(pairs * PAIR_OPS, nt * 64 + LW * LH * 12)
+    print(f"  sheet {nt}, {LW}x{LH}x{LSPP}: kernel {k_ms:.3f} ms, plain "
+          f"PyTorch {p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}; {pairs} "
+          f"needed pairs, {pairs / (LW * LH * LSPP):.0f} a sample) ({card})")
+    return {"max_abs": worst, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def b7_agreement(name, calls, min_hits: float) -> tuple[float, bool]:
+    """B7 against its plain version on each (o, d, scn, quirks) of
+    ``calls``: hit/miss agreement >= 99.9%; where both hit, the same
+    triangle on >= 99.9% of rays (a razor-edge validity test may flip
+    between the two sums, and then the ray's closest hit is another
+    triangle at another ``t``); where it is the same, ``t`` within
+    :func:`b7_t_bound`; more than ``min_hits`` of the rays hitting (the
+    check is not vacuous).  Prints one line, returns (max abs ``t`` error
+    on the same triangle, ok)."""
+    import torch
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import tri_closest as B7
+    n = n_hit = n_both = hit_agree = idx_agree = n_out = 0
+    max_abs = max_rel = max_ratio = 0.0
+    for o, d, scn, quirks in calls:
+        t, i = B7.triangle_closest(o, d, scn, quirks)
+        tp, ip = B7.triangle_closest_plain(o, d, scn, quirks)
+        hit, hitp = torch.isfinite(t), torch.isfinite(tp)
+        both = hit & hitp
+        same = both & (i == ip)
+        if same.any():
+            err = (t[same] - tp[same]).abs().double()
+            lim = b7_t_bound(o[same], d[same], scn, ip[same], tp[same])
+            n_out += int((err > lim).sum())
+            max_abs = max(max_abs, float(err.max()))
+            max_rel = max(max_rel, float((err / tp[same].abs()).max()))
+            max_ratio = max(max_ratio, float((err / lim).max()))
+        n += int(t.numel())
+        n_hit += int(hitp.sum())
+        n_both += int(both.sum())
+        hit_agree += int((hit == hitp).sum())
+        idx_agree += int(same.sum())
+    agree_hit = hit_agree / max(n, 1)
+    agree_idx = idx_agree / max(n_both, 1)
+    ok = (n_out == 0 and agree_hit >= 0.999 and agree_idx >= 0.999
+          and n_hit / max(n, 1) > min_hits)
+    print(f"  {name}: {len(calls)} calls, {n} rays, hits {n_hit / n:.4f}, "
+          f"hit agreement {agree_hit:.6f} ({n - hit_agree} rays differ), "
+          f"index agreement {agree_idx:.6f} ({n_both - idx_agree} rays), "
+          f"t on the same triangle max_abs {max_abs:.3e} max_rel "
+          f"{max_rel:.3e}, at most {max_ratio:.3f} of its bound ({n_out} "
+          f"over) {'ok' if ok else 'VIOLATION'}")
+    return max_abs, ok
+
+
+def b7_t_bound(o, d, scn, idx, t):
+    """The most two FP32 evaluations of B7's ``t`` may differ by, for rays
+    (o, d) on triangles ``idx`` at distance ``t``: the kernel and the
+    plain version sum the K = 13 products of ``det`` and ``t*det`` in
+    different orders, each within gamma_13 * sum|f_k w_k| of the exact
+    sum (u = 2^-24 the unit roundoff, gamma_K = K u / (1 - K u)), and
+    ``t = (t*det) * (1/det)`` rounds twice on each side:
+    2 gamma_13 (S_tdet + |t| S_det) / |det| + 4 u |t|."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import tri_closest as B7
+    u = 2.0 ** -24
+    gamma = 13 * u / (1 - 13 * u)
+    f = B7._features(o, d).double()                       # (m, 13)
+    w = B7.weights_on(scn, o.device)[idx].double()       # (m, 4, 16)
+    det = (f * w[:, 0, :13]).sum(-1).abs()
+    s_det = (f.abs() * w[:, 0, :13].abs()).sum(-1)
+    s_tdet = (f.abs() * w[:, 3, :13].abs()).sum(-1)
+    t = t.double().abs()
+    return 2 * gamma * (s_tdet + t * s_det) / det + 4 * u * t
+
+
+def recorded_b7_calls(fn) -> list:
+    """Runs ``fn()`` with B7's wrapper wrapped so that each call's inputs
+    (o, d, scn, quirks) are kept; returns them."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import tri_closest as B7
+    calls = []
+    kernel = B7.triangle_closest
+
+    def recording(o, d, scn, quirks):
+        calls.append((o.clone(), d.clone(), scn, quirks))
+        return kernel(o, d, scn, quirks)
+
+    B7.triangle_closest = recording
+    try:
+        fn()
+    finally:
+        B7.triangle_closest = kernel
+    return calls
+
+
+def phase_tri_closest_vs_plain(card: str) -> dict:
+    """B7 on the 512x512 primary rays (sample 0) of the large-mesh scene
+    x its 20,736 triangles (also timed), and on every trace of one
+    bidirectional main-path render there (camera, shadow and light-pass
+    rays), whose film is then held against its plain version."""
+    import torch
+    import opencl_montecarlo_path_tracing_tpu_torch as pt
+    from opencl_montecarlo_path_tracing_tpu_torch.core import rng as R
+    from opencl_montecarlo_path_tracing_tpu_torch.core.camera import (
+        make_camera, primary_rays)
+    from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import DEFAULT
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.models import common as C
+    from opencl_montecarlo_path_tracing_tpu_torch.models.bidirectional import (
+        film_vlp_plain)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import tri_closest as B7
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as V
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
+        prep_scene)
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        large_mesh_scene)
+    print("B7 tri_closest vs plain:")
+    scene = large_mesh_scene()
+    scn = prep_scene(scene)
+    nt = int(scn.tri_v0.shape[0])
+    ii, jj = C.pixel_grid(LW, LH, device="cuda")
+    ray_id = (ii + jj * LW).to(torch.int64)
+    o, d = primary_rays(make_camera(z_sign=-1.0), ii, jj,
+                        *R.randn_draws(make_key(0), ray_id, C.SITE_CAMERA, 4))
+    R_ = LW * LH
+    err, ok = b7_agreement(f"{R_} primary rays x {nt} triangles",
+                           [(o, d, scn, DEFAULT)], min_hits=0.5)
+    films = []
+    calls = recorded_b7_calls(lambda: films.append(pt.render(
+        "bidirectional", scene, BW, BH, spp=BSPP, seed=0, device="cuda")))
+    sizes = sorted({int(c[0].shape[0]) for c in calls})
+    err2, ok2 = b7_agreement(
+        f"the traces of bidirectional {BW}x{BH}x{BSPP} (rays a call: "
+        f"{sizes})", calls, min_hits=0.0)
+    del calls
+    # what the flips do to that film: the tier-1 render pass (B7, B6)
+    # against its plain version on the same VLP table
+    key = make_key(0)
+    vlps = V.emit_vlps(key, scn, 512, device="cuda")
+    plain, ms = timed_call(lambda: film_vlp_plain(
+        key, scn, vlps, None, BW, BH, BSPP, 0, BSPP, DEFAULT,
+        device="cuda"))
+    failed = []
+    check_crn(f"bidirectional {BW}x{BH}x{BSPP} tier 1 (B7, B6) vs plain "
+              f"({ms / 1e3:.1f} s)", films[0], plain, BSPP, failed)
+    k_ms = time_ms(lambda: B7.triangle_closest(o, d, scn, DEFAULT), 10)
+    p_ms = time_ms(lambda: B7.triangle_closest_plain(o, d, scn, DEFAULT), 1,
+                   warm_up=False)
+    b_ms, b_by = bound(R_ * nt * B7_PAIR_OPS, R_ * 60 + nt * 256)
+    print(f"  {R_} rays x {nt} triangles: kernel {k_ms:.3f} ms, plain "
+          f"PyTorch {p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}) ({card})")
+    if not (ok and ok2) or failed:
+        raise RuntimeError("B7 kernel vs plain outside its tolerance")
+    return {"max_abs": max(err, err2), "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_large_mesh_main_paths(card: str) -> dict:
+    """trianglegrid (auto) and super on the large meshes (B2/B3),
+    bidirectional on large_mesh_scene() (tier-1: B7 + B6); then the DDA
+    walk on a band against the kernel."""
+    import torch
+    import opencl_montecarlo_path_tracing_tpu_torch as pt
+    from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import DEFAULT
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.models.trianglegrid import (
+        film_trianglegrid)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import grid as G
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_super as M
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
+        prep_scene)
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        large_mesh_scene)
+    large = large_mesh_scene()
+    stream = large_mesh_scene(512, 256)
+    paths = [("trianglegrid", large, LW, LH, LSPP_GRID, ("mega_blocked",)),
+             ("super", large, LW, LH, LSPP, ("mega_blocked",)),
+             ("super", stream, LW, LH, LSPP, ("mega_blocked",)),
+             ("bidirectional", large, BW, BH, BSPP,
+              ("tri_closest", "gather_vlp"))]
+    total = dict.fromkeys(("mega_blocked", "tri_closest", "gather_vlp"), 0)
+    for variant, scene, w, h, spp, want in paths:
+        def main_path():
+            return pt.render(variant, scene, w, h, spp=spp, seed=0,
+                             device="cuda")
+
+        main_path()
+        torch.cuda.synchronize()
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(TIMED_RUNS):
+            film = main_path()
+        end.record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ms = start.elapsed_time(end) / TIMED_RUNS
+        if any(counts[k] == 0 for k in want) or any(
+                counts[k] for k in counts if k not in want):
+            raise RuntimeError(f"{variant} on {scene.n_triangles} "
+                               f"triangles: launches {counts}, want only "
+                               f"{want}")
+        for k in want:
+            total[k] += counts[k]
+        f = film.cpu().numpy()
+        mean = float(f.mean()) / spp
+        if f.shape != (h, w, 3) or not np.isfinite(f).all() or mean <= 0:
+            raise RuntimeError(f"{variant}: bad main-path film {f.shape}, "
+                               f"mean/spp {mean}")
+        mpaths = w * h * spp / (ms / 1e3) / 1e6
+        print(f"main path: {variant} {w}x{h}x{spp} on {scene.n_triangles} "
+              f"triangles: {ms:.1f} ms/render, {mpaths:.1f} Mpaths/s "
+              f"({card}); film mean/spp {mean:.4f}, launches {counts}")
+        if want == ("mega_blocked",):
+            # the render split: the host preparation a Scene gets once, on
+            # its first render (prep_scene, the block tables; timed on fresh
+            # copies of the Scene), vs the kernel on the prepared scene
+            t0 = time.perf_counter()
+            for _ in range(TIMED_RUNS):
+                scn = prep_scene(dataclasses.replace(scene))
+                M.block_tables(scn, "cuda")
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / TIMED_RUNS
+            k_ms = time_ms(lambda: M.film_super_mega(
+                make_key(0), scn, w, h, spp, device="cuda"), TIMED_RUNS)
+            print(f"  split: first-render host preparation {host_ms:.1f} "
+                  f"ms, kernel {k_ms:.2f} ms")
+    # the reference-shaped DDA on the card, on a band, against the kernel
+    scn = prep_scene(large)
+    key = make_key(0)
+    band = dict(row_offset=248, rows=8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid, _ = G.triangle_grid(scn, device="cuda")
+    dda = film_trianglegrid(key, scn, grid, LW, LH, 1, 0, LSPP_GRID, DEFAULT,
+                            device="cuda", **band)
+    torch.cuda.synchronize()
+    dda_s = time.perf_counter() - t0
+    auto = M.film_super_mega(key, scn, LW, LH, 1, spp_total=LSPP_GRID,
+                             device="cuda", **band)
+    failed = []
+    check_crn(f"trianglegrid accel=dda vs auto (B2/B3), {LW}x{LH} rows "
+              f"248-255, sample 0 of {LSPP_GRID} (grid {grid.res}, cap "
+              f"{grid.items.shape[1]}; DDA {dda_s:.1f} s)", dda, auto, 1,
+              failed)
+    if failed:
+        raise RuntimeError("trianglegrid DDA vs kernel contract violated")
+    return total
+
+
 def phase_cli():
     from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
-        procedural_super_scene, write_scene_files)
+        large_mesh_scene, procedural_super_scene, write_scene_files)
     from opencl_montecarlo_path_tracing_tpu_torch.utils.pam import load_pam
     runs = [["super", "256", "256"],
             ["bidirectional", "256", "256", "512"],
-            ["metropolis_vlpgrid", "256", "256", "512", "8", "3.0"]]
+            ["metropolis_vlpgrid", "256", "256", "512", "8", "3.0"],
+            ["trianglegrid", "256", "256", "3.0"]]
     with tempfile.TemporaryDirectory() as tmp:
-        write_scene_files(procedural_super_scene(), tmp)
+        demo_dir = os.path.join(tmp, "demo")
+        mesh_dir = os.path.join(tmp, "large_mesh")
+        write_scene_files(procedural_super_scene(), demo_dir)
+        write_scene_files(large_mesh_scene(), mesh_dir)
         env = dict(os.environ)
         env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
         for args in runs:
             out = os.path.join(tmp, f"{args[0]}.ppm")
+            scene_dir = mesh_dir if args[0] == "trianglegrid" else demo_dir
             r = subprocess.run(
                 [sys.executable, "-m", PKG, *args, "--spp", "4", "--seed",
-                 "1", "--scene-dir", tmp, "--out", out], cwd=tmp, env=env,
-                capture_output=True, text=True, timeout=600)
+                 "1", "--scene-dir", scene_dir, "--out", out], cwd=tmp,
+                env=env, capture_output=True, text=True, timeout=600)
             if r.returncode != 0:
                 raise RuntimeError(f"CLI {args} exited {r.returncode}:\n"
                                    f"{r.stdout}\n{r.stderr}")
@@ -566,35 +1032,48 @@ def main() -> int:
         return 1
     card = card_line()
     t0 = time.perf_counter()
-    phase_card_and_build(card)
+
+    def phase(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"[{fn.__name__}: {time.perf_counter() - t:.1f} s]")
+        return out
+
+    phase(phase_card_and_build, card)
     gt = gpu_tests()
-    b1_err = phase_super_kernel_vs_plain(gt)
+    b1_err = phase(phase_super_kernel_vs_plain, gt)
     tables = vlp_bench_tables()
-    b4 = phase_vlp_kernel_vs_plain(gt, tables)
-    b6 = phase_gather_kernel_vs_plain()
-    mp = phase_super_main_path(card)
-    vp = phase_vlp_main_paths(card)
-    b6_launches = phase_tier1_route(card)
-    phase_cli()
+    b4 = phase(phase_vlp_kernel_vs_plain, gt, tables)
+    b6 = phase(phase_gather_kernel_vs_plain)
+    mp = phase(phase_super_main_path, card)
+    vp = phase(phase_vlp_main_paths, card)
+    b6_launches = phase(phase_tier1_route, card)
+    b23 = phase(phase_blocked_kernel_vs_plain, gt, card)
+    b7 = phase(phase_tri_closest_vs_plain, card)
+    lp = phase(phase_large_mesh_main_paths, card)
+    phase(phase_cli)
     print(f"smoke: {time.perf_counter() - t0:.1f} s")
     src = f"{PKG}/csrc"
     ref = "opencl_montecarlo_path_tracing_tpu/ops"
+
+    def row(name, source, replaces, launches, k):
+        return {"name": name, "route": "cuda", "source": f"{src}/{source}",
+                "replaces": f"{ref}/{replaces}", "launches": launches,
+                "max_abs_err": k["max_abs"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": k["bound_by"], "library_ms": None}
+
     kernels = [
-        {"name": "mega_super", "route": "cuda",
-         "source": f"{src}/mega_super.cu",
-         "replaces": f"{ref}/pallas_super.py:2228",
-         "launches": mp["launches"], "max_abs_err": b1_err,
-         "ms": mp["ms"], "plain_ms": mp["plain_ms"]},
-        {"name": "mega_vlp", "route": "cuda",
-         "source": f"{src}/mega_vlp.cu",
-         "replaces": f"{ref}/pallas_bpt.py:434",
-         "launches": vp["launches"], "max_abs_err": b4["max_abs"],
-         "ms": b4["ms"], "plain_ms": b4["plain_ms"]},
-        {"name": "gather_vlp", "route": "cuda",
-         "source": f"{src}/gather_vlp.cu",
-         "replaces": f"{ref}/pallas_vlp.py:111",
-         "launches": b6_launches, "max_abs_err": b6["max_abs"],
-         "ms": b6["ms"], "plain_ms": b6["plain_ms"]},
+        row("mega_super", "mega_super.cu", "pallas_super.py:2228",
+            mp["launches"], dict(mp, max_abs=b1_err)),
+        row("mega_vlp", "mega_vlp.cu", "pallas_bpt.py:434", vp["launches"],
+            b4),
+        row("gather_vlp", "gather_vlp.cu", "pallas_vlp.py:111",
+            b6_launches + lp["gather_vlp"], b6),
+        row("mega_blocked", "mega_blocked.cu", "pallas_super.py:2228",
+            lp["mega_blocked"], b23),
+        row("tri_closest", "tri_closest.cu", "pallas_tri.py:89",
+            lp["tri_closest"], b7),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,11 +5,15 @@ this package mirrors its layout and module names so that each module's
 counterpart is easy to find.  It imports ``torch`` and numpy, never
 ``jax``.  Ported so far: the ``super`` / ``superlmem`` render path, whose
 whole sample step runs in one hand-written CUDA kernel on the GPU
-(``ops/mega_super.py`` + ``csrc/mega_super.cu``), and the VLP family -
-``bidirectional``, ``metropolis``, ``metropolis_vlpgrid`` - whose render
-pass runs in a second one (``ops/mega_vlp.py`` + ``csrc/mega_vlp.cu``)
-with a gather kernel for its tier-1 route (``ops/gather_vlp.py`` +
-``csrc/gather_vlp.cu``); on the CPU everything is plain PyTorch.
+(``ops/mega_super.py`` + ``csrc/mega_super.cu`` up to 512 triangles,
+``csrc/mega_blocked.cu`` up to 2^20); ``trianglegrid`` (the uniform-grid
+walk, or the same kernels); and the VLP family - ``bidirectional``,
+``metropolis``, ``metropolis_vlpgrid`` - whose render pass runs in a
+third one (``ops/mega_vlp.py`` + ``csrc/mega_vlp.cu``), with a gather
+kernel (``ops/gather_vlp.py`` + ``csrc/gather_vlp.cu``) and a closest
+triangle kernel for large meshes (``ops/tri_closest.py`` +
+``csrc/tri_closest.cu``) on its tier-1 route; on the CPU everything is
+plain PyTorch.
 
 Layout
 ------
@@ -17,9 +21,10 @@ core/      counter-based threefry RNG streams, camera, quirks policy
 scene/     reference text scene formats, bitmap -> SoA expansion,
            built-in demo scenes
 ops/       primitive intersection (plain PyTorch), VLP emission and
-           gathers, the VLP grid, the kernel wrappers, film quantisation
-models/    shared sample-loop machinery, the super, bidirectional and
-           metropolis integrators
+           gathers, the uniform grids and DDA walk, the large-mesh block
+           tables, the kernel wrappers, film quantisation
+models/    shared sample-loop machinery, the super, trianglegrid,
+           bidirectional and metropolis integrators
 utils/     PAM (P7) image IO, the CUDA kernel builder, CLI, the CRN
            film contract
 csrc/      CUDA C++ kernel sources, built with nvcc at first use

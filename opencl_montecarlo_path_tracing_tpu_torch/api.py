@@ -2,9 +2,10 @@
 
 Port of ``opencl_montecarlo_path_tracing_tpu/api.py``.  ``render(variant,
 ...)`` keeps the JAX package's call signature and adds ``device``.  The
-``super``, ``superlmem``, ``bidirectional``, ``metropolis`` and
-``metropolis_vlpgrid`` variants are ported; every other variant raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+``super``, ``superlmem``, ``trianglegrid``, ``bidirectional``,
+``metropolis`` and ``metropolis_vlpgrid`` variants are ported; every other
+variant raises ``NotImplementedError`` naming the ROADMAP item that ports
+it.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ NOT_PORTED = {
     "simplecpu": "ROADMAP A10 (utilities and CLI: the NumPy oracle)",
     "simple": "ROADMAP A7 (simple) with kernel B5",
     "nodof": "ROADMAP A6 (nodof)",
-    "trianglegrid": "ROADMAP A8 (large meshes) with kernels B2/B3",
 }
 
 
@@ -33,7 +33,8 @@ def render(variant: str, scene: Scene | None = None, width: int = 512,
            device="cuda", **kw):
     """Render with an integrator on ``device``.
 
-    Extra options by variant: bidirectional: n_vlp, use_grid,
+    Extra options by variant: trianglegrid: cell_size_modifier,
+    device_build, accel ("auto" | "dda"); bidirectional: n_vlp, use_grid,
     grid_modifier; metropolis*: n_seedpaths, mutation_rounds,
     grid_modifier, verify_eps, dynamic_grid_res.
 
@@ -51,6 +52,10 @@ def render(variant: str, scene: Scene | None = None, width: int = 512,
         from .models.super import render_super
         film = render_super(key, scene, width, height, spp=spp,
                             quirks=quirks, device=device, **kw)
+    elif variant == "trianglegrid":
+        from .models.trianglegrid import render_trianglegrid
+        film = render_trianglegrid(key, scene, width, height, spp=spp,
+                                   quirks=quirks, device=device, **kw)
     elif variant == "bidirectional":
         from .models.bidirectional import render_bidirectional
         film = render_bidirectional(key, scene, width, height, spp=spp,

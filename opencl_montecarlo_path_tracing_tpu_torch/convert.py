@@ -5,8 +5,10 @@ the output of a light pass.  ``scene_arrays_from_numpy`` takes the JAX
 package's ``SceneArrays`` (or its ``Scene``), whose fields are numpy
 arrays, and returns the port's ``SceneArrays``; ``key_from_jax`` turns the
 JAX ``(k0, k1)`` uint32 key pair into the port's key; ``vlps_from_numpy``
-and ``grid_from_numpy`` carry a VLP table and a VLP ``UniformGrid`` across,
-so both packages render from the same light pass.  Both packages then
+and ``grid_from_numpy`` carry a VLP table and a ``UniformGrid`` (the VLP
+grid, or the triangle grid of ``trianglegrid``) across, so both packages
+render from the same light pass and walk the same cells.  The JAX
+``SceneArrays`` carries kernel B7's ``tri_w`` weights with it.  Both packages then
 render the same scene from the same counter-based streams.  This module
 imports no JAX: it reads plain attributes and arrays (anything
 ``numpy.asarray`` takes).

@@ -1,7 +1,9 @@
 // Device code shared by the megakernels (csrc/mega_super.cu, kernel B1;
-// csrc/mega_vlp.cu, kernel B4): the threefry stream, the packed scene in
-// shared memory, the thin-lens primary ray, the closest-hit trace, the
-// capped any-hit occlusion test and the 4-material shading.
+// csrc/mega_vlp.cu, kernel B4; csrc/mega_blocked.cu, kernels B2/B3): the
+// threefry stream, the packed scene in shared memory, the thin-lens
+// primary ray, the closest-hit trace and its non-triangle stage, the
+// capped any-hit occlusion test and its non-triangle stage, and the
+// 4-material shading.
 //
 // Everything sits in an anonymous namespace, so every translation unit
 // that includes this header gets its own internal copy and the kernels
@@ -130,40 +132,42 @@ __device__ __forceinline__ Ray primary_ray(const Scene& S, uint32_t k0,
   return r;
 }
 
-struct Hit {
+// Running closest-hit state of a trace: distance, material, normal, and
+// whether the normal is a sphere's (renormalised at the end).
+struct PreHit {
   float t;
   int m;
   float nx, ny, nz;
+  bool needs;
 };
 
-// Closest hit (ops/intersect.py::trace_ray, sphere material 3), seeded
-// with the running distance t0; sphere normals are renormalised.
-__device__ Hit trace(const Scene& S, float ox, float oy, float oz,
-                     float dx, float dy, float dz, float t0, bool neg_t) {
-  float t = t0;
-  int m = 0;
-  float nx = 0.0f, ny = 0.0f, nz = 0.0f;
-  bool needs = false;
+// The floor, squares and spheres of a closest-hit trace seeded with the
+// running distance t0 (ops/intersect.py::trace_ray before its triangle
+// stage, sphere material 3).
+__device__ __forceinline__ PreHit pre_tri(const Scene& S, float ox, float oy,
+                                          float oz, float dx, float dy,
+                                          float dz, float t0, bool neg_t) {
+  PreHit h{t0, 0, 0.0f, 0.0f, 0.0f, false};
   const float inv_dz = 1.0f / dz;
 
   const float p = -oz * inv_dz;
-  if (p > kEps && p < t) {
-    t = p;
-    m = 1;
-    nz = 1.0f;
+  if (p > kEps && p < h.t) {
+    h.t = p;
+    h.m = 1;
+    h.nz = 1.0f;
   }
   for (int q = 0; q < S.nq; ++q) {
     const float rd = (S.sq_z[q] - oz) * inv_dz;
     const float ix = ox + dx * rd;
     const float iy = oy + dy * rd;
-    if (rd < t && fabsf(S.sq_k[q] - ix) < 1.0f && fabsf(iy) < 1.0f &&
+    if (rd < h.t && fabsf(S.sq_k[q] - ix) < 1.0f && fabsf(iy) < 1.0f &&
         (neg_t || rd > kEps)) {
-      t = rd;
-      m = 3;
-      nx = 0.0f;
-      ny = 0.0f;
-      nz = 1.0f;
-      needs = false;
+      h.t = rd;
+      h.m = 3;
+      h.nx = 0.0f;
+      h.ny = 0.0f;
+      h.nz = 1.0f;
+      h.needs = false;
     }
   }
   for (int k = 0; k < S.ns; ++k) {
@@ -174,19 +178,46 @@ __device__ Hit trace(const Scene& S, float ox, float oy, float oz,
     const float cc = px * px + py * py + pz * pz - 1.0f;
     const float q = b * b - cc;
     const float s = -b - sqrtf(fmaxf(q, 0.0f));
-    if (q > 0.0f && s < t && s > kEps) {
-      t = s;
-      m = 3;
-      nx = px + dx * s;
-      ny = py + dy * s;
-      nz = pz + dz * s;
-      needs = true;
+    if (q > 0.0f && s < h.t && s > kEps) {
+      h.t = s;
+      h.m = 3;
+      h.nx = px + dx * s;
+      h.ny = py + dy * s;
+      h.nz = pz + dz * s;
+      h.needs = true;
     }
   }
+  return h;
+}
+
+struct Hit {
+  float t;
+  int m;
+  float nx, ny, nz;
+};
+
+// The finished hit: sphere normals renormalised.
+__device__ __forceinline__ Hit finish(const PreHit& h) {
+  float nx = h.nx, ny = h.ny, nz = h.nz;
+  if (h.needs) {
+    const float inv_len =
+        1.0f / sqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
+    nx *= inv_len;
+    ny *= inv_len;
+    nz *= inv_len;
+  }
+  return Hit{h.t, h.m, nx, ny, nz};
+}
+
+// Closest hit (ops/intersect.py::trace_ray, sphere material 3), seeded
+// with the running distance t0, over the shared-memory triangle table.
+__device__ Hit trace(const Scene& S, float ox, float oy, float oz,
+                     float dx, float dy, float dz, float t0, bool neg_t) {
+  PreHit h = pre_tri(S, ox, oy, oz, dx, dy, dz, t0, neg_t);
   if (S.ntp) {
     // division-free scan: the running minimum is carried det-scaled as
     // (bn, bd); file order decides exact ties (strict <)
-    float bn = t, bd = 1.0f;
+    float bn = h.t, bd = 1.0f;
     const float4* rows = reinterpret_cast<const float4*>(S.tri);
 #pragma unroll 2
     for (int i = 0; i < S.ntp; ++i) {
@@ -214,31 +245,24 @@ __device__ Hit trace(const Scene& S, float ox, float oy, float oz,
           tn_s * bd < bn * dd) {
         bn = tn_s;
         bd = dd;
-        m = 4;
-        nx = e.y;
-        ny = e.z;
-        nz = e.w;
-        needs = false;
+        h.m = 4;
+        h.nx = e.y;
+        h.ny = e.z;
+        h.nz = e.w;
+        h.needs = false;
       }
     }
-    t = bn / bd;
+    h.t = bn / bd;
   }
-  if (needs) {
-    const float inv_len =
-        1.0f / sqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
-    nx *= inv_len;
-    ny *= inv_len;
-    nz *= inv_len;
-  }
-  return Hit{t, m, nx, ny, nz};
+  return finish(h);
 }
 
-// Any-hit occlusion with t < t_limit (ops/intersect.py::any_hit): kBig
-// for the super family's uncapped shadow rays, the light distance for
-// the VLP family's.  Stops at the first hit.
-__device__ bool occluded(const Scene& S, float ox, float oy, float oz,
-                         float dx, float dy, float dz, float t_limit,
-                         bool neg_t) {
+// The floor, squares and spheres of an any-hit occlusion test with
+// t < t_limit (ops/intersect.py::any_hit before its triangle stage).
+__device__ __forceinline__ bool occluded_pre(const Scene& S, float ox,
+                                             float oy, float oz, float dx,
+                                             float dy, float dz,
+                                             float t_limit, bool neg_t) {
   const float inv_dz = 1.0f / dz;
   const float p = -oz * inv_dz;
   if (p > kEps && p < t_limit) return true;
@@ -260,6 +284,16 @@ __device__ bool occluded(const Scene& S, float ox, float oy, float oz,
     const float s = -b - sqrtf(fmaxf(q, 0.0f));
     if (q > 0.0f && s < t_limit && s > kEps) return true;
   }
+  return false;
+}
+
+// Any-hit occlusion with t < t_limit (ops/intersect.py::any_hit): kBig
+// for the super family's uncapped shadow rays, the light distance for
+// the VLP family's.  Stops at the first hit.
+__device__ bool occluded(const Scene& S, float ox, float oy, float oz,
+                         float dx, float dy, float dz, float t_limit,
+                         bool neg_t) {
+  if (occluded_pre(S, ox, oy, oz, dx, dy, dz, t_limit, neg_t)) return true;
   const float4* rows = reinterpret_cast<const float4*>(S.tri);
 #pragma unroll 2
   for (int i = 0; i < S.ntp; ++i) {

@@ -19,9 +19,11 @@ Routing of the render pass, decided from the configuration before any
 launch (the JAX package's own routing, bidirectional.py:88-104): on a CUDA
 device the VLP megakernel (kernel B4, ``ops/mega_vlp.py``) when its gate
 passes, else the plain wavefront on the card, whose dense gather is kernel
-B6 for large batches (``ops/vlp.py::gather_vlps``); on the CPU the plain
-wavefront.  The light pass (emission, the Metropolis chain) is plain
-PyTorch on the film's device, as it is plain XLA in the JAX package.
+B6 for large batches (``ops/vlp.py::gather_vlps``) and whose traces of
+meshes of >= 2048 triangles are kernel B7 (``ops/tri_closest.py``); on the
+CPU the plain wavefront.  The light pass (emission, the Metropolis chain)
+is plain PyTorch on the film's device, as it is plain XLA in the JAX
+package; its traces reach B7 the same way.
 """
 
 from __future__ import annotations
@@ -37,24 +39,25 @@ from ..ops.intersect import SceneArrays, prep_scene, any_hit
 from ..ops import vlp as vlpmod
 from ..scene.scene import Scene
 from . import common as C
+from .common import check_device
 from .super import sample_super
 
-# the tier-1 triangle scan of meshes this large is kernel B7 in the JAX
-# package (ops/intersect.py _MXU_MIN_TRIANGLES)
-_B7_MIN_TRIANGLES = 2048
-
-
 def illum_vlp(key, scn: SceneArrays, quirks: Quirks, vlps, grid, b, x,
-              normal, shading, total_illum, ray_id, t_hit=None, impl=None):
+              normal, shading, total_illum, ray_id, t_hit=None,
+              plain: bool = False):
     """VLP gather + real-light soft-shadow correction (ocl:166-202).
 
     ``t_hit`` is unused: the bidirectional kernels initialise their shadow
-    trace's t to the light distance themselves (ocl:195-197).  ``impl``
-    picks the dense gather (ops/vlp.py::gather_vlps)."""
+    trace's t to the light distance themselves (ocl:195-197).
+    ``plain=True`` keeps the dense gather (ops/vlp.py::gather_vlps) and the
+    shadow traces (ops/intersect.py::any_hit) on plain PyTorch on any
+    device; else the card's large gathers are kernel B6 and its traces of
+    large meshes kernel B7."""
     nlights = int(scn.lights.shape[0])
 
     if grid is None:
-        vi = vlpmod.gather_vlps(x, normal, vlps, impl=impl)
+        vi = vlpmod.gather_vlps(x, normal, vlps,
+                                impl="scan" if plain else None)
     else:
         vi = vlpmod.gather_vlps_grid(x, normal, vlps, grid)
     total_illum = torch.where(shading, total_illum + vi, total_illum)
@@ -76,8 +79,8 @@ def illum_vlp(key, scn: SceneArrays, quirks: Quirks, vlps, grid, b, x,
         xs = torch.cat([x] * nlights, dim=0)
         ds = torch.cat(ldirs, dim=0)
         tl = torch.cat(dists, dim=0)
-        occ_all = any_hit(xs, ds, scn, t_limit=tl,
-                          quirks=quirks).reshape(nlights, -1)
+        occ_all = any_hit(xs, ds, scn, t_limit=tl, quirks=quirks,
+                          plain=plain).reshape(nlights, -1)
         inv_nl = float(np.float32(1.0 / nlights))
         for i in range(nlights):
             occ = occ_all[i].reshape(x.shape[0])
@@ -89,53 +92,43 @@ def illum_vlp(key, scn: SceneArrays, quirks: Quirks, vlps, grid, b, x,
     return total_illum, last_ldir
 
 
-def film_vlp_plain(key, scn: SceneArrays, vlps, grid, width, height, spp,
-                   spp_offset, spp_total, quirks, max_bounces=C.MAX_BOUNCES,
-                   row_offset=0, rows=None, device="cpu", impl=None):
-    """The plain PyTorch render pass (tier-1 wavefront) on any device."""
+def _film_wavefront(key, scn: SceneArrays, vlps, grid, width, height, spp,
+                    spp_offset, spp_total, quirks, max_bounces, row_offset,
+                    rows, device, plain: bool):
     illum = functools.partial(illum_vlp, key, scn, quirks, vlps, grid,
-                              impl=impl)
+                              plain=plain)
     sample_fn = functools.partial(sample_super, key, scn, quirks, max_bounces,
-                                  illum_fn=illum)
+                                  illum_fn=illum, plain=plain)
     return C.accumulate_spp(sample_fn, width, height, spp,
                             spp_offset=spp_offset, spp_total=spp_total,
                             row_offset=row_offset, rows=rows, device=device)
 
 
-def check_device(device) -> torch.device:
-    """The film's device; a CUDA request without a GPU raises (the port
-    never renders a CUDA request on the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} requested but torch.cuda.is_available() is "
-            "false; the port never renders a CUDA request on the CPU")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    return device
+def film_vlp_plain(key, scn: SceneArrays, vlps, grid, width, height, spp,
+                   spp_offset, spp_total, quirks, max_bounces=C.MAX_BOUNCES,
+                   row_offset=0, rows=None, device="cpu"):
+    """The tier-1 wavefront render pass with every gather and trace in
+    plain PyTorch, on any device (B4's plain version)."""
+    return _film_wavefront(key, scn, vlps, grid, width, height, spp,
+                           spp_offset, spp_total, quirks, max_bounces,
+                           row_offset, rows, device, plain=True)
 
 
 def cuda_route(scn: SceneArrays, quirks: Quirks,
                max_bounces: int = C.MAX_BOUNCES) -> str:
     """How a CUDA device renders the VLP pass of this configuration:
     ``"mega_vlp"`` (kernel B4) when its gate passes, else ``"tier1"`` (the
-    plain wavefront on the card, whose large gathers are kernel B6).
-    Raises ``NotImplementedError`` where the tier-1 route needs a kernel
-    that is not ported."""
+    plain wavefront on the card, whose large gathers are kernel B6 and
+    whose traces of meshes of >= 2048 triangles are kernel B7)."""
     from ..ops import mega_vlp
     if mega_vlp.unsupported_reason(scn, quirks, max_bounces) is None:
         return "mega_vlp"
-    nt = int(scn.tri_v0.shape[0])
-    if nt >= _B7_MIN_TRIANGLES:
-        raise NotImplementedError(
-            f"{nt} triangles on the tier-1 VLP route: its triangle scan is "
-            "kernel B7 (ops/pallas_tri.py), not ported yet (ROADMAP B7)")
     return "tier1"
 
 
 def film_vlp(key, scn: SceneArrays, vlps, grid, width, height, spp,
              spp_offset, spp_total, quirks, max_bounces=C.MAX_BOUNCES,
-             row_offset=0, rows=None, device="cpu"):
+             row_offset=0, rows=None, device="cuda"):
     """The VLP render pass of the whole family, routed by device and
     configuration (module docstring); no fallback after a launch."""
     device = check_device(device)
@@ -145,9 +138,9 @@ def film_vlp(key, scn: SceneArrays, vlps, grid, width, height, spp,
         return mega_vlp.film_vlp_mega(
             key, scn, vlps, width, height, spp, spp_offset, spp_total,
             quirks, row_offset, rows, grid=grid, device=device)
-    return film_vlp_plain(key, scn, vlps, grid, width, height, spp,
-                          spp_offset, spp_total, quirks, max_bounces,
-                          row_offset, rows, device)
+    return _film_wavefront(key, scn, vlps, grid, width, height, spp,
+                           spp_offset, spp_total, quirks, max_bounces,
+                           row_offset, rows, device, plain=False)
 
 
 def film_bidirectional(key, scn: SceneArrays, width, height, spp, spp_offset,
@@ -155,7 +148,7 @@ def film_bidirectional(key, scn: SceneArrays, width, height, spp, spp_offset,
                        max_bounces=C.MAX_BOUNCES, use_grid: bool = False,
                        grid_modifier: float = 3.0, precomputed_vlps=None,
                        precomputed_grid=None, row_offset=0, rows=None,
-                       device="cpu"):
+                       device="cuda"):
     """Both passes on ``device``: emit VLPs, (optionally) build the VLP
     grid, render.  ``precomputed_vlps``/``precomputed_grid`` let a caller
     stage the pipeline (or carry the JAX package's light pass across,

@@ -26,6 +26,19 @@ SITE_STRIDE_BOUNCE = 8   # supports up to 8 lights/bounce (MAX_LIGHTS is 5)
 _MASK = 0xFFFFFFFF
 
 
+def check_device(device) -> torch.device:
+    """The film's device; a CUDA request without a GPU raises (the port
+    never renders a CUDA request on the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but torch.cuda.is_available() is "
+            "false; the port never renders a CUDA request on the CPU")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
 def normalize(v):
     return v / torch.sqrt(dot(v, v))[..., None]
 

@@ -264,7 +264,7 @@ def film_metropolis(key, scn: SceneArrays, width, height, spp, spp_offset,
                     max_bounces=C.MAX_BOUNCES, use_grid: bool = False,
                     grid_modifier: float = 3.0, verify_eps: float = 1e-3,
                     precomputed_vlps=None, precomputed_grid=None,
-                    grid_res=None, row_offset=0, rows=None, device="cpu"):
+                    grid_res=None, row_offset=0, rows=None, device="cuda"):
     device = check_device(device)
     if precomputed_vlps is not None:
         vlps = torch.as_tensor(precomputed_vlps, dtype=torch.float32,

@@ -1,9 +1,14 @@
 """Wavefront equivalent of CLSuperPathTracer / CLSuperPathTracer_lmem.
 
 Port of ``opencl_montecarlo_path_tracing_tpu/models/super.py``.  On a CUDA
-device the whole film goes through the hand-written megakernel
-(``ops/mega_super.py``); on the CPU it runs the plain PyTorch wavefront
-below, which is also the kernel's plain version.
+device the route is decided from the configuration before any launch
+(:func:`cuda_route`): inside the megakernels' gate the whole film goes
+through one of them (``ops/mega_super.py``: B1 up to 512 triangles, B2/B3
+up to 2^20); outside it (> 2^20 triangles, > 8 lights, ``max_bounces <
+1``) the plain wavefront below runs on the card, whose meshes of >= 2048
+triangles go through kernel B7 - the JAX package's own route off its
+gate.  On the CPU the plain wavefront runs, which is also the kernels'
+plain version.
 
 Reference: CLSuperPathTracer/pathtracer.ocl - adds squares, triangles
 (Moller-Trumbore), multiple point lights with inverse-square falloff and
@@ -39,8 +44,9 @@ from ..scene.scene import Scene
 from . import common as C
 
 
-def illum_direct(key, scn: SceneArrays, quirks: Quirks, b, x, normal,
-                 shading, total_illum, ray_id, t_hit=None):
+def illum_direct(key, scn: SceneArrays, quirks: Quirks, tri_override,
+                 plain, b, x, normal, shading, total_illum, ray_id,
+                 t_hit=None):
     """Direct illumination with jittered soft shadows - the super tracer's
     light loop (pathtracer.ocl:167-191).  Returns the updated cross-bounce
     total_illumination and the last light direction (consumed by the mirror
@@ -51,7 +57,9 @@ def illum_direct(key, scn: SceneArrays, quirks: Quirks, b, x, normal,
     each starts from the carried distance ``t_hit`` (the primary hit's t)
     and, when actually executed (lamb >= 0 - the reference short-circuits
     ``lamb_f < 0 || TraceRay(...)``), overwrites the carry with its own
-    closest hit.
+    closest hit.  ``tri_override`` and ``plain`` go to every shadow trace
+    (ops/intersect.py::trace_ray); with an override the batched query is
+    a closest-hit trace, as in the JAX package.
     """
     nlights = int(scn.lights.shape[0])
     last_ldir = torch.zeros_like(x)
@@ -68,7 +76,8 @@ def illum_direct(key, scn: SceneArrays, quirks: Quirks, b, x, normal,
         occ_rows = []
         for i in range(nlights):
             tr_s = trace_ray(x, ldirs[i], scn, t_init=t_run, quirks=quirks,
-                             sphere_material=3)
+                             sphere_material=3, tri_override=tri_override,
+                             plain=plain)
             occ_rows.append(tr_s.material != 0)
             lamb = C.dot(ldirs[i], normal)
             t_run = torch.where(lamb < 0, t_run, tr_s.t)
@@ -76,10 +85,16 @@ def illum_direct(key, scn: SceneArrays, quirks: Quirks, b, x, normal,
     elif nlights:
         xs = torch.cat([x] * nlights, dim=0)
         ds = torch.cat(ldirs, dim=0)
-        occ_all = any_hit(xs, ds, scn, quirks=quirks).reshape(nlights, -1)
+        if tri_override is None:
+            occ_all = any_hit(xs, ds, scn, quirks=quirks, plain=plain)
+        else:
+            occ_all = trace_ray(xs, ds, scn, quirks=quirks,
+                                sphere_material=3,
+                                tri_override=tri_override).material != 0
+        occ_all = occ_all.reshape(nlights, -1)
     for i in range(nlights):
         lp = torch.as_tensor(scn.lights[i, :3], device=x.device)
-        intensity = float(scn.lights[i, 3])
+        intensity = torch.as_tensor(scn.lights[i, 3], device=x.device)
         ldir = ldirs[i]
         lamb = C.dot(ldir, normal)
         occ = occ_all[i].reshape(lamb.shape)
@@ -97,8 +112,15 @@ def illum_direct(key, scn: SceneArrays, quirks: Quirks, b, x, normal,
 
 
 def sample_super(key, scn: SceneArrays, quirks: Quirks, max_bounces: int,
-                 s, ii, jj, ray_id, illum_fn=None):
+                 s, ii, jj, ray_id, tri_override=None, illum_fn=None,
+                 plain: bool = False):
     """One camera sample per pixel on the full scene; returns (R, 3).
+
+    ``tri_override`` replaces the triangle stage of every trace (e.g. with
+    the uniform-grid DDA, models/trianglegrid.py), shadow rays included,
+    as the reference's grid serves every TraceRay
+    (trianglegrid/pathtracer.ocl:245).  ``plain=True`` keeps every trace
+    on plain PyTorch on any device (ops/intersect.py::trace_ray).
 
     ``illum_fn(b, x, normal, shading, total_illum, ray_id, t_hit) ->
     (total_illum, last_ldir)`` replaces the direct-light loop - the
@@ -123,11 +145,13 @@ def sample_super(key, scn: SceneArrays, quirks: Quirks, max_bounces: int,
     )
     diffuse = torch.as_tensor(C.DIFFUSE, device=dev)
     if illum_fn is None:
-        illum_fn = functools.partial(illum_direct, key, scn, quirks)
+        illum_fn = functools.partial(illum_direct, key, scn, quirks,
+                                     tri_override, plain)
 
     def step(b, state):
         alive, o, d, color_fact, div, total_illum, result = state
-        tr = trace_ray(o, d, scn, quirks=quirks, sphere_material=3)
+        tr = trace_ray(o, d, scn, quirks=quirks, sphere_material=3,
+                       tri_override=tri_override, plain=plain)
         m = torch.where(alive, tr.material, -1)
 
         sky = color_fact + C.sky_color(d[..., 2]) / div[..., None]
@@ -175,38 +199,44 @@ def sample_super(key, scn: SceneArrays, quirks: Quirks, max_bounces: int,
 def film_super_plain(key, scn: SceneArrays, width, height, spp, spp_offset,
                      spp_total, quirks, max_bounces=C.MAX_BOUNCES,
                      row_offset=0, rows=None, device="cpu"):
-    """The plain PyTorch film (pre-ambient (rows, W, 3) float32) on any
-    device - the tier-1 wavefront."""
-    sample_fn = functools.partial(sample_super, key, scn, quirks, max_bounces)
+    """The tier-1 wavefront film (pre-ambient (rows, W, 3) float32) in
+    plain PyTorch on any device: the kernels' plain version."""
+    sample_fn = functools.partial(sample_super, key, scn, quirks, max_bounces,
+                                  plain=True)
     return C.accumulate_spp(sample_fn, width, height, spp,
                             spp_offset=spp_offset, spp_total=spp_total,
                             row_offset=row_offset, rows=rows, device=device)
 
 
+def cuda_route(scn: SceneArrays, max_bounces: int = C.MAX_BOUNCES) -> str:
+    """How a CUDA device renders this configuration, decided before any
+    launch: ``"mega_super"`` (B1, <= 512 triangles), ``"mega_blocked"``
+    (B2/B3, 513 to 2^20 triangles) or ``"tier1"`` (the plain wavefront on
+    the card, outside the kernels' gate: > 2^20 triangles, > 8 lights or
+    ``max_bounces < 1``)."""
+    from ..ops import mega_super
+    if max_bounces < 1 or mega_super.unsupported_reason(scn) is not None:
+        return "tier1"
+    return "mega_blocked" if mega_super.uses_blocked(scn) else "mega_super"
+
+
 def film_super(key, scn: SceneArrays, width, height, spp, spp_offset,
                spp_total, quirks, max_bounces=C.MAX_BOUNCES,
-               row_offset=0, rows=None, device="cpu"):
-    """Pre-ambient (rows, W, 3) float32 film on ``device``.
-
-    On a CUDA device the film always comes from the megakernel
-    (ops/mega_super.py), which raises ``NotImplementedError`` for a scene
-    or option it does not cover; there is no fallback.  On the CPU it is
-    the plain wavefront."""
-    device = torch.device(device)
-    if device.type == "cuda":
+               row_offset=0, rows=None, device="cuda"):
+    """Pre-ambient (rows, W, 3) float32 film on ``device``, routed by
+    :func:`cuda_route` on a CUDA device (a launch failure raises; there is
+    no fallback) and rendered by the plain wavefront on the CPU."""
+    device = C.check_device(device)
+    if device.type == "cuda" and cuda_route(scn, max_bounces) != "tier1":
         from ..ops import mega_super
-        if max_bounces < 1:
-            raise NotImplementedError(
-                "the super megakernel runs one bounce; max_bounces=0 has no "
-                "kernel")
         return mega_super.film_super_mega(
             key, scn, width, height, spp, spp_offset, spp_total, quirks,
             row_offset, rows, device=device)
-    if device.type != "cpu":
-        raise ValueError(f"unsupported device {device}")
-    return film_super_plain(key, scn, width, height, spp, spp_offset,
-                            spp_total, quirks, max_bounces, row_offset, rows,
-                            device)
+    # the tier-1 wavefront: on the card its large meshes go through B7
+    sample_fn = functools.partial(sample_super, key, scn, quirks, max_bounces)
+    return C.accumulate_spp(sample_fn, width, height, spp,
+                            spp_offset=spp_offset, spp_total=spp_total,
+                            row_offset=row_offset, rows=rows, device=device)
 
 
 def render_super(key, scene: Scene | SceneArrays, width: int = 512,

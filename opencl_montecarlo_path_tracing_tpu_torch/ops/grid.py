@@ -1,22 +1,39 @@
-"""Uniform-grid build for the VLP grid, on PyTorch tensors.
+"""Uniform-grid acceleration on PyTorch tensors: atomics-free builds and the
+masked DDA traversal.
 
-Port of the part of ``opencl_montecarlo_path_tracing_tpu/ops/grid.py``
-that the VLP family runs: the cell record (``UniformGrid``), the cell
-coordinates of a position and the per-cell scan build
-(``build_grid_cellscan``), whose ``items``/``counts`` equal the JAX
-package's exactly.  The reference's ``initVLPsGrid`` scatters VLP ids into
-``Cell{nels, elem_index[62]}`` with ``atomic_inc`` and drops overflow
-(metropolispathtracer.ocl:620-646); the build here keeps, for every cell,
-the first ``cap`` items in ascending index whose AABB overlaps it - the
-deterministic analogue.  The triangle grid, the pair and host builds and
-the DDA walk belong to the large-mesh slice (ROADMAP A8).
+Port of ``opencl_montecarlo_path_tracing_tpu/ops/grid.py``.  The
+reference scatters item ids into ``Cell{nels, elem_index[62]}`` with
+``atomic_inc`` and drops overflow (``initTrianglesGrid``,
+trianglegrid/pathtracer.ocl:285-330; ``initVLPsGrid``,
+metropolispathtracer.ocl:620-646), which makes cell contents
+nondeterministic.  The builds here keep, for every cell, the first ``cap``
+items in ascending index whose AABB overlaps it, and the overlap count
+clamped to ``cap`` - the deterministic analogue, with ``items``/``counts``
+equal to the JAX package's exactly:
+
+* ``build_grid_pairs``: pair enumeration with a static per-item span
+  bound and a stable sort (triangles);
+* ``build_grid_cellscan``: a per-cell scan over items (VLPs, whose radius
+  can span the whole grid);
+* ``build_grid_host``: the NumPy oracle (the reference's disabled host
+  builder, trianglegrid .c:233-265).
+
+``triangle_grid`` builds the triangle grid of a scene with the reference's
+resolution heuristic (.c:476-483), and ``traverse_triangles`` walks it per
+ray with the 3-D DDA of TraceRay (ocl:157-198), testing each visited
+cell's triangles in the division form of Moller-Trumbore - plain PyTorch,
+as the JAX package's walk is plain XLA (no Pallas kernel).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from ..core.quirks import Quirks, DEFAULT
+from .intersect import SceneArrays, _tri_table, _mt_test
 
 MAX_NELS_PER_CELL = 62  # reference cap (.ocl:1)
 
@@ -77,3 +94,265 @@ def build_grid_cellscan(aabb_min, aabb_max, vmin, cell_size, res,
         counts.append(torch.clamp_max(m.sum(dim=1), cap).to(torch.int32))
     return UniformGrid(items=torch.cat(items), counts=torch.cat(counts),
                        res=(rx, ry, rz), vmin=vmin, cell_size=cell_size)
+
+
+def grid_resolution(vmin, vmax, n_items: int, modifier: float = 3.0):
+    """Host-side resolution heuristic (trianglegrid .c:476-483)."""
+    size = np.asarray(vmax, np.float64) - np.asarray(vmin, np.float64)
+    vol = float(size[0] * size[1] * size[2])
+    if vol <= 0 or n_items == 0:
+        return (1, 1, 1)
+    cr = np.cbrt(modifier * n_items / vol)
+    res = np.floor(size * cr).astype(np.int64)
+    return tuple(int(max(1, min(r, 128))) for r in res)
+
+
+def build_grid_pairs(aabb_min, aabb_max, vmin, cell_size, res,
+                     cap: int = MAX_NELS_PER_CELL,
+                     max_span: tuple = (4, 4, 4)) -> UniformGrid:
+    """Device build by pair enumeration + stable sort.  ``max_span`` is
+    the static per-axis bound on the cells one item's AABB may overlap
+    (items exceeding it are clipped - callers size it from the data)."""
+    dev = aabb_min.device
+    n = aabb_min.shape[0]
+    rx, ry, rz = (int(r) for r in res)
+    ncells = rx * ry * rz
+    vmin = torch.as_tensor(vmin, dtype=torch.float32, device=dev)
+    cell_size = torch.as_tensor(cell_size, dtype=torch.float32, device=dev)
+    lo = _cell_coords(aabb_min, vmin, cell_size, (rx, ry, rz)).to(torch.int64)
+    hi = _cell_coords(aabb_max, vmin, cell_size, (rx, ry, rz)).to(torch.int64)
+    sx, sy, sz = max_span
+    offs = np.stack(np.meshgrid(np.arange(sx), np.arange(sy), np.arange(sz),
+                                indexing="ij"), -1).reshape(-1, 3)
+    offs = torch.as_tensor(offs, dtype=torch.int64, device=dev)
+    cells = lo[:, None, :] + offs[None, :, :]             # (N, S, 3)
+    valid = (cells <= hi[:, None, :]).all(dim=-1)
+    cid = cells[..., 2] * (rx * ry) + cells[..., 1] * rx + cells[..., 0]
+    cid = torch.where(valid, cid, ncells)
+    item = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
+    item = item.expand(cid.shape)
+    # pairs are enumerated item-major, so a stable sort on cell id keeps
+    # item indices ascending within each cell
+    order = torch.argsort(cid.reshape(-1), stable=True)
+    cid_s = cid.reshape(-1)[order]
+    item_s = item.reshape(-1)[order]
+    first = torch.searchsorted(cid_s, cid_s, right=False)
+    rank = torch.arange(cid_s.shape[0], device=dev) - first
+    ok = (cid_s < ncells) & (rank < cap)
+    items = torch.full((ncells + 1, cap), -1, dtype=torch.int32, device=dev)
+    items[cid_s[ok], rank[ok]] = item_s[ok].to(torch.int32)
+    counts = torch.bincount(cid_s, minlength=ncells + 1)[:ncells]
+    counts = torch.clamp_max(counts, cap).to(torch.int32)
+    return UniformGrid(items=items[:ncells], counts=counts,
+                       res=(rx, ry, rz), vmin=vmin, cell_size=cell_size)
+
+
+def build_grid_host(aabb_min, aabb_max, vmin, cell_size, res,
+                    cap: int = MAX_NELS_PER_CELL, device="cpu") -> UniformGrid:
+    """NumPy oracle build (the reference's disabled host builder,
+    trianglegrid .c:233-265, with deterministic ascending-index order);
+    the result moves to ``device``."""
+    aabb_min = np.asarray(aabb_min, np.float32)
+    aabb_max = np.asarray(aabb_max, np.float32)
+    rx, ry, rz = (int(r) for r in res)
+    ncells = rx * ry * rz
+    items = np.full((ncells, cap), -1, np.int32)
+    counts = np.zeros(ncells, np.int32)
+    vmin = np.asarray(vmin, np.float32)
+    cell_size = np.asarray(cell_size, np.float32)
+    res_a = np.asarray((rx, ry, rz), np.int64)
+    for i in range(aabb_min.shape[0]):
+        lo = np.clip(np.floor((aabb_min[i] - vmin) / cell_size)
+                     .astype(np.int64), 0, res_a - 1)
+        hi = np.clip(np.floor((aabb_max[i] - vmin) / cell_size)
+                     .astype(np.int64), 0, res_a - 1)
+        for z in range(lo[2], hi[2] + 1):
+            for y in range(lo[1], hi[1] + 1):
+                for x in range(lo[0], hi[0] + 1):
+                    c = z * rx * ry + y * rx + x
+                    if counts[c] < cap:
+                        items[c, counts[c]] = i
+                    counts[c] += 1
+    counts = np.minimum(counts, cap)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return UniformGrid(items=t(items), counts=t(counts), res=(rx, ry, rz),
+                       vmin=t(vmin), cell_size=t(cell_size))
+
+
+def grid_stats(grid: UniformGrid) -> dict:
+    """Debug statistics - the analogue of the reference's (disabled)
+    printTrianglesGrid kernel (trianglegrid/pathtracer.ocl:332-346)."""
+    counts = grid.counts.cpu().numpy()
+    occupied = counts > 0
+    return {
+        "ncells": int(counts.size),
+        "total_nels": int(counts.sum()),
+        "occupied_cells": int(occupied.sum()),
+        "max_nels": int(counts.max(initial=0)),
+        "mean_nels_occupied": (float(counts[occupied].mean())
+                               if occupied.any() else 0.0),
+        "capacity": int(grid.items.shape[1]),
+        "res": tuple(grid.res),
+    }
+
+
+def max_cell_occupancy(amin, amax, vmin, cell_size, res) -> int:
+    """Host-side max items per cell (a difference-array histogram over the
+    items' cell ranges), which sizes the per-cell capacity: the table
+    shrinks to the true occupancy when it is below the cap."""
+    rx, ry, rz = res
+    res_a = np.asarray(res, np.int64)
+    lo = np.clip(np.floor((amin - vmin) / cell_size).astype(np.int64), 0,
+                 res_a - 1)
+    hi = np.clip(np.floor((amax - vmin) / cell_size).astype(np.int64), 0,
+                 res_a - 1)
+    diff = np.zeros((rz + 1, ry + 1, rx + 1), np.int64)
+    np.add.at(diff, (lo[:, 2], lo[:, 1], lo[:, 0]), 1)
+    np.add.at(diff, (hi[:, 2] + 1, lo[:, 1], lo[:, 0]), -1)
+    np.add.at(diff, (lo[:, 2], hi[:, 1] + 1, lo[:, 0]), -1)
+    np.add.at(diff, (lo[:, 2], lo[:, 1], hi[:, 0] + 1), -1)
+    np.add.at(diff, (hi[:, 2] + 1, hi[:, 1] + 1, lo[:, 0]), 1)
+    np.add.at(diff, (hi[:, 2] + 1, lo[:, 1], hi[:, 0] + 1), 1)
+    np.add.at(diff, (lo[:, 2], hi[:, 1] + 1, hi[:, 0] + 1), 1)
+    np.add.at(diff, (hi[:, 2] + 1, hi[:, 1] + 1, hi[:, 0] + 1), -1)
+    counts = diff.cumsum(0).cumsum(1).cumsum(2)[:rz, :ry, :rx]
+    return int(counts.max(initial=0))
+
+
+def triangle_grid(scn: SceneArrays, modifier: float = 3.0,
+                  cap: int = MAX_NELS_PER_CELL, device_build: bool = True,
+                  device="cpu"):
+    """The triangle grid of a scene on ``device``: (grid, box) with box =
+    (vmin, vmax) numpy.  ``device_build`` picks the pair build (on
+    ``device``) or the host oracle; ``cap`` is an upper bound - the
+    per-cell capacity is the scene's true max occupancy when smaller."""
+    v = np.concatenate([scn.tri_v0[:, None, :],
+                        (scn.tri_v0 + scn.tri_e0)[:, None, :],
+                        (scn.tri_v0 + scn.tri_e2)[:, None, :]], axis=1)
+    amin = v.min(axis=1)
+    amax = v.max(axis=1)
+    vmin = amin.min(axis=0)
+    vmax = amax.max(axis=0)
+    res = grid_resolution(vmin, vmax, v.shape[0], modifier)
+    cell = ((vmax - vmin) / np.asarray(res, np.float32)).astype(np.float32)
+    cap = max(1, min(cap, max_cell_occupancy(amin, amax, vmin, cell, res)))
+    if device_build:
+        span = (np.floor((amax - amin) / np.maximum(cell, 1e-20))
+                .astype(np.int64) + 2)
+        max_span = tuple(int(min(s, r)) for s, r in zip(span.max(axis=0), res))
+        grid = build_grid_pairs(torch.as_tensor(amin, device=device),
+                                torch.as_tensor(amax, device=device),
+                                vmin, cell, res, cap, max_span)
+    else:
+        grid = build_grid_host(amin, amax, vmin, cell, res, cap, device)
+    return grid, (vmin.astype(np.float32), vmax.astype(np.float32))
+
+
+def traverse_triangles(o, d, t, m, nx, ny, nz, needs_norm,
+                       scn: SceneArrays, grid: UniformGrid,
+                       quirks: Quirks = DEFAULT):
+    """Walk the grid per ray, testing the (<= cap) triangles of each
+    visited cell; updates the running (t, m, normal, needs) exactly like
+    the brute-force scan.  Faithful to TraceRay's DDA (ocl:157-198),
+    including its break conditions (the running-t check comes after
+    stepping ``next``, so one extra cell may be visited)."""
+    ox, oy, oz = o.unbind(-1)
+    dx, dy, dz = d.unbind(-1)
+    dev = o.device
+    rx, ry, rz = grid.res
+    vmin = grid.vmin.to(dev)
+    cs = grid.cell_size.to(dev)
+    vmax = vmin + cs * torch.as_tensor([rx, ry, rz], dtype=torch.float32,
+                                       device=dev)
+    table = torch.from_numpy(_tri_table(scn)).to(dev)
+    items = grid.items.to(dev)
+    counts = grid.counts.to(dev)
+    cap = items.shape[1]
+    t = torch.broadcast_to(t, ox.shape)
+    vminx, vminy, vminz = vmin.unbind(0)
+    vmaxx, vmaxy, vmaxz = vmax.unbind(0)
+    csx, csy, csz = cs.unbind(0)
+
+    invx, invy, invz = 1.0 / dx, 1.0 / dy, 1.0 / dz
+    ex0 = torch.minimum((vminx - ox) * invx, (vmaxx - ox) * invx)
+    ex1 = torch.maximum((vminx - ox) * invx, (vmaxx - ox) * invx)
+    ey0 = torch.minimum((vminy - oy) * invy, (vmaxy - oy) * invy)
+    ey1 = torch.maximum((vminy - oy) * invy, (vmaxy - oy) * invy)
+    ez0 = torch.minimum((vminz - oz) * invz, (vmaxz - oz) * invz)
+    ez1 = torch.maximum((vminz - oz) * invz, (vmaxz - oz) * invz)
+    t0 = torch.maximum(torch.maximum(ex0, ey0), ez0)
+    t1 = torch.minimum(torch.minimum(ex1, ey1), ez1)
+    active = t0 <= t1   # the ray hits the grid box (ocl:165)
+
+    inside = ((ox >= vminx) & (ox <= vmaxx) & (oy >= vminy) & (oy <= vmaxy)
+              & (oz >= vminz) & (oz <= vmaxz))
+    px = torch.where(inside, ox, ox + dx * t0)
+    py = torch.where(inside, oy, oy + dy * t0)
+    pz = torch.where(inside, oz, oz + dz * t0)
+
+    def cell_of(p, v, c, r):
+        return torch.clamp(torch.floor((p - v) / c).to(torch.int32), 0,
+                           r - 1)
+
+    f32 = torch.float32
+    ix = cell_of(px, vminx, csx, rx)
+    iy = cell_of(py, vminy, csy, ry)
+    iz = cell_of(pz, vminz, csz, rz)
+    # divide by tensors: torch divides a CUDA tensor by a Python scalar as
+    # a multiply by its reciprocal (two roundings)
+    rf = torch.tensor([rx, ry, rz], dtype=f32, device=dev)
+    dlx = (ex1 - ex0) / rf[0]
+    dly = (ey1 - ey0) / rf[1]
+    dlz = (ez1 - ez0) / rf[2]
+    posx, posy, posz = dx > 0, dy > 0, dz > 0
+    nxx = torch.where(posx, ex0 + (ix + 1).to(f32) * dlx,
+                      ex0 + float(rx) * dlx - ix.to(f32) * dlx)
+    nxy = torch.where(posy, ey0 + (iy + 1).to(f32) * dly,
+                      ey0 + float(ry) * dly - iy.to(f32) * dly)
+    nxz = torch.where(posz, ez0 + (iz + 1).to(f32) * dlz,
+                      ez0 + float(rz) * dlz - iz.to(f32) * dlz)
+    stx = torch.where(posx, 1, -1).to(torch.int32)
+    sty = torch.where(posy, 1, -1).to(torch.int32)
+    stz = torch.where(posz, 1, -1).to(torch.int32)
+    spx = torch.where(posx, rx, -1).to(torch.int32)
+    spy = torch.where(posy, ry, -1).to(torch.int32)
+    spz = torch.where(posz, rz, -1).to(torch.int32)
+
+    # a static trip count, as in the JAX package
+    for _ in range(rx + ry + rz + 2):
+        cell = torch.clamp(iz * (rx * ry) + iy * rx + ix, 0,
+                           rx * ry * rz - 1).to(torch.int64)
+        cnt = counts[cell]
+        rows = items[cell]                                  # (R, cap)
+        trows = table[torch.clamp_min(rows, 0).to(torch.int64)]
+        for kk in range(cap):
+            tri = rows[:, kk]
+            live = active & (kk < cnt) & (tri >= 0)
+            row = trows[:, kk, :]                           # (R, 12)
+            ok, rd = _mt_test(ox, oy, oz, dx, dy, dz, row.unbind(-1), quirks)
+            ok = live & ok & (rd < t)
+            t = torch.where(ok, rd, t)
+            m = torch.where(ok, 4, m)
+            nx = torch.where(ok, row[:, 9], nx)
+            ny = torch.where(ok, row[:, 10], ny)
+            nz = torch.where(ok, row[:, 11], nz)
+            needs_norm = needs_norm & ~ok
+
+        # step along the axis with the smallest next crossing (ocl:191-193)
+        selx = (nxx <= nxy) & (nxx <= nxz)
+        sely = ~selx & (nxy <= nxz)
+        selz = ~selx & ~sely
+        nxx = torch.where(selx, nxx + dlx, nxx)
+        nxy = torch.where(sely, nxy + dly, nxy)
+        nxz = torch.where(selz, nxz + dlz, nxz)
+        next_ax = torch.where(selx, nxx, torch.where(sely, nxy, nxz))
+        cont = ~(t < next_ax)                               # ocl:195
+        ix = torch.where(cont & selx, ix + stx, ix)
+        iy = torch.where(cont & sely, iy + sty, iy)
+        iz = torch.where(cont & selz, iz + stz, iz)
+        at_stop = (torch.where(selx, ix, torch.where(sely, iy, iz))
+                   == torch.where(selx, spx, torch.where(sely, spy, spz)))
+        active = active & cont & ~at_stop
+    return t, m, nx, ny, nz, needs_norm

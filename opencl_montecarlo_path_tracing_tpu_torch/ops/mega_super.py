@@ -1,18 +1,27 @@
-"""The super megakernel (kernel B1): wrapper, gate and plain version.
+"""The super megakernels (kernel B1; kernels B2/B3): wrappers, gate and
+plain version.
 
 ``film_super_mega`` renders the pre-ambient (rows, W, 3) float32 film of
 the mirror-free ``super`` family - threefry draws, thin-lens camera,
 closest hit, one shadow ray per light (uncapped, or the _lmem carry-t
-quirk), 4-material shading, spp accumulation - in one launch of the
-hand-written CUDA kernel ``csrc/mega_super.cu``.  It replaces the TPU
-kernel ``opencl_montecarlo_path_tracing_tpu/ops/pallas_super.py::
-film_super_mega`` -> ``_mega_kernel`` in its SMEM tier (<= 512 triangles);
-the blocked and stream tiers for larger meshes (ROADMAP B2/B3) are not
-ported yet.
+quirk), 4-material shading, spp accumulation - in one launch of a
+hand-written CUDA kernel.  Both replace the TPU kernel
+``opencl_montecarlo_path_tracing_tpu/ops/pallas_super.py::film_super_mega``
+-> ``_mega_kernel``, chosen by mesh size as there:
+
+* ``csrc/mega_super.cu`` (B1, the SMEM tier) for <= 512 triangles: the
+  whole triangle table in shared memory, scanned by every ray;
+* ``csrc/mega_blocked.cu`` (B2/B3, the blocked and stream tiers) for 513
+  to 2^20 triangles: Morton blocks of 128 triangles
+  (``ops/tri_blocks.py``) walked behind per-warp AABB votes.
+  ``force_blocked`` picks it on any mesh (tests).
+
+The gate is the JAX ``supported()``: <= 8 lights and <= 2^20 triangles.
 
 ``film_super_mega_plain`` is the same function in plain PyTorch (the
-tier-1 wavefront of models/super.py), on any device.  The wrapper takes it
-only when the film's device is the CPU; on a CUDA device it launches the
+tier-1 wavefront of models/super.py, whose meshes of >= 2048 triangles go
+through kernel B7's plain version), on any device.  The wrapper takes it
+only when the film's device is the CPU; on a CUDA device it launches a
 kernel or raises.
 """
 
@@ -24,38 +33,50 @@ import torch
 from ..core.camera import make_camera
 from ..core.quirks import Quirks, DEFAULT
 from ..models import common as C
-from .intersect import SceneArrays, _tri_table
+from .intersect import SceneArrays, _tri_table, derived
 
-#: Launches of the CUDA kernel since the last reset (the wrapper adds one
+#: Launches of the B1 kernel since the last reset (the wrapper adds one
 #: per launch and nowhere else).
 LAUNCHES = 0
+#: Launches of the B2/B3 kernel since the last reset (likewise).
+BLOCKED_LAUNCHES = 0
 
-MAX_TRIANGLES = 512   # the TPU kernel's SMEM tier (_MAX_SMEM_TRIANGLES)
-MAX_LIGHTS = 8        # shadow-ray sites per bounce (SITE_STRIDE_BOUNCE)
-_TRI_PAD = 8          # triangle table rows pad to a multiple of this
+MAX_SMEM_TRIANGLES = 512   # B1: the TPU kernel's SMEM tier
+MAX_TRIANGLES = 1 << 20    # B2/B3: the stream tier's cap
+MAX_LIGHTS = 8             # shadow-ray sites per bounce (SITE_STRIDE_BOUNCE)
+_TRI_PAD = 8               # B1's triangle rows pad to a multiple of this
 
 
 def unsupported_reason(scn: SceneArrays) -> str | None:
-    """Why the kernel cannot render ``scn``, or None when it can (the
-    port's form of the TPU kernel's ``supported()`` gate)."""
+    """Why no kernel can render ``scn``, or None when one can (the port's
+    form of the TPU kernel's ``supported()`` gate)."""
     nt = int(scn.tri_v0.shape[0])
     if nt > MAX_TRIANGLES:
-        return (f"{nt} triangles: the CUDA super kernel covers <= "
-                f"{MAX_TRIANGLES} (the SMEM tier); larger meshes need the "
-                "blocked/stream tiers, ROADMAP queue B items B2/B3")
+        return (f"{nt} triangles: the CUDA super kernels cover <= "
+                f"{MAX_TRIANGLES} (the stream tier's cap)")
     nl = int(scn.lights.shape[0])
     if nl > MAX_LIGHTS:
-        return (f"{nl} lights: the super kernel covers <= {MAX_LIGHTS} "
+        return (f"{nl} lights: the super kernels cover <= {MAX_LIGHTS} "
                 "lights (8 RNG sites per bounce)")
     return None
 
 
-def pack_scene(scn: SceneArrays) -> tuple[np.ndarray, int]:
+def uses_blocked(scn: SceneArrays, force_blocked: bool | None = None) -> bool:
+    """Whether ``film_super_mega`` launches B2/B3 (else B1) for ``scn``."""
+    nt = int(scn.tri_v0.shape[0])
+    if force_blocked is not None:
+        return bool(force_blocked) and nt > 0
+    return nt > MAX_SMEM_TRIANGLES
+
+
+def pack_scene(scn: SceneArrays, triangles: bool = True
+               ) -> tuple[np.ndarray, int]:
     """The kernel's float32 scene buffer and its padded triangle count:
     [ntp*12 triangle table][camera up, right, eye_offset, pos]
     [nl*4 lights][ns*3 sphere centres][nq square k][nq square z].
-    Padding rows are all zeros: det = 0 never hits."""
-    nt = int(scn.tri_v0.shape[0])
+    Padding rows are all zeros: det = 0 never hits.  ``triangles=False``
+    leaves the table out (ntp = 0), as B2/B3 take theirs apart."""
+    nt = int(scn.tri_v0.shape[0]) if triangles else 0
     ntp = -(-nt // _TRI_PAD) * _TRI_PAD
     tbl = np.zeros((ntp, 12), np.float32)
     if nt:
@@ -94,15 +115,14 @@ def film_super_mega(key, scn: SceneArrays, width: int, height: int,
                     spp: int, spp_offset: int = 0,
                     spp_total: int | None = None, quirks: Quirks = DEFAULT,
                     row_offset: int = 0, rows: int | None = None,
-                    device="cuda"):
+                    device="cuda", force_blocked: bool | None = None):
     """Pre-ambient (rows, W, 3) float32 film of the band
     [row_offset, row_offset+rows) with global samples
     [spp_offset, spp_offset+spp) of spp_total, on ``device``.
 
-    On a CUDA device: one launch of the CUDA kernel; raises
-    ``NotImplementedError`` for a scene it does not cover.  On the CPU:
-    :func:`film_super_mega_plain`."""
-    global LAUNCHES
+    On a CUDA device: one launch of B1 (<= 512 triangles) or B2/B3 (larger
+    meshes, or ``force_blocked``); raises ``NotImplementedError`` for a
+    scene outside the gate.  On the CPU: :func:`film_super_mega_plain`."""
     device = torch.device(device)
     if spp_total is None:
         spp_total = spp
@@ -128,32 +148,106 @@ def film_super_mega(key, scn: SceneArrays, width: int, height: int,
         raise ValueError(f"bad film shape/spp: {rows}x{width}, spp={spp}")
     if rows * width >= 1 << 31:
         raise ValueError(f"{rows}x{width} pixels exceed the int32 index")
-
-    buf_np, ntp = pack_scene(scn)
-    buf = torch.from_numpy(buf_np).to(device)
     out = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
-    for name, t in (("scene", buf), ("out", out)):
-        if t.device != out.device or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 tensor "
-                             f"on {out.device}")
-
-    from ..utils.build import load
-    lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.mega_super_launch(
-            buf.data_ptr(), ntp, int(scn.lights.shape[0]),
-            int(scn.sphere_centers.shape[0]), int(scn.square_k.shape[0]),
-            _u32_arg("k0", key[0]), _u32_arg("k1", key[1]),
+    args = (_u32_arg("k0", key[0]), _u32_arg("k1", key[1]),
             _u32_arg("spp_offset", spp_offset),
             _u32_arg("spp_total", spp_total),
             _u32_arg("row_offset", row_offset), rows, width, spp,
             int(bool(quirks.accept_negative_t)),
-            int(bool(quirks.shadow_carry_t)), out.data_ptr(), stream)
+            int(bool(quirks.shadow_carry_t)))
+    if uses_blocked(scn, force_blocked):
+        _launch_blocked(scn, args, out, None)
+    else:
+        _launch_smem(scn, args, out)
+    return out
+
+
+def _check(tensors, device):
+    for name, t in tensors:
+        if t.device != device or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor "
+                             f"on {device}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch_smem(scn: SceneArrays, args, out):
+    """One launch of B1 into ``out``."""
+    global LAUNCHES
+    buf_np, ntp = pack_scene(scn)
+    buf = torch.from_numpy(buf_np).to(out.device)
+    _check((("scene", buf), ("out", out)), out.device)
+    from ..utils.build import load
+    lib = load()
+    with torch.cuda.device(out.device):
+        err = lib.mega_super_launch(
+            buf.data_ptr(), ntp, int(scn.lights.shape[0]),
+            int(scn.sphere_centers.shape[0]), int(scn.square_k.shape[0]),
+            *args, out.data_ptr(), _stream(out.device))
     if err != 0:
         msg = lib.mega_super_error_string(err).decode()
         raise RuntimeError(
             f"mega_super launch failed: CUDA error {err} ({msg})")
     LAUNCHES += 1
-    return out
+
+
+def block_tables(scn: SceneArrays, device) -> tuple:
+    """(rows, boxes, macros) of ``tri_blocks.kernel_tables`` as float32
+    tensors on ``device``, built once per prepared scene."""
+    from .tri_blocks import kernel_tables
+
+    def make(scn):
+        return tuple(torch.from_numpy(t).to(device)
+                     for t in kernel_tables(scn))
+    return derived(scn, "mega_super.block_tables", device, make)
+
+
+def _launch_blocked(scn: SceneArrays, args, out, stats):
+    """One launch of B2/B3 into ``out``; ``stats`` (a zeroed (4,) int64
+    tensor, or None) receives its work tally (:func:`blocked_stats`)."""
+    global BLOCKED_LAUNCHES
+    buf_np, _ = pack_scene(scn, triangles=False)
+    buf = torch.from_numpy(buf_np).to(out.device)
+    rows_t, boxes, macros = block_tables(scn, out.device)
+    _check((("scene", buf), ("rows", rows_t), ("boxes", boxes),
+            ("macros", macros), ("out", out)), out.device)
+    from ..utils.build import load
+    lib = load()
+    with torch.cuda.device(out.device):
+        err = lib.mega_blocked_launch(
+            buf.data_ptr(), int(scn.lights.shape[0]),
+            int(scn.sphere_centers.shape[0]), int(scn.square_k.shape[0]),
+            rows_t.data_ptr(), boxes.data_ptr(), macros.data_ptr(),
+            int(macros.shape[0]), *args, out.data_ptr(),
+            None if stats is None else stats.data_ptr(),
+            _stream(out.device))
+    if err != 0:
+        msg = lib.mega_blocked_error_string(err).decode()
+        raise RuntimeError(
+            f"mega_blocked launch failed: CUDA error {err} ({msg})")
+    BLOCKED_LAUNCHES += 1
+
+
+def blocked_stats(key, scn: SceneArrays, width: int, height: int, spp: int,
+                  spp_offset: int = 0, spp_total: int | None = None,
+                  quirks: Quirks = DEFAULT, device="cuda") -> dict:
+    """B2/B3's work over one render of this configuration (one counting
+    launch on ``device``; the film is discarded): ``needed`` (ray,
+    triangle) pairs in blocks whose box the ray's own test passes,
+    ``tested`` pairs the warps test (32 lanes x 128 rows a taken block),
+    and the ``macro_tests`` and ``block_tests`` of the warps' walks."""
+    device = torch.device(device)
+    out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
+    stats = torch.zeros(4, dtype=torch.int64, device=device)
+    args = (_u32_arg("k0", key[0]), _u32_arg("k1", key[1]),
+            _u32_arg("spp_offset", spp_offset),
+            _u32_arg("spp_total", spp if spp_total is None else spp_total),
+            0, int(height), int(width), int(spp),
+            int(bool(quirks.accept_negative_t)),
+            int(bool(quirks.shadow_carry_t)))
+    _launch_blocked(scn, args, out, stats)
+    return dict(zip(("needed", "tested", "macro_tests", "block_tests"),
+                    stats.tolist()))

@@ -33,7 +33,7 @@ import torch
 from ..core.quirks import Quirks, DEFAULT
 from ..models import common as C
 from .intersect import SceneArrays
-from .mega_super import MAX_LIGHTS, MAX_TRIANGLES, _u32_arg, pack_scene
+from .mega_super import MAX_LIGHTS, MAX_SMEM_TRIANGLES, _u32_arg, pack_scene
 from .vlp import vlp_aabbs
 
 #: Launches of the CUDA kernel since the last reset (the wrapper adds one
@@ -59,9 +59,9 @@ def unsupported_reason(scn: SceneArrays, quirks: Quirks = DEFAULT,
     if max_bounces < 1:
         return f"max_bounces={max_bounces}: the VLP megakernel runs one bounce"
     nt = int(scn.tri_v0.shape[0])
-    if nt > MAX_TRIANGLES:
+    if nt > MAX_SMEM_TRIANGLES:
         return (f"{nt} triangles: the VLP megakernel stages <= "
-                f"{MAX_TRIANGLES} triangles in shared memory")
+                f"{MAX_SMEM_TRIANGLES} triangles in shared memory")
     return None
 
 
@@ -116,8 +116,7 @@ def film_vlp_mega_plain(key, scn: SceneArrays, vlps, width: int,
         spp_total = spp
     return film_vlp_plain(key, scn, torch.as_tensor(vlps, device=device),
                           grid, width, height, spp, spp_offset, spp_total,
-                          quirks, max_bounces, row_offset, rows, device,
-                          impl="scan")
+                          quirks, max_bounces, row_offset, rows, device)
 
 
 def film_vlp_mega(key, scn: SceneArrays, vlps, width: int, height: int,

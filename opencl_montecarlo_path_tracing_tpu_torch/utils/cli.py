@@ -1,10 +1,13 @@
-"""Command-line parity with the reference binaries (super and VLP variants).
+"""Command-line parity with the reference binaries (super, trianglegrid and
+the VLP variants).
 
 Port of ``opencl_montecarlo_path_tracing_tpu/utils/cli.py`` for the
 ported subcommands, with the same positionals:
 
     python -m opencl_montecarlo_path_tracing_tpu_torch super     [w] [h]
     python -m opencl_montecarlo_path_tracing_tpu_torch superlmem [w] [h]
+    python -m opencl_montecarlo_path_tracing_tpu_torch trianglegrid \
+        [w] [h] [CELL_SIZE_MODIFIER]
     python -m opencl_montecarlo_path_tracing_tpu_torch bidirectional \
         [w] [h] [N_VLP]
     python -m opencl_montecarlo_path_tracing_tpu_torch metropolis \
@@ -12,7 +15,8 @@ ported subcommands, with the same positionals:
     python -m opencl_montecarlo_path_tracing_tpu_torch metropolis_vlpgrid \
         [w] [h] [nseedpaths] [mutation_rounds] [CELL_SIZE_MODIFIER]
 
-Options: --scene-dir (the four reference text files), --spp, --seed,
+Options: --scene-dir (the four reference text files), --triangles-file
+(an alternate mesh file in the same format), --spp, --seed,
 --out, --quirks {default,reference}, --pam-maxval {255,65535},
 --dynamic-grid-res (metropolis_vlpgrid: the reference's box-derived grid
 resolution, one host read of the VLP box), and --device (default
@@ -66,6 +70,9 @@ def main(argv=None):
     ap.add_argument("variant", choices=VARIANTS)
     ap.add_argument("positionals", nargs="*")
     ap.add_argument("--scene-dir", default=".")
+    ap.add_argument("--triangles-file", default="triangles.txt",
+                    help="alternate mesh in the same format (the reference "
+                         "ships torus.txt to swap in by renaming)")
     ap.add_argument("--spp", type=int, default=64)
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--out", default=None)
@@ -128,7 +135,7 @@ def main(argv=None):
         print(f"Using device: {device}")
 
     try:
-        scene = load_scene(ns.scene_dir)
+        scene = load_scene(ns.scene_dir, triangles=ns.triangles_file)
     except FileNotFoundError as e:
         print(f"error: missing scene file: {e.filename} "
               f"(looked in {ns.scene_dir!r}; need spheres.txt, "
@@ -147,6 +154,13 @@ def main(argv=None):
         stage = "rendering"
         film = render_super(key, scene, w, h, spp=ns.spp, quirks=quirks,
                             device=device)
+    elif ns.variant == "trianglegrid":
+        from ..models.trianglegrid import render_trianglegrid
+        stage = "grid init + rendering"
+        film = render_trianglegrid(
+            key, scene, w, h, spp=ns.spp,
+            cell_size_modifier=_positional(pos, 2, 3.0, float),
+            quirks=quirks, device=device)
     elif ns.variant == "bidirectional":
         from ..models.bidirectional import render_bidirectional
         stage = "light pass + rendering"

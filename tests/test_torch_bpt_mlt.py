@@ -214,7 +214,7 @@ def test_cuda_request_never_falls_back_to_cpu(variant):
 
 def test_cuda_route_is_decided_from_the_configuration():
     """B4 when its gate passes; the tier-1 wavefront (gather B6) outside
-    it; a tier-1 mesh of >= 2048 triangles needs kernel B7 and raises."""
+    it, whose traces of a mesh of >= 2048 triangles are kernel B7."""
     from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
         REFERENCE, REFERENCE_LMEM)
     from opencl_montecarlo_path_tracing_tpu_torch.models.bidirectional import (
@@ -233,5 +233,4 @@ def test_cuda_route_is_decided_from_the_configuration():
                            square_kj=base.square_kj,
                            triangles=tri.astype(np.float32),
                            lights=base.lights))
-    with pytest.raises(NotImplementedError, match="B7"):
-        cuda_route(big, DEFAULT)
+    assert cuda_route(big, DEFAULT) == "tier1"

@@ -1,5 +1,5 @@
-"""Kernels B1, B4 and B6 on the card: each CUDA kernel == its plain
-PyTorch version.
+"""Kernels B1, B2/B3, B4, B6 and B7 on the card: each CUDA kernel == its
+plain PyTorch version, and each route launches the kernels it names.
 
 These tests need a CUDA GPU (the kernels have no CPU mode); without one
 they skip with a reason.  The file imports neither JAX nor the JAX
@@ -16,7 +16,12 @@ per-family contract of ``tools/validate_crn_frame.py`` (utils/crn.py:
 display-scale p99.5 < 1e-5 and razor-edge ties (> 1e-4) on < 0.6% of
 pixels), since any two float implementations may flip a razor-edge tie;
 for B6, rtol = atol = 1e-5 (the same FP32 formula, no FMA, summed in the
-same order on both sides).
+same order on both sides).  B2/B3 forced onto B1's cases equals B1's film
+at the same contract and at max abs 2e-5 where no tie shows.  For B7,
+``t`` at rtol 2e-4 where both hit and the hit/miss and triangle index on
+>= 99.9% of rays: the kernel sums the K=13 cancelling products in feature
+order with no FMA, the plain version through cuBLAS in its own order (the
+tolerance ``tests/test_mxu_triangles.py`` gives two such orders).
 """
 
 import numpy as np
@@ -28,8 +33,10 @@ from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
 from opencl_montecarlo_path_tracing_tpu_torch.ops import gather_vlp as G6
 from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_super as M
 from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_vlp as M4
+from opencl_montecarlo_path_tracing_tpu_torch.ops import tri_closest as B7
 from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import prep_scene
-from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import demo_scene
+from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+    demo_scene, ripple_sheet_mesh, torus_mesh)
 from opencl_montecarlo_path_tracing_tpu_torch.scene.scene import Scene
 from opencl_montecarlo_path_tracing_tpu_torch.utils.crn import crn_ok
 
@@ -50,6 +57,45 @@ def small_scene() -> Scene:
             [[6, 4, 10.5], [6.3, 4.1, 10.9], [6.2, 4.0, 11.0]],
         ], np.float32),
         lights=np.array([[10, 4, 10, 200], [15, 2, 7, 150]], np.float32))
+
+
+def sheet_scene(n_major: int, n_minor: int) -> Scene:
+    """The demo scene's spheres, squares and lights with a ripple sheet of
+    2 * n_major * n_minor triangles (scene/builtin.py::large_mesh_scene's
+    mesh at another density)."""
+    base = demo_scene()[0]
+    return Scene(sphere_centers=base.sphere_centers,
+                 square_kj=base.square_kj,
+                 triangles=ripple_sheet_mesh(n_major, n_minor),
+                 lights=base.lights)
+
+
+def soup_scene() -> Scene:
+    """tests/test_megakernel.py::test_megakernel_blocked_random_soup's
+    scene: random triangles on the view ray of pixel (20, 150), zero-area
+    slivers and flat axis-aligned ones (zero-extent block boxes, whose
+    slab tests meet 0 * inf), 24 of them."""
+    rng = np.random.default_rng(31)
+    c = np.array([17.959, 4.252, 10.25], np.float32)
+    n = 96
+    base = (c + rng.uniform(-1.2, 1.2, (n, 1, 3))).astype(np.float32)
+    tris = base + rng.uniform(-0.35, 0.35, (n, 3, 3)).astype(np.float32)
+    tris[:8, 2] = tris[:8, 1]
+    for ax in range(3):
+        tris[8 + ax::12, :, ax] = tris[8 + ax::12, :1, ax]
+    return Scene(sphere_centers=np.zeros((0, 3), np.float32),
+                 square_kj=np.zeros((0, 2), np.float32),
+                 triangles=tris,
+                 lights=np.array([[10, 4, 10, 200]], np.float32))
+
+
+def window_torus() -> Scene:
+    """A 120-triangle torus on the view ray of pixel (20, 150)."""
+    return Scene(sphere_centers=np.zeros((0, 3), np.float32),
+                 square_kj=np.zeros((0, 2), np.float32),
+                 triangles=torus_mesh(center=(17.959, 4.252, 10.25),
+                                      n_major=10, n_minor=6),
+                 lights=np.array([[10, 4, 10, 200]], np.float32))
 
 
 def carry_scene() -> Scene:
@@ -95,6 +141,22 @@ def synth_vlps(n_live=10, n_dead=14, seed=0):
     v[live_idx, 3] = rng.uniform(0.05, 0.9, n_live)
     return v
 
+
+# B2/B3 cases against the plain film: (name, scene, seed, (w, h, spp),
+# window kwargs, quirks name).  The sheet's 1800 triangles fill 15 blocks,
+# not a whole macro of 8; the windows see the meshes.
+BLOCKED_CASES = [
+    ("sheet_1800", lambda: sheet_scene(30, 30), 3, (64, 96, 2),
+     dict(row_offset=200, rows=32), "default"),
+    ("sheet_1800_reference", lambda: sheet_scene(30, 30), 4, (64, 96, 2),
+     dict(row_offset=300, rows=16), "reference"),
+    ("sheet_1800_carry_t", lambda: sheet_scene(30, 30), 5, (64, 96, 2),
+     dict(row_offset=300, rows=16), "reference_lmem"),
+    ("soup_axis_aligned", soup_scene, 37, (40, 158, 2),
+     dict(row_offset=150, rows=8), "default"),
+    ("torus_window", window_torus, 23, (40, 158, 2),
+     dict(row_offset=150, rows=8), "default"),
+]
 
 # B4 cases (tests/test_megakernel.py:705-894) on small_scene(): name ->
 # (seed, table, grid, (w, h, spp), window kwargs).  table: the synth_vlps
@@ -269,3 +331,131 @@ def test_vlp_render_on_gpu_launches_the_kernel(variant, cuda_device):
     torch.cuda.synchronize()
     assert M4.LAUNCHES == before + 1
     assert film.shape == (64, 64, 3) and torch.isfinite(film).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_blocked_kernel_forced_matches_smem_kernel(case, cuda_device):
+    """B2/B3 forced onto B1's cases renders B1's film (a scene without
+    triangles stays on B1, as in the JAX package)."""
+    _, make_scene, seed, (w, h, spp), kw, qname = case
+    scn = prep_scene(make_scene())
+    blocked = int(scn.tri_v0.shape[0] > 0)
+    before = M.LAUNCHES, M.BLOCKED_LAUNCHES
+    got = M.film_super_mega((seed, 0), scn, w, h, spp, quirks=QUIRKS[qname],
+                            device=cuda_device, force_blocked=True, **kw)
+    want = M.film_super_mega((seed, 0), scn, w, h, spp, quirks=QUIRKS[qname],
+                             device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    assert (M.LAUNCHES, M.BLOCKED_LAUNCHES) == (before[0] + 2 - blocked,
+                                                before[1] + blocked)
+    ok, st = crn_ok(got, want, spp)
+    assert ok, st
+    if st["tie_frac"] == 0.0:
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BLOCKED_CASES,
+                         ids=[c[0] for c in BLOCKED_CASES])
+def test_blocked_kernel_matches_plain_on_gpu(case, cuda_device):
+    _, make_scene, seed, (w, h, spp), kw, qname = case
+    scn = prep_scene(make_scene())
+    before = M.BLOCKED_LAUNCHES
+    got = M.film_super_mega((seed, 0), scn, w, h, spp, quirks=QUIRKS[qname],
+                            device=cuda_device, force_blocked=True, **kw)
+    torch.cuda.synchronize()
+    assert M.BLOCKED_LAUNCHES == before + 1
+    want = M.film_super_mega_plain((seed, 0), scn, w, h, spp,
+                                   quirks=QUIRKS[qname], device=cuda_device,
+                                   **kw)
+    assert want.var() > 1e-5                   # the mesh is in the window
+    ok, st = crn_ok(got, want, spp)
+    assert ok, st
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("neg_t", [False, True])
+def test_tri_closest_kernel_matches_plain_on_gpu(neg_t, cuda_device):
+    scene = sheet_scene(32, 32)
+    scn = prep_scene(scene)
+    g = np.random.default_rng(5)
+    tris = scene.triangles.astype(np.float64)
+    from opencl_montecarlo_path_tracing_tpu_torch.core.camera import (
+        make_camera)
+    cam = np.asarray(make_camera(z_sign=-1.0).pos, np.float64)
+    o = cam + g.normal(0.0, 3.0, (4096, 3))
+    p = tris[g.integers(0, len(tris), 4096)].mean(axis=1)
+    d = p - o
+    d[::8] = -d[::8]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+            for a in (o, d))
+    quirks = REFERENCE if neg_t else DEFAULT
+    before = B7.LAUNCHES
+    t, i = B7.triangle_closest(o, d, scn, quirks)
+    torch.cuda.synchronize()
+    assert B7.LAUNCHES == before + 1
+    tp, ip = B7.triangle_closest_plain(o, d, scn, quirks)
+    hit, hitp = torch.isfinite(t), torch.isfinite(tp)
+    assert hit.float().mean() > 0.5
+    assert (hit == hitp).float().mean() >= 0.999
+    both = hit & hitp
+    torch.testing.assert_close(t[both], tp[both], rtol=2e-4, atol=0)
+    assert (i[both] == ip[both]).float().mean() >= 0.999
+
+
+@pytest.mark.gpu
+def test_render_routes_launch_their_kernels(cuda_device):
+    """super on a 1800-triangle sheet launches B2/B3; trianglegrid's auto
+    accel launches it too and its DDA launches nothing and renders the
+    same film under the contract; bidirectional on a 2048-triangle sheet
+    (outside B4's gate) runs the tier-1 route with B7 and B6."""
+    import opencl_montecarlo_path_tracing_tpu_torch as pt
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import gather_vlp as G
+    sheet = sheet_scene(30, 30)
+    counts = lambda: (M.LAUNCHES, M.BLOCKED_LAUNCHES, B7.LAUNCHES,  # noqa
+                      M4.LAUNCHES, G.LAUNCHES)
+    c0 = counts()
+    film = pt.render("super", sheet, 64, 64, spp=2, seed=1,
+                     device=cuda_device)
+    torch.cuda.synchronize()
+    assert counts() == (c0[0], c0[1] + 1) + c0[2:]
+    assert torch.isfinite(film).all()
+    c0 = counts()
+    auto = pt.render("trianglegrid", sheet, 64, 64, spp=2, seed=1,
+                     device=cuda_device)
+    dda = pt.render("trianglegrid", sheet, 64, 64, spp=2, seed=1,
+                    accel="dda", device=cuda_device)
+    torch.cuda.synchronize()
+    assert counts() == (c0[0], c0[1] + 1) + c0[2:]
+    ok, st = crn_ok(auto, dda, 2)
+    assert ok, st
+    c0 = counts()
+    film = pt.render("bidirectional", sheet_scene(32, 32), 64, 64, spp=1,
+                     seed=2, n_vlp=64, device=cuda_device)
+    torch.cuda.synchronize()
+    c1 = counts()
+    assert c1[:2] == c0[:2] and c1[3] == c0[3]
+    assert c1[2] > c0[2] and c1[4] > c0[4]
+    assert film.shape == (64, 64, 3) and torch.isfinite(film).all()
+
+
+@pytest.mark.gpu
+def test_mesh_past_the_gate_renders_the_tier1_route(cuda_device):
+    """2^20 + 2048 triangles: outside the super kernels' gate, the film is
+    the tier-1 wavefront on the card, whose traces are B7 - decided before
+    any launch, no fallback."""
+    from opencl_montecarlo_path_tracing_tpu_torch.models.super import (
+        cuda_route)
+    scn = prep_scene(sheet_scene(1024, 513))
+    assert scn.tri_v0.shape[0] > M.MAX_TRIANGLES
+    assert cuda_route(scn) == "tier1"
+    before = M.LAUNCHES, M.BLOCKED_LAUNCHES, B7.LAUNCHES
+    import opencl_montecarlo_path_tracing_tpu_torch as pt
+    film = pt.render("super", scn, 32, 32, spp=1, seed=3,
+                     device=cuda_device)
+    torch.cuda.synchronize()
+    assert (M.LAUNCHES, M.BLOCKED_LAUNCHES) == before[:2]
+    assert B7.LAUNCHES > before[2]
+    assert film.shape == (32, 32, 3) and torch.isfinite(film).all()

@@ -79,15 +79,12 @@ def test_builtin_scenes_match_jax():
 
 def test_scene_arrays_carry_across():
     """convert.scene_arrays_from_numpy(JAX SceneArrays) == the port's own
-    prep_scene, field for field (tri_w, kernel B7's weights, is carried
-    but not compared: the port leaves it empty)."""
+    prep_scene, field for field (kernel B7's weights tri_w included)."""
     for scene in _scenes().values():
         mine = TI.prep_scene(scene)
         carried = scene_arrays_from_numpy(JI.prep_scene(scene))
         from_scene = scene_arrays_from_numpy(scene)
         for f in TI.SceneArrays._fields:
-            if f == "tri_w":
-                continue
             np.testing.assert_array_equal(getattr(carried, f),
                                           getattr(mine, f), err_msg=f)
             np.testing.assert_array_equal(getattr(from_scene, f),

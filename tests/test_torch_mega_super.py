@@ -36,7 +36,6 @@ from opencl_montecarlo_path_tracing_tpu_torch.convert import (
 from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import DEFAULT
 from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_super as M
 from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import prep_scene
-from opencl_montecarlo_path_tracing_tpu_torch.scene.scene import Scene
 from opencl_montecarlo_path_tracing_tpu_torch.utils.crn import crn_ok
 from tests.test_torch_gpu import CASES, CONTENT_ROW, QUIRKS, small_scene
 
@@ -80,27 +79,36 @@ def test_wrapper_takes_plain_version_on_cpu():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def _with_triangles(n):
-    g = np.random.default_rng(0)
-    base = small_scene()
-    return Scene(sphere_centers=base.sphere_centers,
-                 square_kj=base.square_kj,
-                 triangles=g.uniform(0, 10, (n, 3, 3)).astype(np.float32),
-                 lights=base.lights)
+def _sized(n_triangles, n_lights=2):
+    """SceneArrays of the given sizes without the memory: the gate reads
+    shapes only."""
+    base = prep_scene(small_scene())
+    z3 = np.broadcast_to(np.zeros(3, np.float32), (n_triangles, 3))
+    return base._replace(tri_v0=z3, tri_e0=z3, tri_e2=z3, tri_n=z3,
+                         lights=np.tile(base.lights, (5, 1))[:n_lights])
 
 
 def test_gate():
-    assert M.unsupported_reason(prep_scene(small_scene())) is None
-    assert M.unsupported_reason(prep_scene(_with_triangles(512))) is None
-    big = prep_scene(_with_triangles(513))
-    assert "B2/B3" in M.unsupported_reason(big)
-    base = small_scene()
-    many = prep_scene(Scene(sphere_centers=base.sphere_centers,
-                            square_kj=base.square_kj,
-                            triangles=base.triangles,
-                            lights=np.tile(base.lights, (5, 1))[:9]))
+    """The JAX gate (<= 8 lights, <= 2^20 triangles); B1 up to 512
+    triangles, B2/B3 above (or forced)."""
+    from opencl_montecarlo_path_tracing_tpu_torch.models.super import (
+        cuda_route)
+    small = prep_scene(small_scene())
+    assert M.unsupported_reason(small) is None
+    assert not M.uses_blocked(small) and M.uses_blocked(small, True)
+    assert M.uses_blocked(_sized(0), True) is False
+    for n, blocked in ((512, False), (513, True), (1 << 20, True)):
+        scn = _sized(n)
+        assert M.unsupported_reason(scn) is None
+        assert M.uses_blocked(scn) is blocked
+        assert cuda_route(scn) == ("mega_blocked" if blocked
+                                   else "mega_super")
+    assert cuda_route(small, max_bounces=0) == "tier1"
+    big, many = _sized((1 << 20) + 1), _sized(2, n_lights=9)
+    assert "stream tier" in M.unsupported_reason(big)
     assert "lights" in M.unsupported_reason(many)
     for scn in (big, many):
+        assert cuda_route(scn) == "tier1"
         with pytest.raises(NotImplementedError):
             M.film_super_mega((0, 0), scn, 8, 8, 1, device="cuda")
 
