@@ -53,13 +53,29 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    it at 256x256x16 (the tier-1 route: B7 and B6), each timed over 3 runs;
    ``accel="dda"`` (the uniform-grid walk) on a band, held against the
    kernel under the contract;
-11. CLI: ``super``, ``bidirectional`` and ``metropolis_vlpgrid`` at 256x256
-   with 4 spp on a scene written to text files, and ``trianglegrid`` on the
-   large-mesh scene's files; each must exit 0 and write a valid PAM.
+11. B5 (``mega_simple``) vs its plain version under the simple family's
+   contract (utils/crn.py ``SIMPLE``: p95 < 1e-5, ties on < 2%, and max
+   abs 2e-5 where no pixel ties): the GPU tests' cases at 5, 0 and 1
+   bounces, and the simple main path's full frame (1024x1024, samples 0-1
+   of 256); its tie pixels' band is rendered again at max_bounces 1..5 by
+   both, and the first bounce at which they differ is printed as a
+   histogram; the bound counts the live rays of each bounce;
+12. the simple main path: ``api.render("simple")`` at 1024x1024 with 256
+   spp (bench.py's simple row), timed over 3 runs after a warm-up, its
+   film written as a PAM file;
+13. the nodof main path: ``api.render("nodof")`` on ``demo_scene()`` at
+   512x512 with an 8x8 sample grid (B1 once a render), timed the same
+   way, and held against the tier-1 sample buffer of the same render
+   (16.7 M rays, reduced on the card): <= 1 uint8 step, >= 99% exact;
+14. CLI: ``super``, ``bidirectional`` and ``metropolis_vlpgrid`` at 256x256
+   with 4 spp on a scene written to text files, ``trianglegrid`` on the
+   large-mesh scene's files, ``nodof`` on the demo files and ``simple`` /
+   ``simplecpu`` at 64x64 with 2 spp; each must exit 0 and write a valid
+   PAM.
 
-Every path phase (5, 6, 7, 10) sets all launch counts to 0 just before it
-and reads them just after; the counts in the ``kernels`` line come from
-those runs.  Each kernel's ``bound_ms`` is the least time the card could
+Every path phase (5, 6, 7, 10, 12, 13) sets all launch counts to 0 just
+before it and reads them just after; the counts in the ``kernels`` line
+come from those runs.  Each kernel's ``bound_ms`` is the least time the card could
 take for the same work: the larger of its bytes (inputs read once, output
 written once) over 3.35 TB/s and its operations over 3.345e13 FP32 ops/s
 (132 SMs x 128 lanes x 1.98 GHz, one multiply or add an instruction: the
@@ -107,6 +123,24 @@ FP32_OPS_PER_S = 132 * 128 * 1.98e9
 PAIR_OPS = 48         # multiplies + adds of one division-free M-T pair test
 B7_PAIR_OPS = 113     # 4 x 13-term dot products + the epilogue
 GATHER_PAIR_OPS = 20  # one (point, VLP) gather term
+# B5's FP32 operations, counted from csrc/mega_simple.cu (compares, int
+# and threefry work not counted): a sample's camera ray; a trace's floor
+# test and each sphere test; a sphere normal's renormalisation; a hit's
+# point, light direction and lamb; the floor's, a mirror's and the sky's
+# shading
+CAMERA_OPS = 50
+FLOOR_OPS = 2
+SPHERE_OPS = 19
+RENORM_OPS = 10
+HIT_OPS = 25
+FLOOR_SHADE_OPS = 13
+MIRROR_OPS = 30
+SKY_OPS = 12
+
+SW = SH = 1024         # the simple main path: bench.py:92-94
+SSPP = 256
+NW = NH = 512          # the nodof main path: bench.py:138-146
+NSG = 8
 
 
 def card_line() -> str:
@@ -149,18 +183,20 @@ def timed_call(fn):
 
 def reset_counts():
     from opencl_montecarlo_path_tracing_tpu_torch.ops import (
-        gather_vlp, mega_super, mega_vlp, tri_closest)
+        gather_vlp, mega_simple, mega_super, mega_vlp, tri_closest)
     mega_super.LAUNCHES = mega_super.BLOCKED_LAUNCHES = 0
     mega_vlp.LAUNCHES = gather_vlp.LAUNCHES = tri_closest.LAUNCHES = 0
+    mega_simple.LAUNCHES = 0
 
 
 def read_counts() -> dict:
     from opencl_montecarlo_path_tracing_tpu_torch.ops import (
-        gather_vlp, mega_super, mega_vlp, tri_closest)
+        gather_vlp, mega_simple, mega_super, mega_vlp, tri_closest)
     return {"mega_super": mega_super.LAUNCHES,
             "mega_blocked": mega_super.BLOCKED_LAUNCHES,
             "mega_vlp": mega_vlp.LAUNCHES, "gather_vlp": gather_vlp.LAUNCHES,
-            "tri_closest": tri_closest.LAUNCHES}
+            "tri_closest": tri_closest.LAUNCHES,
+            "mega_simple": mega_simple.LAUNCHES}
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
@@ -215,19 +251,23 @@ def gpu_tests():
     return mod
 
 
-def check_crn(name, a, b, spp, failed, atol=None) -> float:
+def check_crn(name, a, b, spp, failed, atol=None, contract=None) -> float:
     """Print the contract's statistics of two films; returns the max abs
     film difference and records a violation in ``failed``.  With ``atol``,
-    a pair with no tie pixel must also agree to ``atol``."""
-    from opencl_montecarlo_path_tracing_tpu_torch.utils.crn import crn_ok
+    a pair with no tie pixel must also agree to ``atol``.  ``contract``
+    defaults to the super/VLP families' (utils/crn.py ``SUPER``)."""
+    from opencl_montecarlo_path_tracing_tpu_torch.utils.crn import (
+        SUPER, crn_ok)
+    contract = SUPER if contract is None else contract
     a = a.cpu().numpy()
     b = b.cpu().numpy()
     if a.shape != b.shape or not np.isfinite(a).all():
         raise RuntimeError(f"{name}: bad kernel film {a.shape}")
-    ok, st = crn_ok(a, b, spp)
+    ok, st = crn_ok(a, b, spp, contract)
     if atol is not None and st["tie_frac"] == 0.0:
         ok = ok and st["max_abs"] <= atol
-    print(f"  {name}: max {st['max']:.3e} p99.5 {st['q']:.3e} "
+    qname = f"p{contract.quantile * 100:g}"
+    print(f"  {name}: max {st['max']:.3e} {qname} {st['q']:.3e} "
           f"ties {st['tie_frac'] * 100:.3f}% max_abs_film "
           f"{st['max_abs']:.3e} {'ok' if ok else 'VIOLATION'}")
     if not ok:
@@ -421,7 +461,6 @@ def phase_gather_kernel_vs_plain() -> dict:
 
 
 def phase_super_main_path(card: str) -> dict:
-    import torch
     import opencl_montecarlo_path_tracing_tpu_torch as pt
     from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
     from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_super as M
@@ -436,22 +475,8 @@ def phase_super_main_path(card: str) -> dict:
 
     scene, tag = demo_scene()
 
-    def main_path():
-        return pt.render("super", scene, W, H, spp=SPP, seed=0,
-                         device="cuda")
-
-    main_path()                       # warm-up (first launch, allocator)
-    torch.cuda.synchronize()
-    reset_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(TIMED_RUNS):
-        film = main_path()
-    end.record()
-    torch.cuda.synchronize()
-    counts = read_counts()
-    ms = start.elapsed_time(end) / TIMED_RUNS
+    film, ms, counts = timed_renders(lambda: pt.render(
+        "super", scene, W, H, spp=SPP, seed=0, device="cuda"))
     if counts["mega_super"] < TIMED_RUNS:
         raise RuntimeError(f"super main path launched B1 "
                            f"{counts['mega_super']} times in {TIMED_RUNS} "
@@ -550,22 +575,8 @@ def phase_vlp_main_paths(card: str) -> dict:
     key = make_key(0)
     total = 0
     for variant, scene, stag in paths:
-        def main_path():
-            return pt.render(variant, scene, VW, VH, spp=VSPP, seed=0,
-                             device="cuda")
-
-        main_path()
-        torch.cuda.synchronize()
-        reset_counts()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(TIMED_RUNS):
-            film = main_path()
-        end.record()
-        torch.cuda.synchronize()
-        counts = read_counts()
-        ms = start.elapsed_time(end) / TIMED_RUNS
+        film, ms, counts = timed_renders(lambda: pt.render(
+            variant, scene, VW, VH, spp=VSPP, seed=0, device="cuda"))
         if counts["mega_vlp"] != TIMED_RUNS or counts["gather_vlp"]:
             raise RuntimeError(f"{variant} on {stag}: launches {counts} in "
                                f"{TIMED_RUNS} renders (want B4 once each)")
@@ -921,22 +932,8 @@ def phase_large_mesh_main_paths(card: str) -> dict:
               ("tri_closest", "gather_vlp"))]
     total = dict.fromkeys(("mega_blocked", "tri_closest", "gather_vlp"), 0)
     for variant, scene, w, h, spp, want in paths:
-        def main_path():
-            return pt.render(variant, scene, w, h, spp=spp, seed=0,
-                             device="cuda")
-
-        main_path()
-        torch.cuda.synchronize()
-        reset_counts()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(TIMED_RUNS):
-            film = main_path()
-        end.record()
-        torch.cuda.synchronize()
-        counts = read_counts()
-        ms = start.elapsed_time(end) / TIMED_RUNS
+        film, ms, counts = timed_renders(lambda: pt.render(
+            variant, scene, w, h, spp=spp, seed=0, device="cuda"))
         if any(counts[k] == 0 for k in want) or any(
                 counts[k] for k in counts if k not in want):
             raise RuntimeError(f"{variant} on {scene.n_triangles} "
@@ -990,6 +987,318 @@ def phase_large_mesh_main_paths(card: str) -> dict:
     return total
 
 
+def display_diff(a, b, spp) -> np.ndarray:
+    """Per-pixel max-channel difference of two films on the CRN contract's
+    display scale (utils/crn.py)."""
+    d = np.abs(a.cpu().numpy().astype(np.float64)
+               - b.cpu().numpy().astype(np.float64))
+    return (d / spp * 64.0 / 255.0).max(axis=-1)
+
+
+def simple_counts(key, w, h, spp, spp_total, max_bounces=5) -> dict:
+    """B5's work over samples 0..spp-1 of a w x h simple film, from the
+    plain trace on the card: per bounce the live rays traced, their floor
+    and sphere hits, sky misses, the shadow rays cast (lamb >= 0) and the
+    sphere tests those make up to their first hit (the floor first, as the
+    kernel's any-hit stops)."""
+    import torch
+    from opencl_montecarlo_path_tracing_tpu_torch.core import rng as R
+    from opencl_montecarlo_path_tracing_tpu_torch.core.camera import (
+        make_camera, primary_rays)
+    from opencl_montecarlo_path_tracing_tpu_torch.models import common as C
+    from opencl_montecarlo_path_tracing_tpu_torch.models.simple import (
+        simple_arrays)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
+        trace_ray)
+    scn = simple_arrays()
+    ii, jj = C.pixel_grid(w, h, device="cuda")
+    pix = (jj * w + ii).to(torch.int64)
+    cam = make_camera(z_sign=-1.0)
+    keys = ("live", "floor", "mirror", "sky", "cast", "shadow_tests")
+    n = {k: [0] * max_bounces for k in keys}
+    eps, big = float(np.float32(0.01)), float(np.float32(1e9))
+    for s in range(spp):
+        ray_id = (pix * spp_total + s) & 0xFFFFFFFF
+        o, d = primary_rays(cam, ii, jj,
+                            *R.randn_draws(key, ray_id, C.SITE_CAMERA, 4))
+        alive = torch.ones_like(ii, dtype=torch.bool)
+        for b in range(max_bounces):
+            tr = trace_ray(o, d, scn, sphere_material=2, plain=True)
+            m = torch.where(alive, tr.material, -1)
+            x = o + d * tr.t[..., None]
+            u1, u2 = R.rand2(key, ray_id, C.SITE_LIGHT0
+                             + b * C.SITE_STRIDE_BOUNCE)
+            ldir = C.normalize(torch.stack(
+                [9.0 + u1, 9.0 + u2, torch.full_like(u1, 16.0)], -1) - x)
+            hit = (m == 1) | (m == 2)
+            cast = hit & (C.dot(ldir, tr.normal) >= 0)
+            ox, oy, oz = x.unbind(-1)
+            dx, dy, dz = ldir.unbind(-1)
+            p = -oz * (1.0 / dz)
+            still = cast & ~((p > eps) & (p < big))
+            tests = torch.zeros_like(ray_id)
+            for cx, cy, cz in scn.sphere_centers:
+                tests += still
+                px, py, pz = ox - float(cx), oy - float(cy), oz - float(cz)
+                bb = px * dx + py * dy + pz * dz
+                q = bb * bb - (px * px + py * py + pz * pz - 1.0)
+                sr = -bb - torch.sqrt(torch.clamp_min(q, 0.0))
+                still = still & ~((q > 0.0) & (sr < big) & (sr > eps))
+            for k, v in (("live", alive), ("floor", m == 1),
+                         ("mirror", m == 2), ("sky", m == 0),
+                         ("cast", cast)):
+                n[k][b] += int(v.sum())
+            n["shadow_tests"][b] += int(tests.sum())
+            bounce = m == 2
+            o = torch.where(bounce[..., None], x, o)
+            d = torch.where(bounce[..., None], C.reflect(d, tr.normal), d)
+            alive = alive & bounce
+    return n
+
+
+def simple_ops(n: dict, rays: int, ns: int) -> int:
+    """B5's FP32 operations for the counts of :func:`simple_counts`."""
+    ops = rays * CAMERA_OPS
+    for b in range(len(n["live"])):
+        hits = n["floor"][b] + n["mirror"][b]
+        ops += (n["live"][b] * (FLOOR_OPS + ns * SPHERE_OPS)
+                + n["mirror"][b] * (RENORM_OPS + MIRROR_OPS)
+                + hits * HIT_OPS + n["floor"][b] * FLOOR_SHADE_OPS
+                + n["sky"][b] * SKY_OPS + n["cast"][b] * FLOOR_OPS
+                + n["shadow_tests"][b] * SPHERE_OPS)
+    return ops
+
+
+def phase_simple_kernel_vs_plain(gt, card: str) -> dict:
+    """B5 on the GPU tests' cases (at 5, 0 and 1 bounces) and on the simple
+    main path's full frame, samples 0-1 of 256; the full frame's tie
+    pixels localised by bounce, and the ties against the NumPy oracle; the
+    kernel and plain times and the bound at that shape."""
+    import torch
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.models.simple import (
+        simple_arrays)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_simple as M5
+    from opencl_montecarlo_path_tracing_tpu_torch.utils.crn import SIMPLE
+    print("B5 mega_simple vs plain:")
+    # what torch.rsqrt runs on a CUDA tensor, against 1/sqrt, near the
+    # squared lengths the sphere normals renormalise (the kernel uses rsqrtf)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = 1.0 + (torch.rand(1 << 20, device="cuda", generator=g) - 0.5) * 1e-3
+    same = float((torch.rsqrt(x) == 1.0 / torch.sqrt(x)).float().mean())
+    print(f"  torch.rsqrt == 1/sqrt on {same * 100:.3f}% of 2^20 inputs "
+          "near 1")
+    scn = simple_arrays()
+    worst, failed = 0.0, []
+    for name, seed, (w, h, spp), kw, q in gt.SIMPLE_CASES:
+        for bounces in (5, 0, 1):
+            a = M5.film_simple_mega((seed, 0), scn, w, h, spp,
+                                    quirks=gt.QUIRKS[q], max_bounces=bounces,
+                                    device="cuda", **kw)
+            b = M5.film_simple_mega_plain((seed, 0), scn, w, h, spp,
+                                          quirks=gt.QUIRKS[q],
+                                          max_bounces=bounces,
+                                          device="cuda", **kw)
+            worst = max(worst, check_crn(
+                f"{name}, max_bounces {bounces}", a, b, spp, failed,
+                atol=gt.SIMPLE_ATOL, contract=SIMPLE))
+    key = make_key(0)
+    frame = dict(spp_total=SSPP)
+    a = M5.film_simple_mega(key, scn, SW, SH, 2, device="cuda", **frame)
+    b = M5.film_simple_mega_plain(key, scn, SW, SH, 2, device="cuda", **frame)
+    worst = max(worst, check_crn(
+        f"{SW}x{SH}, samples 0-1 of {SSPP}", a, b, 2, failed,
+        atol=gt.SIMPLE_ATOL, contract=SIMPLE))
+    if failed:
+        raise RuntimeError(f"B5 kernel vs plain contract violated: {failed}")
+    # tie localisation: the band of the tie pixels again at max_bounces
+    # 1..5; for each tie pixel, the first bounce count at which the two
+    # films differ beyond rounding, and at which they differ by a tie
+    ties = np.argwhere(display_diff(a, b, 2) > SIMPLE.tie_thresh)
+    if len(ties):
+        r0, r1 = int(ties[:, 0].min()), int(ties[:, 0].max()) + 1
+        diffs = []
+        for bounces in range(1, 6):
+            band = dict(frame, row_offset=r0, rows=r1 - r0,
+                        max_bounces=bounces)
+            diffs.append(display_diff(
+                M5.film_simple_mega(key, scn, SW, SH, 2, device="cuda",
+                                    **band),
+                M5.film_simple_mega_plain(key, scn, SW, SH, 2,
+                                          device="cuda", **band), 2))
+        beyond, tie = first_difference(
+            diffs, [(int(r), int(c)) for r, c in ties], r0)
+        print(f"  {len(ties)} tie pixels of the frame; first bounce beyond "
+              f"rounding: {beyond}; first bounce at a tie: {tie}")
+    else:
+        print("  no tie pixel in the full frame")
+    oracle_ties(scn)
+    k_ms = time_ms(lambda: M5.film_simple_mega(key, scn, SW, SH, 2,
+                                               device="cuda", **frame), 10)
+    p_ms = time_ms(lambda: M5.film_simple_mega_plain(
+        key, scn, SW, SH, 2, device="cuda", **frame), 2)
+    n = simple_counts(key, SW, SH, 2, SSPP)
+    ns = int(scn.sphere_centers.shape[0])
+    b_ms, b_by = bound(simple_ops(n, SW * SH * 2, ns), SW * SH * 12 + ns * 12)
+    rays = SW * SH * 2
+    live = ", ".join(f"{v / rays:.4f}" for v in n["live"])
+    print(f"  live fraction at bounces 1-5: {live}; shadow rays cast "
+          f"{sum(n['cast']) / rays:.4f} a sample, "
+          f"{sum(n['shadow_tests']) / max(sum(n['cast']), 1):.1f} sphere "
+          "tests each")
+    print(f"  {SW}x{SH}x2: kernel {k_ms:.3f} ms, plain PyTorch {p_ms:.1f} "
+          f"ms, bound {b_ms:.4f} ms ({b_by}) ({card})")
+    return {"max_abs": worst, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def first_difference(diffs, ties, r0) -> tuple[dict, dict]:
+    """Histograms over the ``ties`` pixels (rows from ``r0``) of the first
+    bounce count at which a film pair differs beyond rounding (1e-5 on the
+    display scale) and by a tie (> 1e-4); ``diffs`` holds the pair's
+    :func:`display_diff` at bounce counts 1, 2, ..."""
+    import collections
+    first = ({}, {})
+    for bounces, dd in enumerate(diffs, start=1):
+        for r, c in ties:
+            for k, lim in enumerate((1e-5, 1e-4)):
+                if (r, c) not in first[k] and dd[r - r0, c] > lim:
+                    first[k][(r, c)] = bounces
+    return tuple(dict(sorted(collections.Counter(
+        f.get((int(r), int(c)), "none") for r, c in ties).items(), key=str))
+        for f in first)
+
+
+def oracle_ties(scn):
+    """B5 against the NumPy oracle (the reference's CPU tracer, on the same
+    threefry streams) on the sphere-field band of the 512-wide frame at 2
+    spp: the simple family's tie class against its reference, localised
+    by re-rendering both at max_bounces (max_depth) 1..5."""
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.models.oracle import (
+        render_oracle)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_simple as M5
+    import torch
+    key, w, r0, rows, spp = make_key(9), 512, 160, 96, 2
+    diffs = []
+    for bounces in range(1, 6):
+        k = M5.film_simple_mega(key, scn, w, r0 + rows, spp, row_offset=r0,
+                                rows=rows, max_bounces=bounces, device="cuda")
+        o = torch.from_numpy(render_oracle(w, rows, spp=spp, key=key,
+                                           max_depth=bounces, row_offset=r0))
+        diffs.append(display_diff(k, o, spp))
+        d = diffs[-1]
+        print(f"  vs NumPy oracle, {w}x{rows} band rows {r0}-{r0 + rows - 1}"
+              f" x{spp}, max_bounces {bounces}: p95 "
+              f"{float(np.quantile(d, 0.95)):.3e}, "
+              f"{(d > 1e-5).mean() * 100:.3f}% > 1e-5, "
+              f"{(d > 1e-4).mean() * 100:.3f}% tie, max {float(d.max()):.3e}")
+    ties = [(int(r) + r0, int(c)) for r, c in np.argwhere(diffs[-1] > 1e-4)]
+    beyond, tie = first_difference(diffs, ties, r0)
+    print(f"  {len(ties)} oracle tie pixels at 5 bounces; first bounce beyond "
+          f"rounding: {beyond}; first bounce at a tie: {tie}")
+    if float(np.quantile(diffs[-1], 0.95)) >= 1e-5:
+        raise RuntimeError("B5 vs the NumPy oracle: p95 past 1e-5 "
+                           "(tests/test_crn.py's contract)")
+
+
+def timed_renders(fn):
+    """(last output, ms per call, launch counts) of TIMED_RUNS calls of
+    ``fn`` after a warm-up, counts set to 0 just before them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TIMED_RUNS):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    return out, start.elapsed_time(end) / TIMED_RUNS, counts
+
+
+def only(counts: dict, name: str) -> bool:
+    """Whether ``name`` launched once a render and no other kernel did."""
+    return counts[name] == TIMED_RUNS and not any(
+        v for k, v in counts.items() if k != name)
+
+
+def phase_simple_main_path(card: str) -> dict:
+    import opencl_montecarlo_path_tracing_tpu_torch as pt
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.reduce import (
+        quantize_film)
+    from opencl_montecarlo_path_tracing_tpu_torch.utils.pam import (
+        ImgInfo, load_pam, save_pam)
+    film, ms, counts = timed_renders(lambda: pt.render(
+        "simple", None, SW, SH, spp=SSPP, seed=0, device="cuda"))
+    if not only(counts, "mega_simple"):
+        raise RuntimeError(f"simple main path: launches {counts} in "
+                           f"{TIMED_RUNS} renders (want B5 once each)")
+    f = film.cpu().numpy()
+    mean = float(f.mean()) / SSPP
+    if f.shape != (SH, SW, 3) or not np.isfinite(f).all() \
+            or not 0.0 < mean < 50.0:
+        raise RuntimeError(f"bad simple film: shape {f.shape}, mean/spp "
+                           f"{mean}")
+    mpaths = SW * SH * SSPP / (ms / 1e3) / 1e6
+    print(f"main path: simple {SW}x{SH}x{SSPP}: {ms:.2f} ms/render, "
+          f"{mpaths:.1f} Mpaths/s ({card}); film mean/spp {mean:.4f}, "
+          f"launches {counts}")
+    rgba = quantize_film(film).cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "result.ppm")
+        save_pam(out, ImgInfo(width=SW, height=SH, channels=4, data=rgba))
+        if not np.array_equal(load_pam(out).data, rgba):
+            raise RuntimeError("simple result.ppm does not read back")
+    return {"launches": counts["mega_simple"], "render_ms": ms,
+            "mpaths": mpaths}
+
+
+def phase_nodof_main_path(card: str) -> dict:
+    """nodof through B1 (once a render), held against the tier-1 sample
+    buffer of the same render, reduced on the card."""
+    import torch
+    import opencl_montecarlo_path_tracing_tpu_torch as pt
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.models.sample_parallel \
+        import render_sample_parallel
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        demo_scene)
+    scene, tag = demo_scene()
+    spp = NSG * NSG
+    img, ms, counts = timed_renders(lambda: pt.render(
+        "nodof", scene, NW, NH, spp=spp, seed=0, device="cuda"))
+    if not only(counts, "mega_super"):
+        raise RuntimeError(f"nodof main path: launches {counts} in "
+                           f"{TIMED_RUNS} renders (want B1 once each)")
+    mpaths = NW * NH * spp / (ms / 1e3) / 1e6
+    torch.cuda.reset_peak_memory_stats()
+    (ref, buf), buf_ms = timed_call(lambda: render_sample_parallel(
+        make_key(0), scene, NW, NH, NSG, return_samples=True,
+        device="cuda"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if img.shape != (NH, NW, 4) or img.dtype != np.uint8 \
+            or tuple(buf.shape) != (NH * NSG, NW * NSG, 3) \
+            or not bool(torch.isfinite(buf).all()):
+        raise RuntimeError(f"nodof: bad image {img.shape} or buffer "
+                           f"{tuple(buf.shape)}")
+    d = np.abs(img.astype(np.int32) - ref.cpu().numpy().astype(np.int32))
+    exact = float((d == 0).mean())
+    ok = int(d.max()) <= 1 and exact >= 0.99
+    print(f"main path: nodof {NW}x{NH}x{spp} on {tag}: {ms:.2f} ms/render, "
+          f"{mpaths:.1f} Mpaths/s ({card}); launches {counts}")
+    print(f"  vs the tier-1 sample buffer ({NH * NSG}x{NW * NSG} rays, "
+          f"{buf_ms:.1f} ms, peak {peak:.1f} GiB): max step {int(d.max())},"
+          f" {exact * 100:.3f}% exact {'ok' if ok else 'VIOLATION'}")
+    if not ok:
+        raise RuntimeError("nodof B1 image vs sample-buffer image differ")
+    return {"launches": counts["mega_super"], "render_ms": ms,
+            "mpaths": mpaths}
+
+
 def phase_cli():
     from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
         large_mesh_scene, procedural_super_scene, write_scene_files)
@@ -997,7 +1306,10 @@ def phase_cli():
     runs = [["super", "256", "256"],
             ["bidirectional", "256", "256", "512"],
             ["metropolis_vlpgrid", "256", "256", "512", "8", "3.0"],
-            ["trianglegrid", "256", "256", "3.0"]]
+            ["trianglegrid", "256", "256", "3.0"],
+            ["nodof", "256", "256"],
+            ["simple", "64", "64", "16", "--spp", "2"],
+            ["simplecpu", "64", "64", "--spp", "2"]]
     with tempfile.TemporaryDirectory() as tmp:
         demo_dir = os.path.join(tmp, "demo")
         mesh_dir = os.path.join(tmp, "large_mesh")
@@ -1008,19 +1320,21 @@ def phase_cli():
         for args in runs:
             out = os.path.join(tmp, f"{args[0]}.ppm")
             scene_dir = mesh_dir if args[0] == "trianglegrid" else demo_dir
+            spp = [] if "--spp" in args else ["--spp", "4"]
             r = subprocess.run(
-                [sys.executable, "-m", PKG, *args, "--spp", "4", "--seed",
-                 "1", "--scene-dir", scene_dir, "--out", out], cwd=tmp,
+                [sys.executable, "-m", PKG, *args, *spp, "--seed", "1",
+                 "--scene-dir", scene_dir, "--out", out], cwd=tmp,
                 env=env, capture_output=True, text=True, timeout=600)
             if r.returncode != 0:
                 raise RuntimeError(f"CLI {args} exited {r.returncode}:\n"
                                    f"{r.stdout}\n{r.stderr}")
             img = load_pam(out)
-            if (img.width, img.height, img.channels) != (256, 256, 4):
+            size = int(args[1])
+            if (img.width, img.height, img.channels) != (size, size, 4):
                 raise RuntimeError(f"CLI {args[0]} wrote {img.width}x"
                                    f"{img.height}x{img.channels}")
             stage = [ln for ln in r.stdout.splitlines()
-                     if "pixels in" in ln]
+                     if " in " in ln and "GB/s" in ln]
             print(f"cli {args[0]}: ok ({stage[0] if stage else ''})")
 
 
@@ -1051,6 +1365,9 @@ def main() -> int:
     b23 = phase(phase_blocked_kernel_vs_plain, gt, card)
     b7 = phase(phase_tri_closest_vs_plain, card)
     lp = phase(phase_large_mesh_main_paths, card)
+    b5 = phase(phase_simple_kernel_vs_plain, gt, card)
+    sp = phase(phase_simple_main_path, card)
+    npth = phase(phase_nodof_main_path, card)
     phase(phase_cli)
     print(f"smoke: {time.perf_counter() - t0:.1f} s")
     src = f"{PKG}/csrc"
@@ -1065,7 +1382,7 @@ def main() -> int:
 
     kernels = [
         row("mega_super", "mega_super.cu", "pallas_super.py:2228",
-            mp["launches"], dict(mp, max_abs=b1_err)),
+            mp["launches"] + npth["launches"], dict(mp, max_abs=b1_err)),
         row("mega_vlp", "mega_vlp.cu", "pallas_bpt.py:434", vp["launches"],
             b4),
         row("gather_vlp", "gather_vlp.cu", "pallas_vlp.py:111",
@@ -1074,6 +1391,8 @@ def main() -> int:
             lp["mega_blocked"], b23),
         row("tri_closest", "tri_closest.cu", "pallas_tri.py:89",
             lp["tri_closest"], b7),
+        row("mega_simple", "mega_simple.cu", "pallas_simple.py:352",
+            sp["launches"], b5),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

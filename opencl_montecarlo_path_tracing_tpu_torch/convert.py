@@ -8,7 +8,10 @@ JAX ``(k0, k1)`` uint32 key pair into the port's key; ``vlps_from_numpy``
 and ``grid_from_numpy`` carry a VLP table and a ``UniformGrid`` (the VLP
 grid, or the triangle grid of ``trianglegrid``) across, so both packages
 render from the same light pass and walk the same cells.  The JAX
-``SceneArrays`` carries kernel B7's ``tri_w`` weights with it.  Both packages then
+``SceneArrays`` carries kernel B7's ``tri_w`` weights with it.  The
+simple family needs nothing more: its scene is the built-in bitmap
+(``scene_arrays_from_numpy`` carries it too), and ``simplecpu``'s key is
+the same pair ``key_from_jax`` returns.  Both packages then
 render the same scene from the same counter-based streams.  This module
 imports no JAX: it reads plain attributes and arrays (anything
 ``numpy.asarray`` takes).

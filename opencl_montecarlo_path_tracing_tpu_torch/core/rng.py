@@ -100,3 +100,60 @@ def randn_draws(key, ray_id, site_id, n: int):
         b0, b1 = threefry2x32(key[0], key[1], ray_id, _counter(site_id, j))
         out.extend([bits_to_unit_float(b0), bits_to_unit_float(b1)])
     return out[:n]
+
+
+# ---------------------------------------------------------------------------
+# Pure-NumPy twins - bit-identical streams on the host, for the NumPy
+# oracle (models/oracle.py) in its common-random-numbers mode.  Copies of
+# the JAX package's ``threefry2x32_np``, ``rand2_np`` and
+# ``randn_draws_np``; equality with the torch functions above and with the
+# JAX twins is pinned by tests/test_torch_oracle.py.
+
+def threefry2x32_np(k0, k1, x0, x1):
+    """NumPy 20-round Threefry-2x32 on uint32 arrays; same contract as
+    :func:`threefry2x32`."""
+    u32 = np.uint32
+    ks = [np.asarray(k0, u32), np.asarray(k1, u32)]
+    ks.append(ks[0] ^ ks[1] ^ u32(_PARITY))
+    x0 = np.asarray(x0, u32)
+    x1 = np.asarray(x1, u32)
+    with np.errstate(over="ignore"):
+        x0 = (x0 + ks[0]).astype(u32)
+        x1 = (x1 + ks[1]).astype(u32)
+        for i in range(5):
+            for r in _ROTATIONS[i % 2]:
+                x0 = (x0 + x1).astype(u32)
+                x1 = ((x1 << u32(r)) | (x1 >> u32(32 - r))).astype(u32) ^ x0
+            x0 = (x0 + ks[(i + 1) % 3]).astype(u32)
+            x1 = (x1 + ks[(i + 2) % 3] + u32(i + 1)).astype(u32)
+    return x0, x1
+
+
+def _bits_to_unit_float_np(bits):
+    return (bits >> np.uint32(8)).astype(np.float32) * _UNIT
+
+
+def rand2_np(key, ray_id, site_id):
+    """NumPy twin of :func:`rand2` (bit-identical)."""
+    with np.errstate(over="ignore"):
+        ctr = (np.asarray(site_id, np.uint32)
+               * np.uint32(_SITE_STRIDE)).astype(np.uint32)
+    b0, b1 = threefry2x32_np(key[0], key[1],
+                             np.asarray(ray_id, np.uint32), ctr)
+    return _bits_to_unit_float_np(b0), _bits_to_unit_float_np(b1)
+
+
+def randn_draws_np(key, ray_id, site_id, n: int):
+    """NumPy twin of :func:`randn_draws` (bit-identical)."""
+    if n > 16:
+        raise ValueError("one site owns at most 16 uniforms")
+    with np.errstate(over="ignore"):
+        base = (np.asarray(site_id, np.uint32)
+                * np.uint32(_SITE_STRIDE)).astype(np.uint32)
+    out = []
+    for j in range((n + 1) // 2):
+        b0, b1 = threefry2x32_np(key[0], key[1],
+                                 np.asarray(ray_id, np.uint32),
+                                 (base + np.uint32(j)).astype(np.uint32))
+        out.extend([_bits_to_unit_float_np(b0), _bits_to_unit_float_np(b1)])
+    return out[:n]

@@ -175,7 +175,7 @@ __device__ __forceinline__ bool quads_valid(const Quads& q, bool neg_t) {
 __device__ Hit trace_blocked(const Scene& S, const Mesh& M, float ox,
                              float oy, float oz, float dx, float dy,
                              float dz, float t0, bool neg_t, bool active) {
-  PreHit h = pre_tri(S, ox, oy, oz, dx, dy, dz, t0, neg_t);
+  PreHit h = pre_tri(S, ox, oy, oz, dx, dy, dz, t0, neg_t, 3);
   const RayInv ri = ray_inv(ox, oy, oz, dx, dy, dz);
   float bn = h.t, bd = 1.0f;
   int bi = -1;

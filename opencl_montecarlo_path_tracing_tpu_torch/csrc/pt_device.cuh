@@ -1,9 +1,9 @@
 // Device code shared by the megakernels (csrc/mega_super.cu, kernel B1;
-// csrc/mega_vlp.cu, kernel B4; csrc/mega_blocked.cu, kernels B2/B3): the
-// threefry stream, the packed scene in shared memory, the thin-lens
-// primary ray, the closest-hit trace and its non-triangle stage, the
-// capped any-hit occlusion test and its non-triangle stage, and the
-// 4-material shading.
+// csrc/mega_vlp.cu, kernel B4; csrc/mega_blocked.cu, kernels B2/B3;
+// csrc/mega_simple.cu, kernel B5): the threefry stream, the packed scene
+// in shared memory, the thin-lens primary ray, the closest-hit trace and
+// its non-triangle stage, the capped any-hit occlusion test and its
+// non-triangle stage, and the 4-material shading.
 //
 // Everything sits in an anonymous namespace, so every translation unit
 // that includes this header gets its own internal copy and the kernels
@@ -143,10 +143,12 @@ struct PreHit {
 
 // The floor, squares and spheres of a closest-hit trace seeded with the
 // running distance t0 (ops/intersect.py::trace_ray before its triangle
-// stage, sphere material 3).
+// stage): spheres are material `sphere_m`, 3 (diffuse) in the super
+// family, 2 (mirror) in the simple tracer.
 __device__ __forceinline__ PreHit pre_tri(const Scene& S, float ox, float oy,
                                           float oz, float dx, float dy,
-                                          float dz, float t0, bool neg_t) {
+                                          float dz, float t0, bool neg_t,
+                                          int sphere_m) {
   PreHit h{t0, 0, 0.0f, 0.0f, 0.0f, false};
   const float inv_dz = 1.0f / dz;
 
@@ -180,7 +182,7 @@ __device__ __forceinline__ PreHit pre_tri(const Scene& S, float ox, float oy,
     const float s = -b - sqrtf(fmaxf(q, 0.0f));
     if (q > 0.0f && s < h.t && s > kEps) {
       h.t = s;
-      h.m = 3;
+      h.m = sphere_m;
       h.nx = px + dx * s;
       h.ny = py + dy * s;
       h.nz = pz + dz * s;
@@ -213,7 +215,7 @@ __device__ __forceinline__ Hit finish(const PreHit& h) {
 // with the running distance t0, over the shared-memory triangle table.
 __device__ Hit trace(const Scene& S, float ox, float oy, float oz,
                      float dx, float dy, float dz, float t0, bool neg_t) {
-  PreHit h = pre_tri(S, ox, oy, oz, dx, dy, dz, t0, neg_t);
+  PreHit h = pre_tri(S, ox, oy, oz, dx, dy, dz, t0, neg_t, 3);
   if (S.ntp) {
     // division-free scan: the running minimum is carried det-scaled as
     // (bn, bd); file order decides exact ties (strict <)

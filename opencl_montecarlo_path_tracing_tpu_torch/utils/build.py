@@ -53,6 +53,9 @@ _SIGNATURES = {
     "mega_blocked_error_string": (ctypes.c_char_p, [_I]),
     "tri_closest_launch": (_I, [_P, _I, _P, _I, _I, _P, _P, _P]),
     "tri_closest_error_string": (ctypes.c_char_p, [_I]),
+    "mega_simple_launch": (_I, [_P, _I, _U, _U, _U, _U, _U, _I, _I, _I, _I,
+                                _I, _P, _P]),
+    "mega_simple_error_string": (ctypes.c_char_p, [_I]),
 }
 
 _LIB = None   # the loaded library handle

@@ -1,11 +1,13 @@
-"""Command-line parity with the reference binaries (super, trianglegrid and
-the VLP variants).
+"""Command-line parity with the reference binaries.
 
-Port of ``opencl_montecarlo_path_tracing_tpu/utils/cli.py`` for the
-ported subcommands, with the same positionals:
+Port of ``opencl_montecarlo_path_tracing_tpu/utils/cli.py``: every variant
+is a subcommand with the same positionals:
 
+    python -m opencl_montecarlo_path_tracing_tpu_torch simplecpu [w] [h]
+    python -m opencl_montecarlo_path_tracing_tpu_torch simple    [w] [h] [lws0]
     python -m opencl_montecarlo_path_tracing_tpu_torch super     [w] [h]
     python -m opencl_montecarlo_path_tracing_tpu_torch superlmem [w] [h]
+    python -m opencl_montecarlo_path_tracing_tpu_torch nodof     [w] [h]
     python -m opencl_montecarlo_path_tracing_tpu_torch trianglegrid \
         [w] [h] [CELL_SIZE_MODIFIER]
     python -m opencl_montecarlo_path_tracing_tpu_torch bidirectional \
@@ -21,11 +23,16 @@ Options: --scene-dir (the four reference text files), --triangles-file
 --dynamic-grid-res (metropolis_vlpgrid: the reference's box-derived grid
 resolution, one host read of the VLP box), and --device (default
 ``cuda``; a CUDA device renders with the CUDA kernels and the command
-fails when no GPU is present).  The other variants of the JAX CLI exit
-with an error naming the ROADMAP item that ports them.
+fails when no GPU is present).  ``simple`` and ``simplecpu`` read no scene
+files; the lws0 positional of the simple tracer is accepted and ignored;
+``nodof`` renders an 8x8 sample grid per pixel (its --spp is not read);
+``simplecpu`` is the reference's CPU tracer, rendered on the host
+whatever --device says, at 256x256 by default.  The JAX CLI's
+--checkpoint, --shard and --profile-stages options are not ported.
 
-Output: a PAM (P7) RGBA file (default result.ppm) plus a per-stage timing
-report in the reference's format (e.g. CLSuperPathTracer.c:321-325).
+Output: a PAM (P7) RGBA file (default result.ppm, resultCPU.ppm for
+simplecpu) plus a per-stage timing report in the reference's format (e.g.
+CLSuperPathTracer.c:321-325).
 """
 
 from __future__ import annotations
@@ -61,7 +68,7 @@ class _Report:
 
 
 def main(argv=None):
-    from ..api import VARIANTS, NOT_PORTED
+    from ..api import VARIANTS
     argv = list(sys.argv[1:] if argv is None else argv)
     ap = argparse.ArgumentParser(
         prog="opencl_montecarlo_path_tracing_tpu_torch",
@@ -89,18 +96,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default: cuda)")
     ns = ap.parse_args(argv)
-    if ns.variant in NOT_PORTED:
-        print(f"error: variant {ns.variant!r} is not ported to PyTorch yet: "
-              f"{NOT_PORTED[ns.variant]}", file=sys.stderr)
-        return 2
     pos = ns.positionals
 
     from ..core.quirks import DEFAULT, REFERENCE, REFERENCE_LMEM
     from ..core.rng import make_key
     from ..core.camera import make_camera
-    from ..ops.reduce import quantize_film, quantize_film16
     from ..scene.scene import load_scene
-    from .pam import ImgInfo, save_pam
 
     # superlmem + reference quirks additionally reproduces the lmem
     # binaries' shadow-trace &t aliasing (core/quirks.py::shadow_carry_t)
@@ -113,16 +114,28 @@ def main(argv=None):
     key = make_key(seed)
     print(f"Seed: {seed}")
 
-    w = _positional(pos, 0, 512)
-    h = _positional(pos, 1, 512)
+    host = ns.variant == "simplecpu"
+    w = _positional(pos, 0, 256 if host else 512)
+    h = _positional(pos, 1, 256 if host else 512)
     report = _Report()
-    out_name = ns.out or "result.ppm"
+    out_name = ns.out or ("resultCPU.ppm" if host else "result.ppm")
 
-    # camera printout parity (CLSuperPathTracer.c:251)
-    cam = make_camera(z_sign=-1.0)
+    # camera printout parity (CLSuperPathTracer.c:251); the CPU tracer's
+    # basis has z_vect = +1 (simpleCPUtracer.cpp:160)
+    cam = make_camera(z_sign=1.0 if host else -1.0)
     print("Cam values:\nCam_forward %f %f %f\nCam_up %f %f %f\n"
           "Cam_right %f %f %f\n eye_offset %f %f %f"
           % (*cam.forward, *cam.up, *cam.right, *cam.eye_offset))
+
+    if host:
+        # the reference's CPU tracer: it renders on the host
+        from ..models.oracle import render_oracle
+        t0 = time.perf_counter()
+        film = torch.from_numpy(render_oracle(w, h, spp=ns.spp, seed=seed,
+                                              gpu_layout=False))
+        report.record("rendering (host)", (time.perf_counter() - t0) * 1e3,
+                      items=w * h, item_label="float", data_size=w * h * 4)
+        return _write(ns, out_name, film, None, w, h, quirks, report)
 
     device = torch.device(ns.device)
     if device.type == "cuda":
@@ -134,22 +147,37 @@ def main(argv=None):
     else:
         print(f"Using device: {device}")
 
-    try:
-        scene = load_scene(ns.scene_dir, triangles=ns.triangles_file)
-    except FileNotFoundError as e:
-        print(f"error: missing scene file: {e.filename} "
-              f"(looked in {ns.scene_dir!r}; need spheres.txt, "
-              "squares.txt, triangles.txt, lights.txt)", file=sys.stderr)
-        return 1
-    print(f"Number of triangles: {scene.n_triangles}")
-    print(f"Number of lights: {scene.n_lights}")
+    if ns.variant != "simple":
+        try:
+            scene = load_scene(ns.scene_dir, triangles=ns.triangles_file)
+        except FileNotFoundError as e:
+            print(f"error: missing scene file: {e.filename} "
+                  f"(looked in {ns.scene_dir!r}; need spheres.txt, "
+                  "squares.txt, triangles.txt, lights.txt)", file=sys.stderr)
+            return 1
+        print(f"Number of triangles: {scene.n_triangles}")
+        print(f"Number of lights: {scene.n_lights}")
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     t0 = time.perf_counter()
-    if ns.variant in ("super", "superlmem"):
+    img = None
+    items, item_label, data_size = w * h, "pixels", w * h * 4
+    if ns.variant == "simple":
+        from ..models.simple import render_simple
+        stage = "rendering"
+        film = render_simple(key, w, h, spp=ns.spp, quirks=quirks,
+                             device=device)
+    elif ns.variant == "nodof":
+        from ..models.sample_parallel import render_sample_parallel
+        stage = "rendering+reduction"
+        items, item_label, data_size = w * h * 64, "samples", w * h * 64 * 16
+        film = None
+        img = render_sample_parallel(key, scene, w, h, sample_grid=8,
+                                     quirks=quirks, device=device)
+    elif ns.variant in ("super", "superlmem"):
         from ..models.super import render_super
         stage = "rendering"
         film = render_super(key, scene, w, h, spp=ns.spp, quirks=quirks,
@@ -180,10 +208,22 @@ def main(argv=None):
             device=device)
     sync()
     report.record(stage, (time.perf_counter() - t0) * 1e3,
-                  items=w * h, item_label="pixels", data_size=w * h * 4)
+                  items=items, item_label=item_label, data_size=data_size)
+    return _write(ns, out_name, film, img, w, h, quirks, report)
 
-    # quantise on the film's device, then copy the 4-byte pixels to the host
-    if ns.pam_maxval == 65535:
+
+def _write(ns, out_name, film, img, w, h, quirks, report) -> int:
+    """Quantise ``film`` on its device (or take the nodof image ``img``),
+    copy the pixels to the host and write the PAM file."""
+    from ..ops.reduce import quantize_film, quantize_film16
+    from .pam import ImgInfo, save_pam
+    if img is not None:
+        rgba = img.cpu().numpy()
+        if ns.pam_maxval == 65535:
+            # the nodof reduction emits RGBA8 (reduce4img_lmem,
+            # ...NoDoF/pathtracer.ocl:268-271); widen exactly (255 -> 65535)
+            rgba = rgba.astype(np.uint16) * np.uint16(257)
+    elif ns.pam_maxval == 65535:
         rgba = quantize_film16(film).cpu().numpy().astype(np.uint16)
     else:
         rgba = quantize_film(film, wrap=quirks.wrap_uint8).cpu().numpy()

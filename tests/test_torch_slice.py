@@ -1,15 +1,18 @@
-"""The port's `super` slice end to end, against the JAX package.
+"""The port's `super` slice end to end, against the JAX package, and the
+API and CLI surface of every variant.
 
 ``api.render("super" / "superlmem")``, film quantisation, PAM output and
-the CLI go through both packages with the same scene, seed and quirks.
-Tolerances, each with its reason:
+the CLI (``super``, and the simple family's ``simple``, ``nodof`` and
+``simplecpu``) go through both packages with the same scene, seed and
+quirks.  Tolerances, each with its reason:
 
 * films: the common-random-number contract of
   ``tools/validate_crn_frame.py`` (display-scale p99.5 < 1e-5, razor-edge
   ties (> 1e-4) on < 0.6% of pixels) - both packages consume the same
   threefry streams, so only float rounding and razor-edge ties differ;
 * RGBA8 images: equal on >= 99.5% of pixels (a rounding difference can
-  cross an integer boundary of the truncation);
+  cross an integer boundary of the truncation); ``simplecpu``'s exactly
+  (the same NumPy tracer on both sides);
 * the regression fixture: rtol = atol = 2e-3, as in
   ``tests/test_regression_films.py``;
 * PAM bytes and quantisation of one film: exact.
@@ -147,9 +150,65 @@ def test_cli_matches_jax(tmp_path, monkeypatch, capsys):
     assert pixel_agreement(t.data, j.data) >= PIXEL_AGREE
 
 
-def test_cli_unported_variant_fails(capsys):
-    assert cli.main(["simple", "8", "8", "--device", "cpu"]) == 2
-    assert "ROADMAP A7" in capsys.readouterr().err
+# the simple family's subcommands: (args, output file, its width and
+# height); simple and simplecpu read no scene files, nodof reads the
+# written demo files and renders an 8x8 sample grid a pixel
+SIMPLE_CLI = [(["simple", "16", "12", "4", "--spp", "2"], "result.ppm",
+               16, 12),
+              (["nodof", "12", "8"], "result.ppm", 12, 8),
+              (["simplecpu", "16", "12", "--spp", "2"], "resultCPU.ppm",
+               16, 12)]
+
+
+@pytest.mark.parametrize("case", SIMPLE_CLI, ids=[c[0][0] for c in SIMPLE_CLI])
+def test_cli_simple_family_matches_jax(case, tmp_path, monkeypatch, capsys):
+    args, out_name, w, h = case
+    args = args + ["--seed", "1"]
+    if args[0] == "nodof":
+        write_scene_files(procedural_super_scene(), str(tmp_path / "scene"))
+        args += ["--scene-dir", str(tmp_path / "scene")]
+    (tmp_path / "t").mkdir()
+    (tmp_path / "j").mkdir()
+    monkeypatch.chdir(tmp_path / "t")
+    assert cli.main(args + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "Seed: 1" in out and "Cam_forward" in out
+    stage = {"simple": "rendering :", "nodof": "rendering+reduction :",
+             "simplecpu": "rendering (host) :"}[args[0]]
+    assert stage in out and "GB/s" in out
+    rj = _run_cli("opencl_montecarlo_path_tracing_tpu", args,
+                  str(tmp_path / "j"))
+    assert rj.returncode == 0, rj.stderr
+    t = TP.load_pam(str(tmp_path / "t" / out_name))
+    j = JP.load_pam(str(tmp_path / "j" / out_name))
+    assert (t.width, t.height, t.channels) == (w, h, 4)
+    assert pixel_agreement(t.data, j.data) >= PIXEL_AGREE
+    if args[0] == "simplecpu":
+        # the same NumPy tracer on the same draws: the same bytes, and the
+        # CPU tracer's camera basis (z_vect = +1) printed
+        assert np.array_equal(t.data, j.data)
+        assert out.split("Cam_up")[1].split("\n")[0] == \
+            rj.stdout.split("Cam_up")[1].split("\n")[0]
+
+
+def test_cli_nodof_wide_pam_widens_the_image(tmp_path, monkeypatch):
+    """--pam-maxval 65535 widens nodof's RGBA8 image exactly (x 257)."""
+    write_scene_files(procedural_super_scene(), str(tmp_path / "scene"))
+    monkeypatch.chdir(tmp_path)
+    base = ["nodof", "8", "8", "--seed", "2", "--scene-dir",
+            str(tmp_path / "scene"), "--device", "cpu"]
+    assert cli.main(base + ["--out", "a.ppm"]) == 0
+    assert cli.main(base + ["--out", "b.ppm", "--pam-maxval", "65535"]) == 0
+    a, b = TP.load_pam("a.ppm"), TP.load_pam("b.ppm")
+    assert b.maxval == 65535
+    np.testing.assert_array_equal(b.data, a.data.astype(np.uint16) * 257)
+
+
+def test_cli_unknown_variant_fails(capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["raytracer", "8", "8", "--device", "cpu"])
+    assert e.value.code == 2
+    assert "invalid choice" in capsys.readouterr().err
 
 
 def test_port_imports_no_jax():
@@ -176,11 +235,28 @@ def test_cuda_request_never_falls_back_to_cpu():
         tpt.render("super", demo_scene()[0], 8, 8, spp=1, device="cuda")
 
 
-@pytest.mark.parametrize("variant", [v for v in tpt.VARIANTS
-                                     if v in tpt.api.NOT_PORTED])
-def test_unported_variants_name_their_roadmap_item(variant):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpt.render(variant, demo_scene()[0], 8, 8, spp=1, device="cpu")
+# small light passes for the Metropolis variants (their defaults run 512
+# chains x 8 rounds)
+_SMALL = {"metropolis": dict(n_seedpaths=16, mutation_rounds=2),
+          "metropolis_vlpgrid": dict(n_seedpaths=16, mutation_rounds=2),
+          "bidirectional": dict(n_vlp=64)}
+
+
+@pytest.mark.parametrize("variant", tpt.VARIANTS)
+def test_every_variant_renders(variant):
+    """Each of the nine variants renders on the CPU and returns the
+    documented shape and type: the pre-ambient float32 film as a tensor,
+    nodof's RGBA8 image as a numpy array."""
+    out = tpt.render(variant, demo_scene()[0], 8, 8, spp=4, seed=1,
+                     device="cpu", **_SMALL.get(variant, {}))
+    if variant == "nodof":
+        assert isinstance(out, np.ndarray)
+        assert out.shape == (8, 8, 4) and out.dtype == np.uint8
+        assert (out[..., 3] == 255).all()
+    else:
+        assert isinstance(out, torch.Tensor) and out.device.type == "cpu"
+        assert out.shape == (8, 8, 3) and out.dtype == torch.float32
+        assert torch.isfinite(out).all()
 
 
 def test_key_from_jax():
