@@ -67,20 +67,36 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    512x512 with an 8x8 sample grid (B1 once a render), timed the same
    way, and held against the tier-1 sample buffer of the same render
    (16.7 M rays, reduced on the card): <= 1 uint8 step, >= 99% exact;
-14. CLI: ``super``, ``bidirectional`` and ``metropolis_vlpgrid`` at 256x256
+14. B8-loops (``diag_loops``): the 13 arms of ``tools/diag_loops.py``
+   against their plain versions at 1/100 of the JAX tool's trip counts
+   (bit-equal; both timed there, the ``kernels`` line's row), then the
+   tool's run at its own counts (ns an iteration);
+15. B8-prim (``diag_takelist``): the four arms of
+   ``tools/diag_primitives.py`` at 128 blocks x 200 repetitions (ns a
+   block), each bit-equal to its plain version, the take-list's count the
+   64 flagged blocks;
+16. B8-dda (``diag_dda``, closest and occlusion): ``tools/diag_dda.py`` at
+   512x512 on the demo scene and the 5k and 20,736-triangle sheets - the
+   cell-list walk, the Morton take-list twin, the shadow arm of each, the
+   dense scan and the per-lane DDA - every kernel call then held against
+   its plain version (bit-equal maps), and cell == Morton == dense;
+17. CLI: ``super``, ``bidirectional`` and ``metropolis_vlpgrid`` at 256x256
    with 4 spp on a scene written to text files, ``trianglegrid`` on the
    large-mesh scene's files, ``nodof`` on the demo files and ``simple`` /
    ``simplecpu`` at 64x64 with 2 spp; each must exit 0 and write a valid
    PAM.
 
-Every path phase (5, 6, 7, 10, 12, 13) sets all launch counts to 0 just
-before it and reads them just after; the counts in the ``kernels`` line
-come from those runs.  Each kernel's ``bound_ms`` is the least time the card could
-take for the same work: the larger of its bytes (inputs read once, output
-written once) over 3.35 TB/s and its operations over 3.345e13 FP32 ops/s
-(132 SMs x 128 lanes x 1.98 GHz, one multiply or add an instruction: the
-kernels build with --fmad=false), counting the (ray, triangle) pairs this
-run's data needs.  The last line of standard output is ``{"ok": true,
+Every path phase (5, 6, 7, 10, 12, 13) and each diagnostic's run (14-16)
+sets all launch counts to 0 just before it and reads them just after; the
+counts in the ``kernels`` line come from those runs.  Each kernel's
+``bound_ms`` is the least time the card could take for the same work: the
+larger of its bytes (inputs read once, output written once) over 3.35 TB/s
+and its operations over 3.345e13 FP32 ops/s (132 SMs x 128 lanes x 1.98
+GHz, one multiply or add an instruction: the kernels build with
+--fmad=false), counting the (ray, triangle) pairs this run's data needs;
+for the loop and primitive arms, each one dependent chain, the chain's
+FP32 operations x 4 cycles over the SM clock (``bound_by``
+``"latency"``).  The last line of standard output is ``{"ok": true,
 "device": {...}}``; the line before it is the card's name and power limit,
 the line before that each kernel's launches, error, times and bound.  The
 script imports no JAX.  It exits non-zero, printing no result, without a
@@ -142,6 +158,24 @@ SSPP = 256
 NW = NH = 512          # the nodof main path: bench.py:138-146
 NSG = 8
 
+# the B8 diagnostics: tools/diag_dda_pallas.py's size and scenes (the 20k
+# sheet is the large-mesh rows' 20,736 triangles); the loop and primitive
+# arms are one dependent chain each, so their bound is its latency: the
+# chain's FP32 operations x 4 cycles (the dependent-issue latency of an
+# FP32 add, multiply or max that microbenchmark studies report for Volta
+# through Hopper, e.g. Jia et al. 2018, "Dissecting the NVIDIA Volta GPU
+# Architecture via Microbenchmarking") / the SM clock (clocks.max.sm)
+DIAG_SIZE = 512
+DIAG_SCENES = ("demo", "5k", "20k")
+FP32_CHAIN_CYCLES = 4
+# FP32 operations a loop iteration's chain holds: one multiply and one add
+# a step; the broadcast an add; a reduce its tree depth (the full reduce 5
+# shuffle levels and 5 across 32 warps, the lane reduce 5 and 2 across a
+# row's 4 warps, the sub reduce 3 across 8 rows) plus a multiply and an
+# add; the copy and scalar arms one add
+LOOP_CHAIN_OPS = {"bcast": 1, "reduce_full": 12, "reduce_lane": 9,
+                  "reduce_sub": 5, "copy": 1, "scalar": 1}
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -183,20 +217,28 @@ def timed_call(fn):
 
 def reset_counts():
     from opencl_montecarlo_path_tracing_tpu_torch.ops import (
-        gather_vlp, mega_simple, mega_super, mega_vlp, tri_closest)
+        diag_dda, diag_loops, diag_takelist, gather_vlp, mega_simple,
+        mega_super, mega_vlp, tri_closest)
     mega_super.LAUNCHES = mega_super.BLOCKED_LAUNCHES = 0
     mega_vlp.LAUNCHES = gather_vlp.LAUNCHES = tri_closest.LAUNCHES = 0
     mega_simple.LAUNCHES = 0
+    diag_dda.CLOSEST_LAUNCHES = diag_dda.OCC_LAUNCHES = 0
+    diag_takelist.LAUNCHES = diag_loops.LAUNCHES = 0
 
 
 def read_counts() -> dict:
     from opencl_montecarlo_path_tracing_tpu_torch.ops import (
-        gather_vlp, mega_simple, mega_super, mega_vlp, tri_closest)
+        diag_dda, diag_loops, diag_takelist, gather_vlp, mega_simple,
+        mega_super, mega_vlp, tri_closest)
     return {"mega_super": mega_super.LAUNCHES,
             "mega_blocked": mega_super.BLOCKED_LAUNCHES,
             "mega_vlp": mega_vlp.LAUNCHES, "gather_vlp": gather_vlp.LAUNCHES,
             "tri_closest": tri_closest.LAUNCHES,
-            "mega_simple": mega_simple.LAUNCHES}
+            "mega_simple": mega_simple.LAUNCHES,
+            "diag_dda_closest": diag_dda.CLOSEST_LAUNCHES,
+            "diag_dda_occ": diag_dda.OCC_LAUNCHES,
+            "diag_takelist": diag_takelist.LAUNCHES,
+            "diag_loops": diag_loops.LAUNCHES}
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
@@ -1299,6 +1341,265 @@ def phase_nodof_main_path(card: str) -> dict:
             "mpaths": mpaths}
 
 
+def sm_clock_hz(query: str = "clocks.max.sm") -> float:
+    """The SM clock nvidia-smi reads: its maximum, or ``clocks.sm`` now."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()
+    return float(out[0]) * 1e6
+
+
+def latency_bound(chain_ops: float) -> tuple[float, str]:
+    """(bound_ms, "latency") of a dependent chain of FP32 operations."""
+    return chain_ops * FP32_CHAIN_CYCLES / sm_clock_hz() * 1e3, "latency"
+
+
+def max_abs(a, b) -> float:
+    import torch
+    return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+
+
+def loop_chain_ops(arm: str, n1: int, n2: int) -> int:
+    """FP32 operations in the dependent chain of one B8-loops call."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_loops as L
+    steps = L.STEPS.get(arm)
+    if steps:
+        return 2 * steps * n1 * max(1, n2)
+    return LOOP_CHAIN_OPS[arm] * n1
+
+
+def phase_diag_loops(card: str) -> dict:
+    """B8-loops: each of the 13 arms against its plain version at 1/100 of
+    the JAX tool's trip counts (a random start and table; bit-equal), both
+    timed there (the kernels line's row), then the tool's run at its own
+    counts (ns an iteration), counts set to 0 just before it."""
+    import torch
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_loops as L
+    from opencl_montecarlo_path_tracing_tpu_torch.tools import (
+        diag_loops as TL)
+    print("B8 diag_loops vs plain:")
+    rng = np.random.RandomState(7)
+    x, acc0 = (torch.from_numpy(rng.rand(8, 128).astype(np.float32))
+               .cuda() for _ in range(2))
+    table = torch.from_numpy(rng.rand(*L.TABLE_SHAPE).astype(np.float32)
+                             ).cuda()
+    worst, failed, k_ms, p_ms, chain = 0.0, [], 0.0, 0.0, 0
+    for arm in L.ARMS:
+        n1, n2 = TL.COUNTS[arm]
+        n1 = max(1, n1 // 100)
+        k = L.run(arm, x, n1, n2, acc0, table)
+        k_ms += time_ms(lambda: L.run(arm, x, n1, n2, acc0, table), 5)
+        p, ms = timed_call(lambda: L.run_plain(arm, x, n1, n2, acc0, table))
+        p_ms += ms
+        chain += loop_chain_ops(arm, n1, n2)
+        worst = max(worst, max_abs(k, p))
+        if not torch.equal(k, p):
+            failed.append(arm)
+    b_ms, b_by = latency_bound(chain)
+    print(f"  13 arms at 1/100 of the tool's counts: kernel {k_ms:.4f} ms, "
+          f"plain PyTorch {p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{chain} chained FP32 operations x {FP32_CHAIN_CYCLES} cycles at "
+          f"{sm_clock_hz() / 1e6:.0f} MHz); max abs {worst:.3e}, "
+          f"{'bit-equal' if not failed else f'DIFFER: {failed}'} ({card})")
+    if failed:
+        raise RuntimeError(f"B8-loops kernel vs plain differ: {failed}")
+    print("  the tool's run (best of 5, ns an iteration):")
+    reset_counts()
+    res = TL.run_arms("cuda")
+    counts = read_counts()
+    now = sm_clock_hz("clocks.sm")
+    print(f"  SM clock just after the run: {now / 1e6:.0f} MHz (max "
+          f"{sm_clock_hz() / 1e6:.0f})")
+    if counts["diag_loops"] != 13 * (1 + TL.REPEATS) or any(
+            v for k, v in counts.items() if k != "diag_loops"):
+        raise RuntimeError(f"diag_loops run: launches {counts}")
+    # the four arms that run the same 25,600-step chain from zero agree
+    same = [res[a][0] for a in ("flat1", "chunk32", "chunk128", "nested")]
+    if not all(torch.equal(same[0], o) for o in same[1:]) or not all(
+            bool(torch.isfinite(o).all()) for o, _, _ in res.values()):
+        raise RuntimeError("B8-loops at the tool's counts: the 25,600-step "
+                           "chains disagree or an output is not finite")
+    f_ms = sum(ms for _, ms, _ in res.values())
+    f_bound, _ = latency_bound(sum(loop_chain_ops(a, *TL.COUNTS[a])
+                                   for a in L.ARMS))
+    print(f"  13 arms at the tool's counts: kernel {f_ms:.3f} ms in all, "
+          f"bound {f_bound:.4f} ms (latency); the 25,600-step chains agree "
+          f"bit for bit ({card})")
+    return {"launches": counts["diag_loops"], "max_abs": worst, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_diag_primitives(card: str) -> dict:
+    """B8-prim: the tool's run at NB = 128, REPS = 200 (counts set to 0
+    just before), each arm then held against its plain version on the same
+    inputs: bit-equal, the take-list's count the 64 flagged blocks."""
+    import torch
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import (
+        diag_takelist as P)
+    from opencl_montecarlo_path_tracing_tpu_torch.tools import (
+        diag_primitives as TP)
+    print("B8 diag_takelist (the take-list primitives):")
+    reset_counts()
+    res = TP.run_arms("cuda", P.NB, P.REPS)
+    counts = read_counts()
+    if counts["diag_takelist"] != 4 * (1 + TP.REPEATS) or any(
+            v for k, v in counts.items() if k != "diag_takelist"):
+        raise RuntimeError(f"diag_primitives run: launches {counts}")
+    x, flags = TP.inputs("cuda")
+    worst, p_ms = 0.0, 0.0
+    for arm in P.ARMS:
+        (out, cnt), ms = timed_call(lambda: P.run_plain(arm, x, P.NB, P.REPS,
+                                                        flags))
+        p_ms += ms
+        worst = max(worst, max_abs(out, res[arm][0]))
+        want = 64 if arm == "takelist" else 0
+        if not torch.equal(out, res[arm][0]) \
+                or res[arm][1] != int(cnt[0]) or res[arm][1] != want:
+            raise RuntimeError(f"B8-prim {arm}: kernel vs plain differ (count "
+                               f"{res[arm][1]}, plain {int(cnt[0])}, want "
+                               f"{want})")
+    k_ms = sum(ms for _, _, ms in res.values())
+    # chained adds: every block for noop, the 64 flagged ones otherwise
+    b_ms, b_by = latency_bound(P.REPS * (P.NB + 3 * 64))
+    print(f"  4 arms: kernel {k_ms:.3f} ms, plain PyTorch {p_ms:.1f} ms "
+          f"(bit-equal; take-list count 64 of {P.NB}), bound {b_ms:.4f} ms "
+          f"({b_by}) ({card})")
+    return {"launches": counts["diag_takelist"], "max_abs": worst,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def listed_pairs(arm) -> tuple[int, int]:
+    """((ray, triangle) pairs, distinct rows) of one closest call: every
+    ray of a tile against every row its list names."""
+    import torch
+    llen, ids = arm.lists.llen.long(), arm.lists.ids.long()
+    k = torch.arange(ids.shape[1], device=ids.device)[None]
+    live = k < llen[:, None]
+    rows = torch.where(live, arm.table.count.long()[ids], 0)
+    used = torch.unique(ids[live])
+    return (int(rows.sum()) * 2048, int(arm.table.count.long()[used].sum()))
+
+
+def occ_pairs_needed(arm) -> int:
+    """(ray, triangle) pairs an occlusion call needs: each ray's rows in
+    walk order up to its first occluder, or all of them."""
+    import torch
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_dda as K
+    o, d, tl = arm.rays
+    h, w = tl.shape
+    ot, dt, tlt = K._rays_in_tiles(o, d, tl, w, h)
+    first = torch.zeros(tlt.shape, dtype=torch.int64, device=tl.device)
+    for c, (ok, dd, tn_s, _) in enumerate(K._chunks(arm.lists, arm.table,
+                                                   ot, dt)):
+        hit = ok & (tn_s < tlt[..., None] * dd)
+        pos = hit.to(torch.int8).argmax(-1) + c * K._CHUNK + 1
+        first = torch.where((first == 0) & hit.any(-1), pos, first)
+    llen, ids = arm.lists.llen.long(), arm.lists.ids.long()
+    k = torch.arange(ids.shape[1], device=ids.device)[None]
+    rows = torch.where(k < llen[:, None], arm.table.count.long()[ids],
+                       0).sum(-1)                       # a tile's rows
+    return int(torch.where(first > 0, first, rows[:, None]).sum())
+
+
+def phase_diag_dda(card: str) -> tuple[dict, dict]:
+    """B8-dda-closest and B8-dda-occ: the tool's run at 512x512 on the demo
+    scene and the 5k and 20k sheets (counts set to 0 just before), then
+    every kernel call of it held against its plain version on the same
+    inputs (bit-equal maps), cell vs Morton vs dense t maps and cell vs
+    Morton occlusion maps bit-equal, and the tables of times."""
+    import torch
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_dda as K
+    from opencl_montecarlo_path_tracing_tpu_torch.tools import diag_dda as TD
+    print("B8 diag_dda (the grid cell-walk diagnostic):")
+    reset_counts()
+    runs = [TD.run_scene(tag, DIAG_SIZE, "cuda") for tag in DIAG_SCENES]
+    counts = read_counts()
+    n_closest = sum(len(r["closest"]) for r in runs) * (1 + TD.REPEATS)
+    n_occ = sum(len(a) for r in runs for a in r["shadow"].values()) * (
+        1 + TD.REPEATS)
+    if (counts["diag_dda_closest"], counts["diag_dda_occ"]) != (
+            n_closest, n_occ) or any(
+            v for k, v in counts.items()
+            if k not in ("diag_dda_closest", "diag_dda_occ")):
+        raise RuntimeError(f"diag_dda run: launches {counts}, want "
+                           f"{n_closest} closest and {n_occ} occlusion")
+    worst_c = worst_o = 0.0
+    failed = []
+    for r in runs:
+        tag = r["tag"]
+        t_c = r["closest"]["cell"].out[0]
+        for name, arm in r["closest"].items():
+            t, m = K.closest_plain(arm.lists, arm.table, DIAG_SIZE,
+                                   DIAG_SIZE)
+            worst_c = max(worst_c, max_abs(arm.out[0], t))
+            if not (torch.equal(arm.out[0], t) and torch.equal(arm.out[1], m)):
+                failed.append(f"{tag} {name} closest: kernel vs plain")
+            if not torch.equal(arm.out[0], t_c):
+                failed.append(f"{tag} {name} vs cell t map")
+        for name, arms in r["shadow"].items():
+            for li, arm in enumerate(arms):
+                occ = K.occluded_plain(arm.lists, arm.table, *arm.rays)
+                worst_o = max(worst_o, max_abs(arm.out, occ))
+                if not torch.equal(arm.out, occ):
+                    failed.append(f"{tag} {name} L{li} occ: kernel vs plain")
+                if not torch.equal(arm.out, r["shadow"]["cell"][li].out):
+                    failed.append(f"{tag} {name} L{li} vs cell occ map")
+    print(f"  every call vs plain: t max abs {worst_c:.3e}, occlusion max abs "
+          f"{worst_o:.3e}; cell == Morton == dense t maps, cell == Morton "
+          f"occlusion maps: {'yes' if not failed else failed}")
+    if failed:
+        raise RuntimeError(f"B8-dda: {failed}")
+    print(f"  {DIAG_SIZE}x{DIAG_SIZE}, best of {TD.REPEATS} warm calls, ms "
+          f"({card}):")
+    print("  | scene | structure | closest | shadow (2 lights) | total | "
+          "lists mean | host lists s |")
+    for r in runs:
+        hs = r["host_s"]
+        for name, arm in r["closest"].items():
+            sh = r["shadow"].get(name)
+            sh_ms = sum(a.ms for a in sh) if sh else None
+            tot = arm.ms + (sh_ms or 0.0)
+            lists_s = {"cell": hs["cell_lists"], "morton": hs["morton_lists"]
+                       }.get(name)
+            print(f"  | {r['tag']} | {name} | {arm.ms:.3f} | "
+                  f"{'-' if sh_ms is None else f'{sh_ms:.3f}'} | "
+                  f"{tot:.3f} | {float(arm.lists.llen.float().mean()):.1f} | "
+                  f"{'-' if lists_s is None else f'{lists_s:.2f}'} |")
+        print(f"  {r['tag']}: cell/Morton closest+shadow "
+              f"{r['totals']['morton'] / r['totals']['cell']:.2f}x, per-lane "
+              f"DDA (plain) {r['dda_ms']:.1f} ms, host: tables "
+              f"{hs['cells'] + hs['morton']:.2f} s, shadow lists "
+              f"{hs['shadow_lists']:.2f} s")
+    # the rows of the kernels line: the 20k sheet's cell-list calls
+    r = runs[-1]
+    c_arm, o_arm = r["closest"]["cell"], r["shadow"]["cell"][0]
+    _, pc_ms = timed_call(lambda: K.closest_plain(
+        c_arm.lists, c_arm.table, DIAG_SIZE, DIAG_SIZE))
+    _, po_ms = timed_call(lambda: K.occluded_plain(o_arm.lists, o_arm.table,
+                                                   *o_arm.rays))
+    npix = DIAG_SIZE * DIAG_SIZE
+    pairs, rows = listed_pairs(c_arm)
+    bc_ms, bc_by = bound(pairs * PAIR_OPS + npix * CAMERA_OPS,
+                         rows * 64 + c_arm.lists.ids.numel() * 4 + npix * 8)
+    o_pairs = occ_pairs_needed(o_arm)
+    _, o_rows = listed_pairs(o_arm)
+    bo_ms, bo_by = bound(o_pairs * PAIR_OPS,
+                         o_rows * 64 + o_arm.lists.ids.numel() * 4 + npix * 32)
+    print(f"  {r['tag']} cell closest: kernel {c_arm.ms:.3f} ms, plain "
+          f"PyTorch {pc_ms:.1f} ms, bound {bc_ms:.4f} ms ({bc_by}; {pairs} listed "
+          f"pairs); cell shadow L0: kernel {o_arm.ms:.3f} ms, plain PyTorch "
+          f"{po_ms:.1f} ms, bound {bo_ms:.4f} ms ({bo_by}; {o_pairs} needed "
+          f"pairs) ({card})")
+    closest = {"launches": counts["diag_dda_closest"], "max_abs": worst_c,
+               "ms": c_arm.ms, "plain_ms": pc_ms, "bound_ms": bc_ms,
+               "bound_by": bc_by}
+    occ = {"launches": counts["diag_dda_occ"], "max_abs": worst_o,
+           "ms": o_arm.ms, "plain_ms": po_ms, "bound_ms": bo_ms,
+           "bound_by": bo_by}
+    return closest, occ
+
+
 def phase_cli():
     from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
         large_mesh_scene, procedural_super_scene, write_scene_files)
@@ -1368,31 +1669,45 @@ def main() -> int:
     b5 = phase(phase_simple_kernel_vs_plain, gt, card)
     sp = phase(phase_simple_main_path, card)
     npth = phase(phase_nodof_main_path, card)
+    b8_loops = phase(phase_diag_loops, card)
+    b8_prim = phase(phase_diag_primitives, card)
+    b8_closest, b8_occ = phase(phase_diag_dda, card)
     phase(phase_cli)
     print(f"smoke: {time.perf_counter() - t0:.1f} s")
     src = f"{PKG}/csrc"
     ref = "opencl_montecarlo_path_tracing_tpu/ops"
 
     def row(name, source, replaces, launches, k):
+        """``replaces``: the TPU kernel's file (from the repository root)
+        and line."""
         return {"name": name, "route": "cuda", "source": f"{src}/{source}",
-                "replaces": f"{ref}/{replaces}", "launches": launches,
+                "replaces": replaces, "launches": launches,
                 "max_abs_err": k["max_abs"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": None}
 
     kernels = [
-        row("mega_super", "mega_super.cu", "pallas_super.py:2228",
+        row("mega_super", "mega_super.cu", f"{ref}/pallas_super.py:2228",
             mp["launches"] + npth["launches"], dict(mp, max_abs=b1_err)),
-        row("mega_vlp", "mega_vlp.cu", "pallas_bpt.py:434", vp["launches"],
-            b4),
-        row("gather_vlp", "gather_vlp.cu", "pallas_vlp.py:111",
+        row("mega_vlp", "mega_vlp.cu", f"{ref}/pallas_bpt.py:434",
+            vp["launches"], b4),
+        row("gather_vlp", "gather_vlp.cu", f"{ref}/pallas_vlp.py:111",
             b6_launches + lp["gather_vlp"], b6),
-        row("mega_blocked", "mega_blocked.cu", "pallas_super.py:2228",
+        row("mega_blocked", "mega_blocked.cu", f"{ref}/pallas_super.py:2228",
             lp["mega_blocked"], b23),
-        row("tri_closest", "tri_closest.cu", "pallas_tri.py:89",
+        row("tri_closest", "tri_closest.cu", f"{ref}/pallas_tri.py:89",
             lp["tri_closest"], b7),
-        row("mega_simple", "mega_simple.cu", "pallas_simple.py:352",
+        row("mega_simple", "mega_simple.cu", f"{ref}/pallas_simple.py:352",
             sp["launches"], b5),
+        row("diag_dda_closest", "diag_dda.cu", "tools/diag_dda_pallas.py:163",
+            b8_closest["launches"], b8_closest),
+        row("diag_dda_occ", "diag_dda.cu", "tools/diag_dda_pallas.py:198",
+            b8_occ["launches"], b8_occ),
+        row("diag_takelist", "diag_takelist.cu",
+            "tools/diag_primitives.py:145", b8_prim["launches"], b8_prim),
+        row("diag_loops", "diag_loops.cu",
+            "tools/diag_loops.py:47, :70, :85, :103, :119, :136",
+            b8_loops["launches"], b8_loops),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

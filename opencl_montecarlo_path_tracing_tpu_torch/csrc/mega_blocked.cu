@@ -140,35 +140,6 @@ __device__ __forceinline__ void tally(const Mesh& M, int slot, bool need) {
   }
 }
 
-// Det-scaled Moller-Trumbore quantities of one row (the B1 scan's).
-struct Quads {
-  float dd, un_s, vn_s, tn_s;
-};
-
-__device__ __forceinline__ Quads row_quads(float4 a, float4 c, float4 e,
-                                           float ox, float oy, float oz,
-                                           float dx, float dy, float dz) {
-  const float pvx = dy * e.x - dz * c.w;
-  const float pvy = dz * c.z - dx * e.x;
-  const float pvz = dx * c.w - dy * c.z;
-  const float det = a.w * pvx + c.x * pvy + c.y * pvz;
-  const float tvx = ox - a.x, tvy = oy - a.y, tvz = oz - a.z;
-  const float un = tvx * pvx + tvy * pvy + tvz * pvz;
-  const float qvx = tvy * c.y - tvz * c.x;
-  const float qvy = tvz * a.w - tvx * c.y;
-  const float qvz = tvx * c.x - tvy * a.w;
-  const float vn = dx * qvx + dy * qvy + dz * qvz;
-  const float tn = c.z * qvx + c.w * qvy + e.x * qvz;
-  const float sg = det >= 0.0f ? 1.0f : -1.0f;
-  return Quads{det * sg, un * sg, vn * sg, tn * sg};
-}
-
-__device__ __forceinline__ bool quads_valid(const Quads& q, bool neg_t) {
-  return q.dd >= kEps && q.un_s >= 0.0f && q.un_s <= q.dd &&
-         q.vn_s >= 0.0f && q.un_s + q.vn_s <= q.dd &&
-         (neg_t || q.tn_s > kEps * q.dd);
-}
-
 // Closest hit over floor, squares, spheres and the blocked triangles,
 // seeded with t0.  `active` lanes vote and update; the others run the
 // walk for the votes' sake and return garbage.

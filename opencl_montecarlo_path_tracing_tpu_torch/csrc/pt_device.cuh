@@ -1,9 +1,10 @@
 // Device code shared by the megakernels (csrc/mega_super.cu, kernel B1;
 // csrc/mega_vlp.cu, kernel B4; csrc/mega_blocked.cu, kernels B2/B3;
-// csrc/mega_simple.cu, kernel B5): the threefry stream, the packed scene
-// in shared memory, the thin-lens primary ray, the closest-hit trace and
-// its non-triangle stage, the capped any-hit occlusion test and its
-// non-triangle stage, and the 4-material shading.
+// csrc/mega_simple.cu, kernel B5) and the cell-walk diagnostic
+// (csrc/diag_dda.cu): the threefry stream, the packed scene in shared
+// memory, the thin-lens primary ray, the det-scaled triangle row test, the
+// closest-hit trace and its non-triangle stage, the capped any-hit
+// occlusion test and its non-triangle stage, and the 4-material shading.
 //
 // Everything sits in an anonymous namespace, so every translation unit
 // that includes this header gets its own internal copy and the kernels
@@ -97,20 +98,16 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz;
 };
 
-// Camera draws (site 0, counters 0 and 1: core/rng.py randn_draws) and
-// the thin-lens primary ray (core/camera.py::primary_rays) of pixel
-// (ii, jj) for sample stream `ray_id`.
-__device__ __forceinline__ Ray primary_ray(const Scene& S, uint32_t k0,
-                                           uint32_t k1, uint32_t ray_id,
-                                           float ii, float jj) {
-  uint32_t b0, b1, b2, b3;
-  threefry(k0, k1, ray_id, 0u, b0, b1);
-  threefry(k0, k1, ray_id, 1u, b2, b3);
-  const float r1 = unit(b0), r2 = unit(b1), r3 = unit(b2), r4 = unit(b3);
-  const float upx = S.cam[0], upy = S.cam[1], upz = S.cam[2];
-  const float rix = S.cam[3], riy = S.cam[4], riz = S.cam[5];
-  const float eyx = S.cam[6], eyy = S.cam[7], eyz = S.cam[8];
-  const float psx = S.cam[9], psy = S.cam[10], psz = S.cam[11];
+// The thin-lens ray (core/camera.py::primary_rays) of pixel (ii, jj) for
+// the uniforms r1..r4, on the 12-float camera `cam` (up, right,
+// eye_offset, pos).
+__device__ __forceinline__ Ray camera_ray(const float* cam, float ii,
+                                          float jj, float r1, float r2,
+                                          float r3, float r4) {
+  const float upx = cam[0], upy = cam[1], upz = cam[2];
+  const float rix = cam[3], riy = cam[4], riz = cam[5];
+  const float eyx = cam[6], eyy = cam[7], eyz = cam[8];
+  const float psx = cam[9], psy = cam[10], psz = cam[11];
   const float e1 = (r1 - 0.5f) * 99.0f;
   const float e2 = (r2 - 0.5f) * 99.0f;
   const float dlx = upx * e1 + rix * e2;
@@ -130,6 +127,49 @@ __device__ __forceinline__ Ray primary_ray(const Scene& S, uint32_t k0,
   r.dy = dy * inv_n;
   r.dz = dz * inv_n;
   return r;
+}
+
+// Camera draws (site 0, counters 0 and 1: core/rng.py randn_draws) and
+// the thin-lens primary ray of pixel (ii, jj) for sample stream `ray_id`.
+__device__ __forceinline__ Ray primary_ray(const Scene& S, uint32_t k0,
+                                           uint32_t k1, uint32_t ray_id,
+                                           float ii, float jj) {
+  uint32_t b0, b1, b2, b3;
+  threefry(k0, k1, ray_id, 0u, b0, b1);
+  threefry(k0, k1, ray_id, 1u, b2, b3);
+  return camera_ray(S.cam, ii, jj, unit(b0), unit(b1), unit(b2), unit(b3));
+}
+
+// Det-scaled Moller-Trumbore quantities of one triangle row (v0.xyz e0.x |
+// e0.yz e2.xy | e2.z ...), sign-adjusted so that dd >= 0: the operation
+// order of ops/pallas_super.py::_tri_closest_row and _tri_occ_row.
+struct Quads {
+  float dd, un_s, vn_s, tn_s;
+};
+
+__device__ __forceinline__ Quads row_quads(float4 a, float4 c, float4 e,
+                                           float ox, float oy, float oz,
+                                           float dx, float dy, float dz) {
+  const float pvx = dy * e.x - dz * c.w;
+  const float pvy = dz * c.z - dx * e.x;
+  const float pvz = dx * c.w - dy * c.z;
+  const float det = a.w * pvx + c.x * pvy + c.y * pvz;
+  const float tvx = ox - a.x, tvy = oy - a.y, tvz = oz - a.z;
+  const float un = tvx * pvx + tvy * pvy + tvz * pvz;
+  const float qvx = tvy * c.y - tvz * c.x;
+  const float qvy = tvz * a.w - tvx * c.y;
+  const float qvz = tvx * c.x - tvy * a.w;
+  const float vn = dx * qvx + dy * qvy + dz * qvz;
+  const float tn = c.z * qvx + c.w * qvy + e.x * qvz;
+  const float sg = det >= 0.0f ? 1.0f : -1.0f;
+  return Quads{det * sg, un * sg, vn * sg, tn * sg};
+}
+
+// Inside the triangle, and in front of the origin unless neg_t.
+__device__ __forceinline__ bool quads_valid(const Quads& q, bool neg_t) {
+  return q.dd >= kEps && q.un_s >= 0.0f && q.un_s <= q.dd &&
+         q.vn_s >= 0.0f && q.un_s + q.vn_s <= q.dd &&
+         (neg_t || q.tn_s > kEps * q.dd);
 }
 
 // Running closest-hit state of a trace: distance, material, normal, and

@@ -1,4 +1,4 @@
-"""Kernels B1, B2/B3, B4, B5, B6 and B7 on the card: each CUDA kernel ==
+"""Kernels B1-B7 and the B8 diagnostics on the card: each CUDA kernel ==
 its plain PyTorch version, and each route launches the kernels it names.
 
 These tests need a CUDA GPU (the kernels have no CPU mode); without one
@@ -25,7 +25,10 @@ at the same contract and at max abs 2e-5 where no tie shows.  For B7,
 ``t`` at rtol 2e-4 where both hit and the hit/miss and triangle index on
 >= 99.9% of rays: the kernel sums the K=13 cancelling products in feature
 order with no FMA, the plain version through cuBLAS in its own order (the
-tolerance ``tests/test_mxu_triangles.py`` gives two such orders).
+tolerance ``tests/test_mxu_triangles.py`` gives two such orders).  The B8
+kernels (the grid cell-walk pair, the take-list primitives, the loop arms)
+equal their plain versions bit for bit: the same float operations in the
+same order, none contracted.
 """
 
 import os
@@ -551,6 +554,98 @@ def test_nodof_render_on_gpu_launches_the_super_kernel(cuda_device):
                                     return_samples=True, device=cuda_device)
     d = np.abs(img.astype(np.int32) - ref.cpu().numpy().astype(np.int32))
     assert d.max() <= 1 and (d == 0).mean() >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("structure", ["cell", "morton", "dense"])
+def test_diag_dda_kernels_match_plain_on_gpu(structure, cuda_device):
+    """B8-dda-closest and B8-dda-occ on a 1,800-triangle sheet at 128x128
+    (8 tiles): the t and m maps and each light's occlusion map equal the
+    plain version's bit for bit (the same float operations, no FMA); the
+    three structures give the same t map."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_dda as K8
+    from opencl_montecarlo_path_tracing_tpu_torch.tools import (
+        diag_host as H8)
+    size = 128
+    scn = prep_scene(sheet_scene(30, 30))
+    o, d = H8.primary_rays(size)
+    boxes = {"cell": lambda: H8.cell_boxes(scn)[2],
+             "morton": lambda: H8.morton_boxes(scn),
+             "dense": lambda: H8.dense_boxes(scn)}[structure]()
+    lists = (H8.dense_lists(len(boxes.start), size, size)
+             if structure == "dense"
+             else H8.tile_lists(o, d, boxes, size, size, device=cuda_device))
+    ls, tb = K8.lists_on(lists, cuda_device), K8.table_on(boxes, cuda_device)
+    before = K8.CLOSEST_LAUNCHES, K8.OCC_LAUNCHES
+    t, m = K8.closest(ls, tb, size, size)
+    torch.cuda.synchronize()
+    pt_, pm = K8.closest_plain(ls, tb, size, size)
+    assert torch.equal(t, pt_) and torch.equal(m, pm)
+    assert float((m == 4).float().mean()) > 0.99     # the sheet fills it
+    dense = H8.dense_boxes(scn)
+    t_d, _ = K8.closest_plain(K8.lists_on(H8.dense_lists(
+        len(dense.start), size, size), cuda_device),
+        K8.table_on(dense, cuda_device), size, size)
+    assert torch.equal(t, t_d)
+    x = H8.hit_points(t.cpu().numpy(), m.cpu().numpy(), o, d)
+    for light in np.asarray(scn.lights, np.float64):
+        sd, dist = H8.shadow_rays(x, light)
+        sl = (lists if structure == "dense" else H8.tile_lists(
+            x, sd, boxes, size, size, tmax_cap=dist, sort_near=False,
+            device=cuda_device))
+        rays = [torch.from_numpy(a).to(cuda_device)
+                for a in H8.shadow_inputs(x, sd, dist, size, size)]
+        sl = K8.lists_on(sl, cuda_device)
+        occ = K8.occluded(sl, tb, *rays)
+        torch.cuda.synchronize()
+        assert torch.equal(occ, K8.occluded_plain(sl, tb, *rays))
+    assert (K8.CLOSEST_LAUNCHES, K8.OCC_LAUNCHES) == (
+        before[0] + 1, before[1] + len(scn.lights))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arm", ["noop", "anycond", "scalarcond",
+                                 "takelist"])
+def test_diag_takelist_kernel_matches_plain_on_gpu(arm, cuda_device):
+    """B8-prim at NB = 128, 3 repetitions: out bit-equal to the plain
+    version, the take-list's count the 64 flagged blocks, 0 elsewhere."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import (
+        diag_takelist as P8)
+    from opencl_montecarlo_path_tracing_tpu_torch.tools import (
+        diag_primitives as TP8)
+    x, flags = TP8.inputs(cuda_device)
+    before = P8.LAUNCHES
+    out, cnt = P8.run(arm, x, P8.NB, 3, flags)
+    torch.cuda.synchronize()
+    assert P8.LAUNCHES == before + 1
+    p_out, p_cnt = P8.run_plain(arm, x, P8.NB, 3, flags)
+    assert torch.equal(out, p_out)
+    assert int(cnt[0]) == int(p_cnt[0]) == (64 if arm == "takelist" else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arm", ["flat1", "flat4", "flat16", "flat64",
+                                 "chunk32", "chunk128", "nested", "bcast",
+                                 "reduce_full", "reduce_lane", "reduce_sub",
+                                 "copy", "scalar"])
+def test_diag_loops_kernel_matches_plain_on_gpu(arm, cuda_device):
+    """B8-loops at 1/100 of the JAX tool's trip counts, from a random
+    start and over a random table: bit-equal to the plain version."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_loops as L8
+    from opencl_montecarlo_path_tracing_tpu_torch.tools import (
+        diag_loops as TL8)
+    rng = np.random.RandomState(5)
+    x, acc0 = (torch.from_numpy(rng.rand(8, 128).astype(np.float32))
+               .to(cuda_device) for _ in range(2))
+    table = torch.from_numpy(rng.rand(*L8.TABLE_SHAPE).astype(np.float32)
+                             ).to(cuda_device)
+    n1, n2 = TL8.COUNTS[arm]
+    n1 = max(1, n1 // 100)
+    before = L8.LAUNCHES
+    out = L8.run(arm, x, n1, n2, acc0, table)
+    torch.cuda.synchronize()
+    assert L8.LAUNCHES == before + 1
+    assert torch.equal(out, L8.run_plain(arm, x, n1, n2, acc0, table))
 
 
 def test_file_imports_no_jax():

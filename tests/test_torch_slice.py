@@ -220,6 +220,7 @@ def test_port_imports_no_jax():
         "        importlib.import_module(m.name)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'opencl_montecarlo_path_tracing_tpu' not in sys.modules\n"
+        "assert 'tools' not in sys.modules, 'the JAX tools imported'\n"
         "print('ok')\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
