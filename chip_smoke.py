@@ -16,8 +16,8 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    < 0.6%);
 3. B4 (``mega_vlp``) vs its plain version under the same contract: the GPU
    tests' cases, and the bench tables at 512x512, samples 0-1 of 256 - the
-   demo scene's emitted 1024-row table, the dense-VLP scene's (~100% live)
-   and the 4096-row Metropolis table, dense and grid;
+   demo scene's emitted 1024-row table, the dense-VLP scene's (478 of 1024
+   rows live) and the 4096-row Metropolis table, dense and grid;
 4. B6 (``gather_vlp``) vs its plain version on 512x512 random shading points
    against 64, 1024 and 4096 VLPs (rtol = atol = 1e-5);
 5. the super main path: ``api.render("super")`` on ``demo_scene()`` at
@@ -39,7 +39,13 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    sheet at 512x512x4, the 262,144 sheet at 512x512, sample 0 of 4, and
    the 1,048,576 sheet on the top, middle and bottom 16 rows of 512x512,
    samples 0-1 of 4, all under the contract (and max abs 2e-5 where no
-   pixel ties);
+   pixel ties); on each sheet at 512x512x4 the kernel's time and its work
+   tally (``blocked_stats``): the yardstick's needed pairs, this design's
+   own need (pairs of the 32-row sub-blocks each ray's test passes), the
+   pairs the warps test, the box tests of each level and the clock64 split
+   of the cycles into walk and row scans, and beside the yardstick's bound
+   the bound restated over the design's own need and over the tested
+   pairs;
 9. B7 (``tri_closest``) vs its plain version on the 512x512 primary rays
    of the large-mesh scene x 20,736 triangles, and on the inputs of every
    B7 call of one bidirectional main-path render there (camera, shadow
@@ -57,9 +63,12 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    contract (utils/crn.py ``SIMPLE``: p95 < 1e-5, ties on < 2%, and max
    abs 2e-5 where no pixel ties): the GPU tests' cases at 5, 0 and 1
    bounces, and the simple main path's full frame (1024x1024, samples 0-1
-   of 256); its tie pixels' band is rendered again at max_bounces 1..5 by
-   both, and the first bounce at which they differ is printed as a
-   histogram; the bound counts the live rays of each bounce;
+   of 256), each also bit for bit; its tie pixels' band is rendered again
+   at max_bounces 1..5 by both, and the first bounce at which they differ
+   is printed as a histogram; the bound counts the live rays of each
+   bounce (every sphere a trace: the yardstick), and is restated beside it
+   over the sphere tests that the kernel's cull lets through for each ray;
+   the kernel is timed at max_bounces 5 and 1;
 12. the simple main path: ``api.render("simple")`` at 1024x1024 with 256
    spp (bench.py's simple row), timed over 3 runs after a warm-up, its
    film written as a PAM file;
@@ -781,13 +790,9 @@ def phase_blocked_kernel_vs_plain(gt, card: str) -> dict:
                                                  device="cuda"), 3)
         st = M.blocked_stats(key, scn, LW, LH, LSPP)
         b_ms, b_by = bound(st["needed"] * PAIR_OPS, nt * 64 + LW * LH * 12)
-        n = LW * LH * LSPP
         print(f"  sheet {nt}, {LW}x{LH}x{LSPP}: kernel {k_ms:.3f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}); a sample: {st['needed'] / n:.0f} "
-              f"needed pairs, {st['tested'] / n:.0f} tested by its warp, "
-              f"{32 * st['macro_tests'] / n:.0f} macro and "
-              f"{32 * st['block_tests'] / n:.0f} block box tests a warp "
-              f"({card})")
+              f"{b_ms:.4f} ms ({b_by}; {restated_blocked(st, nt, k_ms)}); "
+              f"{blocked_split(st, LW * LH * LSPP)} ({card})")
     if failed:
         raise RuntimeError(f"B2/B3 kernel contract violated: {failed}")
     # the main path's kernel call: large_mesh_scene() at 512x512x4
@@ -795,13 +800,47 @@ def phase_blocked_kernel_vs_plain(gt, card: str) -> dict:
     nt = int(scn.tri_v0.shape[0])
     k_ms = time_ms(lambda: M.film_super_mega(key, scn, LW, LH, LSPP,
                                              device="cuda"), 5)
-    pairs = M.blocked_stats(key, scn, LW, LH, LSPP)["needed"]
+    st = M.blocked_stats(key, scn, LW, LH, LSPP)
+    pairs = st["needed"]
     b_ms, b_by = bound(pairs * PAIR_OPS, nt * 64 + LW * LH * 12)
     print(f"  sheet {nt}, {LW}x{LH}x{LSPP}: kernel {k_ms:.3f} ms, plain "
           f"PyTorch {p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}; {pairs} "
-          f"needed pairs, {pairs / (LW * LH * LSPP):.0f} a sample) ({card})")
+          f"needed pairs, {pairs / (LW * LH * LSPP):.0f} a sample; "
+          f"{restated_blocked(st, nt, k_ms)}) ({card})")
     return {"max_abs": worst, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by}
+
+
+def restated_blocked(st: dict, nt: int, k_ms: float) -> str:
+    """B2/B3's bound restated over the work of its own walk (not the
+    yardstick): the pairs of the 32-row sub-blocks each ray's own test
+    passes, and the pairs its warps test; each with the kernel's share."""
+    nbytes = nt * 64 + LW * LH * 12
+    own, _ = bound(st["sub_needed"] * PAIR_OPS, nbytes)
+    tested, _ = bound(st["tested"] * PAIR_OPS, nbytes)
+    return (f"restated over this design's own need {own:.4f} ms, "
+            f"{100 * own / k_ms:.1f}% of the kernel's time; over the "
+            f"pairs its warps test {tested:.4f} ms, "
+            f"{100 * tested / k_ms:.1f}%")
+
+
+def blocked_split(st: dict, n: int) -> str:
+    """B2/B3's work tally (``blocked_stats``) over ``n`` samples: pairs a
+    sample (the yardstick's needed, this design's own need, tested by the
+    warps), box tests a warp-sample by level, and the clock64 split of a
+    warp's cycles."""
+    ws = n / 32
+    kc = max(st["kernel_cycles"], 1)
+    return (f"a sample: {st['needed'] / n:.0f} needed pairs (yardstick), "
+            f"{st['sub_needed'] / n:.0f} this design's own need, "
+            f"{st['tested'] / n:.0f} tested by its warp "
+            f"({st['tested'] / max(st['needed'], 1):.2f}x the yardstick, "
+            f"{st['tested'] / max(st['sub_needed'], 1):.2f}x the own "
+            f"need); a warp-sample: "
+            f"{st['macro_tests'] / ws:.0f} node, {st['block_tests'] / ws:.0f}"
+            f" block and {st['sub_tests'] / ws:.0f} sub-block box tests, "
+            f"{kc / ws:.0f} cycles: walk {100 * st['walk_cycles'] / kc:.1f}%,"
+            f" row scans {100 * st['scan_cycles'] / kc:.1f}%")
 
 
 def b7_agreement(name, calls, min_hits: float) -> tuple[float, bool]:
@@ -1042,7 +1081,9 @@ def simple_counts(key, w, h, spp, spp_total, max_bounces=5) -> dict:
     plain trace on the card: per bounce the live rays traced, their floor
     and sphere hits, sky misses, the shadow rays cast (lamb >= 0) and the
     sphere tests those make up to their first hit (the floor first, as the
-    kernel's any-hit stops)."""
+    kernel's any-hit stops); and the sphere tests that the kernel's cull
+    lets through for each ray's own test (:func:`SphereCull`), on the
+    traces and on the shadow rays."""
     import torch
     from opencl_montecarlo_path_tracing_tpu_torch.core import rng as R
     from opencl_montecarlo_path_tracing_tpu_torch.core.camera import (
@@ -1056,9 +1097,11 @@ def simple_counts(key, w, h, spp, spp_total, max_bounces=5) -> dict:
     ii, jj = C.pixel_grid(w, h, device="cuda")
     pix = (jj * w + ii).to(torch.int64)
     cam = make_camera(z_sign=-1.0)
-    keys = ("live", "floor", "mirror", "sky", "cast", "shadow_tests")
+    keys = ("live", "floor", "mirror", "sky", "cast", "shadow_tests",
+            "cull_trace_tests", "cull_shadow_tests")
     n = {k: [0] * max_bounces for k in keys}
     eps, big = float(np.float32(0.01)), float(np.float32(1e9))
+    cull = SphereCull(scn.sphere_centers)
     for s in range(spp):
         ray_id = (pix * spp_total + s) & 0xFFFFFFFF
         o, d = primary_rays(cam, ii, jj,
@@ -1066,6 +1109,7 @@ def simple_counts(key, w, h, spp, spp_total, max_bounces=5) -> dict:
         alive = torch.ones_like(ii, dtype=torch.bool)
         for b in range(max_bounces):
             tr = trace_ray(o, d, scn, sphere_material=2, plain=True)
+            n["cull_trace_tests"][b] += cull.trace_tests(o, d, alive)
             m = torch.where(alive, tr.material, -1)
             x = o + d * tr.t[..., None]
             u1, u2 = R.rand2(key, ray_id, C.SITE_LIGHT0
@@ -1091,6 +1135,8 @@ def simple_counts(key, w, h, spp, spp_total, max_bounces=5) -> dict:
                          ("cast", cast)):
                 n[k][b] += int(v.sum())
             n["shadow_tests"][b] += int(tests.sum())
+            n["cull_shadow_tests"][b] += cull.shadow_tests(
+                x, ldir, cast & ~((p > eps) & (p < big)))
             bounce = m == 2
             o = torch.where(bounce[..., None], x, o)
             d = torch.where(bounce[..., None], C.reflect(d, tr.normal), d)
@@ -1098,16 +1144,101 @@ def simple_counts(key, w, h, spp, spp_total, max_bounces=5) -> dict:
     return n
 
 
-def simple_ops(n: dict, rays: int, ns: int) -> int:
-    """B5's FP32 operations for the counts of :func:`simple_counts`."""
+class SphereCull:
+    """A torch twin, on the card, of B5's per-ray cull
+    (``csrc/mega_simple.cu``: ``make_cull``, ``group_need``, over
+    ``ops/mega_simple.py::sphere_groups``), counting the sphere tests it
+    lets through for each ray's own test - not its warp's."""
+
+    def __init__(self, centers, device="cuda"):
+        import torch
+        from opencl_montecarlo_path_tracing_tpu_torch.ops.mega_simple import (
+            sphere_groups)
+        recs = sphere_groups(centers)
+        self.first = recs[:, 3].view(np.int32).tolist()
+        self.count = recs[:, 7].view(np.int32).tolist()
+        self.recs = torch.from_numpy(recs).to(device)
+        self.c = torch.from_numpy(np.asarray(centers, np.float32)).to(device)
+        lo, hi = self.recs[0, 0:3], self.recs[0, 4:7]
+        e = hi - lo
+        self.mid = 0.5 * (lo + hi)
+        self.half = 0.5 * torch.sqrt(e[0] * e[0] + e[1] * e[1]
+                                     + e[2] * e[2]) * 1.001
+
+    def _pad(self, o):
+        import torch
+        q = o - self.mid
+        P = torch.sqrt((q * q).sum(-1)) + self.half
+        return (torch.sqrt(1.0 + 2e-6 * (P * P + 1.0)) - 1.0) + 0.01 + 1e-5 * P
+
+    def _need(self, g, o, inv, pad, t):
+        import torch
+        lo = self.recs[g, 0:3] - pad[..., None]
+        hi = self.recs[g, 4:7] + pad[..., None]
+        t0, t1 = (lo - o) * inv, (hi - o) * inv
+        nan = torch.isnan(t0) | torch.isnan(t1)
+        tn = torch.where(nan, -np.inf, torch.minimum(t0, t1)).amax(-1)
+        tf = torch.where(nan, np.inf, torch.maximum(t0, t1)).amin(-1)
+        return (tf >= tn) & (tf >= 0.0) & (tn.clamp_min(0.0) <= t * 1.001)
+
+    def _roots(self, k, o, d):
+        import torch
+        p = o - self.c[k]
+        b = (p * d).sum(-1)
+        q = b * b - ((p * p).sum(-1) - 1.0)
+        return q > 0.0, -b - torch.sqrt(q.clamp_min(0.0))
+
+    def trace_tests(self, o, d, active) -> int:
+        """Sphere tests of the closest-hit traces of the ``active`` rays,
+        the running t seeded by the floor."""
+        import torch
+        eps, big = float(np.float32(0.01)), float(np.float32(1e9))
+        inv, pad = 1.0 / d, self._pad(o)
+        p = -o[..., 2] * (1.0 / d[..., 2])
+        t = torch.where((p > eps) & (p < big), p, big)
+        in_card = active & self._need(0, o, inv, pad, t)
+        tests = torch.zeros_like(t, dtype=torch.int64)
+        for g in range(1, len(self.count)):
+            tests += (in_card & self._need(g, o, inv, pad, t)) * self.count[g]
+            for k in range(self.first[g], self.first[g] + self.count[g]):
+                q, s = self._roots(k, o, d)
+                t = torch.where(q & (s < t) & (s > eps), s, t)
+        return int(tests.sum())
+
+    def shadow_tests(self, o, d, open_) -> int:
+        """Sphere tests of the uncapped any-hit rays that are ``open_``
+        after the floor, each up to its first hit."""
+        import torch
+        eps, big = float(np.float32(0.01)), float(np.float32(1e9))
+        inv, pad = 1.0 / d, self._pad(o)
+        open_ = open_ & self._need(0, o, inv, pad, big)
+        tests = torch.zeros(open_.shape, dtype=torch.int64, device=o.device)
+        for g in range(1, len(self.count)):
+            still = open_ & self._need(g, o, inv, pad, big)
+            for k in range(self.first[g], self.first[g] + self.count[g]):
+                tests += still
+                q, s = self._roots(k, o, d)
+                hit = still & q & (s < big) & (s > eps)
+                open_ = open_ & ~hit
+                still = still & ~hit
+        return int(tests.sum())
+
+
+def simple_ops(n: dict, rays: int, ns: int, culled: bool = False) -> int:
+    """B5's FP32 operations for the counts of :func:`simple_counts`: every
+    sphere for a live ray's trace and the shadow tests in index order (the
+    yardstick), or with ``culled`` the sphere tests the cull lets through
+    (box tests not counted)."""
     ops = rays * CAMERA_OPS
     for b in range(len(n["live"])):
         hits = n["floor"][b] + n["mirror"][b]
-        ops += (n["live"][b] * (FLOOR_OPS + ns * SPHERE_OPS)
+        trace = n["cull_trace_tests"][b] if culled else n["live"][b] * ns
+        shadow = n["cull_shadow_tests" if culled else "shadow_tests"][b]
+        ops += (n["live"][b] * FLOOR_OPS + trace * SPHERE_OPS
                 + n["mirror"][b] * (RENORM_OPS + MIRROR_OPS)
                 + hits * HIT_OPS + n["floor"][b] * FLOOR_SHADE_OPS
                 + n["sky"][b] * SKY_OPS + n["cast"][b] * FLOOR_OPS
-                + n["shadow_tests"][b] * SPHERE_OPS)
+                + shadow * SPHERE_OPS)
     return ops
 
 
@@ -1144,6 +1275,7 @@ def phase_simple_kernel_vs_plain(gt, card: str) -> dict:
             worst = max(worst, check_crn(
                 f"{name}, max_bounces {bounces}", a, b, spp, failed,
                 atol=gt.SIMPLE_ATOL, contract=SIMPLE))
+            bit_equal(f"{name}, max_bounces {bounces}", a, b, failed)
     key = make_key(0)
     frame = dict(spp_total=SSPP)
     a = M5.film_simple_mega(key, scn, SW, SH, 2, device="cuda", **frame)
@@ -1151,6 +1283,7 @@ def phase_simple_kernel_vs_plain(gt, card: str) -> dict:
     worst = max(worst, check_crn(
         f"{SW}x{SH}, samples 0-1 of {SSPP}", a, b, 2, failed,
         atol=gt.SIMPLE_ATOL, contract=SIMPLE))
+    bit_equal(f"{SW}x{SH}, samples 0-1 of {SSPP}", a, b, failed)
     if failed:
         raise RuntimeError(f"B5 kernel vs plain contract violated: {failed}")
     # tie localisation: the band of the tie pixels again at max_bounces
@@ -1177,21 +1310,42 @@ def phase_simple_kernel_vs_plain(gt, card: str) -> dict:
     oracle_ties(scn)
     k_ms = time_ms(lambda: M5.film_simple_mega(key, scn, SW, SH, 2,
                                                device="cuda", **frame), 10)
+    k1_ms = time_ms(lambda: M5.film_simple_mega(
+        key, scn, SW, SH, 2, max_bounces=1, device="cuda", **frame), 10)
     p_ms = time_ms(lambda: M5.film_simple_mega_plain(
         key, scn, SW, SH, 2, device="cuda", **frame), 2)
     n = simple_counts(key, SW, SH, 2, SSPP)
     ns = int(scn.sphere_centers.shape[0])
     b_ms, b_by = bound(simple_ops(n, SW * SH * 2, ns), SW * SH * 12 + ns * 12)
+    r_ms, _ = bound(simple_ops(n, SW * SH * 2, ns, culled=True),
+                    SW * SH * 12 + ns * 12)
     rays = SW * SH * 2
     live = ", ".join(f"{v / rays:.4f}" for v in n["live"])
     print(f"  live fraction at bounces 1-5: {live}; shadow rays cast "
           f"{sum(n['cast']) / rays:.4f} a sample, "
           f"{sum(n['shadow_tests']) / max(sum(n['cast']), 1):.1f} sphere "
-          "tests each")
-    print(f"  {SW}x{SH}x2: kernel {k_ms:.3f} ms, plain PyTorch {p_ms:.1f} "
-          f"ms, bound {b_ms:.4f} ms ({b_by}) ({card})")
+          "tests each in index order; after the cull, for each ray's own "
+          f"test: {sum(n['cull_trace_tests']) / max(sum(n['live']), 1):.2f} "
+          f"a trace (of {ns}), "
+          f"{sum(n['cull_shadow_tests']) / max(sum(n['cast']), 1):.2f} a "
+          "shadow ray")
+    print(f"  {SW}x{SH}x2: kernel {k_ms:.3f} ms (at max_bounces 1: "
+          f"{k1_ms:.3f} ms, so bounces 2-5 take "
+          f"{100 * (k_ms - k1_ms) / k_ms:.1f}%), plain PyTorch {p_ms:.1f} "
+          f"ms, bound {b_ms:.4f} ms ({b_by}; restated over the sphere tests "
+          f"the cull lets through {r_ms:.4f} ms, {100 * r_ms / k_ms:.1f}% "
+          f"of the kernel's time) ({card})")
     return {"max_abs": worst, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by}
+
+
+def bit_equal(name, a, b, failed):
+    """B5 and its plain version run the same float operations in the same
+    order, none contracted: their films must be equal bit for bit."""
+    import torch
+    if not torch.equal(a, b):
+        print(f"  {name}: NOT bit-equal")
+        failed.append(f"{name} (bit-equal)")
 
 
 def first_difference(diffs, ties, r0) -> tuple[dict, dict]:

@@ -4,7 +4,8 @@
 // (csrc/diag_dda.cu): the threefry stream, the packed scene in shared
 // memory, the thin-lens primary ray, the det-scaled triangle row test, the
 // closest-hit trace and its non-triangle stage, the capped any-hit
-// occlusion test and its non-triangle stage, and the 4-material shading.
+// occlusion test and its non-triangle stage, the NaN-safe slab test of the
+// per-warp culls, and the 4-material shading.
 //
 // Everything sits in an anonymous namespace, so every translation unit
 // that includes this header gets its own internal copy and the kernels
@@ -24,6 +25,8 @@ constexpr float kBig = 1e9f;
 constexpr float kExposure = 3.5f;
 constexpr int kSiteLight0 = 2;       // models/common.py SITE_LIGHT0
 constexpr uint32_t kSiteStride = 8;  // core/rng.py _SITE_STRIDE
+constexpr float kSlack = 1.001f;     // _PRUNE_SLACK = float32(1 + 1e-3)
+constexpr unsigned kAll = 0xffffffffu;
 
 // Packed scene buffer (ops/mega_super.py::pack_scene), float32:
 //   [ntp*12 triangle table][12 camera: up, right, eye_offset, pos]
@@ -181,6 +184,60 @@ struct PreHit {
   bool needs;
 };
 
+// Unit sphere k against the ray: p = o - c and, where the discriminant q
+// is positive (the return value), the nearer root s = -b - sqrt(q).  The
+// square root runs only there, the only place s is read.
+__device__ __forceinline__ bool sphere_root(const Scene& S, int k, float ox,
+                                            float oy, float oz, float dx,
+                                            float dy, float dz, float& px,
+                                            float& py, float& pz, float& s) {
+  px = ox - S.spheres[3 * k];
+  py = oy - S.spheres[3 * k + 1];
+  pz = oz - S.spheres[3 * k + 2];
+  const float b = px * dx + py * dy + pz * dz;
+  const float cc = px * px + py * py + pz * pz - 1.0f;
+  const float q = b * b - cc;
+  if (!(q > 0.0f)) return false;
+  s = -b - sqrtf(q);
+  return true;
+}
+
+// The unit spheres [k0, k1) of a closest-hit trace, in index order (an
+// exact tie keeps the earlier sphere): a root eps < s < h.t becomes the
+// running hit, material m.
+__device__ __forceinline__ void spheres_closest(const Scene& S, int k0,
+                                                int k1, float ox, float oy,
+                                                float oz, float dx, float dy,
+                                                float dz, int m, PreHit& h) {
+  for (int k = k0; k < k1; ++k) {
+    float px, py, pz, s;
+    if (sphere_root(S, k, ox, oy, oz, dx, dy, dz, px, py, pz, s) &&
+        s < h.t && s > kEps) {
+      h.t = s;
+      h.m = m;
+      h.nx = px + dx * s;
+      h.ny = py + dy * s;
+      h.nz = pz + dz * s;
+      h.needs = true;
+    }
+  }
+}
+
+// Whether a unit sphere of [k0, k1) has a root eps < s < t_limit; stops at
+// the first.
+__device__ __forceinline__ bool spheres_any(const Scene& S, int k0, int k1,
+                                            float ox, float oy, float oz,
+                                            float dx, float dy, float dz,
+                                            float t_limit) {
+  for (int k = k0; k < k1; ++k) {
+    float px, py, pz, s;
+    if (sphere_root(S, k, ox, oy, oz, dx, dy, dz, px, py, pz, s) &&
+        s < t_limit && s > kEps)
+      return true;
+  }
+  return false;
+}
+
 // The floor, squares and spheres of a closest-hit trace seeded with the
 // running distance t0 (ops/intersect.py::trace_ray before its triangle
 // stage): spheres are material `sphere_m`, 3 (diffuse) in the super
@@ -212,23 +269,7 @@ __device__ __forceinline__ PreHit pre_tri(const Scene& S, float ox, float oy,
       h.needs = false;
     }
   }
-  for (int k = 0; k < S.ns; ++k) {
-    const float px = ox - S.spheres[3 * k];
-    const float py = oy - S.spheres[3 * k + 1];
-    const float pz = oz - S.spheres[3 * k + 2];
-    const float b = px * dx + py * dy + pz * dz;
-    const float cc = px * px + py * py + pz * pz - 1.0f;
-    const float q = b * b - cc;
-    const float s = -b - sqrtf(fmaxf(q, 0.0f));
-    if (q > 0.0f && s < h.t && s > kEps) {
-      h.t = s;
-      h.m = sphere_m;
-      h.nx = px + dx * s;
-      h.ny = py + dy * s;
-      h.nz = pz + dz * s;
-      h.needs = true;
-    }
-  }
+  spheres_closest(S, 0, S.ns, ox, oy, oz, dx, dy, dz, sphere_m, h);
   return h;
 }
 
@@ -316,17 +357,7 @@ __device__ __forceinline__ bool occluded_pre(const Scene& S, float ox,
         (neg_t || rd > kEps))
       return true;
   }
-  for (int k = 0; k < S.ns; ++k) {
-    const float px = ox - S.spheres[3 * k];
-    const float py = oy - S.spheres[3 * k + 1];
-    const float pz = oz - S.spheres[3 * k + 2];
-    const float b = px * dx + py * dy + pz * dz;
-    const float cc = px * px + py * py + pz * pz - 1.0f;
-    const float q = b * b - cc;
-    const float s = -b - sqrtf(fmaxf(q, 0.0f));
-    if (q > 0.0f && s < t_limit && s > kEps) return true;
-  }
-  return false;
+  return spheres_any(S, 0, S.ns, ox, oy, oz, dx, dy, dz, t_limit);
 }
 
 // Any-hit occlusion with t < t_limit (ops/intersect.py::any_hit): kBig
@@ -364,6 +395,41 @@ __device__ bool occluded(const Scene& S, float ox, float oy, float oz,
       return true;
   }
   return false;
+}
+
+// A ray's origin and reciprocal direction, for slab tests against boxes
+// (the per-warp culls of B2/B3 and B5).
+struct RayInv {
+  float ox, oy, oz, ix, iy, iz;
+};
+
+__device__ __forceinline__ RayInv ray_inv(float ox, float oy, float oz,
+                                          float dx, float dy, float dz) {
+  return RayInv{ox, oy, oz, 1.0f / dx, 1.0f / dy, 1.0f / dz};
+}
+
+// One slab axis; NaN (0 * inf) leaves the axis unconstrained.
+__device__ __forceinline__ void slab_axis(float lo, float hi, float o,
+                                          float inv, float& tn, float& tf) {
+  const float t0 = (lo - o) * inv;
+  const float t1 = (hi - o) * inv;
+  if (t0 != t0 || t1 != t1) {
+    tn = __int_as_float(0xff800000);   // -inf
+    tf = __int_as_float(0x7f800000);   // +inf
+  } else {
+    tn = fminf(t0, t1);
+    tf = fmaxf(t0, t1);
+  }
+}
+
+__device__ __forceinline__ void slab(float4 lo, float4 hi, const RayInv& r,
+                                     float& tmin, float& tmax) {
+  float nx, fx, ny, fy, nz, fz;
+  slab_axis(lo.x, hi.x, r.ox, r.ix, nx, fx);
+  slab_axis(lo.y, hi.y, r.oy, r.iy, ny, fy);
+  slab_axis(lo.z, hi.z, r.oz, r.iz, nz, fz);
+  tmin = fmaxf(fmaxf(nx, ny), nz);
+  tmax = fminf(fminf(fx, fy), fz);
 }
 
 // Sky colour (1 - dz)^4 * (0.7, 0.6, 1) (pathtracer.ocl:160).

@@ -102,13 +102,13 @@ def _triangle_weights(v0, e0, e2):
 
 
 # Prepared scenes, and the device tables derived from them (kernel B7's
-# weights, kernels B2/B3's block tables), for the last few scenes seen: a
-# Scene is prepared once, however many renders it is given, and each table
-# is built once per prepared scene and device.  Keys are object
-# identities; each entry holds its owner, so an identity is not reused
-# while it is cached.  A Scene is static: its arrays are not changed in
-# place.
-_CACHE_SIZE = 4
+# weights, kernels B2/B3's block tables, kernel B5's sphere groups), for
+# the last few scenes seen: a Scene is prepared once, however many renders
+# it is given, and each table is built once per prepared scene and device.
+# Keys are object identities; each entry holds its owner, so an identity
+# is not reused while it is cached.  A Scene is static: its arrays are not
+# changed in place.
+_CACHE_SIZE = 8
 _PREPARED: dict = {}
 _DERIVED: dict = {}
 

@@ -8,7 +8,8 @@ checkerboard / sky shading and the colorFact/divFact recursion
 accumulators in both quirk modes, spp accumulation - in one launch of the
 hand-written CUDA kernel ``csrc/mega_simple.cu``.  It replaces the TPU
 kernel ``opencl_montecarlo_path_tracing_tpu/ops/pallas_simple.py::
-film_simple_mega`` -> ``_simple_mega_kernel``.
+film_simple_mega`` -> ``_simple_mega_kernel``.  The kernel tests the
+spheres behind a per-warp cull over :func:`sphere_groups`.
 
 ``film_simple_mega_plain`` is the same function in plain PyTorch (the
 wavefront of models/simple.py), on any device.  The wrapper takes it only
@@ -20,11 +21,12 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from ..core.quirks import Quirks, DEFAULT
 from ..models import common as C
-from .intersect import SceneArrays
+from .intersect import SceneArrays, derived
 from .mega_super import _check, _stream, _u32_arg, pack_scene
 
 #: Launches of the B5 kernel since the last reset (the wrapper adds one per
@@ -42,6 +44,46 @@ def _check_scene(scn: SceneArrays):
     if extra:
         raise ValueError(f"the simple tracer renders the floor and spheres "
                          f"only; this scene also has {extra}")
+
+
+#: Most spheres in one group of :func:`sphere_groups`.
+MAX_GROUP = 16
+
+
+def sphere_groups(centers: np.ndarray) -> np.ndarray:
+    """(n_groups + 1, 8) float32 records of the kernel's sphere cull:
+    lo.xyz, first sphere (int32 bits), hi.xyz, sphere count (int32 bits),
+    the box of the group's unit spheres.  Record 0 is the whole card (every
+    sphere); the groups are the runs of consecutive spheres (index order)
+    that share a centre x - the columns of the business card, as
+    ``bitmap_to_spheres`` lists them - at most ``MAX_GROUP`` each."""
+    c = np.asarray(centers, np.float32).reshape(-1, 3)
+    runs, start = [], 0
+    for k in range(1, len(c) + 1):
+        if (k == len(c) or c[k, 0] != c[start, 0]
+                or k - start == MAX_GROUP):
+            runs.append((start, k))
+            start = k
+    recs = np.zeros((len(runs) + 1, 8), np.float32)
+    for r, (a, b) in enumerate([(0, len(c))] + runs):
+        if b > a:
+            recs[r, 0:3] = c[a:b].min(axis=0) - 1.0
+            recs[r, 4:7] = c[a:b].max(axis=0) + 1.0
+        recs[r, 3:4] = np.array([a], np.int32).view(np.float32)
+        recs[r, 7:8] = np.array([b - a], np.int32).view(np.float32)
+    return recs
+
+
+def kernel_inputs(scn: SceneArrays, device) -> tuple:
+    """(scene buffer, sphere groups) on ``device``, built once per prepared
+    scene: the camera and the sphere centres (``pack_scene`` without
+    triangles; the scene has no lights or squares) and
+    :func:`sphere_groups`."""
+    def make(s):
+        buf, _ = pack_scene(s, triangles=False)
+        return (torch.from_numpy(buf).to(device),
+                torch.from_numpy(sphere_groups(s.sphere_centers)).to(device))
+    return derived(scn, "mega_simple.kernel_inputs", device, make)
 
 
 def film_simple_mega_plain(key, scn: SceneArrays, width: int, height: int,
@@ -104,15 +146,14 @@ def film_simple_mega(key, scn: SceneArrays, width: int, height: int,
         raise ValueError(f"{rows}x{width} pixels exceed the int32 index")
     out = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
     device = out.device          # "cuda" names the current card: cuda:N
-    # the camera and the sphere centres; no triangles, lights or squares
-    buf_np, _ = pack_scene(scn, triangles=False)
-    buf = torch.from_numpy(buf_np).to(device)
-    _check((("scene", buf), ("out", out)), device)
+    buf, groups = kernel_inputs(scn, device)
+    _check((("scene", buf), ("groups", groups), ("out", out)), device)
     from ..utils.build import load
     lib = load()
     with torch.cuda.device(device):
         err = lib.mega_simple_launch(
             buf.data_ptr(), int(scn.sphere_centers.shape[0]),
+            groups.data_ptr(), int(groups.shape[0]) - 1,
             _u32_arg("k0", key[0]), _u32_arg("k1", key[1]),
             _u32_arg("spp_offset", spp_offset),
             _u32_arg("spp_total", spp_total),

@@ -195,33 +195,35 @@ def _launch_smem(scn: SceneArrays, args, out):
 
 
 def block_tables(scn: SceneArrays, device) -> tuple:
-    """(rows, boxes, macros) of ``tri_blocks.kernel_tables`` as float32
-    tensors on ``device``, built once per prepared scene."""
-    from .tri_blocks import kernel_tables
+    """(scene, rows, boxes, subs, nodes) on ``device``, built once
+    per prepared scene: ``pack_scene`` without triangles and the float32
+    tables of ``tri_blocks.walk_tables``."""
+    from .tri_blocks import walk_tables
 
     def make(scn):
+        buf, _ = pack_scene(scn, triangles=False)
         return tuple(torch.from_numpy(t).to(device)
-                     for t in kernel_tables(scn))
+                     for t in (buf, *walk_tables(scn)))
     return derived(scn, "mega_super.block_tables", device, make)
 
 
 def _launch_blocked(scn: SceneArrays, args, out, stats):
-    """One launch of B2/B3 into ``out``; ``stats`` (a zeroed (4,) int64
-    tensor, or None) receives its work tally (:func:`blocked_stats`)."""
+    """One launch of B2/B3 into ``out``; ``stats`` (a zeroed
+    (``STAT_SLOTS``,) int64 tensor, or None) makes it the counting
+    instantiation, which adds its work tally there (:func:`blocked_stats`)."""
     global BLOCKED_LAUNCHES
-    buf_np, _ = pack_scene(scn, triangles=False)
-    buf = torch.from_numpy(buf_np).to(out.device)
-    rows_t, boxes, macros = block_tables(scn, out.device)
+    buf, rows_t, boxes, subs, nodes = block_tables(scn, out.device)
     _check((("scene", buf), ("rows", rows_t), ("boxes", boxes),
-            ("macros", macros), ("out", out)), out.device)
+            ("subs", subs), ("nodes", nodes), ("out", out)), out.device)
     from ..utils.build import load
     lib = load()
     with torch.cuda.device(out.device):
         err = lib.mega_blocked_launch(
             buf.data_ptr(), int(scn.lights.shape[0]),
             int(scn.sphere_centers.shape[0]), int(scn.square_k.shape[0]),
-            rows_t.data_ptr(), boxes.data_ptr(), macros.data_ptr(),
-            int(macros.shape[0]), *args, out.data_ptr(),
+            rows_t.data_ptr(), boxes.data_ptr(), int(boxes.shape[0]),
+            subs.data_ptr(), nodes.data_ptr(), int(nodes.shape[0]), *args,
+            out.data_ptr(),
             None if stats is None else stats.data_ptr(),
             _stream(out.device))
     if err != 0:
@@ -231,17 +233,31 @@ def _launch_blocked(scn: SceneArrays, args, out, stats):
     BLOCKED_LAUNCHES += 1
 
 
+#: Slots of B2/B3's work tally (csrc/mega_blocked.cu, Tally).
+STAT_SLOTS = 9
+
+
 def blocked_stats(key, scn: SceneArrays, width: int, height: int, spp: int,
                   spp_offset: int = 0, spp_total: int | None = None,
                   quirks: Quirks = DEFAULT, device="cuda") -> dict:
-    """B2/B3's work over one render of this configuration (one counting
-    launch on ``device``; the film is discarded): ``needed`` (ray,
-    triangle) pairs in blocks whose box the ray's own test passes,
-    ``tested`` pairs the warps test (32 lanes x 128 rows a taken block),
-    and the ``macro_tests`` and ``block_tests`` of the warps' walks."""
+    """B2/B3's work over one render of this configuration (one launch of
+    the counting instantiation on ``device``; the film is discarded):
+
+    * ``needed``: (ray, triangle) pairs in the 128-row blocks whose box the
+      ray's own test passes when the near-to-far block walk of the design
+      the tree replaced (replayed by the counting launch) tests it - the
+      bound's yardstick, unchanged;
+    * ``sub_needed``: this design's own need, the rows of the 32-row
+      sub-blocks whose box the ray's own test passes in the tree walk;
+    * ``tested``: pairs the warps test (32 lanes x the rows a warp scans);
+    * ``macro_tests``: box tests of tree nodes (the macro level and above),
+      ``block_tests`` and ``sub_tests``: of blocks and 32-row sub-blocks;
+    * ``walk_cycles``, ``scan_cycles``, ``kernel_cycles``: clock64 cycles
+      summed over warps, in the walks' box tests and votes, in the row
+      scans, and in the whole kernel."""
     device = torch.device(device)
     out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
-    stats = torch.zeros(4, dtype=torch.int64, device=device)
+    stats = torch.zeros(STAT_SLOTS, dtype=torch.int64, device=device)
     args = (_u32_arg("k0", key[0]), _u32_arg("k1", key[1]),
             _u32_arg("spp_offset", spp_offset),
             _u32_arg("spp_total", spp if spp_total is None else spp_total),
@@ -249,5 +265,8 @@ def blocked_stats(key, scn: SceneArrays, width: int, height: int, spp: int,
             int(bool(quirks.accept_negative_t)),
             int(bool(quirks.shadow_carry_t)))
     _launch_blocked(scn, args, out, stats)
-    return dict(zip(("needed", "tested", "macro_tests", "block_tests"),
-                    stats.tolist()))
+    v = stats.tolist()
+    return {"needed": v[0], "tested": v[1], "macro_tests": v[2],
+            "block_tests": v[3], "sub_tests": v[4],
+            "walk_cycles": v[5] - v[6], "scan_cycles": v[6],
+            "kernel_cycles": v[7], "sub_needed": v[8]}

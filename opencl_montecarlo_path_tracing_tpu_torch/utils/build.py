@@ -48,13 +48,14 @@ _SIGNATURES = {
     "mega_vlp_error_string": (ctypes.c_char_p, [_I]),
     "gather_vlp_launch": (_I, [_P, _P, _P, _I, _I, _P, _P]),
     "gather_vlp_error_string": (ctypes.c_char_p, [_I]),
-    "mega_blocked_launch": (_I, [_P, _I, _I, _I, _P, _P, _P, _I, _U, _U, _U,
-                                 _U, _U, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "mega_blocked_launch": (_I, [_P, _I, _I, _I, _P, _P, _I, _P, _P, _I,
+                                 _U, _U, _U, _U, _U, _I, _I, _I, _I, _I, _P,
+                                 _P, _P]),
     "mega_blocked_error_string": (ctypes.c_char_p, [_I]),
     "tri_closest_launch": (_I, [_P, _I, _P, _I, _I, _P, _P, _P]),
     "tri_closest_error_string": (ctypes.c_char_p, [_I]),
-    "mega_simple_launch": (_I, [_P, _I, _U, _U, _U, _U, _U, _I, _I, _I, _I,
-                                _I, _P, _P]),
+    "mega_simple_launch": (_I, [_P, _I, _P, _I, _U, _U, _U, _U, _U, _I, _I,
+                                _I, _I, _I, _P, _P]),
     "mega_simple_error_string": (ctypes.c_char_p, [_I]),
     "diag_dda_closest_launch": (_I, [_P, _P, _I, _P, _P, _P, _P, _I, _I, _P,
                                      _P, _P]),
@@ -160,3 +161,27 @@ def load() -> ctypes.CDLL:
             fn.argtypes = argtypes
         _LIB = lib
     return _LIB
+
+
+def dump_sass(out_dir: str) -> None:
+    """Build, then write the library's SASS (``cuobjdump -sass``) to
+    ``out_dir/kernels.sass`` and nvcc's log (ptxas registers and spills)
+    to ``out_dir/build.log``."""
+    info = build()
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", info.path], capture_output=True,
+                          text=True, check=True).stdout
+    os.makedirs(out_dir, exist_ok=True)
+    for name, text in (("kernels.sass", sass), ("build.log", info.log)):
+        with open(os.path.join(out_dir, name), "w") as fp:
+            fp.write(text)
+
+
+if __name__ == "__main__":
+    # python -m opencl_montecarlo_path_tracing_tpu_torch.utils.build [DIR]:
+    # build, and with DIR write the SASS and the build log there
+    import sys
+    if len(sys.argv) > 1:
+        dump_sass(sys.argv[1])
+    else:
+        print(build().path)

@@ -4,9 +4,11 @@ plain film against the JAX package's blocked and stream tiers.
 * ``tri_blocks._tri_blocks`` == the JAX ``pallas_super._tri_blocks``
   bit for bit, NaN padding boxes included, on sheets whose block count is
   not a multiple of the macro size; ``large_mesh_scene()`` == the JAX one;
-* ``kernel_tables`` - what ``csrc/mega_blocked.cu`` walks - holds every
+* ``walk_tables`` - what ``csrc/mega_blocked.cu`` walks - holds every
   triangle exactly once with its original index, live blocks only, boxes
-  that contain their triangles and macros that contain their boxes;
+  that contain their triangles, and macros (the node tree's leaves) that
+  contain their boxes (its sub-blocks and node tree:
+  ``tests/test_torch_culls.py``);
 * the port's plain film (``film_super_mega_plain``) against the JAX
   ``film_super_mega(interpret=True, force_blocked=True)`` and
   ``force_stream=True`` on the sizes of ``tests/test_megakernel.py:142-177``
@@ -76,7 +78,9 @@ def test_large_mesh_scene_matches_jax():
 def test_kernel_tables_structure():
     scn = prep_scene(sheet_scene(30, 30))
     tblT, aabbs, _ = TB._tri_blocks(scn)
-    rows, boxes, macros = TB.kernel_tables(scn)
+    rows, boxes, macros, _ = TB._kernel_tables(TB._tri_blocks_ordered(scn))
+    for a, b in zip((rows, boxes), TB.walk_tables(scn)):
+        np.testing.assert_array_equal(a, b)
     live = aabbs[:, 0] <= aabbs[:, 3]
     assert boxes.shape == (live.sum(), 8) and not np.isnan(boxes).any()
     assert rows.shape == (live.sum() * TB._TRI_BLOCK, 16)

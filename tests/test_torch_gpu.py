@@ -411,6 +411,44 @@ def test_blocked_kernel_matches_plain_on_gpu(case, cuda_device):
 
 
 @pytest.mark.gpu
+def test_blocked_kernel_matches_plain_on_a_1m_band(cuda_device):
+    """B2/B3 on an 8-row band of the 1,048,576-triangle sheet (the stream
+    tier's size; its node tree has three levels above the macros) against
+    the tier-1 plain film."""
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        large_mesh_scene)
+    scn = prep_scene(large_mesh_scene(1024, 512))
+    kw = dict(spp_total=4, row_offset=248, rows=8, device=cuda_device)
+    before = M.BLOCKED_LAUNCHES
+    got = M.film_super_mega((0, 0), scn, 512, 512, 1, **kw)
+    torch.cuda.synchronize()
+    assert M.BLOCKED_LAUNCHES == before + 1
+    want = M.film_super_mega_plain((0, 0), scn, 512, 512, 1, **kw)
+    assert want.var() > 1e-5                   # the sheet fills the band
+    ok, st = crn_ok(got, want, 1)
+    assert ok, st
+
+
+# blocked_stats' "needed" on large_mesh_scene() (20,736 triangles) at
+# 512x512x4, key (0, 0): the count the kernel printed before its node tree
+# and sub-blocks (PERF.md §5), when its walk was the near-to-far macro
+# walk; the counting launch now replays that walk block by block for this
+# yardstick (a macro no lane passed held no block a lane passes)
+NEEDED_20K_512x512x4 = 1036254336
+
+
+@pytest.mark.gpu
+def test_blocked_stats_needed_keeps_its_definition(cuda_device):
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        large_mesh_scene)
+    st = M.blocked_stats((0, 0), prep_scene(large_mesh_scene()), 512, 512,
+                         4, device=cuda_device)
+    assert st["needed"] == NEEDED_20K_512x512x4, st
+    assert 0 < st["sub_needed"] <= st["tested"], st
+    assert 0 < st["walk_cycles"] < st["kernel_cycles"], st
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("neg_t", [False, True])
 def test_tri_closest_kernel_matches_plain_on_gpu(neg_t, cuda_device):
     scene = sheet_scene(32, 32)
@@ -520,6 +558,23 @@ def test_simple_kernel_matches_plain_on_gpu(case, bounces, cuda_device):
                                      device=cuda_device, **kw)
     assert got.shape == want.shape == (kw.get("rows", h), w, 3)
     simple_close(got, want, spp)
+
+
+@pytest.mark.gpu
+def test_simple_kernel_bit_equal_at_five_bounces(cuda_device):
+    """B5 at max_bounces 5 on a 256x256 frame (mirror chains included)
+    equals its plain version bit for bit: the same float operations in the
+    same order, none contracted, and a cull that never skips a hit."""
+    from opencl_montecarlo_path_tracing_tpu_torch.models.simple import (
+        simple_arrays)
+    scn = simple_arrays()
+    kw = dict(spp_total=8, device=cuda_device)
+    got = M5.film_simple_mega((4, 0), scn, 256, 256, 2, max_bounces=5, **kw)
+    want = M5.film_simple_mega_plain((4, 0), scn, 256, 256, 2,
+                                     max_bounces=5, **kw)
+    assert torch.equal(got, want)
+    one = M5.film_simple_mega((4, 0), scn, 256, 256, 2, max_bounces=1, **kw)
+    assert not torch.equal(one, got)           # some path bounces
 
 
 @pytest.mark.gpu
