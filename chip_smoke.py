@@ -14,12 +14,19 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    ``tools/validate_crn_frame.py`` (utils/crn.py: per-pixel difference on
    the display scale, p99.5 < 1e-5 and a razor-edge tie fraction (> 1e-4)
    < 0.6%);
-3. B4 (``mega_vlp``) vs its plain version under the same contract: the GPU
-   tests' cases, and the bench tables at 512x512, samples 0-1 of 256 - the
-   demo scene's emitted 1024-row table, the dense-VLP scene's (478 of 1024
-   rows live) and the 4096-row Metropolis table, dense and grid;
+3. B4 (``mega_vlp``) vs its plain version under the same contract, and
+   with its per-warp triangle cull against its cull-free instantiation bit
+   for bit: the GPU tests' cases, and the bench tables at 512x512, samples
+   0-1 of 256 - the demo scene's emitted 1024-row table, the dense-VLP
+   scene's (478 of 1024 rows live) and the 4096-row Metropolis table,
+   dense and grid; then each table's render pass (512x512x256, the VLP
+   main paths' launch) timed with and without the cull, and its work
+   tally (``vlp_stats``: lit hits, casts, tested pairs, gathered terms,
+   the clock64 split of the cycles) with the bound over the yardstick's
+   work and restated over the pairs the culled warps test;
 4. B6 (``gather_vlp``) vs its plain version on 512x512 random shading points
-   against 64, 1024 and 4096 VLPs (rtol = atol = 1e-5);
+   against 64, 1024 and 4096 VLPs (rtol = atol = 1e-5), through the
+   live-first table and from the raw table;
 5. the super main path: ``api.render("super")`` on ``demo_scene()`` at
    1024x1024 with 1024 spp; the film is checked, quantised and written as a
    PAM file, and Mpaths/s is timed with CUDA events over 3 runs;
@@ -31,7 +38,9 @@ Phases, each of which raises on failure (nothing is caught and skipped):
 7. the tier-1 VLP route: bidirectional under the REFERENCE_LMEM quirks
    (outside B4's gate) at 256x256x4 runs the plain wavefront on the card,
    whose gather is B6; its film is held to the contract against the same
-   render with the plain scan gather;
+   render with the plain scan gather, and B6 at the render's shape (each
+   call's 65,536 points against the render's live-first table, recorded)
+   against its plain version (rtol = atol = 1e-5), timed there;
 8. B2/B3 (``mega_blocked``) vs B1 and vs its plain version: forced onto
    B1's cases and the demo scene (max abs against B1's film), on an
    1,800-triangle ripple sheet against the plain scan, and against the
@@ -263,7 +272,7 @@ def shading_counts(key, scn, w, h, spp, spp_total):
     """(lit, casts) over samples 0..spp-1 of a w x h super film: primary
     hits the shading lights (floor, diffuse), and the (hit, light) pairs
     whose shadow ray the shading uses (front-facing lights) - the plain
-    tier-1 trace on the card, the data behind B1's and B4's bounds."""
+    tier-1 trace on the card, the data behind B1's bound."""
     import torch
     from opencl_montecarlo_path_tracing_tpu_torch.core import rng as R
     from opencl_montecarlo_path_tracing_tpu_torch.core.camera import (
@@ -413,23 +422,49 @@ def live_overflow(vlps, grid) -> int:
     return int(torch.max(g.counts)) if g.counts.numel() else 0
 
 
-def phase_vlp_kernel_vs_plain(gt, tables) -> dict:
-    """B4 on the GPU tests' cases and the bench tables; returns the largest
-    abs film error and the kernel / plain times at 512x512x2."""
+def vlp_split(st: dict) -> str:
+    """B4's counting launch as shares of its clock64 cycles."""
+    parts = ("cam_tri", "cam_rest", "shadow_tri", "shadow_rest", "gather",
+             "stage")
+    rest = st["kernel"] - sum(st[k] for k in parts)
+    return ", ".join(f"{k} {100 * st[k] / st['kernel']:.1f}%"
+                     for k in parts) + \
+        f", threefry/camera/shading {100 * rest / st['kernel']:.1f}%"
+
+
+def phase_vlp_kernel_vs_plain(gt, tables, card: str) -> dict:
+    """B4 on the GPU tests' cases and the bench tables: against its plain
+    version (512x512, samples 0-1 of 256), and with its triangle cull
+    against the cull-free instantiation (bit for bit); then each table's
+    render pass (512x512x256) timed with and without the cull, and its
+    work tally.  Returns the kernels line's row: the demo table's render
+    pass, its bound from the tally's lit hits and casts."""
+    import torch
     from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
     from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_vlp as M
     from opencl_montecarlo_path_tracing_tpu_torch.ops.grid import (
         MAX_NELS_PER_CELL)
-    print("B4 mega_vlp vs plain:")
+    print("B4 mega_vlp vs plain, and culled vs cull-free (bit for bit):")
     worst, failed = 0.0, []
-    for name in gt.VLP_CASES:
-        scn, key, vlps, grid, (w, h, spp), kw = gt.vlp_case_inputs(name,
-                                                                   "cuda")
+
+    def both(name, key, scn, vlps, w, h, spp, grid, kw):
+        nonlocal worst
         a = M.film_vlp_mega(key, scn, vlps, w, h, spp, grid=grid,
                             device="cuda", **kw)
         b = M.film_vlp_mega_plain(key, scn, vlps, w, h, spp, grid=grid,
                                   device="cuda", **kw)
         worst = max(worst, check_crn(name, a, b, spp, failed))
+        c = M.film_vlp_mega(key, scn, vlps, w, h, spp, grid=grid,
+                            device="cuda", cull=False, **kw)
+        if not torch.equal(a, c):
+            print(f"  {name}: culled != cull-free, max abs "
+                  f"{float((a - c).abs().max()):.3e} VIOLATION")
+            failed.append(f"{name} (cull)")
+
+    for name in gt.VLP_CASES:
+        scn, key, vlps, grid, (w, h, spp), kw = gt.vlp_case_inputs(name,
+                                                                   "cuda")
+        both(name, key, scn, vlps, w, h, spp, grid, kw)
     key = make_key(0)
     for name, scn, vlps, grid in tables:
         n_live = int((vlps[:, 3] > 0).sum())
@@ -441,40 +476,83 @@ def phase_vlp_kernel_vs_plain(gt, tables) -> dict:
             if over > MAX_NELS_PER_CELL:
                 raise RuntimeError(f"{name}: a cell overflows with live VLPs;"
                                    " kernel and plain would differ there")
-        a = M.film_vlp_mega(key, scn, vlps, VW, VH, 2, spp_total=VSPP,
-                            grid=grid, device="cuda")
-        b = M.film_vlp_mega_plain(key, scn, vlps, VW, VH, 2, spp_total=VSPP,
-                                  grid=grid, device="cuda")
-        worst = max(worst, check_crn(
-            f"{name} ({n_live} live), {VW}x{VH} samples 0-1 of {VSPP}",
-            a, b, 2, failed))
+        both(f"{name} ({n_live} live), {VW}x{VH} samples 0-1 of {VSPP}", key,
+             scn, vlps, VW, VH, 2, grid, dict(spp_total=VSPP))
     if failed:
-        raise RuntimeError(f"B4 kernel vs plain contract violated: {failed}")
+        raise RuntimeError(f"B4 kernel vs plain or cull violated: {failed}")
+
+    # the render pass of each table: times, chunks, the work tally
+    print(f"B4 render pass {VW}x{VH}x{VSPP} (the VLP main paths' launch):")
+    R = VW * VH * VSPP
+    row = {}
+    for name, scn, vlps, grid in tables:
+        n_live = int((vlps[:, 3] > 0).sum())
+        nt = int(scn.tri_v0.shape[0])
+        stride = M.DENSE_STRIDE if grid is None else M.GRID_STRIDE
+        chunk = M.VLP_SMEM_BYTES // (4 * stride)
+        ms = {c: time_ms(lambda: M.film_vlp_mega(
+            key, scn, vlps, VW, VH, VSPP, grid=grid, device="cuda",
+            cull=c), TIMED_RUNS) for c in (True, False)}
+        st = {c: M.vlp_stats(key, scn, vlps, VW, VH, VSPP, grid=grid,
+                             cull=c) for c in (False, True)}
+        on, off = st[True], st[False]
+        nl = int(scn.lights.shape[0])
+        # the yardstick: every camera ray and every cast scans the mesh, a
+        # gather term for every sample and live VLP; restated over the
+        # pairs the culled warps test and the terms the lit samples gather
+        yard_ops = (R + on["lit"] * nl) * nt * PAIR_OPS + \
+            R * n_live * GATHER_PAIR_OPS
+        own_ops = on["tested"] * PAIR_OPS + on["gather_pairs"] * \
+            GATHER_PAIR_OPS
+        nbytes = vlps.shape[0] * 4 * stride + nt * 48 + VW * VH * 12
+        b_ms, b_by = bound(yard_ops, nbytes)
+        r_ms, r_by = bound(own_ops, nbytes)
+        # chunks staged every sample (0: the live rows are staged once a
+        # launch), here and with the parent design's 256-row chunks
+        chunks = [0 if n_live <= c else -(-n_live // c) for c in (chunk, 256)]
+        print(f"  {name}: {n_live} live of {int(vlps.shape[0])}, chunks "
+              f"staged a sample {chunks[0]} (256-row chunks: {chunks[1]}); "
+              f"kernel {ms[True]:.3f} ms, cull-free {ms[False]:.3f} ms; "
+              f"bound {b_ms:.4f} ms ({b_by}, yardstick), restated "
+              f"{r_ms:.4f} ms ({r_by}, tested pairs and gathered terms) "
+              f"({card})")
+        print(f"    lit {on['lit']}, casts {on['casts']} ({on['casts_tri']}"
+              f" reach the triangles), gather terms {on['gather_pairs']}, "
+              f"tested pairs {on['tested']} (cull-free {off['tested']}, "
+              f"yardstick {(R + on['lit'] * nl) * nt})")
+        for c, t in ((False, off), (True, on)):
+            print(f"    split {'culled' if c else 'cull-free'}: "
+                  f"{vlp_split(t)}")
+        if not row:
+            row = {"ms": ms[True], "bound_ms": b_ms, "bound_by": b_by}
     _, scn, vlps, _ = tables[0]
-    k_ms = time_ms(lambda: M.film_vlp_mega(
+    small_ms = time_ms(lambda: M.film_vlp_mega(
         key, scn, vlps, VW, VH, 2, spp_total=VSPP, device="cuda"), 5)
-    p_ms = time_ms(lambda: M.film_vlp_mega_plain(
-        key, scn, vlps, VW, VH, 2, spp_total=VSPP, device="cuda"), 2)
-    # work: primary pairs, one capped shadow ray per lit hit and light,
-    # one gather term per (sample, live VLP)
-    R, nt = VW * VH * 2, int(scn.tri_v0.shape[0])
-    lit, _ = shading_counts(key, scn, VW, VH, 2, VSPP)
-    n_live = int((vlps[:, 3] > 0).sum())
-    ops = ((R + lit * int(scn.lights.shape[0])) * nt * PAIR_OPS
-           + R * n_live * GATHER_PAIR_OPS)
-    b_ms, b_by = bound(ops, vlps.shape[0] * 32 + nt * 48 + VW * VH * 12)
-    print(f"  {tables[0][0]}, {VW}x{VH}x2: kernel {k_ms:.3f} ms, plain "
-          f"PyTorch {p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}; {lit} lit "
-          f"hits, {n_live} live VLPs)")
-    return {"max_abs": worst, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-            "bound_by": b_by}
+    plain_ms = time_ms(lambda: M.film_vlp_mega_plain(
+        key, scn, vlps, VW, VH, VSPP, device="cuda"), 1, warm_up=False)
+    print(f"  {tables[0][0]}: kernel {row['ms']:.3f} ms at {VW}x{VH}x{VSPP} "
+          f"({small_ms:.3f} ms at {VW}x{VH}x2), plain PyTorch "
+          f"{plain_ms:.1f} ms at {VW}x{VH}x{VSPP}")
+    return {"max_abs": worst, "ms": row["ms"], "plain_ms": plain_ms,
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
 
 
-def phase_gather_kernel_vs_plain() -> dict:
-    """B6 on 512x512 random shading points against 64, 1024, 4096 VLPs."""
+def gather_bound(R: int, V: int, n_live: int) -> str:
+    """B6's bound over the live pairs its table holds, beside the
+    yardstick over every row (the parent design's work)."""
+    live = bound(R * n_live * GATHER_PAIR_OPS, R * 28 + n_live * 32)
+    yard = bound(R * V * GATHER_PAIR_OPS, R * 28 + V * 32)
+    return (f"bound {live[0]:.4f} ms ({live[1]}; {n_live} live rows), "
+            f"yardstick {yard[0]:.4f} ms ({yard[1]}; all {V} rows)")
+
+
+def phase_gather_kernel_vs_plain(card: str) -> dict:
+    """B6 on 512x512 random shading points against 64, 1024 and 4096 VLPs
+    (a fifth of them dead), through the live-first table as a render
+    passes it, and from the raw table (the wrapper builds it)."""
     import torch
     from opencl_montecarlo_path_tracing_tpu_torch.ops import gather_vlp as G
-    print("B6 gather_vlp vs plain:")
+    print("B6 gather_vlp vs plain (the table's shape):")
     rng = np.random.default_rng(11)
     R = VW * VH
     x = rng.normal(5, 3, (R, 3)).astype(np.float32)
@@ -482,13 +560,13 @@ def phase_gather_kernel_vs_plain() -> dict:
     n /= np.linalg.norm(n, axis=-1, keepdims=True)
     tx, tn = (torch.from_numpy(a).cuda() for a in (x, n))
     worst_abs = worst_rel = 0.0
-    times = {}
     for V in (64, 1024, 4096):
         vlps = rng.normal(5, 3, (V, 4)).astype(np.float32)
         vlps[:, 3] = np.abs(vlps[:, 3])
         vlps[::5, 3] = 0.0
         tv = torch.from_numpy(vlps).cuda()
-        a = G.gather_vlps_mxu(tx, tn, tv)
+        table = G.live_table(tv)
+        a = G.gather_vlps_mxu(tx, tn, table)
         b = G.gather_vlps_mxu_plain(tx, tn, tv)
         if a.shape != (R,) or not torch.isfinite(a).all():
             raise RuntimeError(f"B6 V={V}: bad output {tuple(a.shape)}")
@@ -496,19 +574,20 @@ def phase_gather_kernel_vs_plain() -> dict:
         max_abs = float(d.max())
         max_rel = float((d / b.abs().clamp_min(1e-30)).max())
         worst_abs, worst_rel = max(worst_abs, max_abs), max(worst_rel, max_rel)
-        ok = bool(torch.allclose(a, b, rtol=1e-5, atol=1e-5))
-        k_ms = time_ms(lambda: G.gather_vlps_mxu(tx, tn, tv), 10)
+        ok = bool(torch.allclose(a, b, rtol=1e-5, atol=1e-5)) and \
+            torch.equal(a, G.gather_vlps_mxu(tx, tn, tv))
+        k_ms = time_ms(lambda: G.gather_vlps_mxu(tx, tn, table), 10)
+        raw_ms = time_ms(lambda: G.gather_vlps_mxu(tx, tn, tv), 10)
         p_ms = time_ms(lambda: G.gather_vlps_mxu_plain(tx, tn, tv), 2)
-        times[V] = (k_ms, p_ms)
         print(f"  {R} points x {V} VLPs: max_abs {max_abs:.3e} max_rel "
-              f"{max_rel:.3e} {'ok' if ok else 'VIOLATION'}; kernel "
-              f"{k_ms:.3f} ms, plain PyTorch {p_ms:.1f} ms")
+              f"{max_rel:.3e} (split {G.default_split(R)}) "
+              f"{'ok' if ok else 'VIOLATION'}; kernel {k_ms:.3f} ms "
+              f"({raw_ms:.3f} ms building the table), plain PyTorch "
+              f"{p_ms:.1f} ms; {gather_bound(R, V, int(table.n_live))} "
+              f"({card})")
         if not ok:
             raise RuntimeError(f"B6 kernel vs plain differ at V={V}")
-    b_ms, b_by = bound(R * 4096 * GATHER_PAIR_OPS, R * 28 + 4096 * 16)
-    print(f"  bound at {R} x 4096: {b_ms:.4f} ms ({b_by})")
-    return {"max_abs": worst_abs, "max_rel": worst_rel, "ms": times[4096][0],
-            "plain_ms": times[4096][1], "bound_ms": b_ms, "bound_by": b_by}
+    return {"max_abs": worst_abs, "max_rel": worst_rel}
 
 
 def phase_super_main_path(card: str) -> dict:
@@ -675,13 +754,17 @@ def phase_vlp_main_paths(card: str) -> dict:
     return {"launches": total}
 
 
-def phase_tier1_route(card: str) -> int:
-    """bidirectional under REFERENCE_LMEM: B6 launches, B4 does not."""
+def phase_tier1_route(card: str) -> dict:
+    """bidirectional under REFERENCE_LMEM: B6 launches, B4 does not; its
+    film against the scan gather's, and B6 at the render's shape (each
+    call's inputs, recorded) against its plain version.  Returns the
+    kernels line's row for B6 (the render's shape) and its launches."""
     import torch
     import opencl_montecarlo_path_tracing_tpu_torch as pt
     from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
         REFERENCE_LMEM)
     from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import gather_vlp as G
     from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_vlp as M
     from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as V
     from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
@@ -712,7 +795,42 @@ def phase_tier1_route(card: str) -> int:
     if failed:
         raise RuntimeError("tier-1 route: B6 film vs scan film violated")
     print(f"tier-1 route: {ms:.1f} ms ({card}), launches {counts}")
-    return counts["gather_vlp"]
+
+    # B6 at the render's shape: the same render with each call's inputs
+    # kept (the live-first table is built once a render)
+    calls = []
+    kernel = G.gather_vlps_mxu
+
+    def recording(x, n, v, *args, **kw):
+        calls.append((x.clone(), n.clone(), v))
+        return kernel(x, n, v, *args, **kw)
+
+    G.gather_vlps_mxu = recording
+    try:
+        pt.render("bidirectional", scene, w, h, spp=spp, seed=0,
+                  quirks=REFERENCE_LMEM, device="cuda")
+    finally:
+        G.gather_vlps_mxu = kernel
+    worst = 0.0
+    for x, n, table in calls:
+        a, b = kernel(x, n, table), G.gather_vlps_mxu_plain(x, n, table)
+        worst = max(worst, float((a - b).abs().max()))
+        if not torch.allclose(a, b, rtol=1e-5, atol=1e-5):
+            raise RuntimeError("B6 at the render's shape: kernel vs plain "
+                               "outside rtol = atol = 1e-5")
+    x, n, table = calls[0]
+    R, Vn, n_live = int(x.shape[0]), int(table.tab.shape[0]), \
+        int(table.n_live)
+    k_ms = time_ms(lambda: kernel(x, n, table), 50)
+    p_ms = time_ms(lambda: G.gather_vlps_mxu_plain(x, n, table), 5)
+    line = gather_bound(R, Vn, n_live)
+    b_ms, b_by = bound(R * n_live * GATHER_PAIR_OPS, R * 28 + n_live * 32)
+    print(f"  B6 at the render's shape: {len(calls)} calls of {R} points x "
+          f"{Vn} VLPs ({n_live} live, {100 * n_live / Vn:.1f}%; split "
+          f"{G.default_split(R)}): max_abs {worst:.3e} ok; kernel "
+          f"{k_ms:.4f} ms, plain PyTorch {p_ms:.2f} ms; {line} ({card})")
+    return {"launches": counts["gather_vlp"], "max_abs": worst, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def phase_blocked_kernel_vs_plain(gt, card: str) -> dict:
@@ -1812,11 +1930,11 @@ def main() -> int:
     gt = gpu_tests()
     b1_err = phase(phase_super_kernel_vs_plain, gt)
     tables = vlp_bench_tables()
-    b4 = phase(phase_vlp_kernel_vs_plain, gt, tables)
-    b6 = phase(phase_gather_kernel_vs_plain)
+    b4 = phase(phase_vlp_kernel_vs_plain, gt, tables, card)
+    b6_table = phase(phase_gather_kernel_vs_plain, card)
     mp = phase(phase_super_main_path, card)
     vp = phase(phase_vlp_main_paths, card)
-    b6_launches = phase(phase_tier1_route, card)
+    b6 = phase(phase_tier1_route, card)
     b23 = phase(phase_blocked_kernel_vs_plain, gt, card)
     b7 = phase(phase_tri_closest_vs_plain, card)
     lp = phase(phase_large_mesh_main_paths, card)
@@ -1846,7 +1964,8 @@ def main() -> int:
         row("mega_vlp", "mega_vlp.cu", f"{ref}/pallas_bpt.py:434",
             vp["launches"], b4),
         row("gather_vlp", "gather_vlp.cu", f"{ref}/pallas_vlp.py:111",
-            b6_launches + lp["gather_vlp"], b6),
+            b6["launches"] + lp["gather_vlp"],
+            dict(b6, max_abs=max(b6["max_abs"], b6_table["max_abs"]))),
         row("mega_blocked", "mega_blocked.cu", f"{ref}/pallas_super.py:2228",
             lp["mega_blocked"], b23),
         row("tri_closest", "tri_closest.cu", f"{ref}/pallas_tri.py:89",

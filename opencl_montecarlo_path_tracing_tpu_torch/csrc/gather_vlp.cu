@@ -1,5 +1,5 @@
 // Dense VLP gather (kernel B6 of the port): for every shading point x with
-// normal n, the sum over all VLPs (p, I) of
+// normal n, the sum over the live VLPs (p, I) of
 //
 //     a = n.p - n.x,   b = |p|^2 - 2 x.p + |x|^2,   r = 1 / sqrt(max(b, 1e-12))
 //     c = max(a, 0) * min(I * r^3, r)
@@ -16,13 +16,23 @@
 // mantissa fails the same way.  So all arithmetic is scalar FP32, built with
 // --fmad=false (no FFMA contraction) and 1.0f / sqrtf in place of rsqrt.
 //
-// What bounds it on an H100: FP32 ALU issue, ~20 operations and one square
-// root per (point, VLP) pair; memory traffic is 24 bytes in and 4 out per
-// point plus the table.  Design: one thread per shading point holding x, n,
-// n.x, |x|^2 and its running sum in registers; the VLP constants
-// (p, |p|^2, max(I, 0)) staged through shared memory in tiles of kTile rows
-// that every thread of the block reads in the same order (broadcast, no
-// bank conflicts).
+// What bounds it on an H100: FP32 issue, ~20 operations, a square root and
+// a division per (point, live VLP) pair; memory traffic is 24 bytes in and
+// 4 out per point plus the live rows.  Design:
+// - the table comes live rows first, with the live count n_live on the
+//   device (ops/gather_vlp.py::live_table, built once per VLP table).  A
+//   dead row (I <= 0) adds exactly +0.0 to a finite sum, so scanning the
+//   first n_live rows in order gives the full table's sum bit for bit;
+// - one point per thread, holding x, n, n.x, |x|^2 and its running sum in
+//   registers; the live rows staged through shared memory in tiles of
+//   kTile rows that every thread of the block reads in the same order
+//   (broadcast, no bank conflicts);
+// - to fill the card when the points are few (a tier-1 render gathers
+//   65,536 points a call: 2,048 warps, a quarter of what 132 SMs hold),
+//   `split` > 1 threads share a point: each sums its own contiguous part
+//   of every tile in order, and the parts are added in a fixed order
+//   (part 0 + part 1 + ...) through shared memory.  That is deterministic
+//   but not the sequential sum order; split == 1 is the sequential order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,48 +44,70 @@ constexpr int kTile = 512;   // VLP rows per shared-memory tile
 
 __global__ void __launch_bounds__(kBlock)
 gather_vlp_kernel(const float* __restrict__ x, const float* __restrict__ n,
-                  const float4* __restrict__ tab, int R, int V,
+                  const float4* __restrict__ tab,
+                  const int* __restrict__ n_live_ptr, int R, int V, int split,
                   float* __restrict__ out) {
-  // tab row v: (px, py, pz, |p|^2), (max(I, 0), 0, 0, 0)
+  // tab row v: (px, py, pz, max(I, 0)), (|p|^2, 0, 0, 0)
   __shared__ float4 tile[2 * kTile];
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ float part[kBlock];
+  const int pts = kBlock / split;            // points a block
+  const int pt = threadIdx.x % pts;
+  const int sl = threadIdx.x / pts;          // this thread's part (a warp's)
+  const long long i = (long long)blockIdx.x * pts + pt;
   const bool active = i < R;
   const long long k = active ? i : 0;
   const float xx = x[3 * k], xy = x[3 * k + 1], xz = x[3 * k + 2];
   const float nx = n[3 * k], ny = n[3 * k + 1], nz = n[3 * k + 2];
   const float ndx = nx * xx + ny * xy + nz * xz;
   const float x2 = xx * xx + xy * xy + xz * xz;
+  const int n_live = min(max(*n_live_ptr, 0), V);
   float acc = 0.0f;
-  for (int v0 = 0; v0 < V; v0 += kTile) {
-    const int nv = min(kTile, V - v0);
+  for (int v0 = 0; v0 < n_live; v0 += kTile) {
+    const int nv = min(kTile, n_live - v0);
     __syncthreads();   // every thread is done with the previous tile
     for (int j = threadIdx.x; j < 2 * nv; j += blockDim.x)
       tile[j] = tab[2 * (long long)v0 + j];
     __syncthreads();
-    for (int j = 0; j < nv; ++j) {
+    const int per = (nv + split - 1) / split;
+    const int j1 = min(nv, (sl + 1) * per);
+    for (int j = sl * per; j < j1; ++j) {
       const float4 p = tile[2 * j];
-      const float vi = tile[2 * j + 1].x;
+      const float p2s = tile[2 * j + 1].x;
       const float a = (nx * p.x + ny * p.y + nz * p.z) - ndx;
-      const float b = p.w - 2.0f * (xx * p.x + xy * p.y + xz * p.z) + x2;
+      const float b = p2s - 2.0f * (xx * p.x + xy * p.y + xz * p.z) + x2;
       const float r = 1.0f / sqrtf(fmaxf(b, 1e-12f));
-      acc = acc + fmaxf(a, 0.0f) * fminf(vi * (r * r * r), r);
+      acc = acc + fmaxf(a, 0.0f) * fminf(p.w * (r * r * r), r);
     }
   }
-  if (active) out[i] = acc;
+  if (split == 1) {
+    if (active) out[i] = acc;
+    return;
+  }
+  part[threadIdx.x] = acc;
+  __syncthreads();
+  if (sl == 0 && active) {
+    float s = part[pt];
+    for (int q = 1; q < split; ++q) s = s + part[q * pts + pt];
+    out[i] = s;
+  }
 }
 
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  x, n:
-// (R, 3) float32; tab: (V, 8) float32 rows (px, py, pz, |p|^2, max(I,0),
-// 0, 0, 0); out: (R,) float32.
+// (R, 3) float32; tab: (V, 8) float32 rows (px, py, pz, max(I, 0), |p|^2,
+// 0, 0, 0), live rows first; n_live: a device int32, the live rows' count;
+// split: threads a point, 1, 2, 4 or 8; out: (R,) float32.
 extern "C" int gather_vlp_launch(const float* x, const float* n,
-                                 const float* tab, int R, int V, float* out,
-                                 void* stream) {
+                                 const float* tab, const int* n_live, int R,
+                                 int V, int split, float* out, void* stream) {
   if (R <= 0) return 0;
-  const unsigned grid = (unsigned)(((long long)R + kBlock - 1) / kBlock);
+  if (split != 1 && split != 2 && split != 4 && split != 8)
+    return (int)cudaErrorInvalidValue;
+  const int pts = kBlock / split;
+  const unsigned grid = (unsigned)(((long long)R + pts - 1) / pts);
   gather_vlp_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-      x, n, reinterpret_cast<const float4*>(tab), R, V, out);
+      x, n, reinterpret_cast<const float4*>(tab), n_live, R, V, split, out);
   return (int)cudaGetLastError();
 }
 

@@ -79,29 +79,6 @@ struct Mesh {
   int n_nodes;
 };
 
-// Closest-hit predicate: may a triangle in the box beat (bn / bd)?
-__device__ __forceinline__ bool box_closest(float4 lo, float4 hi,
-                                            const RayInv& r, float bn,
-                                            float bd, bool neg_t) {
-  float tmin, tmax;
-  slab(lo, hi, r, tmin, tmax);
-  bool hit = tmax >= tmin;
-  if (!neg_t)
-    hit = hit && tmax >= kEps && fmaxf(tmin, 0.0f) * bd <= bn * kSlack;
-  return hit;
-}
-
-// Occlusion predicate: may a triangle in the box hit below t_limit?
-__device__ __forceinline__ bool box_occ(float4 lo, float4 hi,
-                                        const RayInv& r, float tl,
-                                        bool neg_t) {
-  float tmin, tmax;
-  slab(lo, hi, r, tmin, tmax);
-  bool hit = tmax >= tmin;
-  if (!neg_t) hit = hit && tmax >= kEps && tmin <= tl * kSlack;
-  return hit;
-}
-
 // Warp-wide work tally of the counting instantiation (kStats): every lane
 // keeps the same counts (they follow warp votes), lane 0 adds them to the
 // stats buffer at the end.  [0] the yardstick's (ray, triangle) pairs: in

@@ -15,48 +15,229 @@
 // 4-material shading.  There is no lamb < 0 skip on the shadow rays: the
 // correction is subtracted whatever the facing (bidirectional.py:77-81).
 //
-// What bounds it on an H100: FP32 ALU issue, as for B1.  A sample costs
-// ~48 FLOP per (ray, triangle) pair for the primary trace and the capped
-// occlusion scans, plus ~20 FLOP and one square root per (ray, live VLP)
-// pair; typical tables are ~1% live (the reference scene emits 6 live
-// rows of 1024), the dense_vlp_scene ~100%.  Memory traffic is the table
-// (32 or 48 bytes a row, read once per block and chunk) and the 12-byte
-// film write per pixel.  Design: one thread per pixel, the film sum in
-// registers across the spp loop; the scene staged once per block in shared
-// memory; the VLP table streamed through shared memory in chunks of
-// `chunk` rows (256 by default) that every thread of the block scans in
-// the same order (a broadcast read per row, no bank conflicts), loaded
-// once per launch when all live rows fit one chunk; n_live read on the
-// device, so the host never waits.  Sky and facing-ratio lanes skip the gather and the shadow
-// rays (their shading ignores the illumination), an occlusion scan stops
-// at its first hit: neither changes the film.  The arithmetic keeps the
-// JAX kernel's operation order, with 1.0f / sqrtf where it uses rsqrt;
-// built with --fmad=false and without fast math.
+// What bounds it on an H100: FP32 issue.  A sample costs ~48 FLOP per
+// (ray, triangle) pair its primary trace and capped occlusion scans test
+// (~80 SASS instructions a row test), plus ~20 FLOP and a square root and
+// a division per (lit sample, live VLP) pair; typical tables are ~1% live
+// (the demo scene emits 6 live rows of 1024), the dense_vlp_scene's ~47%.
+// Memory traffic is the table (32 or 48 bytes a row) and the 12-byte film
+// write per pixel.
+//
+// Design.  One thread per pixel, the film sum in registers across the spp
+// loop; a warp on a compact 8x4 pixel patch (a block of 4 warps on 16x8),
+// so that its rays are coherent.  The scene is staged once per block in
+// shared memory.  The triangles are scanned in index-order blocks of 32
+// rows, each with a padded box (ops/mega_vlp.py::tri_block_boxes): the
+// warp votes with __any_sync over the conservative predicates of
+// pt_device.cuh (box_closest against the running best for the camera
+// rays, box_occ against the light distance for each light's shadow rays),
+// first on the mesh's box (the union of the blocks'), then on each block,
+// and scans a block only when some lane may hit in it.  Lanes that do not
+// trace (ghost pixels past the film edge) or cast (sky, facing-ratio and
+// mirror hits) vote no, and every lane reaches every vote.  A block that no lane's
+// ray can enter cannot change a running best or an any-hit, and the blocks
+// keep index order (an exact tie keeps the earlier triangle), so the film
+// is bit-equal to the same kernel without the cull (the kCull = false
+// instantiation, every block scanned, the parent design's scans).  The VLP
+// table's live rows are staged in shared memory once per launch when they
+// fit `chunk` rows (the wrapper's budget), else streamed chunk by chunk
+// every sample; every thread of the block scans them in the same order (a
+// broadcast read per row).  n_live is read on the device, so the host never
+// waits.  An occlusion walk ends when every casting lane is occluded.  The
+// arithmetic keeps the JAX kernel's operation order, with 1.0f / sqrtf
+// where it uses rsqrt; built with --fmad=false and without fast math.
 
 #include "pt_device.cuh"
 
 namespace {
 
-constexpr int kBlock = 128;
+constexpr int kTileW = 16;      // block tile: 16 x 8 pixels,
+constexpr int kTileH = 8;       // warp w on the 8 x 4 patch (w&1, w>>1)
+constexpr int kBlock = kTileW * kTileH;
+constexpr int kTriRows = 32;    // triangle rows a culled block
 
+// Work tally of the counting instantiation (kStats).  Cycle slots
+// (clock64, the warp's: lane 0's reading) [kCamRest] the camera trace's
+// floor, squares and spheres, [kCamTri] its triangle blocks (votes and
+// scans), [kGather] the VLP gather, [kShadowRest] the shadow rays' floor,
+// squares and spheres, [kShadowTri] their triangle blocks, [kStage] the
+// VLP table's staging with its __syncthreads, [kKernel] the whole kernel;
+// count slots (summed over lanes) [kLit] lit hits (floor, diffuse),
+// [kCasts] shadow rays cast (a lit hit and a light), [kCastsTri] casts
+// that reach the triangles (not occluded by the floor, squares or
+// spheres), [kTested] (ray, triangle) pairs the warps test (32 lanes x the
+// rows a warp scans), [kGatherPairs] (lit sample, VLP) terms gathered (in
+// grid mode those in the shading point's cell).  The timed instantiations
+// keep none of it.
+enum Slot {
+  kCamRest, kCamTri, kGather, kShadowRest, kShadowTri, kStage, kKernel,
+  kLit, kCasts, kCastsTri, kTested, kGatherPairs, kStatSlots
+};
+
+template <bool kStats>
+struct Tally {
+  unsigned long long v[kStatSlots] = {};
+  __device__ __forceinline__ void add(int slot, long long n) { v[slot] += n; }
+  __device__ __forceinline__ long long clock() { return clock64(); }
+  // every lane of the warp calls it once, at the end
+  __device__ __forceinline__ void flush(unsigned long long* stats) {
+    for (int i = kLit; i < kStatSlots; ++i)
+      for (int o = 16; o > 0; o >>= 1) v[i] += __shfl_xor_sync(kAll, v[i], o);
+    if ((threadIdx.x & 31) != 0) return;
+    for (int i = 0; i < kStatSlots; ++i) atomicAdd(stats + i, v[i]);
+  }
+};
+
+template <>
+struct Tally<false> {
+  __device__ __forceinline__ void add(int, long long) {}
+  __device__ __forceinline__ long long clock() { return 0; }
+  __device__ __forceinline__ void flush(unsigned long long*) {}
+};
+
+// The triangle blocks: 2 float4 a record (lo.xyz row count | hi.xyz 0),
+// record 0 the mesh (the union of the blocks' boxes), then the n blocks.
+struct TriBlocks {
+  const float4* boxes;
+  int n;
+};
+
+// Closest hit over floor, squares, spheres and the triangle blocks
+// (pt_device.cuh::trace's arithmetic and order).  `active` lanes vote and
+// update; the others vote no and return the non-triangle hit.
+template <bool kStats, bool kCull>
+__device__ Hit trace_vlp(const Scene& S, const TriBlocks& B, float ox,
+                         float oy, float oz, float dx, float dy, float dz,
+                         bool neg_t, bool active, Tally<kStats>& T) {
+  const long long c0 = T.clock();
+  PreHit h = pre_tri(S, ox, oy, oz, dx, dy, dz, kBig, neg_t, 3);
+  const long long c1 = T.clock();
+  if (S.ntp) {
+    const RayInv ri = ray_inv(ox, oy, oz, dx, dy, dz);
+    float bn = h.t, bd = 1.0f;
+    const float4* rows = reinterpret_cast<const float4*>(S.tri);
+    // a warp none of whose rays enters the mesh's box skips its blocks
+    int nb = B.n;
+    if (kCull && nb > 1 &&
+        !__any_sync(kAll, active && box_closest(__ldg(B.boxes),
+                                                __ldg(B.boxes + 1), ri, bn,
+                                                bd, neg_t)))
+      nb = 0;
+    for (int b = 0; b < nb; ++b) {
+      const float4 lo = __ldg(B.boxes + 2 * b + 2);
+      bool need = active;
+      if constexpr (kCull)
+        need = need && box_closest(lo, __ldg(B.boxes + 2 * b + 3), ri, bn,
+                                   bd, neg_t);
+      if (!__any_sync(kAll, need)) continue;
+      const int r0 = kTriRows * b, r1 = r0 + __float_as_int(lo.w);
+      T.add(kTested, r1 - r0);
+      if (!active) continue;
+#pragma unroll 2
+      for (int i = r0; i < r1; ++i) {
+        const float4 a = rows[3 * i];      // v0.xyz, e0.x
+        const float4 c = rows[3 * i + 1];  // e0.yz, e2.xy
+        const float4 e = rows[3 * i + 2];  // e2.z, n.xyz
+        const Quads q = row_quads(a, c, e, ox, oy, oz, dx, dy, dz);
+        if (quads_valid(q, neg_t) && q.tn_s * bd < bn * q.dd) {
+          bn = q.tn_s;
+          bd = q.dd;
+          h.m = 4;
+          h.nx = e.y;
+          h.ny = e.z;
+          h.nz = e.w;
+          h.needs = false;
+        }
+      }
+    }
+    h.t = bn / bd;
+  }
+  T.add(kCamRest, c1 - c0);
+  T.add(kCamTri, T.clock() - c1);
+  return finish(h);
+}
+
+// Any-hit occlusion below t_limit over floor, squares, spheres and the
+// triangle blocks (pt_device.cuh::occluded's arithmetic), for `cast` lanes
+// (the others return false).  The walk ends when every casting lane is
+// occluded.
+template <bool kStats, bool kCull>
+__device__ bool occluded_vlp(const Scene& S, const TriBlocks& B, float ox,
+                             float oy, float oz, float dx, float dy,
+                             float dz, float t_limit, bool neg_t, bool cast,
+                             Tally<kStats>& T) {
+  const long long c0 = T.clock();
+  bool occ = cast && occluded_pre(S, ox, oy, oz, dx, dy, dz, t_limit, neg_t);
+  const long long c1 = T.clock();
+  T.add(kCastsTri, cast && !occ);
+  if (S.ntp) {
+    const RayInv ri = ray_inv(ox, oy, oz, dx, dy, dz);
+    const float4* rows = reinterpret_cast<const float4*>(S.tri);
+    int nb = B.n;
+    if (kCull && nb > 1 &&
+        !__any_sync(kAll, cast && !occ &&
+                              box_occ(__ldg(B.boxes), __ldg(B.boxes + 1), ri,
+                                      t_limit, neg_t)))
+      nb = 0;
+    for (int b = 0; b < nb; ++b) {
+      if (!__any_sync(kAll, cast && !occ)) break;
+      const float4 lo = __ldg(B.boxes + 2 * b + 2);
+      bool need = cast && !occ;
+      if constexpr (kCull)
+        need = need &&
+               box_occ(lo, __ldg(B.boxes + 2 * b + 3), ri, t_limit, neg_t);
+      if (!__any_sync(kAll, need)) continue;
+      const int r0 = kTriRows * b, r1 = r0 + __float_as_int(lo.w);
+      T.add(kTested, r1 - r0);
+      if (!cast || occ) continue;
+#pragma unroll 2
+      for (int i = r0; i < r1; ++i) {
+        const Quads q = row_quads(rows[3 * i], rows[3 * i + 1],
+                                  rows[3 * i + 2], ox, oy, oz, dx, dy, dz);
+        if (quads_valid(q, neg_t) && q.tn_s < t_limit * q.dd) {
+          occ = true;
+          break;
+        }
+      }
+    }
+  }
+  T.add(kShadowRest, c1 - c0);
+  T.add(kShadowTri, T.clock() - c1);
+  return occ;
+}
+
+// Copy n4 float4 from device memory to shared memory, all threads of the
+// block taking part.
+__device__ __forceinline__ void stage_rows(const float4* __restrict__ src,
+                                           float4* dst, int n4) {
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) dst[i] = src[i];
+}
+
+template <bool kStats, bool kCull>
 __global__ void __launch_bounds__(kBlock)
 mega_vlp_kernel(const float* __restrict__ scene, int ntp, int nl, int ns,
-                int nq, uint32_t k0, uint32_t k1, uint32_t spp_offset,
-                uint32_t spp_total, uint32_t row_offset, int rows, int width,
-                int spp, int neg_t_flag, const float* __restrict__ vlp,
-                int nvp, int stride, int chunk,
-                const int* __restrict__ n_live_ptr,
+                int nq, TriBlocks B, uint32_t k0, uint32_t k1,
+                uint32_t spp_offset, uint32_t spp_total, uint32_t row_offset,
+                int rows, int width, int spp, int neg_t_flag,
+                const float* __restrict__ vlp, int nvp, int stride,
+                int chunk, const int* __restrict__ n_live_ptr,
                 const float* __restrict__ gridp, float inv_nl,
-                float* __restrict__ out) {
+                float* __restrict__ out,
+                unsigned long long* __restrict__ stats) {
+  Tally<kStats> T;
+  const long long k_start = T.clock();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const Scene S = stage_scene(scene, smem, ntp, nl, ns, nq);
-  // the VLP chunk follows the scene, float4-aligned
+  // the VLP rows follow the scene, float4-aligned
   float* vsm = smem + ((scene_floats(ntp, nl, ns, nq) + 3) & ~3);
   const float4* vsm4 = reinterpret_cast<const float4*>(vsm);
   const float4* vlp4 = reinterpret_cast<const float4*>(vlp);
   const int n_live = min(max(*n_live_ptr, 0), nvp);
   const int n_chunks = (n_live + chunk - 1) / chunk;
+  // live rows that fit one chunk are staged once, here
+  if (n_chunks == 1)
+    stage_rows(vlp4, reinterpret_cast<float4*>(vsm), n_live * stride / 4);
   const bool grid_mode = gridp != nullptr;
   // grid mode: vmin (3), cell size (3), resolution (3) as floats
   float gv[9];
@@ -64,35 +245,37 @@ mega_vlp_kernel(const float* __restrict__ scene, int ntp, int nl, int ns,
   for (int i = 0; i < 9; ++i) gv[i] = grid_mode ? gridp[i] : 0.0f;
   const bool neg_t = neg_t_flag != 0;
   __syncthreads();
+  T.add(kStage, T.clock() - k_start);
 
-  // threads past the band's end still stage VLP chunks with the block
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = p < (long long)rows * width;
-  const long long pc = active ? p : 0;
-  const int ii_i = (int)(pc % width);
-  const int jj_row = (int)(pc / width);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ii_i = blockIdx.x * kTileW + (warp & 1) * 8 + (lane & 7);
+  const int jj_row = blockIdx.y * kTileH + (warp >> 1) * 4 + (lane >> 3);
+  // ghost pixels past the film edge run every loop (they vote no and
+  // stage table chunks with the block) and are not written
+  const bool inside = ii_i < width && jj_row < rows;
   const uint32_t row_u = (uint32_t)jj_row + row_offset;
   // the pixel index wraps like the JAX kernel's int32 arithmetic
   const uint32_t pixel_index = row_u * (uint32_t)width + (uint32_t)ii_i;
   const float ii = (float)ii_i;
   const float jj = (float)(int)row_u;
 
-  bool resident = false;   // the one chunk of a table with <= chunk live rows
   float fr = 0.0f, fg = 0.0f, fb = 0.0f;
   for (int s = 0; s < spp; ++s) {
     const uint32_t s32 = (uint32_t)s + spp_offset;
     const uint32_t ray_id = pixel_index * spp_total + s32;
     const Ray ry = primary_ray(S, k0, k1, ray_id, ii, jj);
-    const Hit h = active ? trace(S, ry.ox, ry.oy, ry.oz, ry.dx, ry.dy, ry.dz,
-                                 kBig, neg_t)
-                         : Hit{kBig, 0, 0.0f, 0.0f, 0.0f};
-    const bool lit = h.m == 1 || h.m == 3;
+    const Hit h = trace_vlp<kStats, kCull>(S, B, ry.ox, ry.oy, ry.oz, ry.dx,
+                                           ry.dy, ry.dz, neg_t, inside, T);
+    const bool lit = inside && (h.m == 1 || h.m == 3);
+    T.add(kLit, lit);
     const float x = ry.ox + ry.dx * h.t;
     const float y = ry.oy + ry.dy * h.t;
     const float z = ry.oz + ry.dz * h.t;
 
     // gather state of the shading point: n.x, |x|^2 and, in grid mode, its
     // cell (true division, as the JAX kernel) and in-box flag
+    const long long g0 = T.clock();
+    long long staged = 0;
     const float ndx = h.nx * x + h.ny * y + h.nz * z;
     const float x2 = x * x + y * y + z * z;
     float cxf = 0.0f, cyf = 0.0f, czf = 0.0f;
@@ -108,14 +291,13 @@ mega_vlp_kernel(const float* __restrict__ scene, int ntp, int nl, int ns,
     for (int c = 0; c < n_chunks; ++c) {
       const int r0 = c * chunk;
       const int nr = min(chunk, n_live - r0);
-      if (n_chunks > 1 || !resident) {
+      if (n_chunks > 1) {
+        const long long t0 = T.clock();
         __syncthreads();   // every thread is done with the previous chunk
-        const int n4 = nr * stride / 4;
-        const float4* src = vlp4 + (long long)r0 * stride / 4;
-        float4* dst = reinterpret_cast<float4*>(vsm);
-        for (int i = threadIdx.x; i < n4; i += blockDim.x) dst[i] = src[i];
+        stage_rows(vlp4 + (long long)r0 * stride / 4,
+                   reinterpret_cast<float4*>(vsm), nr * stride / 4);
         __syncthreads();
-        resident = true;
+        staged += T.clock() - t0;
       }
       if (!lit || (grid_mode && !in_box)) continue;
       if (grid_mode) {
@@ -126,6 +308,7 @@ mega_vlp_kernel(const float* __restrict__ scene, int ntp, int nl, int ns,
           if (!(b.y <= cxf && cxf <= e.x && b.z <= cyf && cyf <= e.y &&
                 b.w <= czf && czf <= e.z))
             continue;
+          T.add(kGatherPairs, 1);
           const float4 a = vsm4[3 * r];
           const float lamb_num = (h.nx * a.x + h.ny * a.y + h.nz * a.z) - ndx;
           const float dist2 = fmaxf(
@@ -136,6 +319,7 @@ mega_vlp_kernel(const float* __restrict__ scene, int ntp, int nl, int ns,
         }
       } else {
         // row: px py pz I | |p|^2 pad pad pad
+        T.add(kGatherPairs, nr);
         for (int r = 0; r < nr; ++r) {
           const float4 a = vsm4[2 * r];
           const float p2s = vsm[8 * r + 4];
@@ -148,17 +332,13 @@ mega_vlp_kernel(const float* __restrict__ scene, int ntp, int nl, int ns,
         }
       }
     }
+    T.add(kStage, staged);
+    T.add(kGather, T.clock() - g0 - staged);
 
-    float sr, sgc, sb;
-    if (h.m == 0) {
-      shade_sky(ry.dz, sr, sgc, sb);
-    } else if (h.m == 4) {
-      const float facing =
-          fmaxf(0.0f, -(h.nx * ry.dx + h.ny * ry.dy + h.nz * ry.dz));
-      sr = sgc = sb = facing;
-    } else {
-      // gather -> clamp 1 -> soft-shadow corrections -> / 4
-      float ti = fminf(gsum, 1.0f);
+    // gather -> clamp 1 -> soft-shadow corrections -> / 4; every lane of a
+    // warp with a lit lane runs the light loop, for the votes
+    float ti = fminf(gsum, 1.0f);
+    if (__any_sync(kAll, lit)) {
       for (int i = 0; i < S.nl; ++i) {
         const float lx = S.lights[4 * i], ly = S.lights[4 * i + 1];
         const float lz = S.lights[4 * i + 2];
@@ -175,8 +355,21 @@ mega_vlp_kernel(const float* __restrict__ scene, int ntp, int nl, int ns,
         // capped at the UN-jittered light distance (ocl:195-197)
         const float dqx = lx - x, dqy = ly - y, dqz = lz - z;
         const float tl = sqrtf(dqx * dqx + dqy * dqy + dqz * dqz);
-        if (occluded(S, x, y, z, ldx, ldy, ldz, tl, neg_t)) ti = ti - inv_nl;
+        T.add(kCasts, lit);
+        if (occluded_vlp<kStats, kCull>(S, B, x, y, z, ldx, ldy, ldz, tl,
+                                        neg_t, lit, T))
+          ti = ti - inv_nl;
       }
+    }
+
+    float sr, sgc, sb;
+    if (h.m == 0) {
+      shade_sky(ry.dz, sr, sgc, sb);
+    } else if (h.m == 4) {
+      const float facing =
+          fmaxf(0.0f, -(h.nx * ry.dx + h.ny * ry.dy + h.nz * ry.dz));
+      sr = sgc = sb = facing;
+    } else {
       ti = ti * 0.25f;
       shade_lit(h.m, x, y, ti, sr, sgc, sb);
     }
@@ -184,45 +377,75 @@ mega_vlp_kernel(const float* __restrict__ scene, int ntp, int nl, int ns,
     fg = fg + sgc;
     fb = fb + sb;
   }
-  if (!active) return;
-  float* o = out + 3 * p;
-  o[0] = fr * kExposure;
-  o[1] = fg * kExposure;
-  o[2] = fb * kExposure;
+  if (inside) {
+    float* o = out + 3 * ((long long)jj_row * width + ii_i);
+    o[0] = fr * kExposure;
+    o[1] = fg * kExposure;
+    o[2] = fb * kExposure;
+  }
+  T.add(kKernel, T.clock() - k_start);
+  T.flush(stats);
+}
+
+template <bool kStats, bool kCull>
+int launch(const float* scene, int ntp, int nl, int ns, int nq,
+           TriBlocks B, unsigned k0, unsigned k1, unsigned spp_offset,
+           unsigned spp_total, unsigned row_offset, int rows, int width,
+           int spp, int neg_t, const float* vlp, int nvp, int stride,
+           int chunk, const int* n_live, const float* gridp, float inv_nl,
+           float* out, unsigned long long* stats, cudaStream_t stream) {
+  const int scene_n = ntp * 12 + 12 + nl * 4 + ns * 3 + 2 * nq;
+  const size_t smem =
+      sizeof(float) * ((size_t)((scene_n + 3) & ~3) +
+                       (size_t)min(chunk, nvp) * stride);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mega_vlp_kernel<kStats, kCull>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((unsigned)((width + kTileW - 1) / kTileW),
+                  (unsigned)((rows + kTileH - 1) / kTileH));
+  mega_vlp_kernel<kStats, kCull><<<grid, kBlock, smem, stream>>>(
+      scene, ntp, nl, ns, nq, B, k0, k1, spp_offset, spp_total, row_offset,
+      rows, width, spp, neg_t, vlp, nvp, stride, chunk, n_live, gridp,
+      inv_nl, out, stats);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).  `vlp` is
-// the (nvp, stride) float32 table, stride 8 (dense) or 12 (grid mode, with
-// `gridp` the 9 grid floats; NULL in dense mode); `n_live` a device int32;
-// `chunk` the rows staged in shared memory at a time.
+// Launch on `stream`; returns cudaGetLastError() (0 on success).  `boxes`
+// holds n_boxes records of 2 float4 (lo.xyz and a row count as int bits,
+// hi.xyz and 0): the mesh's box, then its blocks of 32 rows; `vlp` is the (nvp,
+// stride) float32 table, stride 8 (dense) or 12 (grid mode, with `gridp`
+// the 9 grid floats; NULL in dense mode); `n_live` a device int32; `chunk`
+// the rows staged in shared memory at a time (all of them once a launch
+// when n_live <= chunk).  `cull` 0 scans every triangle block (the
+// cull-free instantiation, the same film); `stats`, when not null, points
+// to kStatSlots zeroed uint64 counters: the counting instantiation runs
+// and adds its Tally there.
 extern "C" int mega_vlp_launch(const float* scene, int ntp, int nl, int ns,
-                               int nq, unsigned k0, unsigned k1,
-                               unsigned spp_offset, unsigned spp_total,
-                               unsigned row_offset, int rows, int width,
-                               int spp, int neg_t, const float* vlp, int nvp,
-                               int stride, int chunk, const int* n_live,
-                               const float* gridp, float inv_nl, float* out,
-                               void* stream) {
-  const long long n_px = (long long)rows * width;
-  if (n_px <= 0) return 0;
-  if ((stride != 8 && stride != 12) || chunk < 1)
+                               int nq, const float* boxes, int n_boxes,
+                               unsigned k0, unsigned k1, unsigned spp_offset,
+                               unsigned spp_total, unsigned row_offset,
+                               int rows, int width, int spp, int neg_t,
+                               const float* vlp, int nvp, int stride,
+                               int chunk, const int* n_live,
+                               const float* gridp, float inv_nl, int cull,
+                               float* out, void* stats, void* stream) {
+  if ((long long)rows * width <= 0) return 0;
+  if ((stride != 8 && stride != 12) || chunk < 1 || nvp < 1 ||
+      n_boxes < 1 || (n_boxes - 1) * kTriRows < ntp || boxes == nullptr)
     return (int)cudaErrorInvalidValue;
-  const int scene_n = ntp * 12 + 12 + nl * 4 + ns * 3 + 2 * nq;
-  const size_t smem =
-      sizeof(float) * ((size_t)((scene_n + 3) & ~3) + (size_t)chunk * stride);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mega_vlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const unsigned grid = (unsigned)((n_px + kBlock - 1) / kBlock);
-  mega_vlp_kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-      scene, ntp, nl, ns, nq, k0, k1, spp_offset, spp_total, row_offset, rows,
-      width, spp, neg_t, vlp, nvp, stride, chunk, n_live, gridp, inv_nl, out);
-  return (int)cudaGetLastError();
+  const TriBlocks B{reinterpret_cast<const float4*>(boxes), n_boxes - 1};
+  auto* st = reinterpret_cast<unsigned long long*>(stats);
+  auto* s = (cudaStream_t)stream;
+  auto kernel = stats ? (cull ? launch<true, true> : launch<true, false>)
+                      : (cull ? launch<false, true> : launch<false, false>);
+  return kernel(scene, ntp, nl, ns, nq, B, k0, k1, spp_offset, spp_total,
+                row_offset, rows, width, spp, neg_t, vlp, nvp, stride, chunk,
+                n_live, gridp, inv_nl, out, st, s);
 }
 
 extern "C" const char* mega_vlp_error_string(int code) {

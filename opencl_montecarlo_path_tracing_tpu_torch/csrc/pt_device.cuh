@@ -5,7 +5,7 @@
 // memory, the thin-lens primary ray, the det-scaled triangle row test, the
 // closest-hit trace and its non-triangle stage, the capped any-hit
 // occlusion test and its non-triangle stage, the NaN-safe slab test of the
-// per-warp culls, and the 4-material shading.
+// per-warp culls and their box predicates, and the 4-material shading.
 //
 // Everything sits in an anonymous namespace, so every translation unit
 // that includes this header gets its own internal copy and the kernels
@@ -398,7 +398,7 @@ __device__ bool occluded(const Scene& S, float ox, float oy, float oz,
 }
 
 // A ray's origin and reciprocal direction, for slab tests against boxes
-// (the per-warp culls of B2/B3 and B5).
+// (the per-warp culls of B2/B3, B4 and B5).
 struct RayInv {
   float ox, oy, oz, ix, iy, iz;
 };
@@ -430,6 +430,33 @@ __device__ __forceinline__ void slab(float4 lo, float4 hi, const RayInv& r,
   slab_axis(lo.z, hi.z, r.oz, r.iz, nz, fz);
   tmin = fmaxf(fmaxf(nx, ny), nz);
   tmax = fminf(fminf(fx, fy), fz);
+}
+
+// The per-warp culls' box predicates (kernels B2/B3 and B4), all
+// conservative: the slab of the padded box, the eps/forward check, and the
+// running-t prune with the TPU kernel's relative slack (_PRUNE_SLACK).
+//
+// Closest-hit predicate: may a triangle in the box beat (bn / bd)?
+__device__ __forceinline__ bool box_closest(float4 lo, float4 hi,
+                                            const RayInv& r, float bn,
+                                            float bd, bool neg_t) {
+  float tmin, tmax;
+  slab(lo, hi, r, tmin, tmax);
+  bool hit = tmax >= tmin;
+  if (!neg_t)
+    hit = hit && tmax >= kEps && fmaxf(tmin, 0.0f) * bd <= bn * kSlack;
+  return hit;
+}
+
+// Occlusion predicate: may a triangle in the box hit below t_limit?
+__device__ __forceinline__ bool box_occ(float4 lo, float4 hi,
+                                        const RayInv& r, float tl,
+                                        bool neg_t) {
+  float tmin, tmax;
+  slab(lo, hi, r, tmin, tmax);
+  bool hit = tmax >= tmin;
+  if (!neg_t) hit = hit && tmax >= kEps && tmin <= tl * kSlack;
+  return hit;
 }
 
 // Sky colour (1 - dz)^4 * (0.7, 0.6, 1) (pathtracer.ocl:160).

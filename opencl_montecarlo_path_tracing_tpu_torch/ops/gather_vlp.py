@@ -12,6 +12,14 @@ the TPU kernel ``opencl_montecarlo_path_tracing_tpu/ops/pallas_vlp.py::
 gather_vlps_mxu`` -> ``_kernel`` (two K=16 matrix products there; scalar
 FP32 here, since the expansion of b cancels under bf16 or TF32 inputs).
 
+The kernel reads the table live rows first, with the live count on the
+device (:func:`live_table`, the layout of B4's dense table,
+``ops/mega_vlp.py::vlp_table``): a dead row (I <= 0) adds exactly +0.0
+to a finite sum, so the live rows alone give the full table's sum bit for
+bit.  A caller that gathers against one table many times - the tier-1
+render, 16 calls a render - builds it once and passes it instead of the
+(V, 4) table.
+
 ``gather_vlps_mxu_plain`` is the same formula in elementwise PyTorch,
 chunked over V and summed in ascending VLP order; it uses no matrix
 product, so no TF32 setting can reach it.  The wrapper takes it only when
@@ -20,6 +28,8 @@ the tensors lie on the CPU.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 #: Launches of the CUDA kernel since the last reset (the wrapper adds one
@@ -27,6 +37,26 @@ import torch
 LAUNCHES = 0
 
 _CHUNK = 256     # VLPs per elementwise (points x chunk) pass of the plain form
+#: Threads that fill an H100 (132 SMs x 2,048): below it the kernel gives a
+#: point ``split`` threads (1, 2, 4 or 8), each summing part of the rows.
+CARD_THREADS = 132 * 2048
+
+
+class LiveTable(NamedTuple):
+    """A VLP table as kernel B6 reads it: ``vlps`` the (V, 4) table as
+    given, ``tab`` its (V, 8) float32 rows live first (stable), ``n_live``
+    the live count, a (1,) int32 tensor on the same device."""
+    vlps: torch.Tensor
+    tab: torch.Tensor
+    n_live: torch.Tensor
+
+
+def live_table(vlps) -> LiveTable:
+    """The (V, 4) table ``vlps`` as B6 reads it (:class:`LiveTable`), built
+    on its device without waiting for it."""
+    from .mega_vlp import vlp_table
+    tab, n_live, _ = vlp_table(vlps)
+    return LiveTable(vlps, tab, n_live)
 
 
 def _vlp_constants(vlps):
@@ -38,7 +68,10 @@ def _vlp_constants(vlps):
 
 
 def gather_vlps_mxu_plain(x, n, vlps):
-    """Plain PyTorch version of :func:`gather_vlps_mxu`, on any device."""
+    """Plain PyTorch version of :func:`gather_vlps_mxu`, on any device, over
+    the (V, 4) table ``vlps`` (or a :class:`LiveTable`'s)."""
+    if isinstance(vlps, LiveTable):
+        vlps = vlps.vlps
     shape = x.shape[:-1]
     x = x.reshape(-1, 3)
     n = n.reshape(-1, 3)
@@ -59,9 +92,23 @@ def gather_vlps_mxu_plain(x, n, vlps):
     return acc.reshape(shape)
 
 
-def gather_vlps_mxu(x, n, vlps):
-    """Dense VLP gather: one launch of the CUDA kernel for tensors on a
-    CUDA device, :func:`gather_vlps_mxu_plain` for tensors on the CPU."""
+def default_split(points: int) -> int:
+    """Threads a point for ``points`` shading points: the largest of 1, 2,
+    4, 8 that keeps points x split within ``CARD_THREADS`` (1 from 262,144
+    points up: the sequential sum order)."""
+    split = 1
+    while split < 8 and points * split * 2 <= CARD_THREADS:
+        split *= 2
+    return split
+
+
+def gather_vlps_mxu(x, n, vlps, split: int | None = None):
+    """Dense VLP gather against the (V, 4) table ``vlps`` or its
+    :class:`LiveTable`: one launch of the CUDA kernel for tensors on a CUDA
+    device, :func:`gather_vlps_mxu_plain` for tensors on the CPU.
+    ``split`` (threads a point; default :func:`default_split`) changes the
+    sum order only: split 1 is the sequential order, bit-equal to the plain
+    version."""
     global LAUNCHES
     if x.device.type == "cpu":
         return gather_vlps_mxu_plain(x, n, vlps)
@@ -70,26 +117,33 @@ def gather_vlps_mxu(x, n, vlps):
     shape = x.shape[:-1]
     xf = x.reshape(-1, 3).to(torch.float32).contiguous()
     nf = n.reshape(-1, 3).to(torch.float32).contiguous()
-    R, V = int(xf.shape[0]), int(vlps.shape[0])
+    table = vlps if isinstance(vlps, LiveTable) else live_table(
+        vlps.to(x.device))
+    R, V = int(xf.shape[0]), int(table.tab.shape[0])
     if R >= 1 << 31 or V >= 1 << 28:
         raise ValueError(f"{R} points x {V} VLPs exceed the kernel's int32 "
                          "indexing")
-    p0, p1, p2, p2s, vi = _vlp_constants(vlps.to(x.device))
-    zero = torch.zeros_like(vi)
-    tab = torch.stack([p0, p1, p2, p2s, vi, zero, zero, zero],
-                      dim=1).contiguous()
+    if split is None:
+        split = default_split(R)
+    if split not in (1, 2, 4, 8):
+        raise ValueError(f"split={split} is not 1, 2, 4 or 8")
     out = torch.empty(R, dtype=torch.float32, device=x.device)
-    for name, t in (("x", xf), ("n", nf), ("vlps", tab)):
-        if t.device != out.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 tensor "
-                             f"on {out.device}")
+    for name, t, dt in (("x", xf, torch.float32), ("n", nf, torch.float32),
+                        ("vlp table", table.tab, torch.float32),
+                        ("n_live", table.n_live, torch.int32)):
+        if t.device != out.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dt} tensor on "
+                             f"{out.device}")
+    if table.tab.shape[1] != 8:
+        raise ValueError(f"bad VLP table shape {tuple(table.tab.shape)}")
     from ..utils.build import load
     lib = load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.gather_vlp_launch(xf.data_ptr(), nf.data_ptr(),
-                                    tab.data_ptr(), R, V, out.data_ptr(),
-                                    stream)
+                                    table.tab.data_ptr(),
+                                    table.n_live.data_ptr(), R, V, split,
+                                    out.data_ptr(), stream)
     if err != 0:
         msg = lib.gather_vlp_error_string(err).decode()
         raise RuntimeError(

@@ -16,7 +16,10 @@ binning of ``ops/grid.py::build_grid_cellscan`` - padded to 12.  The live
 count reaches the kernel as a device int32, so the host never waits.  The
 kernel scans every live row, masked by cell membership in grid mode, so
 it is uncapped where the tier-1 grid gather keeps at most 62 items a cell:
-the two agree wherever no live VLP overflows a cell.
+the two agree wherever no live VLP overflows a cell.  The kernel culls its
+triangle scans per warp over :func:`tri_block_boxes`; ``cull=False``
+launches the instantiation that scans every block (the same film, for the
+tests), and :func:`vlp_stats` the counting one.
 
 ``film_vlp_mega_plain`` is the same function in plain PyTorch - the
 tier-1 composition ``accumulate_spp(sample_super(illum_fn=illum_vlp))``
@@ -32,8 +35,9 @@ import torch
 
 from ..core.quirks import Quirks, DEFAULT
 from ..models import common as C
-from .intersect import SceneArrays
-from .mega_super import MAX_LIGHTS, MAX_SMEM_TRIANGLES, _u32_arg, pack_scene
+from .intersect import SceneArrays, derived
+from .mega_super import (MAX_LIGHTS, MAX_SMEM_TRIANGLES, _check, _stream,
+                         _u32_arg, pack_scene)
 from .vlp import vlp_aabbs
 
 #: Launches of the CUDA kernel since the last reset (the wrapper adds one
@@ -42,7 +46,12 @@ LAUNCHES = 0
 
 DENSE_STRIDE = 8    # floats per table row: px py pz I |p|^2 + 3 pad
 GRID_STRIDE = 12    # + clo.xyz chi.xyz + 1 pad
-CHUNK_ROWS = 256    # VLP rows the kernel stages in shared memory at a time
+#: Shared memory a block gives the VLP table: live rows that fit (512 dense
+#: rows, 341 in grid mode) are staged once a launch, larger tables a chunk
+#: of that many rows at a time, every sample.  16 KiB beside the demo
+#: scene's 4.8 KiB keeps 8 blocks of 128 threads an SM.
+VLP_SMEM_BYTES = 16 * 1024
+TRI_BLOCK_ROWS = 32   # triangle rows a culled block (csrc/mega_vlp.cu)
 
 
 def unsupported_reason(scn: SceneArrays, quirks: Quirks = DEFAULT,
@@ -71,9 +80,14 @@ def vlp_table(vlps, grid=None):
     in grid mode also the 9 grid floats (vmin, cell size, resolution)."""
     vlps = vlps.to(torch.float32)
     live = vlps[:, 3] > 0
-    order = torch.argsort((~live).to(torch.int32), stable=True)
-    v = vlps[order]
-    n_live = live.sum().to(torch.int32).reshape(1)
+    # a stable partition without a sort: each row's place among its kind
+    li = live.to(torch.int64)
+    n_live = li.sum()
+    place = torch.where(live, torch.cumsum(li, 0) - 1,
+                        n_live + torch.cumsum(1 - li, 0) - 1)
+    v = torch.empty_like(vlps)
+    v[place] = vlps
+    n_live = n_live.to(torch.int32).reshape(1)
     p0, p1, p2 = v[:, 0], v[:, 1], v[:, 2]
     cols = [p0, p1, p2, torch.clamp_min(v[:, 3], 0.0),
             p0 * p0 + p1 * p1 + p2 * p2]
@@ -102,6 +116,47 @@ def vlp_table(vlps, grid=None):
     return tab.contiguous(), n_live, gridp
 
 
+def tri_block_boxes(scn: SceneArrays) -> np.ndarray:
+    """(1 + n_blocks, 8) float32 records of the kernel's triangle cull,
+    each lo.xyz, a row count (int32 bits), hi.xyz, 0: the triangles in
+    index order, ``TRI_BLOCK_ROWS`` a block, each block's box the bounds of
+    its triangles (v0, v0 + e0, v0 + e2 in float32, as
+    ``ops/tri_blocks.py`` computes them) padded by 1e-3 x their extent +
+    1e-4, the B2/B3 tables' pad; record 0 the mesh, the union of the
+    blocks' boxes (all zero without triangles)."""
+    nt = int(scn.tri_v0.shape[0])
+    nb = -(-nt // TRI_BLOCK_ROWS)
+    v0 = np.asarray(scn.tri_v0, np.float32)
+    v1 = v0 + np.asarray(scn.tri_e0, np.float32)
+    v2 = v0 + np.asarray(scn.tri_e2, np.float32)
+    lo = np.minimum(np.minimum(v0, v1), v2)
+    hi = np.maximum(np.maximum(v0, v1), v2)
+    recs = np.zeros((1 + nb, 8), np.float32)
+    for b in range(nb):
+        sl = slice(b * TRI_BLOCK_ROWS, min((b + 1) * TRI_BLOCK_ROWS, nt))
+        blo, bhi = lo[sl].min(axis=0), hi[sl].max(axis=0)
+        pad = 1e-3 * (bhi - blo) + 1e-4
+        recs[1 + b, 0:3] = blo - pad
+        recs[1 + b, 3] = np.int32(sl.stop - sl.start).view(np.float32)
+        recs[1 + b, 4:7] = bhi + pad
+    if nb:
+        recs[0, 0:3] = recs[1:, 0:3].min(axis=0)
+        recs[0, 3] = np.int32(nt).view(np.float32)
+        recs[0, 4:7] = recs[1:, 4:7].max(axis=0)
+    return recs
+
+
+def kernel_inputs(scn: SceneArrays, device) -> tuple:
+    """(scene buffer, padded triangle count, triangle block boxes) on
+    ``device``, built once per prepared scene: ``pack_scene`` and
+    :func:`tri_block_boxes`."""
+    def make(s):
+        buf, ntp = pack_scene(s)
+        return (torch.from_numpy(buf).to(device), ntp,
+                torch.from_numpy(tri_block_boxes(s)).to(device))
+    return derived(scn, "mega_vlp.kernel_inputs", device, make)
+
+
 def film_vlp_mega_plain(key, scn: SceneArrays, vlps, width: int,
                         height: int, spp: int, spp_offset: int = 0,
                         spp_total: int | None = None,
@@ -123,7 +178,8 @@ def film_vlp_mega(key, scn: SceneArrays, vlps, width: int, height: int,
                   spp: int, spp_offset: int = 0,
                   spp_total: int | None = None, quirks: Quirks = DEFAULT,
                   row_offset: int = 0, rows: int | None = None, grid=None,
-                  device="cuda", chunk_rows: int = CHUNK_ROWS):
+                  device="cuda", chunk_rows: int | None = None,
+                  cull: bool = True):
     """Pre-ambient (rows, W, 3) float32 film of the band
     [row_offset, row_offset+rows) with global samples
     [spp_offset, spp_offset+spp) of spp_total, gathering the (V, 4) VLP
@@ -133,8 +189,9 @@ def film_vlp_mega(key, scn: SceneArrays, vlps, width: int, height: int,
     On a CUDA device: one launch of the CUDA kernel; raises
     ``NotImplementedError`` for a configuration it does not cover.  On the
     CPU: :func:`film_vlp_mega_plain`.  ``chunk_rows`` sets how many table
-    rows the kernel stages at a time; the film does not depend on it."""
-    global LAUNCHES
+    rows the kernel stages at a time (default: ``VLP_SMEM_BYTES`` of rows)
+    and ``cull=False`` launches the instantiation without the triangle
+    cull; the film depends on neither."""
     device = torch.device(device)
     if spp_total is None:
         spp_total = spp
@@ -146,6 +203,15 @@ def film_vlp_mega(key, scn: SceneArrays, vlps, width: int, height: int,
         return film_vlp_mega_plain(key, scn, vlps, width, height, spp,
                                    spp_offset, spp_total, quirks,
                                    row_offset, rows, grid, device)
+    out = _film_out(scn, quirks, device, width, rows)
+    _launch(key, scn, vlps, grid, spp, spp_offset, spp_total, quirks,
+            row_offset, out, chunk_rows, cull, None)
+    return out
+
+
+def _film_out(scn: SceneArrays, quirks: Quirks, device, width, rows):
+    """The kernel's (rows, W, 3) output on a CUDA ``device``, after the
+    gate and the shape checks."""
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     reason = unsupported_reason(scn, quirks)
@@ -155,29 +221,38 @@ def film_vlp_mega(key, scn: SceneArrays, vlps, width: int, height: int,
         raise RuntimeError(
             f"device {device} requested but torch.cuda.is_available() is "
             "false; the port never renders a CUDA request on the CPU")
-    width, rows, spp = int(width), int(rows), int(spp)
-    if width <= 0 or rows <= 0 or spp < 0:
-        raise ValueError(f"bad film shape/spp: {rows}x{width}, spp={spp}")
+    width, rows = int(width), int(rows)
+    if width <= 0 or rows <= 0:
+        raise ValueError(f"bad film shape: {rows}x{width}")
     if rows * width >= 1 << 31:
         raise ValueError(f"{rows}x{width} pixels exceed the int32 index")
+    return torch.empty((rows, width, 3), dtype=torch.float32, device=device)
 
-    buf_np, ntp = pack_scene(scn)
-    buf = torch.from_numpy(buf_np).to(device)
+
+def _launch(key, scn: SceneArrays, vlps, grid, spp, spp_offset, spp_total,
+            quirks: Quirks, row_offset, out, chunk_rows, cull: bool, stats):
+    """One launch of B4 into ``out``; ``stats`` (a zeroed int64 tensor of
+    ``len(STAT_NAMES)`` slots, or None) makes it the counting
+    instantiation."""
+    global LAUNCHES
+    device = out.device
+    rows, width = int(out.shape[0]), int(out.shape[1])
+    spp = int(spp)
+    if spp < 0:
+        raise ValueError(f"spp={spp} < 0")
+    buf, ntp, boxes = kernel_inputs(scn, device)
     tab, n_live, gridp = vlp_table(torch.as_tensor(vlps, device=device),
                                    grid)
     stride = DENSE_STRIDE if gridp is None else GRID_STRIDE
-    out = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
-    for name, t, dt in (("scene", buf, torch.float32),
-                        ("vlp table", tab, torch.float32),
-                        ("n_live", n_live, torch.int32),
-                        ("grid", gridp, torch.float32),
-                        ("out", out, torch.float32)):
-        if t is not None and (t.device != out.device or t.dtype != dt
-                              or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {dt} tensor on "
-                             f"{out.device}")
+    _check((("scene", buf), ("triangle boxes", boxes), ("vlp table", tab),
+            ("out", out)) + ((("grid", gridp),) if gridp is not None else ()),
+           device)
+    if n_live.device != device or n_live.dtype != torch.int32:
+        raise ValueError(f"n_live must be an int32 tensor on {device}")
     if tab.shape[1] != stride or tab.shape[0] >= 1 << 27:
         raise ValueError(f"bad VLP table shape {tuple(tab.shape)}")
+    if chunk_rows is None:
+        chunk_rows = VLP_SMEM_BYTES // (4 * stride)
     if not 1 <= int(chunk_rows) <= 4096:
         raise ValueError(f"chunk_rows={chunk_rows} outside [1, 4096]")
     nl = int(scn.lights.shape[0])
@@ -186,20 +261,57 @@ def film_vlp_mega(key, scn: SceneArrays, vlps, width: int, height: int,
     from ..utils.build import load
     lib = load()
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.mega_vlp_launch(
             buf.data_ptr(), ntp, nl, int(scn.sphere_centers.shape[0]),
-            int(scn.square_k.shape[0]),
-            _u32_arg("k0", key[0]), _u32_arg("k1", key[1]),
-            _u32_arg("spp_offset", spp_offset),
+            int(scn.square_k.shape[0]), boxes.data_ptr(),
+            int(boxes.shape[0]), _u32_arg("k0", key[0]),
+            _u32_arg("k1", key[1]), _u32_arg("spp_offset", spp_offset),
             _u32_arg("spp_total", spp_total),
             _u32_arg("row_offset", row_offset), rows, width, spp,
             int(bool(quirks.accept_negative_t)), tab.data_ptr(),
             int(tab.shape[0]), stride, int(chunk_rows), n_live.data_ptr(),
             None if gridp is None else gridp.data_ptr(), inv_nl,
-            out.data_ptr(), stream)
+            int(bool(cull)), out.data_ptr(),
+            None if stats is None else stats.data_ptr(), _stream(device))
     if err != 0:
         msg = lib.mega_vlp_error_string(err).decode()
         raise RuntimeError(f"mega_vlp launch failed: CUDA error {err} ({msg})")
     LAUNCHES += 1
-    return out
+
+
+#: B4's work tally, in the order of its slots (csrc/mega_vlp.cu, Slot).
+STAT_NAMES = ("cam_rest", "cam_tri", "gather", "shadow_rest", "shadow_tri",
+              "stage", "kernel", "lit", "casts", "casts_tri", "tested",
+              "gather_pairs")
+
+
+def vlp_stats(key, scn: SceneArrays, vlps, width: int, height: int,
+              spp: int, spp_offset: int = 0, spp_total: int | None = None,
+              quirks: Quirks = DEFAULT, grid=None, cull: bool = True,
+              device="cuda") -> dict:
+    """B4's work over one render pass of this configuration (one launch of
+    the counting instantiation on ``device``, with or without the cull; the
+    film is discarded):
+
+    * ``lit``: samples whose primary ray hits the floor or a diffuse
+      surface (the shading gathers and casts there); ``casts``: their
+      shadow rays, one a light; ``casts_tri``: those not occluded by the
+      floor, squares or spheres, which reach the triangles;
+    * ``tested``: (ray, triangle) pairs the warps test (32 lanes x the
+      rows a warp scans, camera and shadow rays);
+    * ``gather_pairs``: (lit sample, live VLP) terms gathered (in grid mode
+      those of the shading point's cell);
+    * clock64 cycles summed over warps: ``cam_rest`` / ``cam_tri``, the
+      camera trace's floor, squares and spheres / its triangle blocks
+      (votes and scans); ``gather``; ``shadow_rest`` / ``shadow_tri``
+      likewise for the shadow rays; ``stage``, the VLP table's staging
+      with its syncs; ``kernel``, the whole kernel (the rest - threefry,
+      camera, shading - is ``kernel`` less the others)."""
+    device = torch.device(device)
+    if spp_total is None:
+        spp_total = spp
+    out = _film_out(scn, quirks, device, width, height)
+    stats = torch.zeros(len(STAT_NAMES), dtype=torch.int64, device=device)
+    _launch(key, scn, vlps, grid, spp, spp_offset, spp_total, quirks, 0,
+            out, None, cull, stats)
+    return dict(zip(STAT_NAMES, stats.tolist()))

@@ -130,13 +130,15 @@ _MXU_GATHER_MIN_VLPS = 64
 _SCAN_CHUNK = 64     # VLPs per elementwise (rays x chunk) pass of the scan
 
 
-def gather_vlps(x, n, vlps, impl: str | None = None):
+def gather_vlps(x, n, vlps, impl: str | None = None, table=None):
     """Dense VLP gather: sum over ALL VLPs of max(lamb, 0) * min(I/d^2, 1)
     with no shadow rays (Sample's VLP loop, ocl:166-187).
 
     ``impl``: ``"scan"`` (plain PyTorch), ``"mxu"`` (kernel B6's wrapper,
     ops/gather_vlp.py), or None: B6 on a CUDA device when there are at
-    least 2048 rays and 64 VLPs, the scan otherwise."""
+    least 2048 rays and 64 VLPs, the scan otherwise.  ``table``: the
+    live-first table of ``vlps`` that B6 reads (:func:`gather_table`), built
+    once by a caller that gathers against ``vlps`` many times."""
     if impl is None:
         use_mxu = (x.device.type == "cuda"
                    and int(np.prod(x.shape[:-1])) >= _MXU_GATHER_MIN_RAYS
@@ -145,8 +147,18 @@ def gather_vlps(x, n, vlps, impl: str | None = None):
         use_mxu = impl == "mxu"
     if use_mxu:
         from .gather_vlp import gather_vlps_mxu
-        return gather_vlps_mxu(x, n, vlps)
+        return gather_vlps_mxu(x, n, vlps if table is None else table)
     return _gather_scan(x, n, vlps)
+
+
+def gather_table(vlps):
+    """B6's live-first table of ``vlps`` (ops/gather_vlp.py::live_table)
+    where :func:`gather_vlps` may launch B6 on it (a CUDA device, at least
+    64 VLPs), else None."""
+    if vlps.device.type != "cuda" or vlps.shape[0] < _MXU_GATHER_MIN_VLPS:
+        return None
+    from .gather_vlp import live_table
+    return live_table(vlps)
 
 
 def _gather_scan(x, n, vlps):

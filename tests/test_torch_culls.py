@@ -14,6 +14,19 @@ order, no FMA - against the plain intersection tests on the CPU:
   camera rays, shadow rays from their hits, random rays, and axis-parallel
   rays whose origin lies on a box plane (the slab's 0 * inf).  Every child
   box lies inside its parent's.
+* B4 (``csrc/mega_vlp.cu``, boxes from
+  ``ops/mega_vlp.py::tri_block_boxes``): every (ray, triangle) pair that
+  the plain row test accepts passes the box predicates of the mesh and of
+  the triangle's 32-row index-order block - the closest-hit one with the
+  running best set
+  to the pair's own distance, the occlusion one at the shadow ray's light
+  distance where the pair lies before it - on the demo scene's torus and
+  on the GPU tests' meshes, for camera rays, shadow rays from points the
+  triangles shade toward the (jittered) lights, rays through triangle
+  edges and vertices (grazing), random rays and axis-parallel rays whose
+  origin lies on a box plane (NaN slabs), with and without negative t.
+  The blocks' boxes hold their rows' triangles, the mesh's box the
+  blocks'.
 * B5 (``csrc/mega_simple.cu``, groups from
   ``ops/mega_simple.py::sphere_groups``): every (ray, sphere) pair that the
   plain sphere test hits (q > 0, eps < s) passes the card's and the
@@ -33,11 +46,14 @@ from opencl_montecarlo_path_tracing_tpu_torch.core.camera import (
 from opencl_montecarlo_path_tracing_tpu_torch.models.simple import (
     simple_arrays)
 from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_simple as M5
+from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_vlp as M4
 from opencl_montecarlo_path_tracing_tpu_torch.ops import tri_blocks as TB
-from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import prep_scene
+from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
+    _tri_table, prep_scene)
 from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
-    large_mesh_scene)
-from tests.test_torch_gpu import sheet_scene, soup_scene
+    demo_scene, large_mesh_scene)
+from tests.test_torch_gpu import (sheet_scene, small_scene, soup_scene,
+                                  window_torus)
 
 F32 = torch.float32
 EPS = torch.tensor(0.01, dtype=F32)
@@ -270,6 +286,145 @@ def test_walk_cull_never_rejects_a_hit(name, neg_t):
             occ = box_occ(lo, hi, oc[ray], ic[ray], BIG, neg_t)
             assert bool(occ.all()), int((~occ).sum())
     assert n_pairs > 1000
+
+
+# ---------------------------------------------------------------- B4
+
+VLP_SCENES = {"demo_torus": lambda: demo_scene(prefer_reference=False)[0],
+              "small_scene": small_scene,
+              "soup_axis_aligned": soup_scene,
+              "window_torus": window_torus}
+
+
+def vlp_cull_rays(scn, boxes, seed=0):
+    """(o, d, t_limit) of B4's rays: camera rays over the frame; rays from
+    around the camera through triangle centroids, edge points and vertices
+    (grazing); from points that those aim points shade from each light,
+    shadow rays toward the light, half of them jittered as the kernel
+    jitters them, capped at the un-jittered light distance; random rays
+    through the mesh's box; axis-parallel rays whose origin lies on a
+    block box's plane.  t_limit is 1e9 where the ray is not a shadow
+    ray."""
+    g = np.random.default_rng(seed)
+    v0 = np.asarray(scn.tri_v0, np.float32)
+    v1 = v0 + np.asarray(scn.tri_e0, np.float32)
+    v2 = v0 + np.asarray(scn.tri_e2, np.float32)
+    nt = v0.shape[0]
+    m = 512
+    pick = g.integers(0, nt, (5, m))
+    u = g.uniform(0.0, 1.0, (m, 1)).astype(np.float32)
+    aims = np.concatenate([
+        (v0[pick[0]] + v1[pick[0]] + v2[pick[0]]) / np.float32(3.0),
+        v0[pick[1]] + (v1[pick[1]] - v0[pick[1]]) * u,      # edges
+        v1[pick[2]] + (v2[pick[2]] - v1[pick[2]]) * u,
+        v2[pick[3]] + (v0[pick[3]] - v2[pick[3]]) * u,
+        v0[pick[4]]])                                        # vertices
+    rays = []
+    o, d = camera_rays(32, seed)
+    rays.append((o, d, BIG.expand(o.shape[0])))
+    cam = np.asarray(make_camera(z_sign=-1.0).pos, np.float32)
+    ao = (cam + g.normal(0.0, 3.0, aims.shape)).astype(np.float32)
+    ad = t32(aims - ao)
+    rays.append((t32(ao), ad / ad.norm(dim=-1, keepdim=True),
+                 BIG.expand(len(ao))))
+    for light in np.asarray(scn.lights, np.float32)[:, :3]:
+        # a point the aim point shades, 0.5-5 beyond it as seen from the
+        # light; half the rays to the jittered light, half to the light
+        away = aims - light
+        away /= np.linalg.norm(away, axis=1, keepdims=True)
+        x = (aims + away * g.uniform(0.5, 5.0, (len(aims), 1))).astype(
+            np.float32)
+        jit = np.concatenate([g.uniform(0, 1, (len(x), 2)),
+                              np.zeros((len(x), 1))], 1)
+        jit[::2] = 0.0
+        ld = t32(light + jit - x)
+        tl = t32(light - x).norm(dim=-1)
+        rays.append((t32(x), ld / ld.norm(dim=-1, keepdim=True), tl))
+    lo, hi = boxes[:, 0:3].min(0), boxes[:, 4:7].max(0)
+    ro = t32(g.uniform(lo - 2.0, hi + 2.0, (m, 3)))
+    rd = t32(g.normal(size=(m, 3)))
+    rays.append((ro, rd / rd.norm(dim=-1, keepdim=True), BIG.expand(m)))
+    ax = []
+    for b in range(boxes.shape[0]):
+        c = 0.5 * (boxes[b, 0:3] + boxes[b, 4:7])
+        for k in range(3):
+            for plane in (boxes[b, k], boxes[b, 4 + k]):
+                oo = c.copy()
+                oo[k] = plane
+                oo[(k + 1) % 3] -= 5.0
+                dv = np.zeros(3, np.float32)
+                dv[(k + 1) % 3] = 1.0
+                ax.append((oo, dv))
+    ao_, ad_ = t32([a for a, _ in ax]), t32([b for _, b in ax])
+    rays.append((ao_, ad_, BIG.expand(len(ax))))
+    return (torch.cat([r[0] for r in rays]).contiguous(),
+            torch.cat([r[1] for r in rays]).contiguous(),
+            torch.cat([r[2] for r in rays]).contiguous())
+
+
+@pytest.mark.parametrize("name", list(VLP_SCENES))
+def test_tri_block_boxes_hold_their_rows(name):
+    """Index-order blocks of 32 rows, each record's count the rows it
+    holds, each box around its triangles' vertices with the B2/B3 pad;
+    record 0 the mesh, the union of the blocks' boxes."""
+    scn = prep_scene(VLP_SCENES[name]())
+    recs = M4.tri_block_boxes(scn)
+    nt = scn.tri_v0.shape[0]
+    assert recs.shape == (1 + -(-nt // 32), 8) and recs.dtype == np.float32
+    mesh, boxes = recs[0], recs[1:]
+    assert mesh[3:4].view(np.int32)[0] == nt and mesh[7] == 0
+    np.testing.assert_array_equal(mesh[0:3], boxes[:, 0:3].min(0))
+    np.testing.assert_array_equal(mesh[4:7], boxes[:, 4:7].max(0))
+    count = boxes[:, 3].view(np.int32)
+    assert (count[:-1] == 32).all() and count.sum() == nt
+    assert (boxes[:, 7] == 0).all()
+    v0 = scn.tri_v0
+    verts = np.stack([v0, v0 + scn.tri_e0, v0 + scn.tri_e2], 1)
+    for b in range(boxes.shape[0]):
+        vb = verts[32 * b:32 * b + count[b]].reshape(-1, 3)
+        ext = vb.max(0) - vb.min(0)
+        np.testing.assert_allclose(boxes[b, 0:3], vb.min(0) - 1e-3 * ext
+                                   - 1e-4, rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(boxes[b, 4:7], vb.max(0) + 1e-3 * ext
+                                   + 1e-4, rtol=1e-6, atol=1e-6)
+        assert (vb > boxes[b, 0:3]).all() and (vb < boxes[b, 4:7]).all()
+
+
+@pytest.mark.parametrize("neg_t", [False, True], ids=["default", "neg_t"])
+@pytest.mark.parametrize("name", list(VLP_SCENES))
+def test_vlp_cull_never_rejects_a_hit(name, neg_t):
+    scn = prep_scene(VLP_SCENES[name]())
+    recs = M4.tri_block_boxes(scn)
+    boxes = recs[1:]
+    rows = t32(_tri_table(scn))
+    o, d, tl = vlp_cull_rays(scn, boxes)
+    inv = torch.reciprocal(d)
+    blo, bhi = t32(boxes[:, 0:3]), t32(boxes[:, 4:7])
+    mlo, mhi = t32(recs[0, 0:3]), t32(recs[0, 4:7])
+    n_pairs = n_occ = 0
+    for c0 in range(0, o.shape[0], 256):
+        sl = slice(c0, c0 + 256)
+        dd, un, vn, tn = row_quads(rows, o[sl], d[sl])
+        ok = quads_valid(dd, un, vn, tn, neg_t)
+        ray, row = torch.nonzero(ok, as_tuple=True)
+        if not ray.numel():
+            continue
+        n_pairs += int(ray.numel())
+        blk = row // 32
+        oc, ic = o[sl][ray], inv[sl][ray]
+        bn, bd = tn[ray, row], dd[ray, row]
+        t_lim = tl[sl][ray]
+        before = bn < t_lim * bd                # the shadow ray's hits
+        n_occ += int(before[t_lim < BIG].sum())
+        for lo, hi in ((mlo, mhi), (blo[blk], bhi[blk])):
+            closest = box_closest(lo, hi, oc, ic, bn, bd, neg_t)
+            assert bool(closest.all()), int((~closest).sum())
+            occ = box_occ(lo, hi, oc, ic, t_lim, neg_t)
+            assert bool(occ[before].all()), int((~occ[before]).sum())
+    assert n_pairs > 500 and n_occ > 20       # not vacuous
+    # nor is the cull: some rays miss the mesh's box
+    tmin, tmax = slab(mlo, mhi, o, inv)
+    assert bool((tmax < tmin).any())
 
 
 # ---------------------------------------------------------------- B5

@@ -19,8 +19,10 @@ display-scale p99.5 < 1e-5 and razor-edge ties (> 1e-4) on < 0.6% of
 pixels; for the simple family, whose mirror chain amplifies rounding, p95
 < 1e-5 and ties on < 2%, plus atol 2e-5 where no pixel ties), since any
 two float implementations may flip a razor-edge tie;
-for B6, rtol = atol = 1e-5 (the same FP32 formula, no FMA, summed in the
-same order on both sides).  B2/B3 forced onto B1's cases equals B1's film
+for B6, rtol = atol = 1e-5 (the same FP32 formula, no FMA; the kernel
+sums a point's live rows in order, or split over 2-8 threads and added in
+a fixed order where the points are few, and is bit-equal at split 1).
+B4's per-warp triangle cull changes no bit of its film.  B2/B3 forced onto B1's cases equals B1's film
 at the same contract and at max abs 2e-5 where no tie shows.  For B7,
 ``t`` at rtol 2e-4 where both hit and the hit/miss and triangle index on
 >= 99.9% of rays: the kernel sums the K=13 cancelling products in feature
@@ -319,6 +321,81 @@ def test_vlp_kernel_chunked_equals_one_piece(grid_mode, cuda_device):
     b = M4.film_vlp_mega((21, 0), scn, vlps, 32, CONTENT_ROW + 8, 2,
                          chunk_rows=1024, **kw)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(VLP_CASES) + ["demo_emitted"])
+def test_vlp_kernel_cull_is_bit_equal(name, cuda_device):
+    """B4's per-warp triangle cull changes no film bit: the culled launch
+    equals the instantiation that scans every triangle block, on the GPU
+    tests' cases and on the demo scene's emitted table over the full
+    frame (the torus and its shadows), with and without negative t."""
+    if name == "demo_emitted":
+        from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as TV
+        scn = prep_scene(demo_scene()[0])
+        key = (5, 0)
+        vlps = TV.emit_vlps(key, scn, 512, device=cuda_device)
+        grid, (w, h, spp), kw = None, (512, 512, 2), {}
+    else:
+        scn, key, vlps, grid, (w, h, spp), kw = vlp_case_inputs(name,
+                                                                cuda_device)
+    for quirks in (DEFAULT, REFERENCE):
+        a = M4.film_vlp_mega(key, scn, vlps, w, h, spp, grid=grid,
+                             quirks=quirks, device=cuda_device, **kw)
+        b = M4.film_vlp_mega(key, scn, vlps, w, h, spp, grid=grid,
+                             quirks=quirks, device=cuda_device, cull=False,
+                             **kw)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_vlp_stats_counts_the_render(cuda_device):
+    """The counting launch's tallies: the cull changes no lit hit, cast or
+    gather term and tests fewer pairs than the cull-free scan; a lit hit
+    casts one ray a light and gathers one term a live VLP."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as TV
+    scn = prep_scene(demo_scene()[0])
+    key = (0, 0)
+    vlps = TV.emit_vlps(key, scn, 512, device=cuda_device)
+    n_live = int((vlps[:, 3] > 0).sum())
+    on = M4.vlp_stats(key, scn, vlps, 512, 512, 1, spp_total=8,
+                      device=cuda_device)
+    off = M4.vlp_stats(key, scn, vlps, 512, 512, 1, spp_total=8, cull=False,
+                       device=cuda_device)
+    for k in ("lit", "casts", "casts_tri", "gather_pairs"):
+        assert on[k] == off[k], k
+    assert on["casts"] == on["lit"] * int(scn.lights.shape[0])
+    assert on["gather_pairs"] == on["lit"] * n_live
+    assert 0 < on["tested"] < off["tested"]
+    # without the cull every warp scans every triangle for its camera rays
+    assert off["tested"] >= 512 * 512 * int(scn.tri_v0.shape[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [None, 1, 2, 4, 8])
+def test_gather_kernel_at_the_render_shape(split, cuda_device):
+    """B6 on 65,536 points (a tier-1 render's call) against a table with
+    few live rows, through the live-first table: within B6's contract of
+    its plain version over the full table for every split, and bit-equal
+    to it at split 1 (the sequential order)."""
+    rng = np.random.default_rng(12)
+    R, V = 65536, 1024
+    x = rng.normal(5, 3, (R, 3)).astype(np.float32)
+    n = rng.normal(0, 1, (R, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    vlps = rng.normal(5, 3, (V, 4)).astype(np.float32)
+    vlps[:, 3] = np.where(rng.random(V) < 0.05, np.abs(vlps[:, 3]), 0.0)
+    tx, tn, tv = (torch.from_numpy(a).to(cuda_device) for a in (x, n, vlps))
+    table = G6.live_table(tv)
+    assert int(table.n_live) == int((vlps[:, 3] > 0).sum()) > 0
+    before = G6.LAUNCHES
+    got = G6.gather_vlps_mxu(tx, tn, table, split=split)
+    torch.cuda.synchronize()
+    assert G6.LAUNCHES == before + 1
+    want = G6.gather_vlps_mxu_plain(tx, tn, tv)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if split == 1:
+        assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
