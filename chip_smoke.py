@@ -22,8 +22,10 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    dense and grid; then each table's render pass (512x512x256, the VLP
    main paths' launch) timed with and without the cull, and its work
    tally (``vlp_stats``: lit hits, casts, tested pairs, gathered terms,
-   the clock64 split of the cycles) with the bound over the yardstick's
-   work and restated over the pairs the culled warps test;
+   the clock64 split of the cycles) with the bound over the pairs the
+   culled warps test and the terms the lit samples gather (the kernels
+   line's), and the yardstick's bound (every ray and cast against every
+   triangle, a term for every sample) beside it;
 4. B6 (``gather_vlp``) vs its plain version on 512x512 random shading points
    against 64, 1024 and 4096 VLPs (rtol = atol = 1e-5), through the
    live-first table and from the raw table;
@@ -40,7 +42,9 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    whose gather is B6; its film is held to the contract against the same
    render with the plain scan gather, and B6 at the render's shape (each
    call's 65,536 points against the render's live-first table, recorded)
-   against its plain version (rtol = atol = 1e-5), timed there;
+   against its plain version (rtol = atol = 1e-5), timed there: the
+   kernel's device time from a torch.profiler trace (the kernels line's)
+   and the wrapper's with CUDA events;
 8. B2/B3 (``mega_blocked``) vs B1 and vs its plain version: forced onto
    B1's cases and the demo scene (max abs against B1's film), on an
    1,800-triangle ripple sheet against the plain scan, and against the
@@ -61,7 +65,8 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    and light-pass rays): hit/miss and index agreement >= 99.9%, ``t`` at
    rtol 2e-4 where both take the same triangle; and that render's film
    against its plain version (plain gather, B7's plain version) under the
-   contract;
+   contract; B6 on that render's calls against its plain version, timed
+   there (the large-mesh tier-1 table);
 10. the large-mesh main paths through ``api.render``: trianglegrid on
    ``large_mesh_scene()`` at 512x512x64 (``accel="auto"``: B2/B3), super
    on it and on the 262,144-triangle sheet at 512x512x4, bidirectional on
@@ -111,8 +116,9 @@ counts in the ``kernels`` line come from those runs.  Each kernel's
 larger of its bytes (inputs read once, output written once) over 3.35 TB/s
 and its operations over 3.345e13 FP32 ops/s (132 SMs x 128 lanes x 1.98
 GHz, one multiply or add an instruction: the kernels build with
---fmad=false), counting the (ray, triangle) pairs this run's data needs;
-for the loop and primitive arms, each one dependent chain, the chain's
+--fmad=false), counting the (ray, triangle) pairs this run's data needs
+(B4: the pairs its culled warps test and the terms its lit samples
+gather, from its counting launch; B6: the live rows); for the loop and primitive arms, each one dependent chain, the chain's
 FP32 operations x 4 cycles over the SM clock (``bound_by``
 ``"latency"``).  The last line of standard output is ``{"ok": true,
 "device": {...}}``; the line before it is the card's name and power limit,
@@ -524,7 +530,10 @@ def phase_vlp_kernel_vs_plain(gt, tables, card: str) -> dict:
             print(f"    split {'culled' if c else 'cull-free'}: "
                   f"{vlp_split(t)}")
         if not row:
-            row = {"ms": ms[True], "bound_ms": b_ms, "bound_by": b_by}
+            # the kernels line carries the bound over the work this
+            # design does; the yardstick stays beside it, printed
+            row = {"ms": ms[True], "bound_ms": r_ms, "bound_by": r_by,
+                   "yard_ms": b_ms}
     _, scn, vlps, _ = tables[0]
     small_ms = time_ms(lambda: M.film_vlp_mega(
         key, scn, vlps, VW, VH, 2, spp_total=VSPP, device="cuda"), 5)
@@ -532,7 +541,10 @@ def phase_vlp_kernel_vs_plain(gt, tables, card: str) -> dict:
         key, scn, vlps, VW, VH, VSPP, device="cuda"), 1, warm_up=False)
     print(f"  {tables[0][0]}: kernel {row['ms']:.3f} ms at {VW}x{VH}x{VSPP} "
           f"({small_ms:.3f} ms at {VW}x{VH}x2), plain PyTorch "
-          f"{plain_ms:.1f} ms at {VW}x{VH}x{VSPP}")
+          f"{plain_ms:.1f} ms at {VW}x{VH}x{VSPP}; the kernels line's bound "
+          f"{row['bound_ms']:.4f} ms (tested pairs and gathered terms, "
+          f"{100 * row['bound_ms'] / row['ms']:.1f}% of the kernel's time), "
+          f"the yardstick's {row['yard_ms']:.4f} ms beside it ({card})")
     return {"max_abs": worst, "ms": row["ms"], "plain_ms": plain_ms,
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
 
@@ -580,7 +592,7 @@ def phase_gather_kernel_vs_plain(card: str) -> dict:
         raw_ms = time_ms(lambda: G.gather_vlps_mxu(tx, tn, tv), 10)
         p_ms = time_ms(lambda: G.gather_vlps_mxu_plain(tx, tn, tv), 2)
         print(f"  {R} points x {V} VLPs: max_abs {max_abs:.3e} max_rel "
-              f"{max_rel:.3e} (split {G.default_split(R)}) "
+              f"{max_rel:.3e} "
               f"{'ok' if ok else 'VIOLATION'}; kernel {k_ms:.3f} ms "
               f"({raw_ms:.3f} ms building the table), plain PyTorch "
               f"{p_ms:.1f} ms; {gather_bound(R, V, int(table.n_live))} "
@@ -656,6 +668,29 @@ def phase_super_main_path(card: str) -> dict:
     return {"launches": counts["mega_super"], "ms": times[(W, H, 4)][0],
             "plain_ms": times[(W, H, 4)][1], "render_ms": ms,
             "mpaths": mpaths, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def device_ms(fn, runs: int, kernel: str):
+    """(mean device ms a launch of the CUDA kernels whose name holds
+    ``kernel``, over the launches a torch.profiler trace (CUDA activity
+    only) of ``runs`` calls of ``fn`` holds, after one warm-up call, or
+    None when it holds none; the launches traced).  A trace taken late in
+    a long process may drop launches; each one it holds is a whole
+    launch's device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    if not ev:
+        return None, 0
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / len(ev), len(ev)
 
 
 def profiled(name, fn):
@@ -764,7 +799,6 @@ def phase_tier1_route(card: str) -> dict:
     from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
         REFERENCE_LMEM)
     from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
-    from opencl_montecarlo_path_tracing_tpu_torch.ops import gather_vlp as G
     from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_vlp as M
     from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as V
     from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
@@ -798,38 +832,69 @@ def phase_tier1_route(card: str) -> dict:
 
     # B6 at the render's shape: the same render with each call's inputs
     # kept (the live-first table is built once a render)
+    calls = recorded_b6_calls(lambda: pt.render(
+        "bidirectional", scene, w, h, spp=spp, seed=0,
+        quirks=REFERENCE_LMEM, device="cuda"))
+    row = b6_at_render_shape("B6 at the render's shape", calls, card)
+    return dict(row, launches=counts["gather_vlp"])
+
+
+def recorded_b6_calls(fn) -> list:
+    """Runs ``fn()`` with B6's wrapper wrapped so that each call's inputs
+    (x, n, and the table as passed: a render's live-first table) are
+    kept; returns them."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import gather_vlp as G
     calls = []
     kernel = G.gather_vlps_mxu
 
-    def recording(x, n, v, *args, **kw):
+    def recording(x, n, v):
         calls.append((x.clone(), n.clone(), v))
-        return kernel(x, n, v, *args, **kw)
+        return kernel(x, n, v)
 
     G.gather_vlps_mxu = recording
     try:
-        pt.render("bidirectional", scene, w, h, spp=spp, seed=0,
-                  quirks=REFERENCE_LMEM, device="cuda")
+        fn()
     finally:
         G.gather_vlps_mxu = kernel
-    worst = 0.0
+    return calls
+
+
+def b6_at_render_shape(name: str, calls: list, card: str) -> dict:
+    """B6 on a render's recorded calls: each against its plain version over
+    the raw table (rtol = atol = 1e-5; bit-equality on finite lanes is
+    printed), then the first call timed - the kernel's device time from a
+    torch.profiler trace (the kernels line's ``ms``) and the wrapper's
+    with CUDA events (host dispatch sets it at this shape)."""
+    import torch
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import gather_vlp as G
+    worst, bits = 0.0, True
     for x, n, table in calls:
-        a, b = kernel(x, n, table), G.gather_vlps_mxu_plain(x, n, table)
+        a, b = G.gather_vlps_mxu(x, n, table), \
+            G.gather_vlps_mxu_plain(x, n, table)
         worst = max(worst, float((a - b).abs().max()))
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        bits = bits and torch.equal(a[fin], b[fin])
         if not torch.allclose(a, b, rtol=1e-5, atol=1e-5):
-            raise RuntimeError("B6 at the render's shape: kernel vs plain "
-                               "outside rtol = atol = 1e-5")
+            raise RuntimeError(f"{name}: kernel vs plain outside rtol = "
+                               "atol = 1e-5")
     x, n, table = calls[0]
     R, Vn, n_live = int(x.shape[0]), int(table.tab.shape[0]), \
         int(table.n_live)
-    k_ms = time_ms(lambda: kernel(x, n, table), 50)
+    k_ms = time_ms(lambda: G.gather_vlps_mxu(x, n, table), 50)
+    d_ms, n_ev = device_ms(lambda: G.gather_vlps_mxu(x, n, table), 50,
+                           "gather_vlp_kernel")
     p_ms = time_ms(lambda: G.gather_vlps_mxu_plain(x, n, table), 5)
     line = gather_bound(R, Vn, n_live)
     b_ms, b_by = bound(R * n_live * GATHER_PAIR_OPS, R * 28 + n_live * 32)
-    print(f"  B6 at the render's shape: {len(calls)} calls of {R} points x "
-          f"{Vn} VLPs ({n_live} live, {100 * n_live / Vn:.1f}%; split "
-          f"{G.default_split(R)}): max_abs {worst:.3e} ok; kernel "
-          f"{k_ms:.4f} ms, plain PyTorch {p_ms:.2f} ms; {line} ({card})")
-    return {"launches": counts["gather_vlp"], "max_abs": worst, "ms": k_ms,
+    dev = (f"device {d_ms:.5f} ms a launch ({n_ev} of 50 launches "
+           "traced)" if d_ms is not None else "device time not measured "
+           "(the trace holds no gather_vlp_kernel launch)")
+    print(f"  {name}: {len(calls)} calls of {R} points x {Vn} VLPs "
+          f"({n_live} live, {100 * n_live / Vn:.1f}%): max_abs {worst:.3e} "
+          f"ok, bit-equal on finite lanes {bits}; kernel {dev}, wrapper "
+          f"{k_ms:.4f} ms a call (events); plain PyTorch {p_ms:.2f} ms; "
+          f"{line} ({card})")
+    return {"max_abs": worst, "ms": k_ms if d_ms is None else d_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -1048,7 +1113,8 @@ def phase_tri_closest_vs_plain(card: str) -> dict:
     """B7 on the 512x512 primary rays (sample 0) of the large-mesh scene
     x its 20,736 triangles (also timed), and on every trace of one
     bidirectional main-path render there (camera, shadow and light-pass
-    rays), whose film is then held against its plain version."""
+    rays), whose film is then held against its plain version; and B6 on
+    that render's calls (the large-mesh tier-1 table)."""
     import torch
     import opencl_montecarlo_path_tracing_tpu_torch as pt
     from opencl_montecarlo_path_tracing_tpu_torch.core import rng as R
@@ -1076,9 +1142,10 @@ def phase_tri_closest_vs_plain(card: str) -> dict:
     R_ = LW * LH
     err, ok = b7_agreement(f"{R_} primary rays x {nt} triangles",
                            [(o, d, scn, DEFAULT)], min_hits=0.5)
-    films = []
-    calls = recorded_b7_calls(lambda: films.append(pt.render(
-        "bidirectional", scene, BW, BH, spp=BSPP, seed=0, device="cuda")))
+    films, b6_calls = [], []
+    calls = recorded_b7_calls(lambda: b6_calls.extend(recorded_b6_calls(
+        lambda: films.append(pt.render("bidirectional", scene, BW, BH,
+                                       spp=BSPP, seed=0, device="cuda")))))
     sizes = sorted({int(c[0].shape[0]) for c in calls})
     err2, ok2 = b7_agreement(
         f"the traces of bidirectional {BW}x{BH}x{BSPP} (rays a call: "
@@ -1094,6 +1161,10 @@ def phase_tri_closest_vs_plain(card: str) -> dict:
     failed = []
     check_crn(f"bidirectional {BW}x{BH}x{BSPP} tier 1 (B7, B6) vs plain "
               f"({ms / 1e3:.1f} s)", films[0], plain, BSPP, failed)
+    # B6 on the same render's calls: the large-mesh tier-1 table
+    b6_at_render_shape(f"B6 in bidirectional {BW}x{BH}x{BSPP} on {nt} "
+                       "triangles", b6_calls, card)
+    del b6_calls
     k_ms = time_ms(lambda: B7.triangle_closest(o, d, scn, DEFAULT), 10)
     p_ms = time_ms(lambda: B7.triangle_closest_plain(o, d, scn, DEFAULT), 1,
                    warm_up=False)

@@ -20,19 +20,13 @@
 // a division per (point, live VLP) pair; memory traffic is 24 bytes in and
 // 4 out per point plus the live rows.  Design:
 // - the table comes live rows first, with the live count n_live on the
-//   device (ops/gather_vlp.py::live_table, built once per VLP table).  A
+//   device (ops/vlp.py::live_table, built once per VLP table).  A
 //   dead row (I <= 0) adds exactly +0.0 to a finite sum, so scanning the
 //   first n_live rows in order gives the full table's sum bit for bit;
 // - one point per thread, holding x, n, n.x, |x|^2 and its running sum in
 //   registers; the live rows staged through shared memory in tiles of
 //   kTile rows that every thread of the block reads in the same order
-//   (broadcast, no bank conflicts);
-// - to fill the card when the points are few (a tier-1 render gathers
-//   65,536 points a call: 2,048 warps, a quarter of what 132 SMs hold),
-//   `split` > 1 threads share a point: each sums its own contiguous part
-//   of every tile in order, and the parts are added in a fixed order
-//   (part 0 + part 1 + ...) through shared memory.  That is deterministic
-//   but not the sequential sum order; split == 1 is the sequential order.
+//   (broadcast, no bank conflicts), so the sum is the sequential one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,15 +39,11 @@ constexpr int kTile = 512;   // VLP rows per shared-memory tile
 __global__ void __launch_bounds__(kBlock)
 gather_vlp_kernel(const float* __restrict__ x, const float* __restrict__ n,
                   const float4* __restrict__ tab,
-                  const int* __restrict__ n_live_ptr, int R, int V, int split,
+                  const int* __restrict__ n_live_ptr, int R, int V,
                   float* __restrict__ out) {
   // tab row v: (px, py, pz, max(I, 0)), (|p|^2, 0, 0, 0)
   __shared__ float4 tile[2 * kTile];
-  __shared__ float part[kBlock];
-  const int pts = kBlock / split;            // points a block
-  const int pt = threadIdx.x % pts;
-  const int sl = threadIdx.x / pts;          // this thread's part (a warp's)
-  const long long i = (long long)blockIdx.x * pts + pt;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = i < R;
   const long long k = active ? i : 0;
   const float xx = x[3 * k], xy = x[3 * k + 1], xz = x[3 * k + 2];
@@ -68,9 +58,7 @@ gather_vlp_kernel(const float* __restrict__ x, const float* __restrict__ n,
     for (int j = threadIdx.x; j < 2 * nv; j += blockDim.x)
       tile[j] = tab[2 * (long long)v0 + j];
     __syncthreads();
-    const int per = (nv + split - 1) / split;
-    const int j1 = min(nv, (sl + 1) * per);
-    for (int j = sl * per; j < j1; ++j) {
+    for (int j = 0; j < nv; ++j) {
       const float4 p = tile[2 * j];
       const float p2s = tile[2 * j + 1].x;
       const float a = (nx * p.x + ny * p.y + nz * p.z) - ndx;
@@ -79,17 +67,7 @@ gather_vlp_kernel(const float* __restrict__ x, const float* __restrict__ n,
       acc = acc + fmaxf(a, 0.0f) * fminf(p.w * (r * r * r), r);
     }
   }
-  if (split == 1) {
-    if (active) out[i] = acc;
-    return;
-  }
-  part[threadIdx.x] = acc;
-  __syncthreads();
-  if (sl == 0 && active) {
-    float s = part[pt];
-    for (int q = 1; q < split; ++q) s = s + part[q * pts + pt];
-    out[i] = s;
-  }
+  if (active) out[i] = acc;
 }
 
 }  // namespace
@@ -97,17 +75,14 @@ gather_vlp_kernel(const float* __restrict__ x, const float* __restrict__ n,
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  x, n:
 // (R, 3) float32; tab: (V, 8) float32 rows (px, py, pz, max(I, 0), |p|^2,
 // 0, 0, 0), live rows first; n_live: a device int32, the live rows' count;
-// split: threads a point, 1, 2, 4 or 8; out: (R,) float32.
+// out: (R,) float32.
 extern "C" int gather_vlp_launch(const float* x, const float* n,
                                  const float* tab, const int* n_live, int R,
-                                 int V, int split, float* out, void* stream) {
+                                 int V, float* out, void* stream) {
   if (R <= 0) return 0;
-  if (split != 1 && split != 2 && split != 4 && split != 8)
-    return (int)cudaErrorInvalidValue;
-  const int pts = kBlock / split;
-  const unsigned grid = (unsigned)(((long long)R + pts - 1) / pts);
+  const unsigned grid = (unsigned)(((long long)R + kBlock - 1) / kBlock);
   gather_vlp_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-      x, n, reinterpret_cast<const float4*>(tab), n_live, R, V, split, out);
+      x, n, reinterpret_cast<const float4*>(tab), n_live, R, V, out);
   return (int)cudaGetLastError();
 }
 

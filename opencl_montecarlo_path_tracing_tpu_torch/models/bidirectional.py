@@ -44,21 +44,21 @@ from .super import sample_super
 
 def illum_vlp(key, scn: SceneArrays, quirks: Quirks, vlps, grid, b, x,
               normal, shading, total_illum, ray_id, t_hit=None,
-              plain: bool = False, table=None):
+              plain: bool = False):
     """VLP gather + real-light soft-shadow correction (ocl:166-202).
 
     ``t_hit`` is unused: the bidirectional kernels initialise their shadow
     trace's t to the light distance themselves (ocl:195-197).
     ``plain=True`` keeps the dense gather (ops/vlp.py::gather_vlps) and the
     shadow traces (ops/intersect.py::any_hit) on plain PyTorch on any
-    device; else the card's large gathers are kernel B6 (on ``table``,
-    ops/vlp.py::gather_table of ``vlps``, when given) and its traces of
-    large meshes kernel B7."""
+    device; else the card's large gathers are kernel B6 and its traces of
+    large meshes kernel B7.  ``vlps``: the (V, 4) table, or in dense mode
+    its ops/vlp.py::live_table, which B6 reads as it is."""
     nlights = int(scn.lights.shape[0])
 
     if grid is None:
         vi = vlpmod.gather_vlps(x, normal, vlps,
-                                impl="scan" if plain else None, table=table)
+                                impl="scan" if plain else None)
     else:
         vi = vlpmod.gather_vlps_grid(x, normal, vlps, grid)
     total_illum = torch.where(shading, total_illum + vi, total_illum)
@@ -96,10 +96,11 @@ def illum_vlp(key, scn: SceneArrays, quirks: Quirks, vlps, grid, b, x,
 def _film_wavefront(key, scn: SceneArrays, vlps, grid, width, height, spp,
                     spp_offset, spp_total, quirks, max_bounces, row_offset,
                     rows, device, plain: bool):
-    # B6's live-first table, built once for the render's gathers
-    table = None if plain or grid is not None else vlpmod.gather_table(vlps)
+    if not plain and grid is None:
+        # B6's live-first table, built once for the render's gathers
+        vlps = vlpmod.live_table(vlps)
     illum = functools.partial(illum_vlp, key, scn, quirks, vlps, grid,
-                              plain=plain, table=table)
+                              plain=plain)
     sample_fn = functools.partial(sample_super, key, scn, quirks, max_bounces,
                                   illum_fn=illum, plain=plain)
     return C.accumulate_spp(sample_fn, width, height, spp,

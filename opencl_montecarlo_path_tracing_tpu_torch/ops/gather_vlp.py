@@ -13,12 +13,11 @@ gather_vlps_mxu`` -> ``_kernel`` (two K=16 matrix products there; scalar
 FP32 here, since the expansion of b cancels under bf16 or TF32 inputs).
 
 The kernel reads the table live rows first, with the live count on the
-device (:func:`live_table`, the layout of B4's dense table,
-``ops/mega_vlp.py::vlp_table``): a dead row (I <= 0) adds exactly +0.0
-to a finite sum, so the live rows alone give the full table's sum bit for
-bit.  A caller that gathers against one table many times - the tier-1
-render, 16 calls a render - builds it once and passes it instead of the
-(V, 4) table.
+device (``ops/vlp.py::live_table``, the layout of B4's dense table): a
+dead row (I <= 0) adds exactly +0.0 to a finite sum, so the live rows
+alone give the full table's sum bit for bit.  A caller that gathers
+against one table many times - the tier-1 render, 16 calls a render -
+builds it once and passes it instead of the (V, 4) table.
 
 ``gather_vlps_mxu_plain`` is the same formula in elementwise PyTorch,
 chunked over V and summed in ascending VLP order; it uses no matrix
@@ -28,35 +27,15 @@ the tensors lie on the CPU.
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
+
+from .vlp import LiveTable, live_table
 
 #: Launches of the CUDA kernel since the last reset (the wrapper adds one
 #: per launch and nowhere else).
 LAUNCHES = 0
 
 _CHUNK = 256     # VLPs per elementwise (points x chunk) pass of the plain form
-#: Threads that fill an H100 (132 SMs x 2,048): below it the kernel gives a
-#: point ``split`` threads (1, 2, 4 or 8), each summing part of the rows.
-CARD_THREADS = 132 * 2048
-
-
-class LiveTable(NamedTuple):
-    """A VLP table as kernel B6 reads it: ``vlps`` the (V, 4) table as
-    given, ``tab`` its (V, 8) float32 rows live first (stable), ``n_live``
-    the live count, a (1,) int32 tensor on the same device."""
-    vlps: torch.Tensor
-    tab: torch.Tensor
-    n_live: torch.Tensor
-
-
-def live_table(vlps) -> LiveTable:
-    """The (V, 4) table ``vlps`` as B6 reads it (:class:`LiveTable`), built
-    on its device without waiting for it."""
-    from .mega_vlp import vlp_table
-    tab, n_live, _ = vlp_table(vlps)
-    return LiveTable(vlps, tab, n_live)
 
 
 def _vlp_constants(vlps):
@@ -92,23 +71,12 @@ def gather_vlps_mxu_plain(x, n, vlps):
     return acc.reshape(shape)
 
 
-def default_split(points: int) -> int:
-    """Threads a point for ``points`` shading points: the largest of 1, 2,
-    4, 8 that keeps points x split within ``CARD_THREADS`` (1 from 262,144
-    points up: the sequential sum order)."""
-    split = 1
-    while split < 8 and points * split * 2 <= CARD_THREADS:
-        split *= 2
-    return split
-
-
-def gather_vlps_mxu(x, n, vlps, split: int | None = None):
+def gather_vlps_mxu(x, n, vlps):
     """Dense VLP gather against the (V, 4) table ``vlps`` or its
     :class:`LiveTable`: one launch of the CUDA kernel for tensors on a CUDA
-    device, :func:`gather_vlps_mxu_plain` for tensors on the CPU.
-    ``split`` (threads a point; default :func:`default_split`) changes the
-    sum order only: split 1 is the sequential order, bit-equal to the plain
-    version."""
+    device, :func:`gather_vlps_mxu_plain` for tensors on the CPU.  The
+    kernel sums each point's live rows in table order, the plain version's
+    order, so the two agree bit for bit on finite lanes."""
     global LAUNCHES
     if x.device.type == "cpu":
         return gather_vlps_mxu_plain(x, n, vlps)
@@ -123,10 +91,6 @@ def gather_vlps_mxu(x, n, vlps, split: int | None = None):
     if R >= 1 << 31 or V >= 1 << 28:
         raise ValueError(f"{R} points x {V} VLPs exceed the kernel's int32 "
                          "indexing")
-    if split is None:
-        split = default_split(R)
-    if split not in (1, 2, 4, 8):
-        raise ValueError(f"split={split} is not 1, 2, 4 or 8")
     out = torch.empty(R, dtype=torch.float32, device=x.device)
     for name, t, dt in (("x", xf, torch.float32), ("n", nf, torch.float32),
                         ("vlp table", table.tab, torch.float32),
@@ -142,7 +106,7 @@ def gather_vlps_mxu(x, n, vlps, split: int | None = None):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.gather_vlp_launch(xf.data_ptr(), nf.data_ptr(),
                                     table.tab.data_ptr(),
-                                    table.n_live.data_ptr(), R, V, split,
+                                    table.n_live.data_ptr(), R, V,
                                     out.data_ptr(), stream)
     if err != 0:
         msg = lib.gather_vlp_error_string(err).decode()

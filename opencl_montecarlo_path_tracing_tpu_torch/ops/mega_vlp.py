@@ -38,7 +38,7 @@ from ..models import common as C
 from .intersect import SceneArrays, derived
 from .mega_super import (MAX_LIGHTS, MAX_SMEM_TRIANGLES, _check, _stream,
                          _u32_arg, pack_scene)
-from .vlp import vlp_aabbs
+from .vlp import live_first, vlp_aabbs
 
 #: Launches of the CUDA kernel since the last reset (the wrapper adds one
 #: per launch and nowhere else).
@@ -78,16 +78,7 @@ def vlp_table(vlps, grid=None):
     """The kernel's (nvp, 8|12) float32 VLP table, live rows first (stable),
     and the live count as a (1,) int32 tensor, both on ``vlps``' device;
     in grid mode also the 9 grid floats (vmin, cell size, resolution)."""
-    vlps = vlps.to(torch.float32)
-    live = vlps[:, 3] > 0
-    # a stable partition without a sort: each row's place among its kind
-    li = live.to(torch.int64)
-    n_live = li.sum()
-    place = torch.where(live, torch.cumsum(li, 0) - 1,
-                        n_live + torch.cumsum(1 - li, 0) - 1)
-    v = torch.empty_like(vlps)
-    v[place] = vlps
-    n_live = n_live.to(torch.int32).reshape(1)
+    v, n_live = live_first(vlps)
     p0, p1, p2 = v[:, 0], v[:, 1], v[:, 2]
     cols = [p0, p1, p2, torch.clamp_min(v[:, 3], 0.0),
             p0 * p0 + p1 * p1 + p2 * p2]

@@ -22,6 +22,8 @@ its MXU kernel.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -130,35 +132,67 @@ _MXU_GATHER_MIN_VLPS = 64
 _SCAN_CHUNK = 64     # VLPs per elementwise (rays x chunk) pass of the scan
 
 
-def gather_vlps(x, n, vlps, impl: str | None = None, table=None):
+class LiveTable(NamedTuple):
+    """A VLP table as kernel B6 reads it (:func:`live_table`): ``vlps`` the
+    (V, 4) table as given, ``tab`` its (V, 8) float32 rows (px, py, pz,
+    max(I, 0), |p|^2, 0, 0, 0) live rows first (stable), ``n_live`` the
+    live count, a (1,) int32 tensor on the same device."""
+    vlps: torch.Tensor
+    tab: torch.Tensor
+    n_live: torch.Tensor
+
+
+def live_first(vlps):
+    """The float32 rows of the (V, 4) table ``vlps`` live rows (I > 0)
+    first, each kind in table order, and the live count as a (1,) int32
+    tensor, both on ``vlps``' device: a stable partition without a sort,
+    so the host never waits.  Kernels B4 and B6 scan the first n_live rows
+    only; a dead row adds exactly +0.0 to a finite sum."""
+    vlps = vlps.to(torch.float32)
+    live = vlps[:, 3] > 0
+    # each row's place among its kind
+    li = live.to(torch.int64)
+    n_live = li.sum()
+    place = torch.where(live, torch.cumsum(li, 0) - 1,
+                        n_live + torch.cumsum(1 - li, 0) - 1)
+    v = torch.empty_like(vlps)
+    v[place] = vlps
+    return v, n_live.to(torch.int32).reshape(1)
+
+
+def live_table(vlps) -> LiveTable:
+    """The (V, 4) table ``vlps`` as kernel B6 reads it (:class:`LiveTable`,
+    the dense layout of B4's ``ops/mega_vlp.py::vlp_table``), built on its
+    device without waiting for it.  A caller that gathers against one table
+    many times builds it once and passes it to :func:`gather_vlps` in place
+    of ``vlps``."""
+    v, n_live = live_first(vlps)
+    p0, p1, p2 = v[:, 0], v[:, 1], v[:, 2]
+    zero = torch.zeros_like(p0)
+    tab = torch.stack([p0, p1, p2, torch.clamp_min(v[:, 3], 0.0),
+                       p0 * p0 + p1 * p1 + p2 * p2, zero, zero, zero], dim=1)
+    return LiveTable(vlps, tab.contiguous(), n_live)
+
+
+def gather_vlps(x, n, vlps, impl: str | None = None):
     """Dense VLP gather: sum over ALL VLPs of max(lamb, 0) * min(I/d^2, 1)
     with no shadow rays (Sample's VLP loop, ocl:166-187).
 
-    ``impl``: ``"scan"`` (plain PyTorch), ``"mxu"`` (kernel B6's wrapper,
-    ops/gather_vlp.py), or None: B6 on a CUDA device when there are at
-    least 2048 rays and 64 VLPs, the scan otherwise.  ``table``: the
-    live-first table of ``vlps`` that B6 reads (:func:`gather_table`), built
-    once by a caller that gathers against ``vlps`` many times."""
+    ``vlps``: the (V, 4) table, or its :class:`LiveTable`, which kernel B6
+    reads as it is.  ``impl``: ``"scan"`` (plain PyTorch), ``"mxu"``
+    (kernel B6's wrapper, ops/gather_vlp.py), or None: B6 on a CUDA device
+    when there are at least 2048 rays and 64 VLPs, the scan otherwise."""
+    raw = vlps.vlps if isinstance(vlps, LiveTable) else vlps
     if impl is None:
         use_mxu = (x.device.type == "cuda"
                    and int(np.prod(x.shape[:-1])) >= _MXU_GATHER_MIN_RAYS
-                   and vlps.shape[0] >= _MXU_GATHER_MIN_VLPS)
+                   and raw.shape[0] >= _MXU_GATHER_MIN_VLPS)
     else:
         use_mxu = impl == "mxu"
     if use_mxu:
         from .gather_vlp import gather_vlps_mxu
-        return gather_vlps_mxu(x, n, vlps if table is None else table)
-    return _gather_scan(x, n, vlps)
-
-
-def gather_table(vlps):
-    """B6's live-first table of ``vlps`` (ops/gather_vlp.py::live_table)
-    where :func:`gather_vlps` may launch B6 on it (a CUDA device, at least
-    64 VLPs), else None."""
-    if vlps.device.type != "cuda" or vlps.shape[0] < _MXU_GATHER_MIN_VLPS:
-        return None
-    from .gather_vlp import live_table
-    return live_table(vlps)
+        return gather_vlps_mxu(x, n, vlps)
+    return _gather_scan(x, n, raw)
 
 
 def _gather_scan(x, n, vlps):

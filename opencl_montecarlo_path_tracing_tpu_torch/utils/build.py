@@ -46,7 +46,7 @@ _SIGNATURES = {
                              _U, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P,
                              _F, _I, _P, _P, _P]),
     "mega_vlp_error_string": (ctypes.c_char_p, [_I]),
-    "gather_vlp_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _P, _P]),
+    "gather_vlp_launch": (_I, [_P, _P, _P, _P, _I, _I, _P, _P]),
     "gather_vlp_error_string": (ctypes.c_char_p, [_I]),
     "mega_blocked_launch": (_I, [_P, _I, _I, _I, _P, _P, _I, _P, _P, _I,
                                  _U, _U, _U, _U, _U, _I, _I, _I, _I, _I, _P,

@@ -19,10 +19,11 @@ display-scale p99.5 < 1e-5 and razor-edge ties (> 1e-4) on < 0.6% of
 pixels; for the simple family, whose mirror chain amplifies rounding, p95
 < 1e-5 and ties on < 2%, plus atol 2e-5 where no pixel ties), since any
 two float implementations may flip a razor-edge tie;
-for B6, rtol = atol = 1e-5 (the same FP32 formula, no FMA; the kernel
-sums a point's live rows in order, or split over 2-8 threads and added in
-a fixed order where the points are few, and is bit-equal at split 1).
-B4's per-warp triangle cull changes no bit of its film.  B2/B3 forced onto B1's cases equals B1's film
+for B6, rtol = atol = 1e-5 (the same FP32 formula, no FMA, summed in the
+same order on both sides; the kernel skips only dead rows, which add +0.0,
+so at the render's shape it is held bit for bit as well).  B4's per-warp
+triangle cull changes no bit of its film.  B2/B3 forced onto B1's cases
+equals B1's film
 at the same contract and at max abs 2e-5 where no tie shows.  For B7,
 ``t`` at rtol 2e-4 where both hit and the hit/miss and triangle index on
 >= 99.9% of rays: the kernel sums the K=13 cancelling products in feature
@@ -372,12 +373,15 @@ def test_vlp_stats_counts_the_render(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("split", [None, 1, 2, 4, 8])
-def test_gather_kernel_at_the_render_shape(split, cuda_device):
+@pytest.mark.parametrize("via", ["live_table", "raw", "tier1"])
+def test_gather_kernel_at_the_render_shape(via, cuda_device):
     """B6 on 65,536 points (a tier-1 render's call) against a table with
-    few live rows, through the live-first table: within B6's contract of
-    its plain version over the full table for every split, and bit-equal
-    to it at split 1 (the sequential order)."""
+    few live rows: through the live-first table, from the raw table (the
+    wrapper builds it) and through the tier-1 gather with the live-first
+    table in place of the raw one (as a render passes it), one launch
+    each, bit-equal to the plain version over the full table (the same
+    sequential sum; the dead rows it skips add +0.0)."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as TV
     rng = np.random.default_rng(12)
     R, V = 65536, 1024
     x = rng.normal(5, 3, (R, 3)).astype(np.float32)
@@ -386,16 +390,19 @@ def test_gather_kernel_at_the_render_shape(split, cuda_device):
     vlps = rng.normal(5, 3, (V, 4)).astype(np.float32)
     vlps[:, 3] = np.where(rng.random(V) < 0.05, np.abs(vlps[:, 3]), 0.0)
     tx, tn, tv = (torch.from_numpy(a).to(cuda_device) for a in (x, n, vlps))
-    table = G6.live_table(tv)
+    table = TV.live_table(tv)
     assert int(table.n_live) == int((vlps[:, 3] > 0).sum()) > 0
     before = G6.LAUNCHES
-    got = G6.gather_vlps_mxu(tx, tn, table, split=split)
+    if via == "tier1":
+        got = TV.gather_vlps(tx, tn, table)
+    else:
+        got = G6.gather_vlps_mxu(tx, tn, table if via == "live_table"
+                                 else tv)
     torch.cuda.synchronize()
     assert G6.LAUNCHES == before + 1
     want = G6.gather_vlps_mxu_plain(tx, tn, tv)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    if split == 1:
-        assert torch.equal(got, want)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu

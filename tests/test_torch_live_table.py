@@ -1,11 +1,13 @@
-"""Kernel B6's live-first table (ops/gather_vlp.py::live_table) on the CPU.
+"""Kernel B6's live-first table (ops/vlp.py::live_table) on the CPU.
 
 The CUDA kernel reads the VLP table live rows first, with the live count
 on the device, and sums only the first n_live rows.  These tests hold the
 table's layout and that the plain gather over its live rows equals, bit
 for bit, the plain gather over the full table on every finite lane (a dead
-row, I <= 0, adds exactly +0.0 to a finite sum).  ``tests/test_torch_gpu.py``
-holds the kernel itself against the plain version on the card.
+row, I <= 0, adds exactly +0.0 to a finite sum), that the tier-1 gather
+takes the table in place of the raw one, and that it is B4's dense table.
+``tests/test_torch_gpu.py`` holds the kernel itself against the plain
+version on the card.
 """
 
 import numpy as np
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from opencl_montecarlo_path_tracing_tpu_torch.ops import gather_vlp as G
+from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_vlp as M
 from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as TV
 from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import prep_scene
 from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import demo_scene
@@ -95,13 +98,26 @@ def test_wrapper_on_cpu_takes_the_plain_version_of_a_live_table():
     want = G.gather_vlps_mxu_plain(x, n, vlps)
     assert torch.equal(torch.nan_to_num(got, nan=-1.0),
                        torch.nan_to_num(want, nan=-1.0))
-    # the tier-1 gather builds no table on the CPU (it never runs B6 there)
-    assert TV.gather_table(vlps) is None
 
 
-@pytest.mark.parametrize("points,split", [(777, 8), (65536, 4),
-                                          (131072, 2), (262144, 1),
-                                          (1 << 20, 1)])
-def test_default_split_fills_the_card(points, split):
-    assert G.default_split(points) == split
-    assert points * split <= G.CARD_THREADS or split == 1
+@pytest.mark.parametrize("impl", ["scan", None, "mxu"])
+def test_tier1_gather_takes_a_live_table(impl):
+    """ops/vlp.py::gather_vlps over the live-first table (as a render
+    passes it) equals its gather over the raw table, bit for bit, on every
+    route the CPU takes."""
+    vlps, x, n = table_and_points(7, 0.3)
+    got = TV.gather_vlps(x, n, TV.live_table(vlps), impl=impl)
+    want = TV.gather_vlps(x, n, vlps, impl=impl)
+    assert torch.equal(torch.nan_to_num(got, nan=-1.0),
+                       torch.nan_to_num(want, nan=-1.0))
+
+
+@pytest.mark.parametrize("live_share", [0.0, 0.3])
+def test_b4_dense_table_is_the_live_table(live_share):
+    """B4's dense table (ops/mega_vlp.py::vlp_table) and B6's are one
+    layout over one partition (ops/vlp.py::live_first)."""
+    vlps, _, _ = table_and_points(8, live_share)
+    t = TV.live_table(vlps)
+    tab, n_live, gridp = M.vlp_table(vlps)
+    assert gridp is None
+    assert torch.equal(tab, t.tab) and torch.equal(n_live, t.n_live)
