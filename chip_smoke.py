@@ -107,11 +107,30 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    with 4 spp on a scene written to text files, ``trianglegrid`` on the
    large-mesh scene's files, ``nodof`` on the demo files and ``simple`` /
    ``simplecpu`` at 64x64 with 2 spp; each must exit 0 and write a valid
-   PAM.
+   PAM;
+18. utilities (checkpoint, stage report, oracles): ``super`` at 1024x1024
+   with 1024 spp through ``utils/checkpoint.py::render_resumable`` in 4
+   windows of 256 (B1 at spp_offset 0, 256, 512, 768), cut after the
+   second window and resumed from its file, against the one-shot
+   ``api.render("super")`` under the contract, with the windows' time
+   beside the one-shot's; the CLI's ``metropolis_vlpgrid 512 512 512 8
+   3.0 --spp 256 --profile-stages --dynamic-grid-res``, which must report
+   the reference's 7 stages in order (each stage's ms printed), and in
+   process the staged film (VLPs, box and grid built in earlier stages,
+   then B4) against ``render_metropolis(dynamic_grid_res=True)``, bit for
+   bit (the contract only where the light pass is not deterministic run
+   to run); B1 and B4 at 64x64x4 on the content band (rows 372+) against
+   ``oracle_super`` and ``oracle_bpt.render_with_vlps`` (the demo's
+   emitted table) under ``tests/test_crn.py``'s contract (``utils/crn.py``
+   ``ORACLE``: p98 < 1e-5, ties under 2%); the CLI's ``super 256 256 --spp
+   8`` with ``--checkpoint --spp-per-step 2`` twice (the same image) and
+   unchecked with ``PT_DEVICE=0`` and no ``--device`` (``Using device:
+   cuda:0``, within one uint8 step).
 
 Every path phase (5, 6, 7, 10, 12, 13) and each diagnostic's run (14-16)
 sets all launch counts to 0 just before it and reads them just after; the
-counts in the ``kernels`` line come from those runs.  Each kernel's
+counts in the ``kernels`` line come from those runs (phase 18 reads its
+own for its checks).  Each kernel's
 ``bound_ms`` is the least time the card could take for the same work: the
 larger of its bytes (inputs read once, output written once) over 3.35 TB/s
 and its operations over 3.345e13 FP32 ops/s (132 SMs x 128 lanes x 1.98
@@ -1943,6 +1962,22 @@ def phase_diag_dda(card: str) -> tuple[dict, dict]:
     return closest, occ
 
 
+def run_cli(args, cwd, env_extra=None, device=True):
+    """One CLI run on the card (``--device cuda`` unless ``device`` is
+    false); raises unless it exits 0."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(env_extra or {})
+    r = subprocess.run([sys.executable, "-m", PKG, *args,
+                        *(["--device", "cuda"] if device else [])],
+                       cwd=cwd, env=env, capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"CLI {args} exited {r.returncode}:\n{r.stdout}\n"
+                           f"{r.stderr}")
+    return r
+
+
 def phase_cli():
     from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
         large_mesh_scene, procedural_super_scene, write_scene_files)
@@ -1959,19 +1994,12 @@ def phase_cli():
         mesh_dir = os.path.join(tmp, "large_mesh")
         write_scene_files(procedural_super_scene(), demo_dir)
         write_scene_files(large_mesh_scene(), mesh_dir)
-        env = dict(os.environ)
-        env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
         for args in runs:
             out = os.path.join(tmp, f"{args[0]}.ppm")
             scene_dir = mesh_dir if args[0] == "trianglegrid" else demo_dir
             spp = [] if "--spp" in args else ["--spp", "4"]
-            r = subprocess.run(
-                [sys.executable, "-m", PKG, *args, *spp, "--seed", "1",
-                 "--scene-dir", scene_dir, "--out", out], cwd=tmp,
-                env=env, capture_output=True, text=True, timeout=600)
-            if r.returncode != 0:
-                raise RuntimeError(f"CLI {args} exited {r.returncode}:\n"
-                                   f"{r.stdout}\n{r.stderr}")
+            r = run_cli([*args, *spp, "--seed", "1", "--scene-dir",
+                         scene_dir, "--out", out], tmp, device=False)
             img = load_pam(out)
             size = int(args[1])
             if (img.width, img.height, img.channels) != (size, size, 4):
@@ -1980,6 +2008,245 @@ def phase_cli():
             stage = [ln for ln in r.stdout.splitlines()
                      if " in " in ln and "GB/s" in ln]
             print(f"cli {args[0]}: ok ({stage[0] if stage else ''})")
+
+
+class _Cut(Exception):
+    """The interruption of phase 18's checkpointed render."""
+
+
+SEVEN_STAGES = ("light paths random sampling",
+                "light paths metropolis sampling",
+                "VLPs min/max reduction (compute bounding box)",
+                "Read VLPs bounding box", "init VLPs grid", "rendering",
+                "read render data")
+CKPT_STEP = 256        # phase 18's windows: 4 of the super main path
+MLT_SEEDS, MLT_ROUNDS = 512, 8   # the CLI's defaults (the main paths')
+ORACLE_SIZE, ORACLE_SPP, ORACLE_ROW = 64, 4, 372
+
+
+def stage_lines(stdout: str) -> list:
+    """(name, ms) of each stage line of a report."""
+    out = []
+    for ln in stdout.splitlines():
+        if " : " in ln and ln.endswith("GB/s"):
+            name, rest = ln.split(" : ", 1)
+            out.append((name, float(rest.split(" in ")[1].split("ms:")[0])))
+    return out
+
+
+def phase_utilities(card: str) -> dict:
+    """(a) super 1024x1024x1024 in 4 checkpointed windows of B1, cut after
+    the second and resumed, against the one-shot render; (b) the 7-stage
+    metropolis_vlpgrid report at 512x512x256 through the CLI, and the
+    staged film against render_metropolis(dynamic_grid_res=True); (c) B1
+    and B4 against the NumPy oracles; (d) checkpointed CLI runs and the
+    PT_DEVICE selection."""
+    import torch
+    import opencl_montecarlo_path_tracing_tpu_torch as pt
+    from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import DEFAULT
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.models import (
+        metropolis as MT)
+    from opencl_montecarlo_path_tracing_tpu_torch.models.oracle_bpt import (
+        render_with_vlps)
+    from opencl_montecarlo_path_tracing_tpu_torch.models.oracle_super import (
+        render_oracle_super)
+    from opencl_montecarlo_path_tracing_tpu_torch.models.super import (
+        render_super)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_super as M
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_vlp as M4
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
+        prep_scene)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.vlp import emit_vlps
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        demo_scene, procedural_super_scene, write_scene_files)
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.scene import (
+        load_scene)
+    from opencl_montecarlo_path_tracing_tpu_torch.utils.checkpoint import (
+        FilmCheckpoint, render_resumable)
+    from opencl_montecarlo_path_tracing_tpu_torch.utils.cli import (
+        _staged_vlp_render)
+    from opencl_montecarlo_path_tracing_tpu_torch.utils.crn import (
+        ORACLE, crn_ok)
+    from opencl_montecarlo_path_tracing_tpu_torch.utils.pam import load_pam
+    from opencl_montecarlo_path_tracing_tpu_torch.utils.profiling import (
+        StageTimer)
+
+    failed = []
+    out = {}
+    scene, tag = demo_scene()
+    key = make_key(0)
+    windows = []
+
+    def window(k, scn, w, h, spp, spp_offset, spp_total):
+        windows.append((spp_offset, spp_total))
+        return render_super(k, scn, w, h, spp=spp, spp_offset=spp_offset,
+                            spp_total=spp_total, device="cuda")
+
+    def cut_after_two(*a, **kw):
+        if len(windows) == 2:
+            raise _Cut()
+        return window(*a, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the checkpointed super main path, cut and resumed
+        path = os.path.join(tmp, "super.npz")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            render_resumable(cut_after_two, key, scene, W, H, SPP,
+                             checkpoint_path=path, spp_per_step=CKPT_STEP,
+                             seed=0)
+            raise RuntimeError("the checkpointed render was not cut")
+        except _Cut:
+            pass
+        mid = FilmCheckpoint.load(path)
+        ck = render_resumable(window, key, scene, W, H, SPP,
+                              checkpoint_path=path, spp_per_step=CKPT_STEP,
+                              seed=0)
+        ck_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        want = [(o, SPP) for o in range(0, SPP, CKPT_STEP)]
+        if mid.spp_done != 2 * CKPT_STEP or windows != want \
+                or counts["mega_super"] != len(want) or ck.spp_done != SPP:
+            raise RuntimeError(f"checkpointed super: cut at {mid.spp_done}, "
+                               f"windows {windows}, counts {counts}")
+        t0 = time.perf_counter()
+        plain_windows = render_resumable(window, key, scene, W, H, SPP,
+                                         spp_per_step=CKPT_STEP, seed=0)
+        win_ms = (time.perf_counter() - t0) * 1e3
+        one, one_ms, one_counts = timed_renders(lambda: pt.render(
+            "super", scene, W, H, spp=SPP, seed=0, device="cuda"))
+        check_crn(f"checkpointed super {W}x{H}x{SPP} (cut at "
+                  f"{mid.spp_done}, resumed) vs one-shot",
+                  torch.from_numpy(ck.film), one, SPP, failed)
+        if not np.array_equal(ck.film, plain_windows.film):
+            failed.append("resumed windows != uncut windows")
+        print(f"  super {W}x{H}x{SPP} on {tag}: 4 windows of {CKPT_STEP} "
+              f"checkpointed, cut and resumed {ck_ms:.1f} ms in all; the "
+              f"same windows without a file {win_ms:.1f} ms; one-shot "
+              f"{one_ms:.1f} ms ({card}); launches {counts['mega_super']} "
+              f"(windows), {one_counts['mega_super']} ({TIMED_RUNS} one-shot)")
+        out.update(ckpt_ms=ck_ms, windows_ms=win_ms, one_shot_ms=one_ms,
+                   ckpt_launches=counts["mega_super"])
+
+        # (b) the staged VLP pipeline: the CLI's 7-stage report, and the
+        # staged film against the unstaged one, in process
+        demo_dir = os.path.join(tmp, "demo")
+        write_scene_files(procedural_super_scene(), demo_dir)
+        args = ["metropolis_vlpgrid", str(VW), str(VH), str(MLT_SEEDS),
+                str(MLT_ROUNDS), "3.0",
+                "--spp", str(VSPP), "--seed", "1", "--scene-dir", demo_dir,
+                "--profile-stages", "--dynamic-grid-res"]
+        r = run_cli(args, tmp)
+        st = stage_lines(r.stdout)
+        names = tuple(n for n, _ in st[:len(SEVEN_STAGES)])
+        if names != SEVEN_STAGES:
+            raise RuntimeError(f"--profile-stages reported {names}")
+        grid_line = [ln for ln in r.stdout.splitlines()
+                     if ln.startswith("VLPs grid size")]
+        print(f"  cli metropolis_vlpgrid {VW}x{VH}x{VSPP} --profile-stages "
+              f"--dynamic-grid-res ({card}); {grid_line[0]}:")
+        for n, ms in st:
+            print(f"    {n}: {ms} ms")
+        out["stages"] = st
+
+        vscene = load_scene(demo_dir)
+        vkey = make_key(1)
+        reset_counts()
+        staged, staged_vlps = _staged_vlp_render(
+            StageTimer("cuda"), vkey, vscene, VW, VH, VSPP, DEFAULT, "mlt",
+            torch.device("cuda"), n_seed=MLT_SEEDS, rounds=MLT_ROUNDS,
+            use_grid=True, grid_modifier=3.0, dynamic_res=True)
+        torch.cuda.synchronize()
+        staged_counts = read_counts()
+        unstaged = MT.render_metropolis(
+            vkey, vscene, VW, VH, spp=VSPP, n_seedpaths=MLT_SEEDS,
+            mutation_rounds=MLT_ROUNDS, use_grid=True, grid_modifier=3.0,
+            dynamic_grid_res=True, device="cuda")
+        # render_metropolis(dynamic_grid_res=True) renders with mlt_vlps
+        # on these arguments
+        same_tables = torch.equal(staged_vlps, MT.mlt_vlps(
+            vkey, prep_scene(vscene), MLT_SEEDS, MLT_ROUNDS, DEFAULT,
+            device="cuda"))
+        bits = torch.equal(staged, unstaged)
+        print(f"  staged vs unstaged metropolis_vlpgrid {VW}x{VH}x{VSPP}: "
+              f"VLP tables {'bit-equal' if same_tables else 'DIFFER'}, "
+              f"films {'bit-equal' if bits else 'differ'}; B4 launches in "
+              f"the staged render {staged_counts['mega_vlp']}")
+        if staged_counts["mega_vlp"] != 1:
+            failed.append("staged render: B4 not launched once")
+        if not bits:
+            # bit-equal tables give bit-equal films (the same functions in
+            # the same order); only a light pass that is not deterministic
+            # run to run falls back to the CRN contract
+            if same_tables:
+                failed.append("staged film != unstaged film")
+            else:
+                check_crn("staged vs unstaged film", staged, unstaged, VSPP,
+                          failed)
+
+        # (c) B1 and B4 against the NumPy oracles on the content band
+        n, spp, row = ORACLE_SIZE, ORACLE_SPP, ORACLE_ROW
+        scn = prep_scene(scene)
+        t0 = time.perf_counter()
+        b1 = M.film_super_mega(key, scn, n, row + n, spp, 0, spp, DEFAULT,
+                               row_offset=row, rows=n, device="cuda")
+        orc = render_oracle_super(scene, n, n, spp=spp, key=key,
+                                  row_offset=row)
+        ok, st1 = crn_ok(b1, orc, spp, ORACLE)
+        s1 = time.perf_counter() - t0
+        vlps = emit_vlps(key, scn, 512, DEFAULT, device="cuda")
+        t0 = time.perf_counter()
+        b4 = M4.film_vlp_mega(key, scn, vlps, n, row + n, spp, 0, spp,
+                              DEFAULT, row_offset=row, rows=n, device="cuda")
+        v = vlps.cpu().numpy()
+        orc4 = render_with_vlps(scene, v, n, n, spp=spp, key=key,
+                                row_offset=row)
+        ok4, st4 = crn_ok(b4, orc4, spp, ORACLE)
+        s4 = time.perf_counter() - t0
+        gather = float(np.abs(orc4 - render_with_vlps(
+            scene, 0 * v, n, n, spp=spp, key=key, row_offset=row)).max())
+        for name, good, stats, sec in (
+                ("B1 vs oracle_super", ok, st1, s1),
+                ("B4 vs oracle_bpt.render_with_vlps", ok4, st4, s4)):
+            print(f"  {name} {n}x{n}x{spp} rows {row}+: p98 "
+                  f"{stats['q']:.3e} max {stats['max']:.3e} ties "
+                  f"{stats['tie_frac'] * 100:.3f}% "
+                  f"{'ok' if good else 'VIOLATION'} ({sec:.2f} s)")
+            if not good:
+                failed.append(name)
+        print(f"  B4's table: {int((v[:, 3] > 0).sum())} of {len(v)} rows "
+              f"live; the gather moves the oracle's film by up to {gather:.3f}")
+        if float(orc.var()) <= 1e-2 or gather <= 1e-3:
+            failed.append("oracle band holds no content")
+        out.update(oracle_s=(s1, s4))
+
+        # (d) the CLI: checkpointed twice, against an unchecked run picked
+        # by PT_DEVICE=0 with no --device
+        base = ["super", "256", "256", "--spp", "8", "--seed", "1",
+                "--scene-dir", demo_dir]
+        r0 = run_cli(base + ["--out", "one.ppm"], tmp, {"PT_DEVICE": "0"},
+                     device=False)
+        if "Using device: cuda:0" not in r0.stdout:
+            failed.append("PT_DEVICE=0 did not select cuda:0")
+        ck_args = ["--checkpoint", "cli.npz", "--spp-per-step", "2"]
+        r1 = run_cli(base + ck_args + ["--out", "a.ppm"], tmp)
+        run_cli(base + ck_args + ["--out", "b.ppm"], tmp)
+        one_img, a, b = (load_pam(os.path.join(tmp, f)).data
+                         for f in ("one.ppm", "a.ppm", "b.ppm"))
+        step = int(np.abs(a.astype(int) - one_img.astype(int)).max())
+        if not np.array_equal(a, b) or step > 1 \
+                or "(checkpointed, 8 spp)" not in r1.stdout:
+            failed.append(f"CLI checkpoint (max step {step})")
+        print(f"  cli super 256x256x8 --checkpoint --spp-per-step 2: twice "
+              f"{'equal' if np.array_equal(a, b) else 'DIFFERENT'}, max "
+              f"{step} uint8 step from the unchecked run; "
+              f"{[ln for ln in r0.stdout.splitlines() if 'Using' in ln][0]}")
+    if failed:
+        raise RuntimeError(f"utilities phase failed: {failed}")
+    return out
 
 
 def main() -> int:
@@ -2016,6 +2283,7 @@ def main() -> int:
     b8_prim = phase(phase_diag_primitives, card)
     b8_closest, b8_occ = phase(phase_diag_dda, card)
     phase(phase_cli)
+    phase(phase_utilities, card)
     print(f"smoke: {time.perf_counter() - t0:.1f} s")
     src = f"{PKG}/csrc"
     ref = "opencl_montecarlo_path_tracing_tpu/ops"

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..core.quirks import Quirks, DEFAULT
+from ..utils import debug as dbg
 from .intersect import SceneArrays, _tri_table, _mt_test
 
 MAX_NELS_PER_CELL = 62  # reference cap (.ocl:1)
@@ -320,8 +321,16 @@ def traverse_triangles(o, d, t, m, nx, ny, nz, needs_norm,
     spy = torch.where(posy, ry, -1).to(torch.int32)
     spz = torch.where(posz, rz, -1).to(torch.int32)
 
+    # PT_KERNEL_DEBUG=1: the analog of the reference's commented-out DDA
+    # printf (ocl:192) - aggregate visit statistics instead of per-ray
+    # lines (utils/debug.py); unset, nothing is counted
+    debug = dbg.enabled()
+    entered = active
+    visited = 0
     # a static trip count, as in the JAX package
     for _ in range(rx + ry + rz + 2):
+        if debug:
+            visited = visited + active.sum()
         cell = torch.clamp(iz * (rx * ry) + iy * rx + ix, 0,
                            rx * ry * rz - 1).to(torch.int64)
         cnt = counts[cell]
@@ -355,4 +364,8 @@ def traverse_triangles(o, d, t, m, nx, ny, nz, needs_norm,
         at_stop = (torch.where(selx, ix, torch.where(sely, iy, iz))
                    == torch.where(selx, spx, torch.where(sely, spy, spz)))
         active = active & cont & ~at_stop
+    if debug:
+        dbg.dprint(
+            "[grid DDA] rays={r} entered={e} cells_visited={v} tri_hits={h}",
+            r=entered.numel(), e=entered.sum(), v=visited, h=(m == 4).sum())
     return t, m, nx, ny, nz, needs_norm

@@ -21,14 +21,29 @@ Options: --scene-dir (the four reference text files), --triangles-file
 (an alternate mesh file in the same format), --spp, --seed,
 --out, --quirks {default,reference}, --pam-maxval {255,65535},
 --dynamic-grid-res (metropolis_vlpgrid: the reference's box-derived grid
-resolution, one host read of the VLP box), and --device (default
-``cuda``; a CUDA device renders with the CUDA kernels and the command
-fails when no GPU is present).  ``simple`` and ``simplecpu`` read no scene
+resolution, one host read of the VLP box), --checkpoint PATH and
+--spp-per-step N (resumable accumulation in spp windows of N, saved to
+PATH after each; re-running resumes where it left off, and a file of
+another variant, scene, quirk set or parameter list starts over; super,
+superlmem, trianglegrid, simple, bidirectional, metropolis and
+metropolis_vlpgrid),
+--profile-stages (the VLP pipelines stage by stage, in the reference's
+per-stage report: 3 stages, or with --dynamic-grid-res the vlpgrid
+reference's 7), and --device.  ``simple`` and ``simplecpu`` read no scene
 files; the lws0 positional of the simple tracer is accepted and ignored;
 ``nodof`` renders an 8x8 sample grid per pixel (its --spp is not read);
 ``simplecpu`` is the reference's CPU tracer, rendered on the host
-whatever --device says, at 256x256 by default.  The JAX CLI's
---checkpoint, --shard and --profile-stages options are not ported.
+whatever the device, at 256x256 by default.  The JAX CLI's --shard
+(multi-device rendering) waits for the port of ``parallel/`` (ROADMAP
+A12).
+
+Device selection: an explicit --device wins.  Otherwise PT_PLATFORM
+(``cuda`` or ``cpu``; a non-numeric OCL_PLATFORM is accepted in its place)
+picks the backend and PT_DEVICE (or the reference's OCL_DEVICE,
+ocl_boiler.h:54-131) the CUDA index; with none of them set the CLI renders
+on ``cuda``.  A CUDA device renders with the CUDA kernels; a missing one
+exits 1 (``no device N; have M``): the CLI never renders on the CPU
+instead.
 
 Output: a PAM (P7) RGBA file (default result.ppm, resultCPU.ppm for
 simplecpu) plus a per-stage timing report in the reference's format (e.g.
@@ -38,33 +53,144 @@ CLSuperPathTracer.c:321-325).
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
 import numpy as np
 import torch
 
+from .profiling import StageTimer
+
 
 def _positional(args, i, default, cast=int):
     return cast(args[i]) if len(args) > i else default
 
 
-class _Report:
-    """Per-stage lines in the reference's format:
-    ``name : N items in Xms: Y GB/s``."""
+def _select_device(requested):
+    """The render device: ``requested`` (--device) when given, else the
+    PT_PLATFORM / OCL_PLATFORM backend (default ``cuda``) and the
+    PT_DEVICE / OCL_DEVICE index.  Returns None after printing an error
+    when that device does not exist."""
+    name = requested
+    if not name:
+        platform = os.environ.get("PT_PLATFORM")
+        if not platform:
+            # the reference's OCL_PLATFORM picked a platform by INDEX; here
+            # platforms are named backends, so only a name is honoured
+            ocl_p = os.environ.get("OCL_PLATFORM", "")
+            if ocl_p and not ocl_p.isdigit():
+                platform = ocl_p
+        index = os.environ.get("PT_DEVICE") or os.environ.get("OCL_DEVICE")
+        name = (platform or "cuda") + (f":{index}" if index else "")
+    try:
+        device = torch.device(name)
+    except RuntimeError:
+        device = None
+    if device is None or device.type not in ("cuda", "cpu"):
+        print(f"error: unknown device {name!r}; use cuda[:N] or cpu",
+              file=sys.stderr)
+        return None
+    idx = device.index or 0
+    have = (torch.cuda.device_count() if torch.cuda.is_available() else 0) \
+        if device.type == "cuda" else 1
+    if idx >= have:
+        print(f"no device {idx}; have {have}", file=sys.stderr)
+        return None
+    if device.type == "cuda":
+        device = torch.device("cuda", idx)
+        print(f"Using device: {device} ({torch.cuda.get_device_name(device)})")
+    else:
+        print(f"Using device: {device}")
+    return device
 
-    def __init__(self):
-        self.lines = []
-        self.total = 0.0
 
-    def record(self, name, ms, items, item_label, data_size):
-        gbs = data_size / 1.0e6 / ms if ms > 0 else float("inf")
-        self.lines.append(f"{name} : {items} {item_label} in {ms:g}ms: "
-                          f"{gbs:g} GB/s")
-        self.total += ms
+def _staged_vlp_render(timer, key, scene, w, h, spp, quirks, kind, device,
+                       n_vlp=512, n_seed=512, rounds=8, use_grid=False,
+                       grid_modifier=3.0, dynamic_res=False):
+    """Run the VLP pipeline stage by stage with a device sync per stage -
+    observability parity with the reference's per-stage event report (e.g.
+    CLSuperMetropolisPathTracer_vlpgrid/...c:673-705: light pass, metropolis
+    pass, min/max reduction, grid init, render).  The render stage is
+    ``film_bidirectional`` on the staged VLPs and grid (kernel B4 on CUDA).
 
-    def print(self):
-        print("\n".join(self.lines + ["", f"Total time: {self.total:g} ms."]))
+    ``dynamic_res`` (the --dynamic-grid-res parity mode) expands the mlt
+    grid pipeline to the reference's exact 7-stage vlpgrid report
+    (.c:691-705): the seed and Metropolis light kernels timed separately,
+    the device box reduction, the BLOCKING host box read (.c:609), the
+    box-derived grid init, the render, and the render read (timed by the
+    caller).
+
+    Returns the film and the VLP table it was rendered with."""
+    from ..models.bidirectional import film_bidirectional
+    from ..models.metropolis import mlt_mutate_emit, mlt_seed, mlt_vlps
+    from ..ops import vlp as vlpmod
+    from ..ops.intersect import prep_scene
+
+    scn = prep_scene(scene)
+    nlights = int(scn.lights.shape[0])
+    if kind == "bpt":
+        vlps = timer.run(
+            "light tracer",
+            lambda: vlpmod.emit_vlps(key, scn, n_vlp, quirks, device=device),
+            items=n_vlp * nlights, item_label="VLPs",
+            data_size=n_vlp * nlights * 16)
+    elif dynamic_res and use_grid:
+        # reference stage 1+2: the two light kernels timed separately
+        # (lightTracer then MetropolisLightTracer, .c:691-694)
+        seed_state = timer.run(
+            "light paths random sampling",
+            lambda: mlt_seed(key, scn, n_seed, quirks, device=device),
+            items=n_seed * nlights, item_label="random light paths",
+            data_size=n_seed * nlights * 64)
+        vlps = timer.run(
+            "light paths metropolis sampling",
+            lambda: mlt_mutate_emit(key, scn, n_seed, rounds, quirks,
+                                    seed_state=seed_state, device=device),
+            items=n_seed * nlights * 4, item_label="virtual lights",
+            data_size=n_seed * nlights * 4 * 16)
+    else:
+        vlps = timer.run(
+            "light tracer + metropolis",
+            lambda: mlt_vlps(key, scn, n_seed, rounds, quirks,
+                             device=device),
+            items=n_seed * nlights, item_label="paths",
+            data_size=n_seed * nlights * 64)
+
+    grid = None
+    if use_grid and dynamic_res:
+        nv = int(vlps.shape[0])
+        # reference stages 3-5: device box reduction, BLOCKING host box
+        # read, box-derived grid init (.c:595-648)
+        bb = timer.run("VLPs min/max reduction (compute bounding box)",
+                       lambda: vlpmod.vlp_bounds(vlps), items=nv,
+                       item_label="virtual lights", data_size=nv * 16)
+        t0 = time.perf_counter()
+        vmin, vmax = (b.cpu().numpy() for b in bb)
+        timer.record("Read VLPs bounding box",
+                     (time.perf_counter() - t0) * 1e3,
+                     items=1, item_label="box", data_size=32)
+        res = vlpmod.vlp_grid_dynamic_res(vmin, vmax, nv, grid_modifier)
+        print("VLPs grid size: %d x %d x %d" % res)
+        grid = timer.run("init VLPs grid",
+                         lambda: vlpmod.build_vlp_grid(vlps, res),
+                         items=int(np.prod(res)), item_label="cells",
+                         data_size=int(np.prod(res)) * 63 * 4)
+    elif use_grid:
+        res = vlpmod.vlp_grid_static_res(int(vlps.shape[0]), grid_modifier)
+        grid = timer.run("min/max reduction + VLPs grid init",
+                         lambda: vlpmod.build_vlp_grid(vlps, res),
+                         items=int(np.prod(res)), item_label="cells",
+                         data_size=int(np.prod(res)) * 63 * 4)
+
+    film = timer.run(
+        "rendering",
+        lambda: film_bidirectional(key, scn, w, h, spp, 0, spp, n_vlp,
+                                   quirks, use_grid=use_grid,
+                                   precomputed_vlps=vlps,
+                                   precomputed_grid=grid, device=device),
+        items=w * h, item_label="pixels", data_size=w * h * 4)
+    return film, vlps
 
 
 def main(argv=None):
@@ -85,6 +211,12 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     ap.add_argument("--quirks", choices=["default", "reference"],
                     default="default")
+    ap.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="accumulate the film in spp windows, checkpointing "
+                         "to PATH after each; re-running resumes where it "
+                         "left off (the same sample content)")
+    ap.add_argument("--spp-per-step", type=int, default=64,
+                    help="window size for --checkpoint")
     ap.add_argument("--pam-maxval", type=int, choices=[255, 65535],
                     default=255,
                     help="output sample depth: 255 = the reference's RGBA8; "
@@ -93,8 +225,13 @@ def main(argv=None):
                     help="metropolis_vlpgrid: derive the grid resolution "
                          "from the VLP box as the reference does (one "
                          "device->host read)")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to render on (default: cuda)")
+    ap.add_argument("--profile-stages", action="store_true",
+                    help="time the VLP pipeline stage by stage (light pass, "
+                         "box reduction + grid init, render), mirroring the "
+                         "reference's per-stage event report")
+    ap.add_argument("--device", default=None,
+                    help="torch device to render on (default: PT_PLATFORM "
+                         "and PT_DEVICE, else cuda)")
     ns = ap.parse_args(argv)
     pos = ns.positionals
 
@@ -117,7 +254,6 @@ def main(argv=None):
     host = ns.variant == "simplecpu"
     w = _positional(pos, 0, 256 if host else 512)
     h = _positional(pos, 1, 256 if host else 512)
-    report = _Report()
     out_name = ns.out or ("resultCPU.ppm" if host else "result.ppm")
 
     # camera printout parity (CLSuperPathTracer.c:251); the CPU tracer's
@@ -130,22 +266,18 @@ def main(argv=None):
     if host:
         # the reference's CPU tracer: it renders on the host
         from ..models.oracle import render_oracle
+        timer = StageTimer()
         t0 = time.perf_counter()
         film = torch.from_numpy(render_oracle(w, h, spp=ns.spp, seed=seed,
                                               gpu_layout=False))
-        report.record("rendering (host)", (time.perf_counter() - t0) * 1e3,
-                      items=w * h, item_label="float", data_size=w * h * 4)
-        return _write(ns, out_name, film, None, w, h, quirks, report)
+        timer.record("rendering (host)", (time.perf_counter() - t0) * 1e3,
+                     items=w * h, item_label="float", data_size=w * h * 4)
+        return _write(ns, out_name, film, None, w, h, quirks, timer)
 
-    device = torch.device(ns.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            print(f"error: device {device} requested but no CUDA device is "
-                  "available", file=sys.stderr)
-            return 1
-        print(f"Using device: {device} ({torch.cuda.get_device_name(device)})")
-    else:
-        print(f"Using device: {device}")
+    device = _select_device(ns.device)
+    if device is None:
+        return 1
+    timer = StageTimer(device)
 
     if ns.variant != "simple":
         try:
@@ -158,61 +290,88 @@ def main(argv=None):
         print(f"Number of triangles: {scene.n_triangles}")
         print(f"Number of lights: {scene.n_lights}")
 
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    def run_maybe_resumable(name, render_fn, scene_arg, **kw):
+        """Either one render or checkpointed spp windows (whose film is
+        summed on the host).  The checkpoint records what else the film
+        depends on, so that another variant, scene, quirk set or parameter
+        list starts over instead of adding to it."""
+        if not ns.checkpoint:
+            return timer.run(
+                name,
+                lambda: render_fn(key, scene_arg, w, h, spp=ns.spp,
+                                  quirks=quirks, device=device, **kw),
+                items=w * h, item_label="pixels", data_size=w * h * 4)
+        from .checkpoint import render_resumable
+        meta = {"variant": ns.variant,
+                "scene_dir": os.path.abspath(ns.scene_dir),
+                "triangles": ns.triangles_file, "quirks": ns.quirks,
+                "params": " ".join(pos[2:]),
+                "dynamic_grid_res": ns.dynamic_grid_res}
+        t0 = time.perf_counter()
+        ck = render_resumable(render_fn, key, scene_arg, w, h, ns.spp,
+                              checkpoint_path=ns.checkpoint,
+                              spp_per_step=ns.spp_per_step, seed=seed,
+                              meta=meta, quirks=quirks, device=device, **kw)
+        timer.record(f"{name} (checkpointed, {ck.spp_done} spp)",
+                     (time.perf_counter() - t0) * 1e3,
+                     items=w * h, item_label="pixels", data_size=w * h * 4)
+        return torch.from_numpy(ck.film)
 
-    t0 = time.perf_counter()
     img = None
-    items, item_label, data_size = w * h, "pixels", w * h * 4
     if ns.variant == "simple":
         from ..models.simple import render_simple
-        stage = "rendering"
-        film = render_simple(key, w, h, spp=ns.spp, quirks=quirks,
-                             device=device)
+        film = run_maybe_resumable(
+            "rendering",
+            lambda k, _scene, ww, hh, **kw: render_simple(k, ww, hh, **kw),
+            None)
     elif ns.variant == "nodof":
         from ..models.sample_parallel import render_sample_parallel
-        stage = "rendering+reduction"
-        items, item_label, data_size = w * h * 64, "samples", w * h * 64 * 16
         film = None
-        img = render_sample_parallel(key, scene, w, h, sample_grid=8,
-                                     quirks=quirks, device=device)
+        img = timer.run(
+            "rendering+reduction",
+            lambda: render_sample_parallel(key, scene, w, h, sample_grid=8,
+                                           quirks=quirks, device=device),
+            items=w * h * 64, item_label="samples",
+            data_size=w * h * 64 * 16)
     elif ns.variant in ("super", "superlmem"):
         from ..models.super import render_super
-        stage = "rendering"
-        film = render_super(key, scene, w, h, spp=ns.spp, quirks=quirks,
-                            device=device)
+        film = run_maybe_resumable("rendering", render_super, scene)
     elif ns.variant == "trianglegrid":
         from ..models.trianglegrid import render_trianglegrid
-        stage = "grid init + rendering"
-        film = render_trianglegrid(
-            key, scene, w, h, spp=ns.spp,
-            cell_size_modifier=_positional(pos, 2, 3.0, float),
-            quirks=quirks, device=device)
+        film = run_maybe_resumable(
+            "grid init + rendering", render_trianglegrid, scene,
+            cell_size_modifier=_positional(pos, 2, 3.0, float))
     elif ns.variant == "bidirectional":
-        from ..models.bidirectional import render_bidirectional
-        stage = "light pass + rendering"
-        film = render_bidirectional(key, scene, w, h, spp=ns.spp,
-                                    n_vlp=_positional(pos, 2, 512),
-                                    quirks=quirks, device=device)
+        n_vlp = _positional(pos, 2, 512)
+        if ns.profile_stages:
+            film, _ = _staged_vlp_render(timer, key, scene, w, h, ns.spp,
+                                         quirks, "bpt", device, n_vlp=n_vlp)
+        else:
+            from ..models.bidirectional import render_bidirectional
+            film = run_maybe_resumable("light pass + rendering",
+                                       render_bidirectional, scene,
+                                       n_vlp=n_vlp)
     else:
-        from ..models.metropolis import render_metropolis
-        stage = "light pass + metropolis + rendering"
-        film = render_metropolis(
-            key, scene, w, h, spp=ns.spp,
-            n_seedpaths=_positional(pos, 2, 512),
-            mutation_rounds=_positional(pos, 3, 8),
-            grid_modifier=_positional(pos, 4, 3.0, float),
-            use_grid=ns.variant.endswith("vlpgrid"),
-            dynamic_grid_res=ns.dynamic_grid_res, quirks=quirks,
-            device=device)
-    sync()
-    report.record(stage, (time.perf_counter() - t0) * 1e3,
-                  items=items, item_label=item_label, data_size=data_size)
-    return _write(ns, out_name, film, img, w, h, quirks, report)
+        n_seed = _positional(pos, 2, 512)
+        rounds = _positional(pos, 3, 8)
+        mod = _positional(pos, 4, 3.0, float)
+        use_grid = ns.variant.endswith("vlpgrid")
+        if ns.profile_stages:
+            film, _ = _staged_vlp_render(
+                timer, key, scene, w, h, ns.spp, quirks, "mlt", device,
+                n_seed=n_seed, rounds=rounds, use_grid=use_grid,
+                grid_modifier=mod, dynamic_res=ns.dynamic_grid_res)
+        else:
+            from ..models.metropolis import render_metropolis
+            film = run_maybe_resumable(
+                "light pass + metropolis + rendering", render_metropolis,
+                scene, n_seedpaths=n_seed, mutation_rounds=rounds,
+                use_grid=use_grid, grid_modifier=mod,
+                dynamic_grid_res=ns.dynamic_grid_res)
+    return _write(ns, out_name, film, img, w, h, quirks, timer)
 
 
-def _write(ns, out_name, film, img, w, h, quirks, report) -> int:
+def _write(ns, out_name, film, img, w, h, quirks, timer) -> int:
     """Quantise ``film`` on its device (or take the nodof image ``img``),
     copy the pixels to the host and write the PAM file."""
     from ..ops.reduce import quantize_film, quantize_film16
@@ -225,6 +384,13 @@ def _write(ns, out_name, film, img, w, h, quirks, report) -> int:
             rgba = rgba.astype(np.uint16) * np.uint16(257)
     elif ns.pam_maxval == 65535:
         rgba = quantize_film16(film).cpu().numpy().astype(np.uint16)
+    elif ns.profile_stages:
+        # reference stage: the blocking render map/read
+        # (clEnqueueMapBuffer d_render, e.g. vlpgrid .c:662-668)
+        rgba = timer.run(
+            "read render data",
+            lambda: quantize_film(film, wrap=quirks.wrap_uint8).cpu().numpy(),
+            items=w * h * 4, item_label="uchar", data_size=w * h * 4)
     else:
         rgba = quantize_film(film, wrap=quirks.wrap_uint8).cpu().numpy()
     t0 = time.perf_counter()
@@ -232,12 +398,12 @@ def _write(ns, out_name, film, img, w, h, quirks, report) -> int:
                                maxval=ns.pam_maxval,
                                depth=8 if ns.pam_maxval == 255 else 16,
                                data=rgba))
-    report.record("write render data", (time.perf_counter() - t0) * 1e3,
-                  items=w * h * 4, item_label="uchar",
-                  data_size=w * h * 4 * (1 if ns.pam_maxval == 255 else 2))
+    timer.record("write render data", (time.perf_counter() - t0) * 1e3,
+                 items=w * h * 4, item_label="uchar",
+                 data_size=w * h * 4 * (1 if ns.pam_maxval == 255 else 2))
     print(f"\nSuccessfully created render image {out_name} in the current "
           "directory\n")
-    report.print()
+    timer.print_report()
     return 0
 
 

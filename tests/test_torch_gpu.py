@@ -787,6 +787,109 @@ def test_diag_loops_kernel_matches_plain_on_gpu(arm, cuda_device):
     assert torch.equal(out, L8.run_plain(arm, x, n1, n2, acc0, table))
 
 
+# spp windows (utils/checkpoint.py): each window a launch keyed on its own
+# global samples; the windows' sum against the one-shot film
+@pytest.mark.gpu
+def test_super_kernel_windows_equal_one_shot(cuda_device):
+    """B1 at 256x256x16 in windows of 4 (spp_offset 0, 4, 8, 12) against
+    one launch of 16: the super family's contract."""
+    from opencl_montecarlo_path_tracing_tpu_torch.models.super import (
+        render_super)
+    from opencl_montecarlo_path_tracing_tpu_torch.utils.checkpoint import (
+        render_resumable)
+    scene = demo_scene()[0]
+    before = M.LAUNCHES
+    ck = render_resumable(lambda *a, **kw: render_super(
+        *a, device=cuda_device, **kw), (9, 0), scene, 256, 256, 16,
+        spp_per_step=4, seed=9)
+    assert M.LAUNCHES == before + 4
+    one = render_super((9, 0), scene, 256, 256, spp=16, device=cuda_device)
+    ok, st = crn_ok(ck.film, one, 16)
+    assert ok, st
+
+
+@pytest.mark.gpu
+def test_simple_kernel_windows_equal_one_shot(cuda_device):
+    """B5 at 256x256x8 in windows of 2 against one launch of 8."""
+    from opencl_montecarlo_path_tracing_tpu_torch.models.simple import (
+        render_simple)
+    from opencl_montecarlo_path_tracing_tpu_torch.utils.checkpoint import (
+        render_resumable)
+    before = M5.LAUNCHES
+    ck = render_resumable(lambda k, _s, w, h, **kw: render_simple(
+        k, w, h, device=cuda_device, **kw), (10, 0), None, 256, 256, 8,
+        spp_per_step=2, seed=10)
+    assert M5.LAUNCHES == before + 4
+    one = render_simple((10, 0), 256, 256, spp=8, device=cuda_device)
+    simple_close(ck.film, one.cpu().numpy(), 8)
+
+
+@pytest.mark.gpu
+def test_staged_vlp_render_equals_unstaged(cuda_device):
+    """The CLI's --profile-stages --dynamic-grid-res pipeline (VLPs, box
+    and grid built in earlier stages, handed to B4) renders the same film
+    as render_metropolis(dynamic_grid_res=True), bit for bit."""
+    from opencl_montecarlo_path_tracing_tpu_torch.models.metropolis import (
+        render_metropolis)
+    from opencl_montecarlo_path_tracing_tpu_torch.utils.cli import (
+        _staged_vlp_render)
+    from opencl_montecarlo_path_tracing_tpu_torch.utils.profiling import (
+        StageTimer)
+    scene = demo_scene()[0]
+    timer = StageTimer(cuda_device)
+    before = M4.LAUNCHES
+    staged, _ = _staged_vlp_render(timer, (11, 0), scene, 64, 64, 4,
+                                   DEFAULT, "mlt", cuda_device, n_seed=64,
+                                   rounds=2, use_grid=True, dynamic_res=True)
+    assert M4.LAUNCHES == before + 1
+    assert [st.name for st in timer.stages][-1] == "rendering"
+    assert len(timer.stages) == 6
+    one = render_metropolis((11, 0), scene, 64, 64, spp=4, n_seedpaths=64,
+                            mutation_rounds=2, use_grid=True,
+                            dynamic_grid_res=True, device=cuda_device)
+    assert torch.equal(staged, one)
+
+
+@pytest.mark.gpu
+def test_super_kernel_holds_to_oracle(cuda_device):
+    """B1 at 32x32x2 on the content band (rows 372+: floor and diffuse)
+    against oracle_super in its CRN mode: tests/test_crn.py's contract."""
+    from opencl_montecarlo_path_tracing_tpu_torch.models.oracle_super import (
+        render_oracle_super)
+    from opencl_montecarlo_path_tracing_tpu_torch.utils.crn import ORACLE
+    row = 372
+    film = M.film_super_mega((5, 0), prep_scene(small_scene()), 32,
+                             row + 32, 2, 0, 2, DEFAULT, row_offset=row,
+                             rows=32, device=cuda_device)
+    orc = render_oracle_super(small_scene(), 32, 32, spp=2, key=(5, 0),
+                              row_offset=row)
+    assert float(orc.var()) > 1e-2
+    ok, st = crn_ok(film, orc, 2, ORACLE)
+    assert ok, st
+
+
+@pytest.mark.gpu
+def test_vlp_kernel_holds_to_oracle(cuda_device):
+    """B4 at 32x32x2 with a table live over the content band's floor
+    against oracle_bpt.render_with_vlps on the same table."""
+    from opencl_montecarlo_path_tracing_tpu_torch.models.oracle_bpt import (
+        render_with_vlps)
+    from opencl_montecarlo_path_tracing_tpu_torch.utils.crn import ORACLE
+    v = synth_vlps(seed=3)
+    film = M4.film_vlp_mega((6, 0), prep_scene(small_scene()),
+                            torch.from_numpy(v).to(cuda_device), 32,
+                            CONTENT_ROW + 32, 2, 0, 2, DEFAULT,
+                            row_offset=CONTENT_ROW, rows=32,
+                            device=cuda_device)
+    orc = render_with_vlps(small_scene(), v, 32, 32, spp=2, key=(6, 0),
+                           row_offset=CONTENT_ROW)
+    zero = render_with_vlps(small_scene(), 0 * v, 32, 32, spp=2, key=(6, 0),
+                            row_offset=CONTENT_ROW)
+    assert np.abs(orc - zero).max() > 1e-3        # the gather contributes
+    ok, st = crn_ok(film, orc, 2, ORACLE)
+    assert ok, st
+
+
 def test_file_imports_no_jax():
     """This file runs where only the port is installed: loading it imports
     neither JAX nor the JAX package."""
