@@ -125,12 +125,32 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    ``ORACLE``: p98 < 1e-5, ties under 2%); the CLI's ``super 256 256 --spp
    8`` with ``--checkpoint --spp-per-step 2`` twice (the same image) and
    unchecked with ``PT_DEVICE=0`` and no ``--device`` (``Using device:
-   cuda:0``, within one uint8 step).
+   cuda:0``, within one uint8 step);
+19. sharded renders (``parallel/mesh.py`` through
+   ``tools/validate_sharded.py``, each group of ranks spawned as child
+   processes with a timeout): one rank in an NCCL group renders super
+   1024x1024x1024 (B1, a one-rank all-reduce) bit for bit against
+   ``api.render("super")``, both timed over 3 warm renders; 2 ranks on
+   cuda:0 in a gloo group (NCCL refuses two ranks on one GPU; gloo
+   stages through the host) render super 1024x1024x1024, trianglegrid on
+   the 20,736 sheet at 512x512x64 (B2/B3) and simple 1024x1024x256 (B5)
+   in spp windows, under the contract against the unsharded films;
+   bidirectional 512x512x256 (B4) with its light pass windowed (the
+   gathered table bit for bit ``emit_vlps``'s, the film the replicated
+   light pass's), metropolis_vlpgrid 256x256x64 (the chain-window table
+   bit for bit ``mlt_vlps``'s) and nodof 512x512 in row bands (bit for
+   bit); 4 ranks on a 2 x 2 rows x spp mesh render super and
+   bidirectional at 512x512x64 against the 1-D spp-sharded films; the
+   CLI under torchrun with ``--shard 1`` (NCCL; with ``--checkpoint``)
+   against ``api.render``, ``--shard 2`` without torchrun (exit 1); and
+   the native PAM writer (utils/native.py, g++) byte for byte the NumPy
+   one's.  Every rank of a check must launch its kernel.
 
 Every path phase (5, 6, 7, 10, 12, 13) and each diagnostic's run (14-16)
 sets all launch counts to 0 just before it and reads them just after; the
-counts in the ``kernels`` line come from those runs (phase 18 reads its
-own for its checks).  Each kernel's
+counts in the ``kernels`` line come from those runs and from phase 19's
+sharded renders, counted in each rank around each render and summed over
+the ranks (phase 18 reads its own for its checks).  Each kernel's
 ``bound_ms`` is the least time the card could take for the same work: the
 larger of its bytes (inputs read once, output written once) over 3.35 TB/s
 and its operations over 3.345e13 FP32 ops/s (132 SMs x 128 lanes x 1.98
@@ -2249,6 +2269,207 @@ def phase_utilities(card: str) -> dict:
     return out
 
 
+SHARD_TIMEOUT = 600.0   # a spawned group's limit (a hung rank fails it)
+MLT_SHARD = 256, 64     # metropolis_vlpgrid's sharded run: size, spp
+SHARD_2D = 512, 64      # the 2 x 2 mesh's runs: size, spp
+# the kernel each sharded check must launch on every rank
+SHARD_KERNEL = {"super": "mega_super", "trianglegrid": "mega_blocked",
+                "simple": "mega_simple", "bidirectional": "mega_vlp",
+                "metropolis": "mega_vlp", "nodof": "mega_super"}
+
+
+def sharded_group(V, world, checks, backend, failed, counts):
+    """Run ``checks`` (tools/validate_sharded.py) on ``world`` spawned
+    ranks on cuda:0; print rank 0's results, add every rank's launches to
+    ``counts`` and record failures (a rank's exception raises)."""
+    t0 = time.perf_counter()
+    ranks = V.run_ranks(V.run_checks, world, checks, device="cuda",
+                        backend=backend, timeout=SHARD_TIMEOUT)
+    for i, r in enumerate(ranks[0]):
+        want = SHARD_KERNEL[r["name"]]
+        launched = [rk[i]["counts"][want] for rk in ranks]
+        for rk in ranks:
+            for k, v in rk[i]["counts"].items():
+                counts[k] += v
+        ok = r["ok"] and all(rk[i]["ok"] for rk in ranks) \
+            and min(launched) >= 1
+        print(f"  {r['name']} on {r['mesh']} ({backend}, {world} ranks on "
+              f"cuda:0): {'ok' if ok else 'FAILED'} - {r['detail']}; "
+              f"{want} launches by rank {launched} ({r['seconds']:.1f} s)")
+        if not ok:
+            failed.append(f"{r['name']} on {r['mesh']}")
+    print(f"  [{world}-rank {backend} group: "
+          f"{time.perf_counter() - t0:.1f} s]")
+    return ranks
+
+
+def phase_sharded(card: str) -> dict:
+    """(a) NCCL, one rank: super 1024x1024x1024 through
+    render_super_sharded bit for bit against api.render("super"), timed
+    beside it; (b) gloo, 2 ranks on cuda:0: super, trianglegrid (B2/B3),
+    simple (B5), bidirectional (B4; the windowed table and the replicated
+    light pass's film bit for bit), metropolis_vlpgrid (its chain-window
+    table bit for bit) and nodof bands (bit for bit); (c) gloo, 4 ranks, a
+    2 x 2 mesh: super and bidirectional against the 1-D spp-sharded
+    films; (d) the CLI under torchrun (--shard 1, NCCL; with
+    --checkpoint) and --shard 2 without it; (e) utils/native.py."""
+    import torch
+    import opencl_montecarlo_path_tracing_tpu_torch as pt
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        demo_scene, large_mesh_scene, procedural_super_scene,
+        write_scene_files)
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.scene import (
+        load_scene)
+    from opencl_montecarlo_path_tracing_tpu_torch.tools import (
+        validate_sharded as V)
+    from opencl_montecarlo_path_tracing_tpu_torch.utils import native
+    from opencl_montecarlo_path_tracing_tpu_torch.utils.pam import (
+        ImgInfo, load_pam, save_pam)
+
+    failed = []
+    counts = dict.fromkeys(SHARD_KERNEL.values(), 0)
+    scene, tag = demo_scene()
+    key = make_key(0)
+    frame = dict(key=key, scene=scene)
+
+    # (a) one rank, NCCL: the identity all-reduce, one window
+    [[r]] = sharded_group(V, 1, [("check_super", dict(
+        spec=(1,), width=W, height=H, spp=SPP, runs=TIMED_RUNS, **frame))],
+        "nccl", failed, counts)
+    one = pt.render("super", scene, W, H, spp=SPP, seed=0, device="cuda")
+    same = np.array_equal(r["out"], one.cpu().numpy())
+    print(f"  super {W}x{H}x{SPP} on {tag}, 1-rank NCCL mesh: film "
+          f"{'bit-equal' if same else 'DIFFERS'} to api.render(\"super\"); "
+          f"{r['ms']:.1f} ms a render sharded, {r['unsharded_ms']:.1f} ms "
+          f"unsharded (warm, {TIMED_RUNS} renders each, {card})")
+    if not same:
+        failed.append("1-rank NCCL film != api.render film")
+    out = {"nccl_ms": r["ms"], "unsharded_ms": r["unsharded_ms"]}
+
+    # (b) two ranks on the one card, gloo staged through the host
+    msz, mspp = MLT_SHARD
+    two = [("check_super", dict(spec=(2,), width=W, height=H, spp=SPP,
+                                runs=TIMED_RUNS, **frame)),
+           ("check_trianglegrid", dict(spec=(2,), key=key,
+                                       scene=large_mesh_scene(), width=LW,
+                                       height=LH, spp=LSPP_GRID)),
+           ("check_simple", dict(spec=(2,), key=key, width=SW, height=SH,
+                                 spp=SSPP)),
+           ("check_bidirectional", dict(spec=(2,), width=VW, height=VH,
+                                        spp=VSPP, n_vlp=512, **frame)),
+           ("check_metropolis", dict(spec=(2,), width=msz, height=msz,
+                                     spp=mspp, n_seedpaths=MLT_SEEDS,
+                                     mutation_rounds=MLT_ROUNDS,
+                                     use_grid=True, **frame)),
+           ("check_nodof", dict(spec=("y", 2), width=NW, height=NH,
+                                sample_grid=NSG, **frame))]
+    ranks = sharded_group(V, 2, two, "gloo", failed, counts)
+    r = ranks[0][0]
+    print(f"  super {W}x{H}x{SPP}, 2 gloo ranks on one card: {r['ms']:.1f} "
+          f"ms a render (the film staged through the host), "
+          f"{r['unsharded_ms']:.1f} ms unsharded (warm, {TIMED_RUNS} "
+          f"renders each, {card})")
+    out.update(gloo2_ms=r["ms"], gloo2_unsharded_ms=r["unsharded_ms"])
+    for r in ranks[0]:
+        if r["name"] in ("bidirectional", "metropolis") and \
+                not r["windowed"]:
+            failed.append(f"{r['name']}: light pass not windowed")
+
+    # (c) four ranks, 2 x 2 rows x spp
+    s2, spp2 = SHARD_2D
+    four = [("check_super", dict(spec=(2, 2), width=s2, height=s2,
+                                 spp=spp2, **frame)),
+            ("check_bidirectional", dict(spec=(2, 2), width=s2, height=s2,
+                                         spp=spp2, n_vlp=512, **frame))]
+    sharded_group(V, 4, four, "gloo", failed, counts)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (d) the CLI: torchrun, one rank on the card (NCCL)
+        demo_dir = os.path.join(tmp, "demo")
+        write_scene_files(procedural_super_scene(), demo_dir)
+        base = ["super", "256", "256", "--spp", "8", "--seed", "1",
+                "--scene-dir", demo_dir]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+        # the plain and the checkpointed run at once (two processes)
+        runs = {name: ["--shard", "1", "--out", name, *extra]
+                for name, extra in (("s.ppm", []),
+                                    ("c.ppm", ["--checkpoint", "ck.npz",
+                                               "--spp-per-step", "2"]))}
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m", PKG, *base, *args], cwd=tmp,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for name, args in runs.items()}
+        try:
+            logs = {name: p.communicate(timeout=600)[0]
+                    for name, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for name, p in procs.items():
+            if p.returncode != 0:
+                raise RuntimeError(f"torchrun {runs[name]} exited "
+                                   f"{p.returncode}:\n{logs[name]}")
+            print(f"  torchrun --nproc-per-node 1 ... super 256 256 --spp 8 "
+                  f"{' '.join(runs[name])}: ok")
+        print(f"  [the two torchrun CLIs: {time.perf_counter() - t0:.1f} s]")
+        want = pt.render("super", load_scene(demo_dir), 256, 256, spp=8,
+                         seed=1, as_rgba8=True, device="cuda")
+        s_img, c_img = (load_pam(os.path.join(tmp, f)).data
+                        for f in ("s.ppm", "c.ppm"))
+        step = int(np.abs(c_img.astype(int) - want.astype(int)).max())
+        if not np.array_equal(s_img, want) or step > 1:
+            failed.append(f"CLI --shard 1 image (checkpointed: {step} "
+                          "steps)")
+        equal = "equal" if np.array_equal(s_img, want) else "NOT equal"
+        print(f"  --shard 1 image {equal} to api.render's; checkpointed "
+              f"within {step} uint8 step")
+        rr = subprocess.run([sys.executable, "-m", PKG, *base, "--shard",
+                             "2", "--out", "x.ppm"], cwd=tmp, env=env,
+                            capture_output=True, text=True, timeout=600)
+        msg = ("--shard 2 needs 2 ranks; have 1 (launch with torchrun "
+               "--nproc-per-node 2)")
+        if rr.returncode != 1 or msg not in rr.stderr \
+                or os.path.exists(os.path.join(tmp, "x.ppm")):
+            failed.append(f"--shard 2 without torchrun: rc {rr.returncode}")
+        print(f"  --shard 2 without torchrun: exit {rr.returncode}, "
+              f"{rr.stderr.strip().splitlines()[-1]}")
+
+        # (e) the native library: built with g++, the NumPy writer's bytes
+        path = native.build()
+        img = ImgInfo(width=W, height=H, channels=4,
+                      data=pt.render("super", scene, W, H, spp=4, seed=0,
+                                     as_rgba8=True, device="cuda"))
+        t0 = time.perf_counter()
+        save_pam(os.path.join(tmp, "native.ppm"), img)
+        t_nat = time.perf_counter() - t0
+        os.environ["PT_NO_NATIVE"] = "1"
+        try:
+            t0 = time.perf_counter()
+            save_pam(os.path.join(tmp, "numpy.ppm"), img)
+            t_np = time.perf_counter() - t0
+        finally:
+            del os.environ["PT_NO_NATIVE"]
+        a, b = (open(os.path.join(tmp, f), "rb").read()
+                for f in ("native.ppm", "numpy.ppm"))
+        if a != b or native.load() is None:
+            failed.append("native PAM bytes")
+        print(f"  native {os.path.basename(path)}: {W}x{H} PAM "
+              f"{'byte-equal' if a == b else 'DIFFERS'} to the NumPy "
+              f"writer's ({t_nat * 1e3:.1f} vs {t_np * 1e3:.1f} ms)")
+    print(f"  sharded launches (every rank): {counts}")
+    if failed:
+        raise RuntimeError(f"sharded phase failed: {failed}")
+    torch.cuda.synchronize()
+    out["counts"] = counts
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2284,6 +2505,7 @@ def main() -> int:
     b8_closest, b8_occ = phase(phase_diag_dda, card)
     phase(phase_cli)
     phase(phase_utilities, card)
+    sh = phase(phase_sharded, card)["counts"]
     print(f"smoke: {time.perf_counter() - t0:.1f} s")
     src = f"{PKG}/csrc"
     ref = "opencl_montecarlo_path_tracing_tpu/ops"
@@ -2299,18 +2521,19 @@ def main() -> int:
 
     kernels = [
         row("mega_super", "mega_super.cu", f"{ref}/pallas_super.py:2228",
-            mp["launches"] + npth["launches"], dict(mp, max_abs=b1_err)),
+            mp["launches"] + npth["launches"] + sh["mega_super"],
+            dict(mp, max_abs=b1_err)),
         row("mega_vlp", "mega_vlp.cu", f"{ref}/pallas_bpt.py:434",
-            vp["launches"], b4),
+            vp["launches"] + sh["mega_vlp"], b4),
         row("gather_vlp", "gather_vlp.cu", f"{ref}/pallas_vlp.py:111",
             b6["launches"] + lp["gather_vlp"],
             dict(b6, max_abs=max(b6["max_abs"], b6_table["max_abs"]))),
         row("mega_blocked", "mega_blocked.cu", f"{ref}/pallas_super.py:2228",
-            lp["mega_blocked"], b23),
+            lp["mega_blocked"] + sh["mega_blocked"], b23),
         row("tri_closest", "tri_closest.cu", f"{ref}/pallas_tri.py:89",
             lp["tri_closest"], b7),
         row("mega_simple", "mega_simple.cu", f"{ref}/pallas_simple.py:352",
-            sp["launches"], b5),
+            sp["launches"] + sh["mega_simple"], b5),
         row("diag_dda_closest", "diag_dda.cu", "tools/diag_dda_pallas.py:163",
             b8_closest["launches"], b8_closest),
         row("diag_dda_occ", "diag_dda.cu", "tools/diag_dda_pallas.py:198",

@@ -1,7 +1,9 @@
 """Parsers for the reference's text scene formats (SURVEY.md section 2.9).
 
-Port of ``opencl_montecarlo_path_tracing_tpu/scene/formats.py`` (numpy
-only; the JAX package's optional native C++ parsers are not carried over).
+Port of ``opencl_montecarlo_path_tracing_tpu/scene/formats.py``.  Each
+parser takes the native C++ one (utils/native.py) when it builds, unless
+``PT_NO_NATIVE=1``; the NumPy code below is the plain version it is held
+to.
 
 Formats (reference parsers cited per function):
 
@@ -62,8 +64,18 @@ def _atoi(line: str) -> int:
     return max(-(2 ** 63), min(2 ** 63 - 1, v))
 
 
+def _native():
+    from ..utils import native
+    return native if native.enabled() else None
+
+
 def parse_array_file(path: str) -> np.ndarray:
     """9-int bitmap file (parseArrayFromFile, CLSuperPathTracer.c:62-74)."""
+    nat = _native()
+    if nat is not None:
+        got = nat.parse_bitmap(path)
+        if got is not None:
+            return got
     out = np.zeros(9, np.int64)
     with open(path) as fp:
         lines = fp.readlines()
@@ -79,6 +91,11 @@ def parse_triangles_file(path: str, max_triangles: int = MAX_TRIANGLES) -> np.nd
     triangle (9 coordinate lines + 4 separators); a final frame with all 9
     coordinate lines but missing trailing separators is still accepted.
     """
+    nat = _native()
+    if nat is not None:
+        got = nat.parse_triangles(path, max_triangles)
+        if got is not None:
+            return got
     with open(path) as fp:
         lines = fp.readlines()
     tris = []
@@ -111,6 +128,11 @@ def parse_lights_file(path: str, max_lights: int = MAX_LIGHTS) -> np.ndarray:
 
     Returns (n, 4) float32: x, y, z, intensity.
     """
+    nat = _native()
+    if nat is not None:
+        got = nat.parse_lights(path, max_lights)
+        if got is not None:
+            return got
     with open(path) as fp:
         lines = [ln for ln in fp.readlines()]
     out = []

@@ -9,7 +9,10 @@ ray ids are ``pixel * spp_total + spp_offset + s``,
 models/common.py::accumulate_spp, and the kernels key the same ids), so a
 film can be saved mid-accumulation and resumed later, on another device,
 with the same sample content.  The film accumulates on the host in
-float32: each window's tensor is copied over when it is done.
+float32: each window's tensor is copied over when it is done.  A render
+sharded over a process group (parallel/mesh.py) checkpoints from rank 0
+alone: it reads the file and tells the other ranks where to start, and
+it alone writes (several ranks writing one file would corrupt it).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import dataclasses
 import os
 
 import numpy as np
+import torch.distributed as dist
 
 
 @dataclasses.dataclass
@@ -49,7 +53,7 @@ class FilmCheckpoint:
 def render_resumable(render_fn, key, scene, width, height, spp_total,
                      checkpoint_path: str | None = None,
                      spp_per_step: int = 64, seed: int = 0,
-                     meta: dict | None = None, **kw):
+                     meta: dict | None = None, group=None, **kw):
     """Accumulate ``spp_total`` samples in windows of ``spp_per_step``,
     checkpointing after each window.  ``render_fn`` must accept
     (key, scene, width, height, spp=..., spp_offset=..., spp_total=...)
@@ -60,11 +64,19 @@ def render_resumable(render_fn, key, scene, width, height, spp_total,
     or whose meta lacks or differs in one of those entries, restarts the
     render.
 
+    ``group``: the process group of a sharded ``render_fn`` (every window
+    a collective of its ranks, which all call this function).  Rank 0
+    loads the checkpoint and broadcasts its ``spp_done``, so that every
+    rank starts at the same window, and rank 0 alone saves; the returned
+    film is the whole film on rank 0 only (the other ranks hold the
+    windows rendered in this call).
+
     Returns the completed FilmCheckpoint.
     """
     meta = {k: str(v) for k, v in (meta or {}).items()}
+    primary = group is None or dist.get_rank(group) == 0
     ck = None
-    if checkpoint_path and os.path.exists(checkpoint_path):
+    if checkpoint_path and primary and os.path.exists(checkpoint_path):
         ck = FilmCheckpoint.load(checkpoint_path)
         if (ck.spp_total != spp_total or ck.seed != seed
                 or ck.film.shape != (height, width, 3)
@@ -74,6 +86,11 @@ def render_resumable(render_fn, key, scene, width, height, spp_total,
         ck = FilmCheckpoint(film=np.zeros((height, width, 3), np.float32),
                             spp_done=0, spp_total=spp_total, seed=seed,
                             meta={"width": width, "height": height, **meta})
+    if group is not None:
+        done = [ck.spp_done]
+        # src is the group's rank 0: a mesh's ranks start at global rank 0
+        dist.broadcast_object_list(done, src=0, group=group)
+        ck.spp_done = done[0]
 
     while ck.spp_done < spp_total:
         step = min(spp_per_step, spp_total - ck.spp_done)
@@ -83,6 +100,6 @@ def render_resumable(render_fn, key, scene, width, height, spp_total,
             film = film.detach().cpu().numpy()
         ck.film = ck.film + np.asarray(film, np.float32)
         ck.spp_done += step
-        if checkpoint_path:
+        if checkpoint_path and primary:
             ck.save(checkpoint_path)
     return ck

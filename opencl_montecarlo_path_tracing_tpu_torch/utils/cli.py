@@ -33,9 +33,19 @@ reference's 7), and --device.  ``simple`` and ``simplecpu`` read no scene
 files; the lws0 positional of the simple tracer is accepted and ignored;
 ``nodof`` renders an 8x8 sample grid per pixel (its --spp is not read);
 ``simplecpu`` is the reference's CPU tracer, rendered on the host
-whatever the device, at 256x256 by default.  The JAX CLI's --shard
-(multi-device rendering) waits for the port of ``parallel/`` (ROADMAP
-A12).
+whatever the device, at 256x256 by default.
+
+--shard N renders through the sharded path (parallel/mesh.py) on a
+group of N ranks: N shards the spp axis (nodof: its image rows), RxS
+image rows x spp on a 2-D mesh (super, superlmem, bidirectional,
+metropolis, metropolis_vlpgrid); the VLP variants shard their light pass
+too.  Launch it with ``torchrun --nproc-per-node N -m
+opencl_montecarlo_path_tracing_tpu_torch ... --shard N`` (each rank
+renders on cuda:LOCAL_RANK over NCCL, or with --device cpu over gloo);
+N = 1 runs in a plain process.  Rank 0 writes the image, the checkpoint
+and the report.  It composes with --checkpoint in its 1-D spp forms,
+whose windows (--spp-per-step, and the last one) must divide by N; it
+does not compose with --profile-stages or --dynamic-grid-res.
 
 Device selection: an explicit --device wins.  Otherwise PT_PLATFORM
 (``cuda`` or ``cpu``; a non-numeric OCL_PLATFORM is accepted in its place)
@@ -193,6 +203,139 @@ def _staged_vlp_render(timer, key, scene, w, h, spp, quirks, kind, device,
     return film, vlps
 
 
+_SHARD_2D = ("super", "superlmem", "bidirectional", "metropolis",
+             "metropolis_vlpgrid")
+
+
+def _shard_error(msg: str):
+    print(f"error: {msg}", file=sys.stderr)
+    return None
+
+
+def _shard_layout(ns):
+    """(n, rows, spp) of --shard (rows None for the 1-D form), checked
+    against the variant and the options before anything renders; None
+    after printing an error."""
+    spec = ns.shard.lower()
+    try:
+        if "x" in spec:
+            ry, sp = (int(x) for x in spec.split("x"))
+        else:
+            ry, sp = None, int(spec)
+    except ValueError:
+        return _shard_error(f"bad --shard spec {ns.shard!r} (want N or RxS)")
+    n = sp if ry is None else ry * sp
+    if n < 1 or sp < 1:
+        return _shard_error(f"bad --shard spec {ns.shard!r} (want N or RxS)")
+    if ry is not None and ns.variant not in _SHARD_2D:
+        return _shard_error(f"2-D --shard is not supported for {ns.variant} "
+                            "(use the 1-D N form)")
+    if ns.checkpoint and (ry is not None or ns.variant == "nodof"):
+        return _shard_error(
+            "--checkpoint composes with the 1-D spp-sharded --shard forms "
+            f"only (not {'2-D meshes' if ry is not None else ns.variant})")
+    if ns.profile_stages or ns.dynamic_grid_res:
+        return _shard_error("--shard is incompatible with --profile-stages "
+                            "/ --dynamic-grid-res")
+    if ns.checkpoint:
+        step = ns.spp_per_step
+        if step < 1 or step % n or (ns.spp % step) % n:
+            return _shard_error(
+                f"--shard {ns.shard}: every --checkpoint window must divide "
+                f"by {n} (--spp-per-step {step}, last window "
+                f"{ns.spp % step if step > 0 else ns.spp})")
+    return n, ry, sp
+
+
+def _sharded_render(ns, timer, key, scene, w, h, quirks, pos, seed, device,
+                    layout, meta):
+    """--shard dispatch to the parallel/mesh.py renderers on the ranks of
+    the process group (beyond the reference surface: the reference is
+    single-device, ocl_boiler.h:150).  Returns (mesh, film, img); (None,
+    None, None) after printing an error."""
+    from .. import parallel as par
+    from ..parallel import multihost
+    import torch.distributed as dist
+    n, ry, sp = layout
+    multihost.initialize(device=device)
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have != n:
+        _shard_error(f"--shard {ns.shard} needs {n} ranks; have {have} "
+                     f"(launch with torchrun --nproc-per-node {n})")
+        return None, None, None
+    v, spp = ns.variant, ns.spp
+    label = f"rendering (sharded {ns.shard})"
+    try:
+        if v == "nodof":
+            mesh = par.make_spp_mesh(n, axis="y", device=device)
+            img = timer.run(
+                "rendering+reduction (sharded rows)",
+                lambda: par.render_sample_parallel_sharded(
+                    key, scene, w, h, sample_grid=8, mesh=mesh,
+                    quirks=quirks),
+                items=w * h * 64, item_label="samples",
+                data_size=w * h * 64 * 16)
+            return mesh, None, img
+        two_d = ry is not None
+        mesh = (par.make_mesh_2d(ry, sp, device=device) if two_d
+                else par.make_spp_mesh(n, device=device))
+        # each variant is a window function (step, offset, total), so the
+        # plain render (one full window) and --checkpoint (resumable
+        # windows) share one dispatch; a 2-D mesh renders whole
+        if v in ("super", "superlmem"):
+            fn2 = lambda: par.render_super_sharded_2d(  # noqa: E731
+                key, scene, w, h, spp, mesh, quirks)
+            winfn = lambda s, off, tot: par.render_super_sharded(  # noqa
+                key, scene, w, h, s, mesh, quirks, spp_offset=off,
+                spp_total=tot)
+        elif v == "simple":
+            winfn = lambda s, off, tot: par.render_simple_sharded(  # noqa
+                key, w, h, s, mesh, quirks, spp_offset=off, spp_total=tot)
+        elif v == "trianglegrid":
+            mod = _positional(pos, 2, 3.0, float)
+            winfn = lambda s, off, tot: par.render_trianglegrid_sharded(  # noqa
+                key, scene, w, h, s, mesh, cell_size_modifier=mod,
+                quirks=quirks, spp_offset=off, spp_total=tot)
+        elif v == "bidirectional":
+            n_vlp = _positional(pos, 2, 512)
+            fn2 = lambda: par.render_bidirectional_sharded_2d(  # noqa: E731
+                key, scene, w, h, spp, mesh, n_vlp=n_vlp, quirks=quirks)
+            winfn = lambda s, off, tot: par.render_bidirectional_sharded(  # noqa
+                key, scene, w, h, s, mesh, n_vlp=n_vlp, quirks=quirks,
+                spp_offset=off, spp_total=tot)
+        else:   # metropolis / metropolis_vlpgrid
+            kw = dict(n_seedpaths=_positional(pos, 2, 512),
+                      mutation_rounds=_positional(pos, 3, 8), quirks=quirks,
+                      use_grid=v.endswith("vlpgrid"),
+                      grid_modifier=_positional(pos, 4, 3.0, float))
+            fn2 = lambda: par.render_metropolis_sharded_2d(  # noqa: E731
+                key, scene, w, h, spp, mesh, **kw)
+            winfn = lambda s, off, tot: par.render_metropolis_sharded(  # noqa
+                key, scene, w, h, s, mesh, spp_offset=off, spp_total=tot,
+                **kw)
+        if ns.checkpoint:
+            from .checkpoint import render_resumable
+            t0 = time.perf_counter()
+            ck = render_resumable(
+                lambda k, s_, ww, hh, spp, spp_offset, spp_total:
+                    winfn(spp, spp_offset, spp_total),
+                key, scene, w, h, spp, checkpoint_path=ns.checkpoint,
+                spp_per_step=ns.spp_per_step, seed=seed, meta=meta,
+                group=mesh.group)
+            timer.record(f"{label} (checkpointed, {ck.spp_done} spp)",
+                         (time.perf_counter() - t0) * 1e3,
+                         items=w * h, item_label="pixels",
+                         data_size=w * h * 4)
+            return mesh, torch.from_numpy(ck.film), None
+        fn = fn2 if two_d else (lambda: winfn(spp, 0, None))
+        film = timer.run(label, fn, items=w * h, item_label="pixels",
+                         data_size=w * h * 4)
+        return mesh, film, None
+    except ValueError as e:   # indivisible spp / rows
+        _shard_error(f"--shard {ns.shard}: {e}")
+        return None, None, None
+
+
 def main(argv=None):
     from ..api import VARIANTS
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -229,9 +372,17 @@ def main(argv=None):
                     help="time the VLP pipeline stage by stage (light pass, "
                          "box reduction + grid init, render), mirroring the "
                          "reference's per-stage event report")
+    ap.add_argument("--shard", default=None, metavar="N|RxS",
+                    help="render through the sharded path on a group of N "
+                         "ranks (launch with torchrun --nproc-per-node N): "
+                         "N shards spp (nodof: rows), RxS image rows x spp "
+                         "(super/superlmem/bidirectional/metropolis"
+                         "[_vlpgrid]); composes with --checkpoint (1-D "
+                         "forms)")
     ap.add_argument("--device", default=None,
                     help="torch device to render on (default: PT_PLATFORM "
-                         "and PT_DEVICE, else cuda)")
+                         "and PT_DEVICE, else cuda; under --shard the "
+                         "rank's cuda:LOCAL_RANK)")
     ns = ap.parse_args(argv)
     pos = ns.positionals
 
@@ -274,9 +425,17 @@ def main(argv=None):
                      items=w * h, item_label="float", data_size=w * h * 4)
         return _write(ns, out_name, film, None, w, h, quirks, timer)
 
+    layout = None
+    if ns.shard:
+        layout = _shard_layout(ns)
+        if layout is None:
+            return 1
     device = _select_device(ns.device)
     if device is None:
         return 1
+    if ns.shard:
+        from ..parallel.multihost import rank_device
+        device = rank_device(device)
     timer = StageTimer(device)
 
     if ns.variant != "simple":
@@ -290,11 +449,32 @@ def main(argv=None):
         print(f"Number of triangles: {scene.n_triangles}")
         print(f"Number of lights: {scene.n_lights}")
 
+    # the checkpoint records what else the film depends on, so that another
+    # variant, scene, quirk set or parameter list starts over instead of
+    # adding to it
+    meta = {"variant": ns.variant,
+            "scene_dir": os.path.abspath(ns.scene_dir),
+            "triangles": ns.triangles_file, "quirks": ns.quirks,
+            "params": " ".join(pos[2:]),
+            "dynamic_grid_res": ns.dynamic_grid_res}
+    if ns.shard:
+        mesh, film, img = _sharded_render(
+            ns, timer, key, None if ns.variant == "simple" else scene, w, h,
+            quirks, pos, seed, device, layout, meta)
+        try:
+            if mesh is None:
+                return 1
+            if mesh.rank != 0:
+                return 0          # rank 0 writes
+            return _write(ns, out_name, film, img, w, h, quirks, timer)
+        finally:
+            import torch.distributed as dist
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
     def run_maybe_resumable(name, render_fn, scene_arg, **kw):
         """Either one render or checkpointed spp windows (whose film is
-        summed on the host).  The checkpoint records what else the film
-        depends on, so that another variant, scene, quirk set or parameter
-        list starts over instead of adding to it."""
+        summed on the host)."""
         if not ns.checkpoint:
             return timer.run(
                 name,
@@ -302,11 +482,6 @@ def main(argv=None):
                                   quirks=quirks, device=device, **kw),
                 items=w * h, item_label="pixels", data_size=w * h * 4)
         from .checkpoint import render_resumable
-        meta = {"variant": ns.variant,
-                "scene_dir": os.path.abspath(ns.scene_dir),
-                "triangles": ns.triangles_file, "quirks": ns.quirks,
-                "params": " ".join(pos[2:]),
-                "dynamic_grid_res": ns.dynamic_grid_res}
         t0 = time.perf_counter()
         ck = render_resumable(render_fn, key, scene_arg, w, h, ns.spp,
                               checkpoint_path=ns.checkpoint,

@@ -6,9 +6,10 @@ reproduces the exact header bytes and sample order so outputs are
 bit-comparable with the committed golden renders
 (e.g. the reference's CLSuperPathTracer/result.ppm).
 
-Port of ``opencl_montecarlo_path_tracing_tpu/utils/pam.py``: numpy only.
-The JAX package's optional native C++ writer is not carried over; this
-path writes the same bytes.
+Port of ``opencl_montecarlo_path_tracing_tpu/utils/pam.py``.  The native
+C++ reader and writer (utils/native.py) are used when they build, unless
+``PT_NO_NATIVE=1``; the NumPy code below is the plain version, which
+writes the same bytes.
 """
 
 from __future__ import annotations
@@ -53,6 +54,13 @@ def save_pam(fname: str, img: ImgInfo) -> None:
     """Write a PAM file. ``img.data`` is the flat sample array; 3-channel
     data must already be padded to 4 in memory (pamalign.h:187) - the writer
     skips every 4th sample in that case, matching pamalign.h:226-234."""
+    from . import native
+    if native.enabled():
+        data = np.asarray(img.data)
+        data = data.astype(np.uint16 if img.depth == 16 else np.uint8)
+        if native.pam_write(fname, img.width, img.height, img.channels,
+                            img.maxval, img.depth, data):
+            return
     data = np.asarray(img.data)
     if img.depth == 8:
         data = data.astype(np.uint8)
@@ -70,6 +78,16 @@ def save_pam(fname: str, img: ImgInfo) -> None:
 
 
 def load_pam(fname: str) -> ImgInfo:
+    from . import native
+    if native.enabled():
+        got = native.pam_read(fname)
+        if got is not None:
+            w, h, ch, mv, samples = got
+            mem_ch = ch + (1 if ch == 3 else 0)
+            return ImgInfo(width=w, height=h, channels=ch, maxval=mv,
+                           depth=16 if mv > 255 else 8,
+                           data=samples.reshape(h, w, mem_ch)
+                           if mem_ch > 1 else samples.reshape(h, w))
     with open(fname, "rb") as fp:
         raw = fp.read()
     if not raw.startswith(b"P7\n"):

@@ -890,6 +890,21 @@ def test_vlp_kernel_holds_to_oracle(cuda_device):
     assert ok, st
 
 
+@pytest.mark.gpu
+def test_one_rank_nccl_sharded_super_equals_render_super(cuda_device):
+    """The collective path on the card: one spawned rank in an NCCL group
+    renders super through ``render_super_sharded`` (B1 for its window, a
+    real all-reduce of one rank), bit for bit ``render_super``."""
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.tools import (
+        validate_sharded as V)
+    [[r]] = V.run_ranks(V.run_checks, 1, [("check_super", dict(
+        spec=(1,), key=make_key(3), scene=demo_scene()[0], width=256,
+        height=256, spp=16))], device="cuda", backend="nccl", timeout=300)
+    assert r["ok"] and r["detail"] == "bit-equal", r["detail"]
+    assert r["counts"]["mega_super"] == 1
+
+
 def test_file_imports_no_jax():
     """This file runs where only the port is installed: loading it imports
     neither JAX nor the JAX package."""
