@@ -32,11 +32,26 @@ Phases, each of which raises on failure (nothing is caught and skipped):
 5. the super main path: ``api.render("super")`` on ``demo_scene()`` at
    1024x1024 with 1024 spp; the film is checked, quantised and written as a
    PAM file, and Mpaths/s is timed with CUDA events over 3 runs;
+5b. the light pass's kernels (``light_pass``: L1, the emission; L2a,
+   the Metropolis seed paths; L2b, the chain and its emission) against
+   their plain versions (``plain=True`` on the card), bit for bit, on
+   ``demo_scene()`` and ``dense_vlp_scene()`` at 512 work items / chains a
+   light and 8 rounds, under the default quirks and under REFERENCE_LMEM
+   (the reused light direction, negative t) with verify_eps 0; a window of
+   each against the same rows of the full run; the 20,736-triangle sheet
+   past the gate runs the plain light pass and neither kernel.  A
+   difference prints every differing row or chain with its light, slot
+   and draw site, and the first round at which the first differing chain
+   differs.  Each kernel is timed (CUDA events, warm, 3 runs) beside its
+   plain version and its bound over the traces it makes (a counting
+   launch);
 6. the VLP main paths: ``api.render`` at 512x512 with 256 spp -
    bidirectional, metropolis and metropolis_vlpgrid on ``demo_scene()``,
    bidirectional on ``dense_vlp_scene()`` - each timed over 3 runs after a
-   warm-up, its light pass and render pass timed apart, and the Metropolis
-   chain's device-busy share read from a profile;
+   warm-up, each render launching exactly L1 (bidirectional) or L2a and
+   L2b (metropolis*) and B4 once; its light pass and render pass timed
+   apart, the light pass's table bit-equal to its plain version's, and
+   the light pass's launches and device-busy share read from a profile;
 7. the tier-1 VLP route: bidirectional under the REFERENCE_LMEM quirks
    (outside B4's gate) at 256x256x4 runs the plain wavefront on the card,
    whose gather is B6; its film is held to the contract against the same
@@ -119,7 +134,7 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    process the staged film (VLPs, box and grid built in earlier stages,
    then B4) against ``render_metropolis(dynamic_grid_res=True)``, bit for
    bit (the contract only where the light pass is not deterministic run
-   to run); B1 and B4 at 64x64x4 on the content band (rows 372+) against
+   to run), its light pass one launch each of L2a and L2b; B1 and B4 at 64x64x4 on the content band (rows 372+) against
    ``oracle_super`` and ``oracle_bpt.render_with_vlps`` (the demo's
    emitted table) under ``tests/test_crn.py``'s contract (``utils/crn.py``
    ``ORACLE``: p98 < 1e-5, ties under 2%); the CLI's ``super 256 256 --spp
@@ -144,20 +159,23 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    CLI under torchrun with ``--shard 1`` (NCCL; with ``--checkpoint``)
    against ``api.render``, ``--shard 2`` without torchrun (exit 1); and
    the native PAM writer (utils/native.py, g++) byte for byte the NumPy
-   one's.  Every rank of a check must launch its kernel.
+   one's.  Every rank of a check must launch its kernel (and a VLP
+   render's ranks their light pass's kernels).
 
 Every path phase (5, 6, 7, 10, 12, 13) and each diagnostic's run (14-16)
 sets all launch counts to 0 just before it and reads them just after; the
-counts in the ``kernels`` line come from those runs and from phase 19's
-sharded renders, counted in each rank around each render and summed over
-the ranks (phase 18 reads its own for its checks).  Each kernel's
+counts in the ``kernels`` line come from those runs, from phase 18's
+staged render (the light pass's) and from phase 19's sharded renders,
+counted in each rank around each render and summed over the ranks.  Each kernel's
 ``bound_ms`` is the least time the card could take for the same work: the
 larger of its bytes (inputs read once, output written once) over 3.35 TB/s
 and its operations over 3.345e13 FP32 ops/s (132 SMs x 128 lanes x 1.98
 GHz, one multiply or add an instruction: the kernels build with
 --fmad=false), counting the (ray, triangle) pairs this run's data needs
 (B4: the pairs its culled warps test and the terms its lit samples
-gather, from its counting launch; B6: the live rows); for the loop and primitive arms, each one dependent chain, the chain's
+gather, from its counting launch; B6: the live rows; L1 and L2: the
+traces they make, from a counting launch, each over the floor, every
+square, sphere and triangle); for the loop and primitive arms, each one dependent chain, the chain's
 FP32 operations x 4 cycles over the SM clock (``bound_by``
 ``"latency"``).  The last line of standard output is ``{"ok": true,
 "device": {...}}``; the line before it is the card's name and power limit,
@@ -215,6 +233,11 @@ HIT_OPS = 25
 FLOOR_SHADE_OPS = 13
 MIRROR_OPS = 30
 SKY_OPS = 12
+# the light pass's traces (kernels L1, L2): a square test's FP32
+# operations (its plane distance, hit point and two |.| compares)
+SQUARE_OPS = 9
+LIGHT_KERNELS = ("light_emit", "light_mlt_seed", "light_mlt_chain")
+LIGHT_WINDOW = 128, 200  # phase 5b's windows: first item / chain, count
 
 SW = SH = 1024         # the simple main path: bench.py:92-94
 SSPP = 256
@@ -280,19 +303,21 @@ def timed_call(fn):
 
 def reset_counts():
     from opencl_montecarlo_path_tracing_tpu_torch.ops import (
-        diag_dda, diag_loops, diag_takelist, gather_vlp, mega_simple,
-        mega_super, mega_vlp, tri_closest)
+        diag_dda, diag_loops, diag_takelist, gather_vlp, light_pass,
+        mega_simple, mega_super, mega_vlp, tri_closest)
     mega_super.LAUNCHES = mega_super.BLOCKED_LAUNCHES = 0
     mega_vlp.LAUNCHES = gather_vlp.LAUNCHES = tri_closest.LAUNCHES = 0
     mega_simple.LAUNCHES = 0
     diag_dda.CLOSEST_LAUNCHES = diag_dda.OCC_LAUNCHES = 0
     diag_takelist.LAUNCHES = diag_loops.LAUNCHES = 0
+    light_pass.EMIT_LAUNCHES = light_pass.SEED_LAUNCHES = 0
+    light_pass.CHAIN_LAUNCHES = 0
 
 
 def read_counts() -> dict:
     from opencl_montecarlo_path_tracing_tpu_torch.ops import (
-        diag_dda, diag_loops, diag_takelist, gather_vlp, mega_simple,
-        mega_super, mega_vlp, tri_closest)
+        diag_dda, diag_loops, diag_takelist, gather_vlp, light_pass,
+        mega_simple, mega_super, mega_vlp, tri_closest)
     return {"mega_super": mega_super.LAUNCHES,
             "mega_blocked": mega_super.BLOCKED_LAUNCHES,
             "mega_vlp": mega_vlp.LAUNCHES, "gather_vlp": gather_vlp.LAUNCHES,
@@ -301,7 +326,10 @@ def read_counts() -> dict:
             "diag_dda_closest": diag_dda.CLOSEST_LAUNCHES,
             "diag_dda_occ": diag_dda.OCC_LAUNCHES,
             "diag_takelist": diag_takelist.LAUNCHES,
-            "diag_loops": diag_loops.LAUNCHES}
+            "diag_loops": diag_loops.LAUNCHES,
+            "light_emit": light_pass.EMIT_LAUNCHES,
+            "light_mlt_seed": light_pass.SEED_LAUNCHES,
+            "light_mlt_chain": light_pass.CHAIN_LAUNCHES}
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
@@ -757,6 +785,223 @@ def profiled(name, fn):
                  "dispatch per kernel")
 
 
+def light_trace_ops(scn) -> int:
+    """FP32 operations of one closest-hit trace of the light pass: the
+    floor, every square and sphere, every triangle of the mesh (a
+    division-free Moller-Trumbore pair)."""
+    return (FLOOR_OPS + SQUARE_OPS * int(scn.square_k.shape[0])
+            + SPHERE_OPS * int(scn.sphere_centers.shape[0])
+            + PAIR_OPS * int(scn.tri_v0.shape[0]))
+
+
+def differing_rows(a, b) -> list:
+    """Indices of the rows (first axis) where ``a`` and ``b`` differ."""
+    import torch
+    d = (a != b).reshape(a.shape[0], -1).any(1)
+    return torch.nonzero(d).flatten().tolist()
+
+
+def light_differences(stage, got, want, args) -> tuple[int, float]:
+    """Print where the kernel's ``got`` differs from the plain ``want``
+    (every differing row or chain, with its light, item or chain, slot and
+    draw site); return the count of differing rows and the max abs
+    difference (0, 0.0 when bit-equal).
+    ``stage``: "L1" (emitted rows), "L2a" ((v, length) seed states) or
+    "L2b" (the chain's table); ``args``: the stage's window and sizes."""
+    import torch
+    if stage == "L2a":
+        rows = sorted(set(differing_rows(got[0], want[0]))
+                      | set(differing_rows(got[1], want[1])))
+        err = float((got[0] - want[0]).abs().max()) if rows else 0.0
+    else:
+        rows = differing_rows(got, want)
+        err = float((got - want).abs().max()) if rows else 0.0
+    if not rows:
+        return 0, 0.0
+    n = args["n"]
+    if stage == "L1":
+        for i in rows:
+            l = i // n
+            print(f"    L1 row {i}: light {l}, work item {i % n}, "
+                  f"site {64 + (0 if args['reuse'] else l)}: kernel "
+                  f"{got[i].tolist()} plain {want[i].tolist()}")
+    elif stage == "L2a":
+        for i in rows:
+            l, c = divmod(i, n)
+            slot = next((k for k in range(4)
+                         if not torch.equal(got[0][i, k], want[0][i, k])), 4)
+            print(f"    L2a chain {c}, light {l}: first slot {slot} "
+                  f"(site {192 + 4 * l + min(slot, 3)}), length "
+                  f"{int(got[1][i])} / {int(want[1][i])}")
+    else:
+        chains = sorted({(i // (4 * n), i % n) for i in rows})
+        for l, c in chains:
+            slot = min((i // n) % 4 for i in rows
+                       if i // (4 * n) == l and i % n == c)
+            print(f"    L2b chain {c}, light {l}: rows differ from "
+                  f"slot {slot}")
+        print(f"    L2b: {len(chains)} of {args['nl'] * n} chains differ "
+              f"({100 * len(chains) / (args['nl'] * n):.2f}%)")
+        # the first round at which the first differing chain's table
+        # differs: the first r of its rounds, kernel against plain
+        l, c = chains[0]
+        r_at = args["round_of"](c)
+        print(f"    L2b chain {c}, light {l}: first differs after round "
+              f"{r_at} (sites {256 + (r_at - 1 + l * args['rounds']) * 16}"
+              f" + 0..15)" if r_at else
+              f"    L2b chain {c}: every round prefix equal; the emission "
+              "differs")
+    return len(rows), err
+
+
+def phase_light_pass(card: str) -> dict:
+    """Kernels L1, L2a and L2b (``ops/light_pass.py``) against their plain
+    versions (``plain=True`` on the card), bit for bit: on the demo and
+    dense-VLP scenes, 512 work items / chains a light and 8 rounds, under
+    the default quirks and under REFERENCE_LMEM (negative t accepted,
+    the light direction reused) with verify_eps 0 (the reference's exact
+    test); a window of each equal to the same rows of the full run; a scene
+    past the gate runs the plain light pass and neither kernel.  Each
+    kernel timed (CUDA events, warm, 3 runs) beside its plain version and
+    its bound over the traces this run makes.  Returns the kernels line's
+    rows for L1 and for L2 (L2a + L2b)."""
+    import torch
+    from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
+        DEFAULT, REFERENCE_LMEM)
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.models import (
+        metropolis as MT)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import light_pass as L
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as V
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
+        prep_scene)
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        demo_scene, dense_vlp_scene, large_mesh_scene)
+
+    key, n, rounds = make_key(0), MLT_SEEDS, MLT_ROUNDS
+    cuda, plain = dict(device="cuda"), dict(device="cuda", plain=True)
+    failed, err = [], {"L1": 0.0, "L2a": 0.0, "L2b": 0.0}
+    print(f"L1 / L2a / L2b vs plain, bit for bit ({n} work items / chains a "
+          f"light, {rounds} rounds):")
+    demo = prep_scene(demo_scene()[0])
+    for sname, scn in (("demo", demo),
+                       ("dense_vlp_scene", prep_scene(dense_vlp_scene()))):
+        nl = int(scn.lights.shape[0])
+        full = {}
+        for qname, q, eps in (("default", DEFAULT, 1e-3),
+                              ("REFERENCE_LMEM, verify_eps 0",
+                               REFERENCE_LMEM, 0.0)):
+            def round_of(chain):
+                """The first r whose r-round prefix of ``chain`` differs."""
+                sd = MT.mlt_seed(key, scn, n, q, chain0=chain, chains=1,
+                                 **plain)
+                for r in range(1, rounds + 1):
+                    kw = dict(chain0=chain, chains=1, round_stride=rounds)
+                    if not torch.equal(
+                            MT.mlt_mutate_emit(key, scn, n, r, q, eps, sd,
+                                               **kw, **cuda),
+                            MT.mlt_mutate_emit(key, scn, n, r, q, eps, sd,
+                                               **kw, **plain)):
+                        return r
+                return 0
+            args = dict(n=n, nl=nl, rounds=rounds,
+                        reuse=q.reuse_light_direction, round_of=round_of)
+            e = V.emit_vlps(key, scn, n, q, **cuda)
+            sk = MT.mlt_seed(key, scn, n, q, **cuda)
+            sp = MT.mlt_seed(key, scn, n, q, **plain)
+            t = MT.mlt_mutate_emit(key, scn, n, rounds, q, eps, sp, **cuda)
+            res = [("L1", e, V.emit_vlps(key, scn, n, q, **plain)),
+                   ("L2a", sk, sp),
+                   ("L2b", t, MT.mlt_mutate_emit(key, scn, n, rounds, q, eps,
+                                                 sp, **plain))]
+            line = []
+            for stage, got, want in res:
+                nd, d = light_differences(stage, got, want, args)
+                err[stage] = max(err[stage], d)
+                line.append(f"{stage} "
+                            + (f"{nd} rows DIFFER" if nd else "bit-equal"))
+                if nd:
+                    failed.append(f"{sname} {qname} {stage}")
+            live = (int((e[:, 3] > 0).sum()), int((t[:, 3] > 0).sum()))
+            print(f"  {sname}, {qname}: {', '.join(line)} (live rows: "
+                  f"emitted {live[0]} of {e.shape[0]}, Metropolis "
+                  f"{live[1]} of {t.shape[0]})")
+            full.setdefault("emit", e)
+            full.setdefault("mlt", t)
+        # windows: the same rows of the full (default) run
+        g0, cnt = LIGHT_WINDOW
+        rows = torch.from_numpy(np.concatenate(
+            [np.arange(g0, g0 + cnt) + n * b for b in range(nl)]))
+        ew = V.emit_vlps(key, scn, n, gi0=g0, count=cnt, **cuda)
+        rows4 = torch.from_numpy(np.concatenate(
+            [np.arange(g0, g0 + cnt) + n * b for b in range(4 * nl)]))
+        tw = MT.mlt_vlps(key, scn, n, rounds, chain0=g0, chains=cnt, **cuda)
+        ok = (torch.equal(ew, full["emit"][rows]),
+              torch.equal(tw, full["mlt"][rows4]))
+        print(f"  {sname}, window [{g0}, {g0 + cnt}): emitted rows "
+              f"{'equal' if ok[0] else 'DIFFER'}, Metropolis rows "
+              f"{'equal' if ok[1] else 'DIFFER'} to the full run's")
+        if not all(ok):
+            failed.append(f"{sname} window")
+
+    # past the gate: the plain light pass on the card, no L1 / L2 launch
+    sheet = prep_scene(large_mesh_scene())
+    reset_counts()
+    ea = V.emit_vlps(key, sheet, 64, **cuda)
+    ta = MT.mlt_vlps(key, sheet, 16, 1, **cuda)
+    torch.cuda.synchronize()
+    c = read_counts()
+    route = L.light_route(sheet, "cuda")
+    gate_ok = route == "plain" and not any(c[k] for k in LIGHT_KERNELS) \
+        and ea.shape == (128, 4) and ta.shape == (128, 4)
+    print(f"  {int(sheet.tri_v0.shape[0])}-triangle sheet: route {route}, "
+          f"light-pass launches {[c[k] for k in LIGHT_KERNELS]}, B7 "
+          f"{c['tri_closest']} ({'ok' if gate_ok else 'VIOLATION'})")
+    if not gate_ok:
+        failed.append("past the gate")
+    if failed:
+        raise RuntimeError(f"light-pass kernels vs plain: {failed}")
+
+    # times and bounds on the main paths' configuration (demo, default)
+    print(f"light pass on the demo scene, {n} a light, {rounds} rounds "
+          f"({card}):")
+    seed = MT.mlt_seed(key, demo, n, DEFAULT, **cuda)
+    calls = {
+        "L1": (lambda tr=None: L.emit(key, demo, n, DEFAULT, traces=tr),
+               lambda: V.emit_vlps(key, demo, n, **plain), 3),
+        "L2a": (lambda tr=None: L.mlt_seed(key, demo, n, DEFAULT,
+                                           traces=tr),
+                lambda: MT.mlt_seed(key, demo, n, **plain), 3),
+        "L2b": (lambda tr=None: L.mlt_mutate_emit(
+            key, demo, n, rounds, DEFAULT, 1e-3, seed, traces=tr),
+            lambda: MT.mlt_mutate_emit(key, demo, n, rounds, DEFAULT, 1e-3,
+                                       seed, **plain), 1)}
+    nl = int(demo.lights.shape[0])
+    scene_bytes = 4 * L.kernel_scene(demo, "cuda")[0].numel()
+    out_bytes = {"L1": nl * n * 16, "L2a": nl * n * 52,
+                 "L2b": nl * n * 52 + 4 * nl * n * 16}
+    st = {}
+    for name, (kernel, plain_fn, runs) in calls.items():
+        traces = torch.zeros(1, dtype=torch.int64, device="cuda")
+        kernel(traces)
+        torch.cuda.synchronize()
+        tr = int(traces)
+        ms = time_ms(kernel, TIMED_RUNS)
+        p_ms = time_ms(plain_fn, runs, warm_up=runs > 1)
+        b_ms, b_by = bound(tr * light_trace_ops(demo),
+                           scene_bytes + out_bytes[name])
+        st[name] = dict(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                        traces=tr)
+        print(f"  {name}: {ms:.4f} ms, plain {p_ms:.1f} ms; {tr} traces "
+              f"x {light_trace_ops(demo)} operations: bound {b_ms:.6f} ms "
+              f"({b_by}, {100 * b_ms / ms:.2f}% of the kernel's time)")
+    l2 = {k: st["L2a"][k] + st["L2b"][k]
+          for k in ("ms", "plain_ms", "bound_ms")}
+    return {"emit": dict(st["L1"], max_abs=err["L1"]),
+            "mlt": dict(l2, max_abs=max(err["L2a"], err["L2b"]),
+                        bound_by=st["L2b"]["bound_by"])}
+
+
 def phase_vlp_main_paths(card: str) -> dict:
     import torch
     import opencl_montecarlo_path_tracing_tpu_torch as pt
@@ -778,37 +1023,43 @@ def phase_vlp_main_paths(card: str) -> dict:
              ("bidirectional", dense_vlp_scene(), "dense_vlp_scene")]
     key = make_key(0)
     total = 0
+    light = dict.fromkeys(LIGHT_KERNELS, 0)
     for variant, scene, stag in paths:
         film, ms, counts = timed_renders(lambda: pt.render(
             variant, scene, VW, VH, spp=VSPP, seed=0, device="cuda"))
-        if counts["mega_vlp"] != TIMED_RUNS or counts["gather_vlp"]:
+        # a render's passes: L1 (bidirectional) or L2a and L2b, then B4
+        want = dict.fromkeys(counts, 0)
+        for k in ("mega_vlp",) + (
+                ("light_emit",) if variant == "bidirectional"
+                else ("light_mlt_seed", "light_mlt_chain")):
+            want[k] = TIMED_RUNS
+        if counts != want:
             raise RuntimeError(f"{variant} on {stag}: launches {counts} in "
-                               f"{TIMED_RUNS} renders (want B4 once each)")
+                               f"{TIMED_RUNS} renders (want the light pass's "
+                               "kernels and B4 once each, nothing else)")
         total += counts["mega_vlp"]
+        for k in LIGHT_KERNELS:
+            light[k] += counts[k]
         mpaths = VW * VH * VSPP / (ms / 1e3) / 1e6
 
         # the same render in its two passes, and the film it must equal
         scn = prep_scene(scene)
         use_grid = variant.endswith("vlpgrid")
         if variant == "bidirectional":
-            def light():
+            def light_pass():
                 return V.emit_vlps(key, scn, 512, device="cuda"), None
         else:
-            def light():
+            def light_pass():
                 vl = mlt_vlps(key, scn, 512, 8, device="cuda")
                 grid = (V.build_vlp_grid(
                     vl, V.vlp_grid_static_res(int(vl.shape[0])))
                     if use_grid else None)
                 return vl, grid
-        if variant == "metropolis":
-            # the chain's device-busy share, on the pass the check needs
-            (vlps, grid), line = profiled("chain", light)
-            print("  " + line)
-        else:
-            vlps, grid = light()
-        # the Metropolis chain takes seconds: one more (warm) run times it
-        light_ms = time_ms(light, TIMED_RUNS if variant == "bidirectional"
-                           else 1, warm_up=False)
+        # the light pass's launches and device-busy share, on the pass the
+        # check needs
+        (vlps, grid), line = profiled("light pass", light_pass)
+        print("  " + line)
+        light_ms = time_ms(light_pass, TIMED_RUNS, warm_up=False)
         render_ms = time_ms(lambda: film_vlp(
             key, scn, vlps, grid, VW, VH, VSPP, 0, VSPP, DEFAULT,
             device="cuda"), TIMED_RUNS)
@@ -819,13 +1070,22 @@ def phase_vlp_main_paths(card: str) -> dict:
                 or not torch.equal(film, again):
             raise RuntimeError(f"{variant} on {stag}: bad main-path film "
                                f"{f.shape}, or not the film of its passes")
+        # the kernels' table is the plain light pass's, so the film is
+        # film_vlp's on the plain table
+        plain = (V.emit_vlps(key, scn, 512, device="cuda", plain=True)
+                 if variant == "bidirectional" else
+                 mlt_vlps(key, scn, 512, 8, device="cuda", plain=True))
+        if not torch.equal(vlps, plain):
+            raise RuntimeError(f"{variant} on {stag}: the light pass's "
+                               "table differs from its plain version's")
         n_live = int((vlps[:, 3] > 0).sum())
         print(f"main path: {variant} {VW}x{VH}x{VSPP} on {stag}: "
               f"{ms:.1f} ms/render, {mpaths:.1f} Mpaths/s ({card}); light "
               f"pass {light_ms:.1f} ms, render pass {render_ms:.2f} ms "
-              f"({n_live} live of {int(vlps.shape[0])} VLPs); film "
-              f"mean/spp {float(f.mean()) / VSPP:.4f}, launches {counts}")
-    return {"launches": total}
+              f"({n_live} live of {int(vlps.shape[0])} VLPs, the table "
+              f"bit-equal to the plain light pass's); film mean/spp "
+              f"{float(f.mean()) / VSPP:.4f}, launches {counts}")
+    return {"launches": total, "light": light}
 
 
 def phase_tier1_route(card: str) -> dict:
@@ -875,7 +1135,8 @@ def phase_tier1_route(card: str) -> dict:
         "bidirectional", scene, w, h, spp=spp, seed=0,
         quirks=REFERENCE_LMEM, device="cuda"))
     row = b6_at_render_shape("B6 at the render's shape", calls, card)
-    return dict(row, launches=counts["gather_vlp"])
+    return dict(row, launches=counts["gather_vlp"],
+                light_emit=counts["light_emit"])
 
 
 def recorded_b6_calls(fn) -> list:
@@ -2195,8 +2456,15 @@ def phase_utilities(card: str) -> dict:
               f"VLP tables {'bit-equal' if same_tables else 'DIFFER'}, "
               f"films {'bit-equal' if bits else 'differ'}; B4 launches in "
               f"the staged render {staged_counts['mega_vlp']}")
+        print(f"  staged render's light pass: L2a "
+              f"{staged_counts['light_mlt_seed']}, L2b "
+              f"{staged_counts['light_mlt_chain']} launches")
         if staged_counts["mega_vlp"] != 1:
             failed.append("staged render: B4 not launched once")
+        if (staged_counts["light_mlt_seed"], staged_counts["light_mlt_chain"],
+                staged_counts["light_emit"]) != (1, 1, 0):
+            failed.append("staged render: L2a and L2b not launched once")
+        out["light"] = {k: staged_counts[k] for k in LIGHT_KERNELS}
         if not bits:
             # bit-equal tables give bit-equal films (the same functions in
             # the same order); only a light pass that is not deterministic
@@ -2276,6 +2544,9 @@ SHARD_2D = 512, 64      # the 2 x 2 mesh's runs: size, spp
 SHARD_KERNEL = {"super": "mega_super", "trianglegrid": "mega_blocked",
                 "simple": "mega_simple", "bidirectional": "mega_vlp",
                 "metropolis": "mega_vlp", "nodof": "mega_super"}
+# and the light-pass kernels a sharded VLP render's ranks must launch
+SHARD_LIGHT = {"bidirectional": ("light_emit",),
+               "metropolis": ("light_mlt_seed", "light_mlt_chain")}
 
 
 def sharded_group(V, world, checks, backend, failed, counts):
@@ -2288,14 +2559,20 @@ def sharded_group(V, world, checks, backend, failed, counts):
     for i, r in enumerate(ranks[0]):
         want = SHARD_KERNEL[r["name"]]
         launched = [rk[i]["counts"][want] for rk in ranks]
+        # the light pass's kernels each rank must launch
+        lk = SHARD_LIGHT.get(r["name"], ())
+        light = {k: [rk[i]["counts"][k] for rk in ranks] for k in lk}
         for rk in ranks:
             for k, v in rk[i]["counts"].items():
                 counts[k] += v
         ok = r["ok"] and all(rk[i]["ok"] for rk in ranks) \
-            and min(launched) >= 1
+            and min(launched) >= 1 and all(min(v) >= 1 for v in
+                                           light.values())
         print(f"  {r['name']} on {r['mesh']} ({backend}, {world} ranks on "
               f"cuda:0): {'ok' if ok else 'FAILED'} - {r['detail']}; "
-              f"{want} launches by rank {launched} ({r['seconds']:.1f} s)")
+              f"{want} launches by rank {launched}"
+              + "".join(f", {k} {v}" for k, v in light.items())
+              + f" ({r['seconds']:.1f} s)")
         if not ok:
             failed.append(f"{r['name']} on {r['mesh']}")
     print(f"  [{world}-rank {backend} group: "
@@ -2328,7 +2605,7 @@ def phase_sharded(card: str) -> dict:
         ImgInfo, load_pam, save_pam)
 
     failed = []
-    counts = dict.fromkeys(SHARD_KERNEL.values(), 0)
+    counts = dict.fromkeys(tuple(SHARD_KERNEL.values()) + LIGHT_KERNELS, 0)
     scene, tag = demo_scene()
     key = make_key(0)
     frame = dict(key=key, scene=scene)
@@ -2492,6 +2769,7 @@ def main() -> int:
     b4 = phase(phase_vlp_kernel_vs_plain, gt, tables, card)
     b6_table = phase(phase_gather_kernel_vs_plain, card)
     mp = phase(phase_super_main_path, card)
+    lpk = phase(phase_light_pass, card)
     vp = phase(phase_vlp_main_paths, card)
     b6 = phase(phase_tier1_route, card)
     b23 = phase(phase_blocked_kernel_vs_plain, gt, card)
@@ -2504,7 +2782,7 @@ def main() -> int:
     b8_prim = phase(phase_diag_primitives, card)
     b8_closest, b8_occ = phase(phase_diag_dda, card)
     phase(phase_cli)
-    phase(phase_utilities, card)
+    ut = phase(phase_utilities, card)
     sh = phase(phase_sharded, card)["counts"]
     print(f"smoke: {time.perf_counter() - t0:.1f} s")
     src = f"{PKG}/csrc"
@@ -2543,6 +2821,17 @@ def main() -> int:
         row("diag_loops", "diag_loops.cu",
             "tools/diag_loops.py:47, :70, :85, :103, :119, :136",
             b8_loops["launches"], b8_loops),
+        # no pl.pallas_call: the JAX package's light pass is XLA under jit
+        row("light_emit", "light_pass.cu",
+            f"{ref}/vlp.py:76 (none: XLA under jax.jit)",
+            vp["light"]["light_emit"] + b6["light_emit"] + sh["light_emit"],
+            lpk["emit"]),
+        row("light_mlt", "light_pass.cu",
+            "opencl_montecarlo_path_tracing_tpu/models/metropolis.py:234-289"
+            " (none: XLA fori_loop under jax.jit)",
+            sum(vp["light"][k] + ut["light"][k] + sh[k]
+                for k in ("light_mlt_seed", "light_mlt_chain")),
+            lpk["mlt"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

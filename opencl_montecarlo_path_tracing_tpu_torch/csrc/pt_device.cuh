@@ -1,7 +1,7 @@
 // Device code shared by the megakernels (csrc/mega_super.cu, kernel B1;
 // csrc/mega_vlp.cu, kernel B4; csrc/mega_blocked.cu, kernels B2/B3;
-// csrc/mega_simple.cu, kernel B5) and the cell-walk diagnostic
-// (csrc/diag_dda.cu): the threefry stream, the packed scene in shared
+// csrc/mega_simple.cu, kernel B5), the light pass (csrc/light_pass.cu,
+// kernels L1 and L2) and the cell-walk diagnostic (csrc/diag_dda.cu): the threefry stream, the packed scene in shared
 // memory, the thin-lens primary ray, the det-scaled triangle row test, the
 // closest-hit trace and its non-triangle stage, the capped any-hit
 // occlusion test and its non-triangle stage, the NaN-safe slab test of the
@@ -292,10 +292,28 @@ __device__ __forceinline__ Hit finish(const PreHit& h) {
   return Hit{h.t, h.m, nx, ny, nz};
 }
 
+// The normal renormalised as torch.rsqrt does it on a CUDA tensor
+// (rsqrtf), the form the light pass's plain version takes
+// (ops/intersect.py::trace_ray); B1-B4 keep finish's 1 / sqrtf.
+__device__ __forceinline__ Hit finish_rsqrt(const PreHit& h) {
+  float nx = h.nx, ny = h.ny, nz = h.nz;
+  if (h.needs) {
+    const float inv_len = rsqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
+    nx = nx * inv_len;
+    ny = ny * inv_len;
+    nz = nz * inv_len;
+  }
+  return Hit{h.t, h.m, nx, ny, nz};
+}
+
 // Closest hit (ops/intersect.py::trace_ray, sphere material 3), seeded
-// with the running distance t0, over the shared-memory triangle table.
-__device__ Hit trace(const Scene& S, float ox, float oy, float oz,
-                     float dx, float dy, float dz, float t0, bool neg_t) {
+// with the running distance t0, over the shared-memory triangle table,
+// before its sphere normal is renormalised (trace and the light pass's
+// traces finish it their own ways).
+__device__ __forceinline__ PreHit trace_open(const Scene& S, float ox,
+                                             float oy, float oz, float dx,
+                                             float dy, float dz, float t0,
+                                             bool neg_t) {
   PreHit h = pre_tri(S, ox, oy, oz, dx, dy, dz, t0, neg_t, 3);
   if (S.ntp) {
     // division-free scan: the running minimum is carried det-scaled as
@@ -337,7 +355,13 @@ __device__ Hit trace(const Scene& S, float ox, float oy, float oz,
     }
     h.t = bn / bd;
   }
-  return finish(h);
+  return h;
+}
+
+// Closest hit with its sphere normal renormalised (B1-B4).
+__device__ Hit trace(const Scene& S, float ox, float oy, float oz,
+                     float dx, float dy, float dz, float t0, bool neg_t) {
+  return finish(trace_open(S, ox, oy, oz, dx, dy, dz, t0, neg_t));
 }
 
 // The floor, squares and spheres of an any-hit occlusion test with

@@ -16,8 +16,13 @@ The JAX package's deliberate repairs of reference defects are kept (the
 seed pass output feeds the mutation pass; counter-based draws per
 (chain, round, site); ``VerifyIntersection`` accepts within ``verify_eps``,
 0.0 reproducing the reference's always-reject exact equality; a
-device-resident bounding-box reduction).  The chain is plain PyTorch on
-the film's device: ~100 ``trace_ray`` calls on nlights * n_seedpaths rays.
+device-resident bounding-box reduction).  On a CUDA device within the
+light-pass gate (``ops/light_pass.py::light_route``) the seed paths are
+one launch of kernel L2a and the chain with its emission one of L2b, one
+thread a chain.  The plain version, on the CPU, past the gate or with
+``plain=True``, is batched PyTorch on the film's device: ~100
+``trace_ray`` calls on nlights * n_seedpaths rays, every chain traced at
+every stage and the results masked.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 from ..core import rng as rngmod
 from ..core.quirks import Quirks, DEFAULT
 from ..ops.intersect import SceneArrays, prep_scene, trace_ray
+from ..ops import light_pass
 from ..ops import vlp as vlpmod
 from ..scene.scene import Scene
 from . import common as C
@@ -62,18 +68,21 @@ def _slot_get(v, slot):
     return torch.gather(v, 1, idx)[:, 0, :]
 
 
-def _add_vertex(key, scn, quirks, origin, site, attempt, chain):
+def _add_vertex(key, scn, quirks, origin, site, attempt, chain, plain):
     """AddRandomVertex (ocl:157-168) batched: random direction, one trace;
-    returns (hit_mask, hit_point).  ``site`` may be a per-row tensor."""
+    returns (hit_mask, hit_point).  ``site`` may be a per-row tensor;
+    ``plain`` as in ``trace_ray``."""
     u1, u2 = rngmod.rand2(key, chain, site)
     d = vlpmod.uniform_sphere(u1, u2)
-    tr = trace_ray(origin, d, scn, quirks=quirks, sphere_material=3)
+    tr = trace_ray(origin, d, scn, quirks=quirks, sphere_material=3,
+                   plain=plain)
     hit = attempt & (tr.material != 0)
     x = origin + d * tr.t[..., None]
     return hit, x
 
 
-def _random_path(key, scn, quirks, origin, site_base, build, chain):
+def _random_path(key, scn, quirks, origin, site_base, build, chain,
+                 plain):
     """GetRandomPath (ocl:171-181) batched: up to 4 chained random vertices."""
     B = origin.shape[0]
     v = torch.zeros((B, 4, 3), dtype=torch.float32, device=origin.device)
@@ -82,7 +91,7 @@ def _random_path(key, scn, quirks, origin, site_base, build, chain):
     building = build
     for i in range(4):
         hit, x = _add_vertex(key, scn, quirks, cur, site_base + i, building,
-                             chain)
+                             chain, plain)
         v[:, i, :] = torch.where(hit[:, None], x, v[:, i, :])
         length = length + hit.to(torch.int32)
         cur = torch.where(hit[:, None], x, cur)
@@ -101,12 +110,13 @@ def _perturbation(key, chain, vertex, site):
     return torch.where(r < 0.5, plus, minus)
 
 
-def _verify(scn, quirks, origin, dest, eps):
+def _verify(scn, quirks, origin, dest, eps, plain):
     """VerifyIntersection (ocl:225-236): re-trace toward ``dest`` and check
     the first hit is ``dest`` (within eps; eps=0 reproduces the reference's
     exact-equality rejection)."""
     d = C.normalize(dest - origin)
-    tr = trace_ray(origin, d, scn, quirks=quirks, sphere_material=3)
+    tr = trace_ray(origin, d, scn, quirks=quirks, sphere_material=3,
+                   plain=plain)
     x = origin + d * tr.t[..., None]
     if eps == 0.0:
         close = (x == dest).all(dim=-1)
@@ -117,7 +127,7 @@ def _verify(scn, quirks, origin, dest, eps):
 
 
 def _mutate(key, scn, quirks, verify_eps, light_origin, v, length, rnd,
-            chain):
+            chain, plain):
     """One Mutate round (ocl:239-283), batched over all chains; ``rnd`` is
     the per-chain round index (r + light * rounds)."""
     B = v.shape[0]
@@ -126,7 +136,7 @@ def _mutate(key, scn, quirks, verify_eps, light_origin, v, length, rnd,
     # empty paths: try to build a fresh one (ocl:242-245)
     empty = length == 0
     nv, nl = _random_path(key, scn, quirks, light_origin, base + _P_REBUILD,
-                          empty, chain)
+                          empty, chain, plain)
     v = torch.where(empty[:, None, None], nv, v)
     length = torch.where(empty, nl, length)
     active = length > 0
@@ -143,7 +153,7 @@ def _mutate(key, scn, quirks, verify_eps, light_origin, v, length, rnd,
     for i in range(4):
         pv = _perturbation(key, chain, v[:, i, :], base + (_P_PERTURB + i))
         in_range = i < length
-        ver = _verify(scn, quirks, cur, pv, verify_eps)
+        ver = _verify(scn, quirks, cur, pv, verify_eps, plain)
         accept = ok_chain & in_range & ver
         temp_v[:, i, :] = torch.where(accept[:, None], pv, temp_v[:, i, :])
         temp_len = temp_len + accept.to(torch.int32)
@@ -166,7 +176,7 @@ def _mutate(key, scn, quirks, verify_eps, light_origin, v, length, rnd,
         attempt = ok & want & (length < 4)
         origin_j = _slot_get(v, length - 1)
         hit, x = _add_vertex(key, scn, quirks, origin_j, base + (_P_ADD + j),
-                             attempt, chain)
+                             attempt, chain, plain)
         v = _slot_set(v, length, x, hit)
         length = length + hit.to(torch.int32)
         ok = ok & (hit | ~attempt)
@@ -188,35 +198,51 @@ def _chain_layout(scn, n_seedpaths, chain0, chains, device):
 
 def mlt_seed(key, scn: SceneArrays, n_seedpaths: int,
              quirks: Quirks = DEFAULT, chain0: int = 0,
-             chains: int | None = None, device="cpu"):
+             chains: int | None = None, device="cuda", plain: bool = False):
     """The seed-path stage alone (the reference's ``lightTracer`` kernel,
     vlpgrid .c:182-221 dispatch): returns the (v, length) chain state the
-    Metropolis stage mutates."""
+    Metropolis stage mutates.  Kernel L2a on a CUDA device within the
+    light-pass gate, else (or with ``plain=True``) batched PyTorch."""
+    device = C.check_device(device)
+    if not plain and light_pass.light_route(scn, device) == "light_pass":
+        return light_pass.mlt_seed(key, scn, n_seedpaths, quirks, chain0,
+                                   chains, device)
     nlights, B, lp, _, light_idx, chain = _chain_layout(
-        scn, n_seedpaths, chain0, chains, torch.device(device))
+        scn, n_seedpaths, chain0, chains, device)
     build = torch.ones(nlights * B, dtype=torch.bool, device=lp.device)
     return _random_path(key, scn, quirks, lp, _SITE_SEED + 4 * light_idx,
-                        build, chain)
+                        build, chain, plain)
 
 
 def mlt_mutate_emit(key, scn: SceneArrays, n_seedpaths: int,
                     mutation_rounds: int, quirks: Quirks = DEFAULT,
                     verify_eps: float = 1e-3, seed_state=None,
                     chain0: int = 0, chains: int | None = None,
-                    device="cpu"):
+                    device="cuda", plain: bool = False,
+                    round_stride: int | None = None):
     """Mutation rounds + VLP emission (the reference's
     ``MetropolisLightTracer`` kernel, vlpgrid .c:223-264 dispatch) on the
-    seed state from :func:`mlt_seed`."""
+    seed state from :func:`mlt_seed`.  Kernel L2b on a CUDA device within
+    the light-pass gate, else (or with ``plain=True``) batched PyTorch.
+    Round r of light l draws as round r + l * round_stride (default
+    max(1, mutation_rounds)), so a larger stride runs the first rounds of
+    a longer chain."""
+    device = C.check_device(device)
+    if not plain and light_pass.light_route(scn, device) == "light_pass":
+        return light_pass.mlt_mutate_emit(
+            key, scn, n_seedpaths, mutation_rounds, quirks, verify_eps,
+            seed_state, chain0, chains, device, round_stride=round_stride)
     nlights, B, lp, intensity, light_idx, chain = _chain_layout(
-        scn, n_seedpaths, chain0, chains, torch.device(device))
+        scn, n_seedpaths, chain0, chains, device)
     total_paths = n_seedpaths * nlights
     scale_den = max(1, total_paths // 256)
     v, length = seed_state
 
-    rounds = max(1, mutation_rounds)
+    rounds = (max(1, mutation_rounds) if round_stride is None
+              else int(round_stride))
     for r in range(mutation_rounds):
         v, length = _mutate(key, scn, quirks, verify_eps, lp, v, length,
-                            r + light_idx * rounds, chain)
+                            r + light_idx * rounds, chain, plain)
 
     # emit <= 4 VLPs per chain, intensity halved per depth (ocl:522-527)
     origin = lp
@@ -226,7 +252,7 @@ def mlt_mutate_emit(key, scn: SceneArrays, n_seedpaths: int,
         d = C.normalize(v[:, i, :] - origin)
         vlp = vlpmod.vlp_from_light_sample(
             origin, d, intensity / float(1 << i), scale_den, scn, quirks,
-            base=vlpmod._MLT_BASE)
+            base=vlpmod._MLT_BASE, plain=plain)
         emit = alive & (i < length) & (vlp[:, 3] > 0)
         vlp = torch.where(emit[:, None], vlp, 0.0)
         slots.append(vlp)
@@ -240,7 +266,8 @@ def mlt_mutate_emit(key, scn: SceneArrays, n_seedpaths: int,
 
 def mlt_vlps(key, scn: SceneArrays, n_seedpaths: int, mutation_rounds: int,
              quirks: Quirks = DEFAULT, verify_eps: float = 1e-3,
-             chain0: int = 0, chains: int | None = None, device="cpu"):
+             chain0: int = 0, chains: int | None = None, device="cuda",
+             plain: bool = False):
     """Seed + mutate + emit: (nlights * n_seedpaths * 4, 4) VLPs.
 
     total_paths scaling: base intensity / (total_paths / 256) with the
@@ -250,13 +277,16 @@ def mlt_vlps(key, scn: SceneArrays, n_seedpaths: int, mutation_rounds: int,
     [chain0, chain0+chains) of each light (result (nlights * 4 * chains,
     4), layout [light][slot][chain]); draws key on the GLOBAL chain index
     (and scale_den on the global n_seedpaths), so window rows are
-    bit-identical to the same rows of the full run."""
-    device = torch.device(device)
+    bit-identical to the same rows of the full run.  On a CUDA device
+    within the light-pass gate: kernels L2a and L2b, one launch each;
+    ``plain=True`` keeps both stages on batched PyTorch."""
+    device = C.check_device(device)
     if int(scn.lights.shape[0]) == 0:
         return torch.zeros((0, 4), dtype=torch.float32, device=device)
-    seed = mlt_seed(key, scn, n_seedpaths, quirks, chain0, chains, device)
+    seed = mlt_seed(key, scn, n_seedpaths, quirks, chain0, chains, device,
+                    plain)
     return mlt_mutate_emit(key, scn, n_seedpaths, mutation_rounds, quirks,
-                           verify_eps, seed, chain0, chains, device)
+                           verify_eps, seed, chain0, chains, device, plain)
 
 
 def film_metropolis(key, scn: SceneArrays, width, height, spp, spp_offset,

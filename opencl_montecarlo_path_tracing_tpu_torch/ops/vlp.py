@@ -14,10 +14,12 @@ Reference (SURVEY.md section 2 #10/#12):
    16*sqrt(intensity), metropolispathtracer.ocl:551-554) and gathers only
    the shading point's cell (ocl vlpgrid:326-349).
 
-The dense gather has two forms with the same semantics: the plain scan
-below, and kernel B6 (``ops/gather_vlp.py``), which ``gather_vlps`` takes
-on a CUDA device for large batches, exactly where the JAX package takes
-its MXU kernel.
+The emission runs on a CUDA device in kernel L1 (``ops/light_pass.py``)
+when ``light_pass.light_route`` says so; ``plain=True`` keeps it on the
+batched PyTorch below on any device.  The dense gather has two forms with
+the same semantics: the plain scan below, and kernel B6
+(``ops/gather_vlp.py``), which ``gather_vlps`` takes on a CUDA device for
+large batches, exactly where the JAX package takes its MXU kernel.
 """
 
 from __future__ import annotations
@@ -59,12 +61,14 @@ def uniform_sphere(u1, u2):
 
 
 def vlp_from_light_sample(o, direction, light_intensity, scale_den,
-                          scn: SceneArrays, quirks: Quirks, base=_BPT_BASE):
+                          scn: SceneArrays, quirks: Quirks, base=_BPT_BASE,
+                          plain: bool = False):
     """SampleFromLightSource (ocl:230-278) batched: trace one ray from the
     light, return (V, 4) = (hit position, scaled intensity); zeros on miss
     or non-emissive material.  ``light_intensity`` is a float or a per-row
-    tensor."""
-    tr = trace_ray(o, direction, scn, quirks=quirks, sphere_material=3)
+    tensor; ``plain`` as in ``trace_ray``."""
+    tr = trace_ray(o, direction, scn, quirks=quirks, sphere_material=3,
+                   plain=plain)
     x = o + direction * tr.t[..., None]
     lamb = _dot(direction, tr.normal)
     q = o - x
@@ -88,7 +92,8 @@ def vlp_from_light_sample(o, direction, light_intensity, scale_den,
 
 
 def emit_vlps(key, scn: SceneArrays, n_vlp: int, quirks: Quirks = DEFAULT,
-              gi0: int = 0, count: int | None = None, device="cpu"):
+              gi0: int = 0, count: int | None = None, device="cuda",
+              plain: bool = False):
     """lightTracer pass (ocl:280-326): (nlights * n_vlp, 4) VLPs, laid out
     vlp[gi + l * n_vlp] like the reference's strided write (ocl:324).
 
@@ -98,13 +103,23 @@ def emit_vlps(key, scn: SceneArrays, n_vlp: int, quirks: Quirks = DEFAULT,
     ``gi0``/``count`` restrict emission to the work-item window
     [gi0, gi0+count) of each light; every draw keys on the GLOBAL gi (and
     scale_den on the global n_vlp), so a window's rows are bit-identical
-    to the same rows of the full emission."""
-    device = torch.device(device)
+    to the same rows of the full emission.
+
+    On a CUDA device within the light-pass gate: one launch of kernel L1
+    (``ops/light_pass.py::light_route``); else, or with ``plain=True``,
+    the batched PyTorch below on ``device`` (``plain`` also keeps its
+    traces of large meshes on kernel B7's plain version).  A CUDA request
+    without a GPU raises."""
+    from . import light_pass
+    from ..models.common import check_device
+    device = check_device(device)
+    if count is None:
+        count = n_vlp
+    if not plain and light_pass.light_route(scn, device) == "light_pass":
+        return light_pass.emit(key, scn, n_vlp, quirks, gi0, count, device)
     nlights = int(scn.lights.shape[0])
     total_vlp = n_vlp * nlights
     scale_den = max(1, total_vlp // 512)
-    if count is None:
-        count = n_vlp
     gi = torch.arange(count, dtype=torch.int64, device=device) + int(gi0)
 
     dirs = []
@@ -119,7 +134,8 @@ def emit_vlps(key, scn: SceneArrays, n_vlp: int, quirks: Quirks = DEFAULT,
         o = lp.expand(count, 3)
         d = dirs[0] if quirks.reuse_light_direction else dirs[l]
         out.append(vlp_from_light_sample(o, d, float(scn.lights[l, 3]),
-                                         scale_den, scn, quirks))
+                                         scale_den, scn, quirks,
+                                         plain=plain))
     if not out:
         return torch.zeros((0, 4), dtype=torch.float32, device=device)
     return torch.cat(out, dim=0)

@@ -50,13 +50,16 @@ from ..utils.crn import SIMPLE, SUPER, crn_ok
 
 
 def launch_counts() -> dict:
-    """The render kernels' launch counters (each wrapper adds one where it
-    launches its kernel)."""
-    from ..ops import mega_simple, mega_super, mega_vlp
+    """The render kernels' and the light pass's launch counters (each
+    wrapper adds one where it launches its kernel)."""
+    from ..ops import light_pass, mega_simple, mega_super, mega_vlp
     return {"mega_super": mega_super.LAUNCHES,
             "mega_blocked": mega_super.BLOCKED_LAUNCHES,
             "mega_vlp": mega_vlp.LAUNCHES,
-            "mega_simple": mega_simple.LAUNCHES}
+            "mega_simple": mega_simple.LAUNCHES,
+            "light_emit": light_pass.EMIT_LAUNCHES,
+            "light_mlt_seed": light_pass.SEED_LAUNCHES,
+            "light_mlt_chain": light_pass.CHAIN_LAUNCHES}
 
 
 def _since(before: dict) -> dict:

@@ -70,11 +70,13 @@ def test_mlt_vlps_matches_jax(window):
     kw = {} if window is None else dict(chain0=window[0], chains=window[1])
     with jax.disable_jit():
         want = np.asarray(JM.mlt_vlps(key, jscn, 8, 2, **kw))
-    got = TM.mlt_vlps(key_from_jax(key), tscn, 8, 2, **kw).numpy()
+    got = TM.mlt_vlps(key_from_jax(key), tscn, 8, 2, device="cpu",
+                      **kw).numpy()
     assert (want[:, 3] > 0).sum() >= 4
     _assert_tables_agree(got, want)
     if window is not None:
-        full = TM.mlt_vlps(key_from_jax(key), tscn, 8, 2).numpy()
+        full = TM.mlt_vlps(key_from_jax(key), tscn, 8, 2,
+                           device="cpu").numpy()
         c0, n = window
         # layout [light][slot][chain]
         rows = np.concatenate([np.arange(c0, c0 + n) + 8 * blk
@@ -87,7 +89,7 @@ def test_mlt_seed_state_matches_jax():
     with jax.disable_jit():
         jv, jl = JM.mlt_seed(make_key(5), jscn, 8)
     tv, tl = TM.mlt_seed(key_from_jax(make_key(5)),
-                         scene_arrays_from_numpy(jscn), 8)
+                         scene_arrays_from_numpy(jscn), 8, device="cpu")
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-5,
                                atol=1e-5)
@@ -103,11 +105,13 @@ def jax_light_pass(kind):
     if kind == "bpt":
         want = np.asarray(jax.jit(
             lambda k: JV.emit_vlps(k, jscn, N_VLP))(key))
-        got = TV.emit_vlps(key_from_jax(key), tscn, N_VLP).numpy()
+        got = TV.emit_vlps(key_from_jax(key), tscn, N_VLP,
+                           device="cpu").numpy()
     else:
         want = np.asarray(jax.jit(
             lambda k: JM.mlt_vlps(k, jscn, N_SEED, ROUNDS))(key))
-        got = TM.mlt_vlps(key_from_jax(key), tscn, N_SEED, ROUNDS).numpy()
+        got = TM.mlt_vlps(key_from_jax(key), tscn, N_SEED, ROUNDS,
+                          device="cpu").numpy()
     return want, got
 
 
@@ -189,7 +193,7 @@ def test_dynamic_grid_res_mode_reads_the_box():
     renders the same film as film_metropolis with that res passed in."""
     scn = scene_arrays_from_numpy(JI.prep_scene(j_demo_scene()[0]))
     key = (41, 0)
-    vlps = TM.mlt_vlps(key, scn, 32, 2)
+    vlps = TM.mlt_vlps(key, scn, 32, 2, device="cpu")
     lo, hi = (b.numpy() for b in TV.vlp_bounds(vlps))
     assert lo[0] < hi[0]
     res = TV.vlp_grid_dynamic_res(lo, hi, int(vlps.shape[0]))

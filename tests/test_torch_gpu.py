@@ -1,5 +1,6 @@
-"""Kernels B1-B7 and the B8 diagnostics on the card: each CUDA kernel ==
-its plain PyTorch version, and each route launches the kernels it names.
+"""Kernels B1-B7, the B8 diagnostics and the light pass's L1 / L2 on the
+card: each CUDA kernel == its plain PyTorch version, and each route
+launches the kernels it names.
 
 These tests need a CUDA GPU (the kernels have no CPU mode); without one
 they skip with a reason.  The file imports neither JAX nor the JAX
@@ -30,8 +31,9 @@ at the same contract and at max abs 2e-5 where no tie shows.  For B7,
 order with no FMA, the plain version through cuBLAS in its own order (the
 tolerance ``tests/test_mxu_triangles.py`` gives two such orders).  The B8
 kernels (the grid cell-walk pair, the take-list primitives, the loop arms)
-equal their plain versions bit for bit: the same float operations in the
-same order, none contracted.
+and the light pass's (L1, L2a, L2b: tables and seed states) equal their
+plain versions bit for bit: the same float operations in the same order,
+none contracted.
 """
 
 import os
@@ -43,7 +45,7 @@ import pytest
 import torch
 
 from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
-    DEFAULT, REFERENCE, REFERENCE_LMEM)
+    DEFAULT, REFERENCE, REFERENCE_LMEM, Quirks)
 from opencl_montecarlo_path_tracing_tpu_torch.ops import gather_vlp as G6
 from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_simple as M5
 from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_super as M
@@ -51,7 +53,7 @@ from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_vlp as M4
 from opencl_montecarlo_path_tracing_tpu_torch.ops import tri_closest as B7
 from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import prep_scene
 from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
-    demo_scene, ripple_sheet_mesh, torus_mesh)
+    demo_scene, dense_vlp_scene, ripple_sheet_mesh, torus_mesh)
 from opencl_montecarlo_path_tracing_tpu_torch.scene.scene import Scene
 from opencl_montecarlo_path_tracing_tpu_torch.utils.crn import SIMPLE, crn_ok
 
@@ -903,6 +905,125 @@ def test_one_rank_nccl_sharded_super_equals_render_super(cuda_device):
         height=256, spp=16))], device="cuda", backend="nccl", timeout=300)
     assert r["ok"] and r["detail"] == "bit-equal", r["detail"]
     assert r["counts"]["mega_super"] == 1
+
+
+# the light pass's cases (kernels L1, L2a, L2b against plain=True): the
+# full run, a window, the reference's exact verify under REFERENCE_LMEM
+# (negative t accepted) and the reused light direction
+LIGHT_CASES = {
+    "full": {},
+    "window": dict(window=(70, 37)),
+    "exact verify, REFERENCE_LMEM": dict(quirks=REFERENCE_LMEM,
+                                         verify_eps=0.0),
+    "reuse_light_direction": dict(quirks=Quirks(reuse_light_direction=True)),
+}
+LIGHT_N, LIGHT_ROUNDS = 128, 4
+
+
+def light_counts():
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import light_pass as L
+    return L.EMIT_LAUNCHES, L.SEED_LAUNCHES, L.CHAIN_LAUNCHES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(LIGHT_CASES))
+@pytest.mark.parametrize("scene", ["demo", "dense"])
+def test_light_pass_kernels_bit_equal_plain(scene, case, cuda_device):
+    """L1, L2a and L2b each launch once and equal their plain versions bit
+    for bit; a window equals the same rows of the full kernel run."""
+    from opencl_montecarlo_path_tracing_tpu_torch.models import (
+        metropolis as TM)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as TV
+    scn = prep_scene(demo_scene()[0] if scene == "demo"
+                     else dense_vlp_scene())
+    kw = LIGHT_CASES[case]
+    q, eps = kw.get("quirks", DEFAULT), kw.get("verify_eps", 1e-3)
+    w = kw.get("window")
+    ew = {} if w is None else dict(gi0=w[0], count=w[1])
+    cw = {} if w is None else dict(chain0=w[0], chains=w[1])
+    key, n, rounds = (13, 0), LIGHT_N, LIGHT_ROUNDS
+    c0 = light_counts()
+    emitted = TV.emit_vlps(key, scn, n, q, device=cuda_device, **ew)
+    seed = TM.mlt_seed(key, scn, n, q, device=cuda_device, **cw)
+    table = TM.mlt_mutate_emit(key, scn, n, rounds, q, eps, seed,
+                               device=cuda_device, **cw)
+    torch.cuda.synchronize()
+    assert light_counts() == tuple(c + 1 for c in c0)
+    plain = dict(device=cuda_device, plain=True)
+    assert torch.equal(emitted, TV.emit_vlps(key, scn, n, q, **ew, **plain))
+    pv, pl = TM.mlt_seed(key, scn, n, q, **cw, **plain)
+    assert torch.equal(seed[0], pv) and torch.equal(seed[1], pl)
+    assert torch.equal(table, TM.mlt_mutate_emit(key, scn, n, rounds, q,
+                                                 eps, seed, **cw, **plain))
+    assert light_counts() == tuple(c + 1 for c in c0)
+    if scene == "dense":
+        assert int((table[:, 3] > 0).sum()) >= 16
+    if w is not None:
+        nl = int(scn.lights.shape[0])
+        full = TV.emit_vlps(key, scn, n, q, device=cuda_device)
+        rows = np.concatenate([np.arange(w[0], w[0] + w[1]) + n * blk
+                               for blk in range(nl)])
+        assert torch.equal(emitted, full[torch.from_numpy(rows)])
+        full = TM.mlt_vlps(key, scn, n, rounds, q, eps, device=cuda_device)
+        rows = np.concatenate([np.arange(w[0], w[0] + w[1]) + n * blk
+                               for blk in range(nl * 4)])
+        assert torch.equal(table, full[torch.from_numpy(rows)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["bidirectional", "metropolis",
+                                     "metropolis_vlpgrid"])
+def test_vlp_render_launches_the_light_pass_kernels(variant, cuda_device):
+    """A VLP render's passes are L1 (bidirectional) or L2a and L2b
+    (metropolis*), then B4, once each; its film is film_vlp's on the plain
+    light pass's table, bit for bit."""
+    import opencl_montecarlo_path_tracing_tpu_torch as pt
+    from opencl_montecarlo_path_tracing_tpu_torch.models.bidirectional import (
+        film_vlp)
+    from opencl_montecarlo_path_tracing_tpu_torch.models import (
+        metropolis as TM)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as TV
+    bpt = variant == "bidirectional"
+    kw = (dict(n_vlp=64) if bpt
+          else dict(n_seedpaths=16, mutation_rounds=2))
+    c0 = light_counts() + (M4.LAUNCHES,)
+    film = pt.render(variant, demo_scene()[0], 64, 64, spp=2, seed=1,
+                     device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    got = tuple(a - b for a, b in zip(light_counts() + (M4.LAUNCHES,), c0))
+    assert got == ((1, 0, 0, 1) if bpt else (0, 1, 1, 1))
+    scn = prep_scene(demo_scene()[0])
+    key, grid = (1, 0), None
+    if bpt:
+        vlps = TV.emit_vlps(key, scn, 64, device=cuda_device, plain=True)
+    else:
+        vlps = TM.mlt_vlps(key, scn, 16, 2, device=cuda_device, plain=True)
+        if variant.endswith("vlpgrid"):
+            grid = TV.build_vlp_grid(vlps, TV.vlp_grid_static_res(
+                int(vlps.shape[0]), 3.0))
+    want = film_vlp(key, scn, vlps, grid, 64, 64, 2, 0, 2, DEFAULT,
+                    device=cuda_device)
+    assert torch.equal(film, want)
+
+
+@pytest.mark.gpu
+def test_light_pass_past_the_gate_runs_plain(cuda_device):
+    """A 544-triangle sheet is past the light-pass kernels' gate: the
+    light pass is plain PyTorch on the card, no L1 / L2 launch."""
+    from opencl_montecarlo_path_tracing_tpu_torch.models import (
+        metropolis as TM)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import light_pass as L
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as TV
+    scn = prep_scene(sheet_scene(16, 17))
+    assert L.light_route(scn, cuda_device) == "plain"
+    c0 = light_counts()
+    a = TV.emit_vlps((2, 0), scn, 32, device=cuda_device)
+    b = TM.mlt_vlps((2, 0), scn, 8, 1, device=cuda_device)
+    torch.cuda.synchronize()
+    assert light_counts() == c0
+    assert a.shape == (64, 4) and b.shape == (64, 4)
+    with pytest.raises(NotImplementedError, match="544 triangles"):
+        L.emit((2, 0), scn, 32, DEFAULT, device=cuda_device)
 
 
 def test_file_imports_no_jax():

@@ -80,7 +80,7 @@ def test_demo_table_is_mostly_dead():
     kernel sums about a hundredth of the pairs it summed over the full
     table; the gather over its live rows is the full table's."""
     scn = prep_scene(demo_scene(prefer_reference=False)[0])
-    vlps = TV.emit_vlps((0, 0), scn, 512)
+    vlps = TV.emit_vlps((0, 0), scn, 512, device="cpu")
     t = G.live_table(vlps)
     assert 0 < int(t.n_live) < 0.05 * vlps.shape[0]
     g = np.random.default_rng(5)

@@ -210,7 +210,7 @@ def run_cases(cases, references, patch):
 def results():
     key, jkey = keys()
     scn = prep_scene(TSCENE)
-    port_tables = {n: emit_vlps(key, scn, n).numpy()
+    port_tables = {n: emit_vlps(key, scn, n, device="cpu").numpy()
                    for n in (N_VLP, N_VLP_ODD)}
 
     def emit(key, scn, n_vlp, quirks=None, gi0=0, count=None):

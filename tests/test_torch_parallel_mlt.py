@@ -54,7 +54,7 @@ WINDOWED = {"metropolis_vlpgrid": True, "metropolis_indivisible": False,
 def results():
     key, jkey = keys()
     scn = prep_scene(TSCENE)
-    port_tables = {n: mlt_vlps(key, scn, n, ROUNDS).numpy()
+    port_tables = {n: mlt_vlps(key, scn, n, ROUNDS, device="cpu").numpy()
                    for n in (SEEDS, SEEDS_ODD)}
     jscn = JI.prep_scene(JSCENE)
     with jax.disable_jit():

@@ -72,7 +72,8 @@ def test_emit_vlps_matches_jax(scene_name, qname):
     key = make_key(3)
     n_vlp = 256
     want = np.asarray(JV.emit_vlps(key, jscn, n_vlp, jq))
-    got = TV.emit_vlps(key_from_jax(key), tscn, n_vlp, tq).numpy()
+    got = TV.emit_vlps(key_from_jax(key), tscn, n_vlp, tq,
+                       device="cpu").numpy()
     assert got.shape == want.shape == (len(scene.lights) * n_vlp, 4)
     np.testing.assert_array_equal(got[:, 3] > 0, want[:, 3] > 0)
     assert (got[:, 3] > 0).any()
@@ -80,7 +81,7 @@ def test_emit_vlps_matches_jax(scene_name, qname):
     # the window [gi0, gi0+count) of each light == the same rows in full
     gi0, count = 40, 24
     win = TV.emit_vlps(key_from_jax(key), tscn, n_vlp, tq, gi0=gi0,
-                       count=count).numpy()
+                       count=count, device="cpu").numpy()
     rows = np.concatenate([np.arange(gi0, gi0 + count) + l * n_vlp
                            for l in range(len(scene.lights))])
     np.testing.assert_array_equal(win, got[rows])
