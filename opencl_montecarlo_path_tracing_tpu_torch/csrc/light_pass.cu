@@ -24,7 +24,7 @@
 // - L2b: one thread per (light, chain), its four vertices and its length
 //   in registers (local memory where indexed) across every round: the
 //   mutation_rounds Mutate rounds (models/metropolis.py::_mutate; round r
-//   of light l draws at SITE_MLT + (r + l * stride) * 16 + purpose), then
+//   of light l draws at SITE_MLT + (r + l * rounds) * 16 + purpose), then
 //   the emission of <= 4 VLPs, intensity halved a depth, into the
 //   [light][slot][chain] table.
 //
@@ -50,18 +50,24 @@
 //
 // What bounds it on an H100: FP32 issue in the traces - per trace ~48
 // operations a triangle of the mesh, ~19 a sphere; a 2-light Metropolis
-// pass of 512 chains makes ~50 traces a chain.  The bytes (the scene, a
-// few KB, and the table) are negligible.  Design, simple first: the scene
-// staged in shared memory once a block (ops/mega_super.py::pack_scene,
-// B1's buffer), blocks of kBlock = 32 threads so that the main paths'
-// 1,024 threads spread over 32 SMs; no per-warp cull.  Gate: <= 512
-// triangles (B1's and B4's shared-memory tier).
+// pass of 512 chains makes ~50 traces a chain.  The bytes (the scene and
+// the table) are negligible.  Design, simple first: the scene
+// (ops/mega_super.py::pack_scene, B1's buffer) staged in shared memory
+// once a block up to kStageTriangles (B1's and B4's shared-memory tier),
+// past it read in place from global memory, where the L1 and L2 caches
+// hold it (a 20,736-triangle mesh is ~1 MB); blocks of kBlock = 32
+// threads so that the main paths' 1,024 threads spread over 32 SMs; no
+// per-warp cull.  Every triangle is scanned with the det-scaled test at
+// every size, as B2/B3 scan theirs; past 2,048 triangles the plain
+// version's traces take kernel B7's matmul form instead (ops/intersect.py
+// ::trace_ray), which agrees with it to rounding, not bit for bit.
 
 #include "pt_device.cuh"
 
 namespace {
 
 constexpr int kBlock = 32;
+constexpr int kStageTriangles = 512;   // ops/mega_super.py MAX_SMEM_TRIANGLES
 constexpr uint32_t kSiteVlpDir = 64;   // ops/vlp.py SITE_VLP_DIR
 constexpr uint32_t kSiteSeed = 192;    // models/metropolis.py _SITE_SEED
 constexpr uint32_t kSiteMlt = 256;     // _SITE_MLT
@@ -273,6 +279,18 @@ __device__ void mutate(const Scene& S, uint32_t k0, uint32_t k1,
   }
 }
 
+// The scene a block reads: copied into shared memory `smem` when `staged`
+// (the launcher's choice, the same for every block), else read in place.
+__device__ __forceinline__ Scene block_scene(const float* __restrict__ scene,
+                                             bool staged, float* smem,
+                                             int ntp, int nl, int ns,
+                                             int nq) {
+  if (!staged) return scene_view(scene, ntp, nl, ns, nq);
+  const Scene S = stage_scene(scene, smem, ntp, nl, ns, nq);
+  __syncthreads();
+  return S;
+}
+
 __device__ __forceinline__ void add_traces(unsigned long long* out,
                                            unsigned long long n) {
   if (out != nullptr) atomicAdd(out, n);
@@ -280,15 +298,14 @@ __device__ __forceinline__ void add_traces(unsigned long long* out,
 
 // L1: rows [0, nl * count); row i = l * count + g, work item gi0 + g.
 __global__ void __launch_bounds__(kBlock)
-light_emit_kernel(const float* __restrict__ scene, int ntp, int nl, int ns,
-                  int nq, uint32_t k0, uint32_t k1, uint32_t gi0, int count,
+light_emit_kernel(const float* __restrict__ scene, bool staged, int ntp,
+                  int nl, int ns, int nq, uint32_t k0, uint32_t k1, uint32_t gi0, int count,
                   bool reuse_dir, bool neg_t, Consts K, float inv_scale,
                   float4* __restrict__ out,
                   unsigned long long* __restrict__ traces) {
   extern __shared__ float4 smem4[];
-  const Scene S = stage_scene(scene, reinterpret_cast<float*>(smem4), ntp,
-                              nl, ns, nq);
-  __syncthreads();
+  const Scene S = block_scene(scene, staged, reinterpret_cast<float*>(smem4),
+                              ntp, nl, ns, nq);
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)nl * count) return;
   const int l = (int)(i / count);
@@ -304,15 +321,14 @@ light_emit_kernel(const float* __restrict__ scene, int ntp, int nl, int ns,
 
 // L2a: rows [0, nl * chains); row i = l * chains + c, chain chain0 + c.
 __global__ void __launch_bounds__(kBlock)
-light_mlt_seed_kernel(const float* __restrict__ scene, int ntp, int nl,
-                      int ns, int nq, uint32_t k0, uint32_t k1,
+light_mlt_seed_kernel(const float* __restrict__ scene, bool staged, int ntp,
+                      int nl, int ns, int nq, uint32_t k0, uint32_t k1,
                       uint32_t chain0, int chains, bool neg_t, Consts K,
                       float* __restrict__ v_out, int* __restrict__ len_out,
                       unsigned long long* __restrict__ traces) {
   extern __shared__ float4 smem4[];
-  const Scene S = stage_scene(scene, reinterpret_cast<float*>(smem4), ntp,
-                              nl, ns, nq);
-  __syncthreads();
+  const Scene S = block_scene(scene, staged, reinterpret_cast<float*>(smem4),
+                              ntp, nl, ns, nq);
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)nl * chains) return;
   const int l = (int)(i / chains);
@@ -336,19 +352,18 @@ light_mlt_seed_kernel(const float* __restrict__ scene, int ntp, int nl,
 // L2b: the chain of row i = l * chains + c from its seed state, then its
 // emission into rows (l * 4 + slot) * chains + c of `out`.
 __global__ void __launch_bounds__(kBlock)
-light_mlt_chain_kernel(const float* __restrict__ scene, int ntp, int nl,
-                       int ns, int nq, uint32_t k0, uint32_t k1,
-                       uint32_t chain0, int chains, int rounds,
-                       int round_stride, bool neg_t, Consts K, bool exact,
+light_mlt_chain_kernel(const float* __restrict__ scene, bool staged,
+                       int ntp, int nl, int ns, int nq, uint32_t k0,
+                       uint32_t k1, uint32_t chain0, int chains, int rounds,
+                       bool neg_t, Consts K, bool exact,
                        float eps2, float inv_scale,
                        const float* __restrict__ v_in,
                        const int* __restrict__ len_in,
                        float4* __restrict__ out,
                        unsigned long long* __restrict__ traces) {
   extern __shared__ float4 smem4[];
-  const Scene S = stage_scene(scene, reinterpret_cast<float*>(smem4), ntp,
-                              nl, ns, nq);
-  __syncthreads();
+  const Scene S = block_scene(scene, staged, reinterpret_cast<float*>(smem4),
+                              ntp, nl, ns, nq);
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)nl * chains) return;
   const int l = (int)(i / chains);
@@ -366,7 +381,7 @@ light_mlt_chain_kernel(const float* __restrict__ scene, int ntp, int nl,
   p.len = len_in[i];
   unsigned long long n = 0;
   for (int r = 0; r < rounds; ++r) {
-    const uint32_t rnd = (uint32_t)r + (uint32_t)l * (uint32_t)round_stride;
+    const uint32_t rnd = (uint32_t)r + (uint32_t)l * (uint32_t)rounds;
     mutate(S, k0, k1, chain, lp, kSiteMlt + rnd * 16u, K, exact, eps2,
            neg_t, p, n);
   }
@@ -397,12 +412,16 @@ light_mlt_chain_kernel(const float* __restrict__ scene, int ntp, int nl,
   add_traces(traces, n);
 }
 
-// The kernel's shared memory (the packed scene), with the attribute set
-// past 48 KB; returns the error or cudaSuccess.
+// Whether the kernel stages the scene, and its shared memory (the packed
+// scene, or none), with the attribute set past 48 KB; returns the error
+// or cudaSuccess.
 template <typename Kernel>
 cudaError_t scene_smem(Kernel kernel, int ntp, int nl, int ns, int nq,
-                       size_t& bytes) {
-  bytes = sizeof(float) * (size_t)(ntp * 12 + 12 + nl * 4 + ns * 3 + 2 * nq);
+                       bool& staged, size_t& bytes) {
+  staged = ntp <= kStageTriangles;
+  bytes = staged ? sizeof(float) * (size_t)(ntp * 12 + 12 + nl * 4 + ns * 3
+                                            + 2 * nq)
+                 : 0;
   if (bytes > 48 * 1024)
     return cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -430,11 +449,14 @@ extern "C" int light_emit_launch(const float* scene, int ntp, int nl, int ns,
                                  unsigned long long* traces, void* stream) {
   const long long rows = (long long)nl * count;
   if (rows <= 0) return 0;
+  bool staged;
   size_t smem;
-  cudaError_t e = scene_smem(light_emit_kernel, ntp, nl, ns, nq, smem);
+  cudaError_t e =
+      scene_smem(light_emit_kernel, ntp, nl, ns, nq, staged, smem);
   if (e != cudaSuccess) return (int)e;
   light_emit_kernel<<<blocks(rows), kBlock, smem, (cudaStream_t)stream>>>(
-      scene, ntp, nl, ns, nq, k0, k1, gi0, count, reuse_dir != 0, neg_t != 0,
+      scene, staged, ntp, nl, ns, nq, k0, k1, gi0, count, reuse_dir != 0,
+      neg_t != 0,
       Consts{two_pi, s1, ratio, dx_offset}, inv_scale,
       reinterpret_cast<float4*>(out), traces);
   return (int)cudaGetLastError();
@@ -451,12 +473,14 @@ extern "C" int light_mlt_seed_launch(const float* scene, int ntp, int nl,
                                      void* stream) {
   const long long rows = (long long)nl * chains;
   if (rows <= 0) return 0;
+  bool staged;
   size_t smem;
-  cudaError_t e = scene_smem(light_mlt_seed_kernel, ntp, nl, ns, nq, smem);
+  cudaError_t e =
+      scene_smem(light_mlt_seed_kernel, ntp, nl, ns, nq, staged, smem);
   if (e != cudaSuccess) return (int)e;
   light_mlt_seed_kernel<<<blocks(rows), kBlock, smem,
                           (cudaStream_t)stream>>>(
-      scene, ntp, nl, ns, nq, k0, k1, chain0, chains, neg_t != 0,
+      scene, staged, ntp, nl, ns, nq, k0, k1, chain0, chains, neg_t != 0,
       Consts{two_pi, s1, ratio, dx_offset}, v, length, traces);
   return (int)cudaGetLastError();
 }
@@ -465,19 +489,20 @@ extern "C" int light_mlt_seed_launch(const float* scene, int ntp, int nl,
 // float32; `exact` is verify_eps == 0, eps2 the float32 eps * eps.
 extern "C" int light_mlt_chain_launch(
     const float* scene, int ntp, int nl, int ns, int nq, unsigned k0,
-    unsigned k1, unsigned chain0, int chains, int rounds, int round_stride,
-    int neg_t, float two_pi, float s1, float ratio, float dx_offset,
+    unsigned k1, unsigned chain0, int chains, int rounds, int neg_t, float two_pi, float s1, float ratio, float dx_offset,
     int exact, float eps2, float inv_scale, const float* v_in,
     const int* len_in, float* out, unsigned long long* traces,
     void* stream) {
   const long long rows = (long long)nl * chains;
   if (rows <= 0) return 0;
+  bool staged;
   size_t smem;
-  cudaError_t e = scene_smem(light_mlt_chain_kernel, ntp, nl, ns, nq, smem);
+  cudaError_t e =
+      scene_smem(light_mlt_chain_kernel, ntp, nl, ns, nq, staged, smem);
   if (e != cudaSuccess) return (int)e;
   light_mlt_chain_kernel<<<blocks(rows), kBlock, smem,
                            (cudaStream_t)stream>>>(
-      scene, ntp, nl, ns, nq, k0, k1, chain0, chains, rounds, round_stride,
+      scene, staged, ntp, nl, ns, nq, k0, k1, chain0, chains, rounds,
       neg_t != 0, Consts{two_pi, s1, ratio, dx_offset}, exact != 0, eps2,
       inv_scale, v_in, len_in, reinterpret_cast<float4*>(out), traces);
   return (int)cudaGetLastError();

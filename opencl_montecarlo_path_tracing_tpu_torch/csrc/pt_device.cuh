@@ -45,15 +45,12 @@ __device__ __forceinline__ int scene_floats(int ntp, int nl, int ns, int nq) {
   return ntp * 12 + 12 + nl * 4 + ns * 3 + 2 * nq;
 }
 
-// Copy the packed scene into shared memory `smem` (all threads of the
-// block take part; the caller synchronises before reading it).
-__device__ __forceinline__ Scene stage_scene(const float* __restrict__ scene,
-                                             float* smem, int ntp, int nl,
-                                             int ns, int nq) {
-  const int n_floats = scene_floats(ntp, nl, ns, nq);
-  for (int i = threadIdx.x; i < n_floats; i += blockDim.x) smem[i] = scene[i];
+// The packed scene read where it lies: `base` is the buffer, in global
+// or in shared memory.
+__device__ __forceinline__ Scene scene_view(const float* base, int ntp,
+                                            int nl, int ns, int nq) {
   Scene S;
-  S.tri = smem;
+  S.tri = base;
   S.cam = S.tri + ntp * 12;
   S.lights = S.cam + 12;
   S.spheres = S.lights + nl * 4;
@@ -64,6 +61,16 @@ __device__ __forceinline__ Scene stage_scene(const float* __restrict__ scene,
   S.ns = ns;
   S.nq = nq;
   return S;
+}
+
+// Copy the packed scene into shared memory `smem` (all threads of the
+// block take part; the caller synchronises before reading it).
+__device__ __forceinline__ Scene stage_scene(const float* __restrict__ scene,
+                                             float* smem, int ntp, int nl,
+                                             int ns, int nq) {
+  const int n_floats = scene_floats(ntp, nl, ns, nq);
+  for (int i = threadIdx.x; i < n_floats; i += blockDim.x) smem[i] = scene[i];
+  return scene_view(smem, ntp, nl, ns, nq);
 }
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {

@@ -22,9 +22,9 @@ passes, else the plain wavefront on the card, whose dense gather is kernel
 B6 for large batches (``ops/vlp.py::gather_vlps``) and whose traces of
 meshes of >= 2048 triangles are kernel B7 (``ops/tri_closest.py``); on the
 CPU the plain wavefront.  The light pass (emission, the Metropolis chain)
-is kernels L1 / L2 on a CUDA device within their gate
-(``ops/light_pass.py::light_route``), else plain PyTorch on the film's
-device, whose traces reach B7 the same way.
+is kernels L1 / L2 on a CUDA device (``ops/light_pass.py::
+light_route``), else plain PyTorch on the film's device, whose traces
+reach B7 the same way.
 """
 
 from __future__ import annotations

@@ -16,11 +16,11 @@ The JAX package's deliberate repairs of reference defects are kept (the
 seed pass output feeds the mutation pass; counter-based draws per
 (chain, round, site); ``VerifyIntersection`` accepts within ``verify_eps``,
 0.0 reproducing the reference's always-reject exact equality; a
-device-resident bounding-box reduction).  On a CUDA device within the
-light-pass gate (``ops/light_pass.py::light_route``) the seed paths are
-one launch of kernel L2a and the chain with its emission one of L2b, one
-thread a chain.  The plain version, on the CPU, past the gate or with
-``plain=True``, is batched PyTorch on the film's device: ~100
+device-resident bounding-box reduction).  On a CUDA device
+(``ops/light_pass.py::light_route``) the seed paths are one launch of
+kernel L2a and the chain with its emission one of L2b, one thread a
+chain.  The plain version, on the CPU or with ``plain=True``, is batched
+PyTorch on the film's device: ~100
 ``trace_ray`` calls on nlights * n_seedpaths rays, every chain traced at
 every stage and the results masked.
 """
@@ -201,10 +201,10 @@ def mlt_seed(key, scn: SceneArrays, n_seedpaths: int,
              chains: int | None = None, device="cuda", plain: bool = False):
     """The seed-path stage alone (the reference's ``lightTracer`` kernel,
     vlpgrid .c:182-221 dispatch): returns the (v, length) chain state the
-    Metropolis stage mutates.  Kernel L2a on a CUDA device within the
-    light-pass gate, else (or with ``plain=True``) batched PyTorch."""
+    Metropolis stage mutates.  Kernel L2a on a CUDA device, else (or with
+    ``plain=True``) batched PyTorch."""
     device = C.check_device(device)
-    if not plain and light_pass.light_route(scn, device) == "light_pass":
+    if not plain and light_pass.light_route(device) == "light_pass":
         return light_pass.mlt_seed(key, scn, n_seedpaths, quirks, chain0,
                                    chains, device)
     nlights, B, lp, _, light_idx, chain = _chain_layout(
@@ -218,28 +218,23 @@ def mlt_mutate_emit(key, scn: SceneArrays, n_seedpaths: int,
                     mutation_rounds: int, quirks: Quirks = DEFAULT,
                     verify_eps: float = 1e-3, seed_state=None,
                     chain0: int = 0, chains: int | None = None,
-                    device="cuda", plain: bool = False,
-                    round_stride: int | None = None):
+                    device="cuda", plain: bool = False):
     """Mutation rounds + VLP emission (the reference's
     ``MetropolisLightTracer`` kernel, vlpgrid .c:223-264 dispatch) on the
-    seed state from :func:`mlt_seed`.  Kernel L2b on a CUDA device within
-    the light-pass gate, else (or with ``plain=True``) batched PyTorch.
-    Round r of light l draws as round r + l * round_stride (default
-    max(1, mutation_rounds)), so a larger stride runs the first rounds of
-    a longer chain."""
+    seed state from :func:`mlt_seed`.  Kernel L2b on a CUDA device, else
+    (or with ``plain=True``) batched PyTorch."""
     device = C.check_device(device)
-    if not plain and light_pass.light_route(scn, device) == "light_pass":
+    if not plain and light_pass.light_route(device) == "light_pass":
         return light_pass.mlt_mutate_emit(
             key, scn, n_seedpaths, mutation_rounds, quirks, verify_eps,
-            seed_state, chain0, chains, device, round_stride=round_stride)
+            seed_state, chain0, chains, device)
     nlights, B, lp, intensity, light_idx, chain = _chain_layout(
         scn, n_seedpaths, chain0, chains, device)
     total_paths = n_seedpaths * nlights
     scale_den = max(1, total_paths // 256)
     v, length = seed_state
 
-    rounds = (max(1, mutation_rounds) if round_stride is None
-              else int(round_stride))
+    rounds = max(1, mutation_rounds)
     for r in range(mutation_rounds):
         v, length = _mutate(key, scn, quirks, verify_eps, lp, v, length,
                             r + light_idx * rounds, chain, plain)
@@ -277,8 +272,8 @@ def mlt_vlps(key, scn: SceneArrays, n_seedpaths: int, mutation_rounds: int,
     [chain0, chain0+chains) of each light (result (nlights * 4 * chains,
     4), layout [light][slot][chain]); draws key on the GLOBAL chain index
     (and scale_den on the global n_seedpaths), so window rows are
-    bit-identical to the same rows of the full run.  On a CUDA device
-    within the light-pass gate: kernels L2a and L2b, one launch each;
+    bit-identical to the same rows of the full run.  On a CUDA device:
+    kernels L2a and L2b, one launch each;
     ``plain=True`` keeps both stages on batched PyTorch."""
     device = C.check_device(device)
     if int(scn.lights.shape[0]) == 0:

@@ -1,4 +1,4 @@
-"""The light pass's kernels (L1; L2a and L2b): wrappers, gate and route.
+"""The light pass's kernels (L1; L2a and L2b): wrappers and route.
 
 The VLP family's light pass - the bidirectional emission
 (``ops/vlp.py::emit_vlps``), and the Metropolis seed paths and chain
@@ -18,12 +18,14 @@ with ``plain=True`` (today's batched PyTorch, on any device), and the
 kernels keep its float operations in its order, so the tables are
 bit-equal to it on the card.
 
-:func:`light_route` decides, from the configuration and before any
-launch, whether a light pass takes the kernels: on a CUDA device within
-the gate (:func:`unsupported_reason`: B1's and B4's shared-memory tier,
-<= 512 triangles).  Past the gate the plain light pass runs on the card
-(its traces of >= 2048 triangles on kernel B7); on the CPU the plain
-light pass.  A kernel that fails to build or launch raises.
+:func:`light_route` decides, before any launch, whether a light pass
+takes the kernels: on a CUDA device, at every scene size (the kernels
+stage a scene of <= 512 triangles in shared memory and read a larger one
+in place from global memory); on the CPU the plain light pass.  A kernel
+that fails to build or launch raises.  Past 2,048 triangles the plain
+version's traces take kernel B7's matmul form (``ops/intersect.py::
+trace_ray``), while the kernels keep the det-scaled scan of every size,
+so there the two agree to rounding, not bit for bit.
 """
 
 from __future__ import annotations
@@ -35,8 +37,8 @@ import torch
 
 from ..core.quirks import Quirks
 from ..models.common import check_device
-from .intersect import SceneArrays, derived
-from .mega_super import MAX_SMEM_TRIANGLES, _stream, _u32_arg, pack_scene
+from .intersect import SceneArrays
+from .mega_super import _stream, _u32_arg, scene_buffer
 
 #: Launches of L1 (the emission), L2a (the seed paths) and L2b (the chain
 #: and its emission) since the last reset (each wrapper adds one per
@@ -48,23 +50,11 @@ CHAIN_LAUNCHES = 0
 _MASK = 0xFFFFFFFF
 
 
-def unsupported_reason(scn: SceneArrays) -> str | None:
-    """Why the light-pass kernels cannot run ``scn``, or None when they
-    can: they stage the scene in shared memory, as B1 and B4 do."""
-    nt = int(scn.tri_v0.shape[0])
-    if nt > MAX_SMEM_TRIANGLES:
-        return (f"{nt} triangles: the light-pass kernels stage <= "
-                f"{MAX_SMEM_TRIANGLES} triangles in shared memory")
-    return None
-
-
-def light_route(scn: SceneArrays, device) -> str:
-    """How ``device`` runs the light pass of ``scn``: ``"light_pass"``
-    (kernels L1 / L2a / L2b) on a CUDA device within the gate, else
-    ``"plain"`` (the batched PyTorch light pass on ``device``)."""
-    if torch.device(device).type == "cuda" and unsupported_reason(scn) is None:
-        return "light_pass"
-    return "plain"
+def light_route(device) -> str:
+    """How ``device`` runs a light pass: ``"light_pass"`` (kernels L1 /
+    L2a / L2b) on a CUDA device, else ``"plain"`` (the batched PyTorch
+    light pass on ``device``)."""
+    return "light_pass" if torch.device(device).type == "cuda" else "plain"
 
 
 class Consts(NamedTuple):
@@ -102,8 +92,7 @@ class ChainArgs(NamedTuple):
     chain0: int       # the window's first chain, modulo 2^32
     chains: int       # chains a light
     nl: int
-    rounds: int       # mutation rounds
-    round_stride: int  # max(1, rounds): round r of light l is r + l * it
+    rounds: int       # mutation rounds: round r of light l is r + l * it
     neg_t: int
     exact: int        # verify_eps == 0: VerifyIntersection's exact test
     eps2: float       # float32 verify_eps * verify_eps
@@ -129,46 +118,31 @@ def emit_args(key, scn: SceneArrays, n_vlp: int, quirks: Quirks,
 
 def chain_args(key, scn: SceneArrays, n_seedpaths: int, quirks: Quirks,
                mutation_rounds: int = 0, verify_eps: float = 1e-3,
-               chain0: int = 0, chains: int | None = None,
-               round_stride: int | None = None) -> ChainArgs:
+               chain0: int = 0, chains: int | None = None) -> ChainArgs:
     nl = int(scn.lights.shape[0])
     return ChainArgs(
         _u32_arg("k0", key[0]), _u32_arg("k1", key[1]), int(chain0) & _MASK,
         int(n_seedpaths if chains is None else chains), nl,
         int(mutation_rounds),
-        max(1, int(mutation_rounds)) if round_stride is None
-        else int(round_stride),
         int(bool(quirks.accept_negative_t)), int(verify_eps == 0.0),
         float(np.float32(verify_eps * verify_eps)),
         _inv(max(1, n_seedpaths * nl // 256)))
 
 
-def kernel_scene(scn: SceneArrays, device) -> tuple:
-    """(scene buffer, padded triangle count) on ``device``, built once per
-    prepared scene: ``pack_scene``, B1's buffer."""
-    def make(s):
-        buf, ntp = pack_scene(s)
-        return torch.from_numpy(buf).to(device), ntp
-    return derived(scn, "light_pass.kernel_scene", device, make)
-
-
 def _prologue(scn: SceneArrays, device, traces):
-    """The gate and the device checks; (library, indexed device, scene
-    args, traces pointer)."""
+    """The device checks; (library, indexed device, scene args, traces
+    pointer)."""
     device = check_device(device)
     if device.type != "cuda":
         raise ValueError(f"the light-pass kernels run on a CUDA device, "
                          f"not {device}")
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    reason = unsupported_reason(scn)
-    if reason is not None:
-        raise NotImplementedError(reason)
     if traces is not None and (traces.device != device
                                or traces.dtype != torch.int64
                                or traces.numel() != 1):
         raise ValueError(f"traces must be a (1,) int64 tensor on {device}")
-    buf, ntp = kernel_scene(scn, device)
+    buf, ntp = scene_buffer(scn, device)
     from ..utils.build import load
     scene = (buf.data_ptr(), ntp, int(scn.lights.shape[0]),
              int(scn.sphere_centers.shape[0]), int(scn.square_k.shape[0]))
@@ -233,15 +207,14 @@ def mlt_mutate_emit(key, scn: SceneArrays, n_seedpaths: int,
                     mutation_rounds: int, quirks: Quirks,
                     verify_eps: float = 1e-3, seed_state=None,
                     chain0: int = 0, chains: int | None = None,
-                    device="cuda", traces=None,
-                    round_stride: int | None = None):
+                    device="cuda", traces=None):
     """L2b: ``models/metropolis.py::mlt_mutate_emit`` (same arguments and
     output: the (nl * 4 * B, 4) table, [light][slot][chain]) in one launch
     on a CUDA ``device``, from the seed state ``(v, length)``."""
     global CHAIN_LAUNCHES
     lib, device, scene, tr = _prologue(scn, device, traces)
     a = chain_args(key, scn, n_seedpaths, quirks, mutation_rounds,
-                   verify_eps, chain0, chains, round_stride)
+                   verify_eps, chain0, chains)
     rows = a.nl * a.chains
     v, length = seed_state
     v = torch.as_tensor(v, dtype=torch.float32, device=device).contiguous()
@@ -258,7 +231,7 @@ def mlt_mutate_emit(key, scn: SceneArrays, n_seedpaths: int,
     with torch.cuda.device(device):
         err = lib.light_mlt_chain_launch(
             *scene, a.k0, a.k1, a.chain0, a.chains, a.rounds,
-            a.round_stride, a.neg_t, *k, a.exact, a.eps2, a.inv_scale,
+            a.neg_t, *k, a.exact, a.eps2, a.inv_scale,
             v.data_ptr(), length.data_ptr(), out.data_ptr(), tr,
             _stream(device))
     _raise(lib, err, "light_mlt_chain")

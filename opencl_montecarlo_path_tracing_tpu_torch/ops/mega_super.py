@@ -89,6 +89,15 @@ def pack_scene(scn: SceneArrays, triangles: bool = True
     return buf, ntp
 
 
+def scene_buffer(scn: SceneArrays, device) -> tuple:
+    """(``pack_scene`` buffer, padded triangle count) on ``device``, built
+    once per prepared scene and device (B4's and the light pass's scene)."""
+    def make(s):
+        buf, ntp = pack_scene(s)
+        return torch.from_numpy(buf).to(device), ntp
+    return derived(scn, "mega_super.scene_buffer", device, make)
+
+
 def film_super_mega_plain(key, scn: SceneArrays, width: int, height: int,
                           spp: int, spp_offset: int = 0,
                           spp_total: int | None = None,

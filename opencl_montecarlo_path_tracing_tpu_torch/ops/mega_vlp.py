@@ -37,7 +37,7 @@ from ..core.quirks import Quirks, DEFAULT
 from ..models import common as C
 from .intersect import SceneArrays, derived
 from .mega_super import (MAX_LIGHTS, MAX_SMEM_TRIANGLES, _check, _stream,
-                         _u32_arg, pack_scene)
+                         _u32_arg, scene_buffer)
 from .vlp import live_first, vlp_aabbs
 
 #: Launches of the CUDA kernel since the last reset (the wrapper adds one
@@ -139,13 +139,11 @@ def tri_block_boxes(scn: SceneArrays) -> np.ndarray:
 
 def kernel_inputs(scn: SceneArrays, device) -> tuple:
     """(scene buffer, padded triangle count, triangle block boxes) on
-    ``device``, built once per prepared scene: ``pack_scene`` and
-    :func:`tri_block_boxes`."""
-    def make(s):
-        buf, ntp = pack_scene(s)
-        return (torch.from_numpy(buf).to(device), ntp,
-                torch.from_numpy(tri_block_boxes(s)).to(device))
-    return derived(scn, "mega_vlp.kernel_inputs", device, make)
+    ``device``, built once per prepared scene: ``mega_super.scene_buffer``
+    and :func:`tri_block_boxes`."""
+    boxes = derived(scn, "mega_vlp.tri_block_boxes", device,
+                    lambda s: torch.from_numpy(tri_block_boxes(s)).to(device))
+    return (*scene_buffer(scn, device), boxes)
 
 
 def film_vlp_mega_plain(key, scn: SceneArrays, vlps, width: int,

@@ -14,9 +14,8 @@ Reference (SURVEY.md section 2 #10/#12):
    16*sqrt(intensity), metropolispathtracer.ocl:551-554) and gathers only
    the shading point's cell (ocl vlpgrid:326-349).
 
-The emission runs on a CUDA device in kernel L1 (``ops/light_pass.py``)
-when ``light_pass.light_route`` says so; ``plain=True`` keeps it on the
-batched PyTorch below on any device.  The dense gather has two forms with
+The emission runs on a CUDA device in kernel L1 (``ops/light_pass.py``);
+``plain=True`` keeps it on the batched PyTorch below on any device.  The dense gather has two forms with
 the same semantics: the plain scan below, and kernel B6
 (``ops/gather_vlp.py``), which ``gather_vlps`` takes on a CUDA device for
 large batches, exactly where the JAX package takes its MXU kernel.
@@ -105,17 +104,17 @@ def emit_vlps(key, scn: SceneArrays, n_vlp: int, quirks: Quirks = DEFAULT,
     scale_den on the global n_vlp), so a window's rows are bit-identical
     to the same rows of the full emission.
 
-    On a CUDA device within the light-pass gate: one launch of kernel L1
-    (``ops/light_pass.py::light_route``); else, or with ``plain=True``,
-    the batched PyTorch below on ``device`` (``plain`` also keeps its
-    traces of large meshes on kernel B7's plain version).  A CUDA request
-    without a GPU raises."""
+    On a CUDA device: one launch of kernel L1 (``ops/light_pass.py::
+    light_route``); on the CPU, or with ``plain=True``, the batched
+    PyTorch below on ``device`` (``plain`` also keeps its traces of large
+    meshes on kernel B7's plain version).  A CUDA request without a GPU
+    raises."""
     from . import light_pass
     from ..models.common import check_device
     device = check_device(device)
     if count is None:
         count = n_vlp
-    if not plain and light_pass.light_route(scn, device) == "light_pass":
+    if not plain and light_pass.light_route(device) == "light_pass":
         return light_pass.emit(key, scn, n_vlp, quirks, gi0, count, device)
     nlights = int(scn.lights.shape[0])
     total_vlp = n_vlp * nlights

@@ -33,7 +33,8 @@ tolerance ``tests/test_mxu_triangles.py`` gives two such orders).  The B8
 kernels (the grid cell-walk pair, the take-list primitives, the loop arms)
 and the light pass's (L1, L2a, L2b: tables and seed states) equal their
 plain versions bit for bit: the same float operations in the same order,
-none contracted.
+none contracted; the light pass's tables, read back to the host, also
+hold to the port's NumPy oracles (``hold_light_pass_to_oracles``).
 """
 
 import os
@@ -1007,23 +1008,135 @@ def test_vlp_render_launches_the_light_pass_kernels(variant, cuda_device):
 
 
 @pytest.mark.gpu
-def test_light_pass_past_the_gate_runs_plain(cuda_device):
-    """A 544-triangle sheet is past the light-pass kernels' gate: the
-    light pass is plain PyTorch on the card, no L1 / L2 launch."""
+def test_light_pass_reads_a_large_scene_in_place(cuda_device):
+    """A 544-triangle sheet is past the kernels' shared-memory stage: L1,
+    L2a and L2b read it in place from global memory, launch once each and
+    equal their plain versions bit for bit (below 2,048 triangles both
+    scan the triangles with the same det-scaled test), in a window too."""
     from opencl_montecarlo_path_tracing_tpu_torch.models import (
         metropolis as TM)
     from opencl_montecarlo_path_tracing_tpu_torch.ops import light_pass as L
     from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as TV
     scn = prep_scene(sheet_scene(16, 17))
-    assert L.light_route(scn, cuda_device) == "plain"
+    assert scn.tri_v0.shape[0] == 544 > M.MAX_SMEM_TRIANGLES
+    assert L.light_route(cuda_device) == "light_pass"
+    key, plain = (2, 0), dict(device=cuda_device, plain=True)
+    hits = None
+    for w in ({}, dict(chain0=3, chains=5)):
+        ew = {} if not w else dict(gi0=w["chain0"], count=w["chains"])
+        c0 = light_counts()
+        a = TV.emit_vlps(key, scn, 32, device=cuda_device, **ew)
+        seed = TM.mlt_seed(key, scn, 8, device=cuda_device, **w)
+        b = TM.mlt_mutate_emit(key, scn, 8, 2, seed_state=seed,
+                               device=cuda_device, **w)
+        torch.cuda.synchronize()
+        assert light_counts() == tuple(c + 1 for c in c0)
+        assert torch.equal(a, TV.emit_vlps(key, scn, 32, **ew, **plain))
+        pv, pl = TM.mlt_seed(key, scn, 8, **w, **plain)
+        assert torch.equal(seed[0], pv) and torch.equal(seed[1], pl)
+        assert torch.equal(b, TM.mlt_mutate_emit(key, scn, 8, 2,
+                                                 seed_state=seed, **w,
+                                                 **plain))
+        if hits is None:
+            # the full run's rows that hit something (a triangle's VLP is
+            # dead, its position kept) and chains with a vertex
+            hits = (int((a.abs().sum(1) > 0).sum()),
+                    int((seed[1] > 0).sum()))
+    assert min(hits) > 0
+
+
+# the light pass against the port's NumPy oracles (models/oracle_bpt.py::
+# emit_vlps_oracle, models/oracle_mlt.py::mlt_vlps_oracle: the reference's
+# kernels transcribed one ray or one chain at a time on the NumPy tracer of
+# models/oracle_super.py, np.array_equal to the JAX package's oracles in
+# tests/test_torch_oracles.py) on the same key and scene: work items and
+# chains a light, rounds, and a window of both
+ORACLE_N = {"demo": (512, 32), "dense": (128, 32)}
+ORACLE_ROUNDS, ORACLE_WINDOW = 4, (5, 10)
+
+
+def chain_match(tv, ov, n_chains, atol=1e-4):
+    """tests/test_mlt_oracle.py::chain_match: the share of chains whose VLP
+    rows (all lights x depths) agree."""
+    tc = tv.reshape(-1, n_chains, 4)
+    oc = ov.reshape(-1, n_chains, 4)
+    ok = (np.abs(tc - oc) <= atol + 1e-4 * np.abs(oc)).all(axis=(0, 2))
+    return ok.mean()
+
+
+def hold_light_pass_to_oracles(device, scene_name, qname):
+    """The light pass on ``device`` (kernels L1, L2a + L2b on a CUDA device,
+    the plain version on the CPU) against the oracles, read back to the
+    host.  Emitted table: the live mask equal and rtol = atol = 1e-5 (one
+    trace a row; cos / sin / sqrt may differ by an ulp between float
+    libraries), the JAX parity tolerance of tests/test_torch_bpt_mlt.py.
+    Metropolis table: the oracle contract of tests/test_torch_oracles.py,
+    a chain match >= 0.9 (a borderline verification may flip between two
+    float implementations and fork that one chain).  Under the reference
+    quirks (negative t accepted, the light direction reused) the chain
+    verifies exactly (verify_eps 0).  Returns what was compared: the live
+    rows and the max abs difference of the emitted table, the live rows
+    and the chain match of the Metropolis table (full run, window)."""
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.models import (
+        metropolis as TM, oracle_bpt as OB, oracle_mlt as OM)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as TV
+    scene = demo_scene()[0] if scene_name == "demo" else dense_vlp_scene()
+    scn = prep_scene(scene)
+    q, eps = (DEFAULT, 1e-3) if qname == "default" else (REFERENCE, 0.0)
+    key, (n_vlp, n_chain) = make_key(9), ORACLE_N[scene_name]
+    g0, cnt = ORACLE_WINDOW
+    nl = scene.n_lights
+
+    def rows(n, blocks):
+        return np.concatenate([np.arange(g0, g0 + cnt) + n * b
+                               for b in range(blocks)])
+
+    def host(t):
+        return t.cpu().numpy()
+
+    want = OB.emit_vlps_oracle(scene, n_vlp, None, q, key=key)
+    assert (want[:, 3] > 0).sum() >= 3
+    out = dict(emit_live=int((want[:, 3] > 0).sum()), emit_max_abs=0.0)
+    for got, w in ((host(TV.emit_vlps(key, scn, n_vlp, q, device=device)),
+                    want),
+                   (host(TV.emit_vlps(key, scn, n_vlp, q, gi0=g0, count=cnt,
+                                      device=device)),
+                    want[rows(n_vlp, nl)])):
+        assert got.shape == w.shape
+        np.testing.assert_array_equal(got[:, 3] > 0, w[:, 3] > 0)
+        np.testing.assert_allclose(got, w, rtol=1e-5, atol=1e-5)
+        out["emit_max_abs"] = max(out["emit_max_abs"],
+                                  float(np.abs(got - w).max()))
+
+    want = OM.mlt_vlps_oracle(scene, key, n_chain, ORACLE_ROUNDS, q, eps)
+    assert (want[:, 3] > 0).sum() >= 2
+    got = host(TM.mlt_vlps(key, scn, n_chain, ORACLE_ROUNDS, q, eps,
+                           device=device))
+    assert got.shape == want.shape
+    match = [chain_match(got, want, n_chain)]
+    got = host(TM.mlt_vlps(key, scn, n_chain, ORACLE_ROUNDS, q, eps,
+                           chain0=g0, chains=cnt, device=device))
+    match.append(chain_match(got, want[rows(n_chain, 4 * nl)], cnt))
+    assert min(match) >= 0.9, match
+    return dict(out, mlt_live=int((want[:, 3] > 0).sum()),
+                chain_match=tuple(float(m) for m in match))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qname", ["default", "reference"])
+@pytest.mark.parametrize("scene", ["demo", "dense"])
+def test_light_pass_kernels_hold_to_the_oracles(scene, qname, cuda_device):
+    """L1 and L2a + L2b on the card, read back to the host, against the
+    NumPy oracles on the same key and scene (the tables every VLP render
+    on the card is drawn from; tests/test_torch_light_pass.py holds the
+    plain light pass on the CPU to the same oracles)."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import light_pass as L
     c0 = light_counts()
-    a = TV.emit_vlps((2, 0), scn, 32, device=cuda_device)
-    b = TM.mlt_vlps((2, 0), scn, 8, 1, device=cuda_device)
+    hold_light_pass_to_oracles(cuda_device, scene, qname)
     torch.cuda.synchronize()
-    assert light_counts() == c0
-    assert a.shape == (64, 4) and b.shape == (64, 4)
-    with pytest.raises(NotImplementedError, match="544 triangles"):
-        L.emit((2, 0), scn, 32, DEFAULT, device=cuda_device)
+    assert light_counts() == (c0[0] + 2, c0[1] + 2, c0[2] + 2)
+    assert L.light_route(cuda_device) == "light_pass"
 
 
 def test_file_imports_no_jax():

@@ -6,16 +6,20 @@ The kernels run only on a CUDA device (tests/test_torch_gpu.py holds them
 bit for bit against their plain versions there); here:
 
 * ``light_route`` is decided from the configuration: the kernels on a
-  CUDA device within the gate (<= 512 triangles), the plain light pass
-  past it and on the CPU;
+  CUDA device at every scene size, the plain light pass on the CPU;
 * a CUDA request without a GPU raises (no fallback to the CPU);
-* the wrapper's packed inputs - the scene buffer, key words, windows,
-  quirk flags and float constants - against ``SceneArrays`` and the plain
-  modules' constants;
+* the wrapper's packed inputs - the scene buffer (one device copy,
+  shared with kernel B4), key words, windows, quirk flags and float
+  constants - against ``SceneArrays`` and the plain modules' constants;
 * every chain's rows, and every work item's, depend on its own draws
   only: a one-chain (``chains=1``) or one-item (``count=1``) window of the
   plain light pass equals that chain's or item's rows of the full table,
   bit for bit (the kernels run one thread a chain or item).
+
+* the plain light pass holds to the port's NumPy oracles on the demo and
+  dense scenes, under both quirk sets and in a window
+  (``tests/test_torch_gpu.py::hold_light_pass_to_oracles``, which the card
+  tests run on the kernels' tables).
 
 The JAX-against-port tests of the light pass stay in
 tests/test_torch_vlp.py and tests/test_torch_bpt_mlt.py.
@@ -29,11 +33,14 @@ from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
     DEFAULT, REFERENCE, REFERENCE_LMEM)
 from opencl_montecarlo_path_tracing_tpu_torch.models import metropolis as TM
 from opencl_montecarlo_path_tracing_tpu_torch.ops import light_pass as L
+from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_vlp as M4
 from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as TV
 from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
     _tri_table, prep_scene)
+from opencl_montecarlo_path_tracing_tpu_torch.ops.mega_super import (
+    scene_buffer)
 from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
-    demo_scene, dense_vlp_scene, large_mesh_scene)
+    demo_scene, dense_vlp_scene)
 
 CHAINS, ROUNDS = 8, 2
 
@@ -52,15 +59,14 @@ def scenes():
 
 
 def test_light_route_is_decided_from_the_configuration():
-    demo = prep_scene(demo_scene()[0])
-    sheet = prep_scene(large_mesh_scene(16, 17))     # 544 triangles
-    assert L.unsupported_reason(demo) is None
-    assert L.light_route(demo, "cuda") == "light_pass"
-    assert L.light_route(demo, torch.device("cuda", 0)) == "light_pass"
-    assert L.light_route(demo, "cpu") == "plain"
-    assert "544 triangles" in L.unsupported_reason(sheet)
-    assert L.light_route(sheet, "cuda") == "plain"
-    assert L.light_route(sheet, "cpu") == "plain"
+    """The device alone decides: the kernels stage a scene of <= 512
+    triangles in shared memory and read a larger one in place, so no
+    scene size leaves the card's light pass to plain PyTorch."""
+    assert L.light_route("cuda") == "light_pass"
+    assert L.light_route(torch.device("cuda", 0)) == "light_pass"
+    assert L.light_route("cpu") == "plain"
+    assert L.light_route(torch.device("cpu")) == "plain"
+    assert not hasattr(L, "unsupported_reason")
 
 
 def _calls(scn):
@@ -104,8 +110,8 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize("name", ["demo", "dense"])
 def test_packed_scene_matches_scene_arrays(name):
     scn = scenes()[name]
-    buf, ntp = L.kernel_scene(scn, "cpu")
-    buf = buf.numpy()
+    buf_t, ntp = scene_buffer(scn, "cpu")
+    buf = buf_t.numpy()
     nt, nl = scn.tri_v0.shape[0], scn.lights.shape[0]
     ns, nq = scn.sphere_centers.shape[0], scn.square_k.shape[0]
     assert ntp % 8 == 0 and nt <= ntp < nt + 8
@@ -123,8 +129,11 @@ def test_packed_scene_matches_scene_arrays(name):
     o += ns * 3
     np.testing.assert_array_equal(buf[o:o + nq], scn.square_k)
     np.testing.assert_array_equal(buf[o + nq:], scn.square_z)
-    # built once per prepared scene and device
-    assert L.kernel_scene(scn, "cpu")[0] is L.kernel_scene(scn, "cpu")[0]
+    # built once per prepared scene and device, one copy for B4 and the
+    # light pass
+    assert scene_buffer(scn, "cpu")[0] is buf_t
+    assert M4.kernel_inputs(scn, "cpu")[0] is buf_t
+    assert M4.kernel_inputs(scn, "cpu")[1] == ntp
 
 
 def test_packed_arguments():
@@ -141,12 +150,12 @@ def test_packed_arguments():
         L.emit_args((-1, 0), scn, 8, DEFAULT)
     c = L.chain_args((3, 4), scn, 384, REFERENCE_LMEM, 8, 1e-3, chain0=-1,
                      chains=6)
-    assert c == L.ChainArgs(3, 4, 2**32 - 1, 6, 2, 8, 8, 1, 0,
+    assert c == L.ChainArgs(3, 4, 2**32 - 1, 6, 2, 8, 1, 0,
                             float(np.float32(1e-3 * 1e-3)),
                             float(np.float32(1) / np.float32(3)))
     c = L.chain_args((3, 4), scn, 512, DEFAULT, 0, 0.0)
-    assert (c.chains, c.rounds, c.round_stride, c.exact, c.eps2,
-            c.neg_t, c.inv_scale) == (512, 0, 1, 1, 0.0, 0, 0.25)
+    assert (c.chains, c.rounds, c.exact, c.eps2, c.neg_t,
+            c.inv_scale) == (512, 0, 1, 0.0, 0, 0.25)
     # the float constants are the plain modules' float32 values
     k = L.consts()
     assert k == L.Consts(TV._TWO_PI, float(TM._S1), TM._RATIO,
@@ -200,3 +209,37 @@ def test_plain_flag_is_the_cpu_route():
     assert torch.equal(TM.mlt_vlps((2, 0), scn, 4, 2, device="cpu"),
                        TM.mlt_vlps((2, 0), scn, 4, 2, device="cpu",
                                    plain=True))
+
+
+@pytest.mark.parametrize("qname", ["default", "reference"])
+@pytest.mark.parametrize("scene", ["demo", "dense"])
+def test_plain_light_pass_holds_to_the_oracles(scene, qname):
+    from tests.test_torch_gpu import hold_light_pass_to_oracles
+    hold_light_pass_to_oracles("cpu", scene, qname)
+
+
+def test_ctypes_signatures_match_the_sources():
+    """utils/build.py's ctypes signatures against the ``extern "C"``
+    launchers of csrc/*.cu, parameter for parameter (pointers and the
+    stream ``c_void_p``, ``int`` ``c_int``, ``unsigned`` ``c_uint``,
+    ``float`` ``c_float``): a stale list passes the wrong arguments, which
+    only a launch on the card would show."""
+    import ctypes
+    import glob
+    import os
+    import re
+    from opencl_montecarlo_path_tracing_tpu_torch.utils import build
+    kinds = {"int": ctypes.c_int, "unsigned": ctypes.c_uint,
+             "float": ctypes.c_float}
+    found = {}
+    for path in glob.glob(os.path.join(build.CSRC, "*.cu")):
+        src = open(path).read()
+        for m in re.finditer(r'extern "C"\s+[\w\s\*]+?\b(\w+)\s*\(([^)]*)\)',
+                             src):
+            params = [p.strip() for p in m.group(2).split(",") if p.strip()]
+            found[m.group(1)] = [
+                ctypes.c_void_p if "*" in p else
+                kinds[p.replace("const ", "").split()[0]] for p in params]
+    assert set(found) == set(build._SIGNATURES)
+    for name, (_, argtypes) in build._SIGNATURES.items():
+        assert argtypes == found[name], name

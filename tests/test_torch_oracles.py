@@ -41,7 +41,7 @@ from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import prep_scene
 from opencl_montecarlo_path_tracing_tpu_torch.scene.scene import Scene
 from opencl_montecarlo_path_tracing_tpu_torch.utils.crn import ORACLE, crn_ok
 from tests.test_render_super import small_scene as j_small_scene
-from tests.test_torch_gpu import small_scene
+from tests.test_torch_gpu import chain_match, small_scene
 from tests.test_torch_utils import _one_thread_warm_sqrt  # noqa: F401
 
 SUPER_ROW, SUPER_W = 372, 296
@@ -174,15 +174,6 @@ def test_plain_bidirectional_gather_holds_to_oracle():
                                spp=spp, key=key, row_offset=SUPER_ROW)
     assert np.abs(orc - zero).max() > 1e-3        # the gather contributes
     assert_oracle(film, orc, spp, min_var=0.0)
-
-
-def chain_match(tv, ov, n_chains, atol=1e-4):
-    """tests/test_mlt_oracle.py::chain_match: the share of chains whose VLP
-    rows (all lights x depths) agree."""
-    tc = tv.reshape(-1, n_chains, 4)
-    oc = ov.reshape(-1, n_chains, 4)
-    ok = (np.abs(tc - oc) <= atol + 1e-4 * np.abs(oc)).all(axis=(0, 2))
-    return ok.mean()
 
 
 @pytest.mark.parametrize("scene_name", ["underlight", "small"])
