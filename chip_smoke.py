@@ -33,25 +33,40 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    1024x1024 with 1024 spp; the film is checked, quantised and written as a
    PAM file, and Mpaths/s is timed with CUDA events over 3 runs;
 5b. the light pass's kernels (``light_pass``: L1, the emission; L2a,
-   the Metropolis seed paths; L2b, the chain and its emission) against
-   their plain versions (``plain=True`` on the card), bit for bit, on
-   ``demo_scene()`` and ``dense_vlp_scene()`` at 512 work items / chains a
-   light and 8 rounds, under the default quirks and under REFERENCE_LMEM
-   (the reused light direction, negative t) with verify_eps 0; a window of
-   each against the same rows of the full run.  A difference prints every
-   differing row or chain with its light, slot and draw site, and the
-   first round at which the first differing chain of light 0 differs.
-   The kernels' tables, read back to the host, against the port's NumPy
-   oracles (``models/oracle_{bpt,mlt}.py``) on both scenes, under the
-   default and the reference quirks and in a window (the cases of
+   the Metropolis seed paths; L2b, the chain and its emission; one warp a
+   trace, the full scan below 2,048 triangles, the culled walk over
+   B2/B3's block tables from there) against their plain versions
+   (``plain=True`` on the card), bit for bit, on ``demo_scene()`` and
+   ``dense_vlp_scene()`` at 512 work items / chains a light and 8 rounds,
+   under the default quirks and under REFERENCE_LMEM (the reused light
+   direction, negative t) with verify_eps 0, and on a 1,800-triangle
+   sheet (read in place, below the walk) under the default quirks at 64
+   a light and 2 rounds (its plain version takes ~2 min at 512 x 8); the
+   parent design's instantiation (one thread a chain, ``serial=True``)
+   against the warp design, bit for bit; a window of each against the
+   same rows of the full run.  A difference prints every differing row
+   or chain with its light, slot and draw site, and the first round at
+   which the first differing chain of light 0 differs.  The kernels'
+   tables, read back to the host, against the port's NumPy oracles
+   (``models/oracle_{bpt,mlt}.py``) on both scenes, under the default and
+   the reference quirks and in a window (the cases of
    ``tests/test_torch_gpu.py::hold_light_pass_to_oracles``).  On the
-   20,736-triangle sheet, which the kernels read in place from global
-   memory, L1 and L2a + L2b against the plain light pass (whose traces of
-   >= 2,048 triangles take B7's matmul form): the live mask and rtol =
-   atol = 1e-5 on all but 1% of the rows and chains, each differing one
-   printed.  Each kernel is timed (CUDA events, warm, 3 runs) beside its
-   plain version and its bound over the traces it makes (a counting
-   launch), on the demo scene and on the sheet;
+   20,736-triangle sheet (the culled walk), L1 and L2a + L2b against the
+   plain light pass (whose traces of >= 2,048 triangles take B7's matmul
+   form): the live mask and rtol = atol = 1e-5 on all but 1% of the rows
+   and chains, each differing one printed; and every trace of one light
+   pass, logged by the counting launch, against the kernel's full-scan
+   instantiation: equal in (t, triangle index).  On the demo, the 1,800
+   and the 20,736 sheets each kernel's work tally (traces, rows tested,
+   node and sub-block box tests, ordered-update candidates, the clock64
+   split of the floor / square / sphere stages, the triangle stage and
+   the rest) for the parent design and the new one, and its time (CUDA
+   events, warm, 3 runs) in turns, parent, new, new, parent, with each
+   design's device time a launch (torch.profiler), beside its plain
+   version (not on the 1,800 sheet), the yardstick's bound over the
+   traces it makes (every
+   triangle of each) and the bound restated over the design's own work
+   (rows tested, box tests);
 6. the VLP main paths: ``api.render`` at 512x512 with 256 spp -
    bidirectional, metropolis and metropolis_vlpgrid on ``demo_scene()``,
    bidirectional on ``dense_vlp_scene()`` - each timed over 3 runs after a
@@ -59,6 +74,9 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    L2b (metropolis*) and B4 once; its light pass and render pass timed
    apart, the light pass's table bit-equal to its plain version's, and
    the light pass's launches and device-busy share read from a profile;
+   the grid render builds only the grid's frame (B4 bins each VLP
+   itself): a profiled render launches L2a, L2b and B4 and no item-list
+   build, and its film equals the render pass's over the full grid;
 7. the tier-1 VLP route: bidirectional under the REFERENCE_LMEM quirks
    (outside B4's gate) at 256x256x4 runs the plain wavefront on the card,
    whose gather is B6; its film is held to the contract against the same
@@ -183,8 +201,10 @@ GHz, one multiply or add an instruction: the kernels build with
 (B4: the pairs its culled warps test and the terms its lit samples
 gather, from its counting launch; B6: the live rows; L1 and L2: the
 traces they make, from a counting launch, each over the floor, every
-square, sphere and triangle); for the loop and primitive arms, each one dependent chain, the chain's
-FP32 operations x 4 cycles over the SM clock (``bound_by``
+square, sphere and triangle: the yardstick; phase 5b prints beside it
+the bound over the rows the warps test and their box tests); for the
+loop and primitive arms, each one dependent chain, the chain's FP32
+operations x 4 cycles over the SM clock (``bound_by``
 ``"latency"``).  The last line of standard output is ``{"ok": true,
 "device": {...}}``; the line before it is the card's name and power limit,
 the line before that each kernel's launches, error, times and bound.  The
@@ -247,6 +267,15 @@ SQUARE_OPS = 9
 LIGHT_KERNELS = ("light_emit", "light_mlt_seed", "light_mlt_chain")
 LIGHT_WINDOW = 128, 200  # phase 5b's windows: first item / chain, count
 SHEET_DIFFER = 0.01      # phase 5b's sheet: rows / chains beyond rtol 1e-5
+BAND_MESH = 30, 30       # phase 5b's 1,800-triangle sheet (513-2,047)
+BAND_CHECK = 64, 2       # its check against the plain light pass: work
+#                          items / chains a light, rounds (the plain
+#                          version scans 1,800 rows with ~20 launches a
+#                          row at every stage: ~2 min at 512 x 8)
+# a box test of the light pass's culled walk (pt_device.cuh::box_closest):
+# the slab's 6 differences, 6 products and 6 min / max, 4 min / max across
+# the axes, and the prune's max and 2 products
+BOX_OPS = 25
 
 SW = SH = 1024         # the simple main path: bench.py:92-94
 SSPP = 256
@@ -888,20 +917,53 @@ def sheet_differences(stage, got, want, nl, n) -> tuple[int, int, float]:
     return int((~ok).sum()), int(ok.size), float(np.abs(g - w).max())
 
 
+def light_restated_ops(scn, st: dict) -> int:
+    """FP32 operations of the light pass's own work, from a counting
+    launch's tally: each trace's floor, squares and spheres, the triangle
+    rows its lanes test and the box tests of its walk."""
+    return ((FLOOR_OPS + SQUARE_OPS * int(scn.square_k.shape[0])
+             + SPHERE_OPS * int(scn.sphere_centers.shape[0])) * st["traces"]
+            + PAIR_OPS * st["rows"]
+            + BOX_OPS * (st["node_tests"] + st["sub_tests"]))
+
+
+def light_split(st: dict) -> str:
+    """A counting launch's tally: the work and the clock64 split."""
+    k = max(1, st["kernel_cycles"])
+    pre, tri = st["pre_cycles"] / k, st["tri_cycles"] / k
+    return (f"{st['traces']} traces, {st['rows']} rows tested "
+            f"({st['rows'] / max(1, st['traces']):.1f} a trace), "
+            f"{st['node_tests']} node and {st['sub_tests']} sub-block box "
+            f"tests, {st['candidates']} candidates; cycles: floor / squares /"
+            f" spheres {100 * pre:.1f}%, triangles {100 * tri:.1f}%, RNG and "
+            f"chain logic {100 * (1 - pre - tri):.1f}%")
+
+
 def phase_light_pass(gt, card: str) -> dict:
     """Kernels L1, L2a and L2b (``ops/light_pass.py``) against their plain
     versions (``plain=True`` on the card), bit for bit: on the demo and
     dense-VLP scenes, 512 work items / chains a light and 8 rounds, under
     the default quirks and under REFERENCE_LMEM (negative t accepted,
     the light direction reused) with verify_eps 0 (the reference's exact
-    test); a window of each equal to the same rows of the full run.  The
-    tables against the NumPy oracles (``gt``: tests/test_torch_gpu.py).
-    On the 20,736-triangle sheet (read in place) against the plain light
-    pass, whose traces take B7's matmul form: <= ``SHEET_DIFFER`` of the
-    rows and chains beyond rtol = atol = 1e-5.  Each kernel timed (CUDA
-    events, warm, 3 runs) beside its plain version and its bound over the
-    traces this run makes, on the demo scene and on the sheet.  Returns
-    the kernels line's rows for L1 and for L2 (L2a + L2b)."""
+    test), and on the 1,800-triangle sheet (past the shared-memory stage,
+    below the culled walk) under the default quirks at ``BAND_CHECK``;
+    the parent design's instantiation (``serial=True``) against the warp
+    design, bit for bit; a window of each equal to the same rows of the
+    full run (demo and dense).  The tables
+    against the NumPy oracles (``gt``: tests/test_torch_gpu.py).  On the
+    20,736-triangle sheet (the culled walk) against the plain light pass,
+    whose traces take B7's matmul form: <= ``SHEET_DIFFER`` of the rows
+    and chains beyond rtol = atol = 1e-5; and every trace of one light
+    pass against the full-scan instantiation (``culled=False``), equal in
+    (t, triangle index).  Each kernel's work tally (a counting launch) and
+    its times (CUDA events, warm, 3 runs) on the demo, the 1,800 sheet
+    and the 20,736 sheet: the parent design and the warp design in turns
+    (parent, new, new, parent), each one's device time a launch
+    (torch.profiler), the plain version (not on the 1,800 sheet), the
+    yardstick's bound
+    (every triangle of each trace) and the bound restated over the
+    design's own work.  Returns the kernels line's rows for L1 and for L2
+    (L2a + L2b)."""
     import torch
     from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
         DEFAULT, REFERENCE_LMEM)
@@ -913,23 +975,27 @@ def phase_light_pass(gt, card: str) -> dict:
     from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
         prep_scene)
     from opencl_montecarlo_path_tracing_tpu_torch.ops.mega_super import (
-        scene_buffer)
+        block_tables, scene_buffer)
     from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
         demo_scene, dense_vlp_scene, large_mesh_scene)
 
-    key, n, rounds = make_key(0), MLT_SEEDS, MLT_ROUNDS
+    key, n_main, rounds_main = make_key(0), MLT_SEEDS, MLT_ROUNDS
     cuda, plain = dict(device="cuda"), dict(device="cuda", plain=True)
     failed, err = [], {"L1": 0.0, "L2a": 0.0, "L2b": 0.0}
-    print(f"L1 / L2a / L2b vs plain, bit for bit ({n} work items / chains a "
-          f"light, {rounds} rounds):")
+    print("L1 / L2a / L2b vs plain, bit for bit:")
     demo = prep_scene(demo_scene()[0])
-    for sname, scn in (("demo", demo),
-                       ("dense_vlp_scene", prep_scene(dense_vlp_scene()))):
+    band = prep_scene(large_mesh_scene(*BAND_MESH))
+    for sname, scn, quirk_sets, (n, rounds) in (
+            ("demo", demo, 2, (n_main, rounds_main)),
+            ("dense_vlp_scene", prep_scene(dense_vlp_scene()), 2,
+             (n_main, rounds_main)),
+            (f"{int(band.tri_v0.shape[0])}-triangle sheet", band, 1,
+             BAND_CHECK)):
         nl = int(scn.lights.shape[0])
         full = {}
         for qname, q, eps in (("default", DEFAULT, 1e-3),
                               ("REFERENCE_LMEM, verify_eps 0",
-                               REFERENCE_LMEM, 0.0)):
+                               REFERENCE_LMEM, 0.0))[:quirk_sets]:
             def round_of(chain):
                 """The first r whose r-round prefix of light 0's ``chain``
                 differs (its rows: slots 0-3 of a one-chain window)."""
@@ -962,12 +1028,25 @@ def phase_light_pass(gt, card: str) -> dict:
                             + (f"{nd} rows DIFFER" if nd else "bit-equal"))
                 if nd:
                     failed.append(f"{sname} {qname} {stage}")
+            # the parent design's instantiation against the warp design's
+            ser = dict(device="cuda", serial=True)
+            same = (torch.equal(L.emit(key, scn, n, q, **ser), e),
+                    all(torch.equal(a, b) for a, b in zip(
+                        L.mlt_seed(key, scn, n, q, **ser), sk)),
+                    torch.equal(L.mlt_mutate_emit(key, scn, n, rounds, q,
+                                                  eps, sp, **ser), t))
+            line.append("the parent design's instantiation "
+                        + ("bit-equal" if all(same) else f"DIFFERS {same}"))
+            if not all(same):
+                failed.append(f"{sname} {qname} serial")
             live = (int((e[:, 3] > 0).sum()), int((t[:, 3] > 0).sum()))
-            print(f"  {sname}, {qname}: {', '.join(line)} (live rows: "
-                  f"emitted {live[0]} of {e.shape[0]}, Metropolis "
-                  f"{live[1]} of {t.shape[0]})")
+            print(f"  {sname}, {qname} ({n} a light, {rounds} rounds): "
+                  f"{', '.join(line)} (live rows: emitted {live[0]} of "
+                  f"{e.shape[0]}, Metropolis {live[1]} of {t.shape[0]})")
             full.setdefault("emit", e)
             full.setdefault("mlt", t)
+        if scn is band:
+            continue
         # windows: the same rows of the full (default) run
         g0, cnt = LIGHT_WINDOW
         rows = torch.from_numpy(np.concatenate(
@@ -997,9 +1076,12 @@ def phase_light_pass(gt, card: str) -> dict:
                   f"{o['chain_match'][0]:.4f} (window "
                   f"{o['chain_match'][1]:.4f})")
 
-    # the 20,736-triangle sheet, read in place from global memory
+    # the 20,736-triangle sheet: the culled walk over B2/B3's tables
+    n, rounds = n_main, rounds_main
     sheet = prep_scene(large_mesh_scene())
     nl = int(sheet.lights.shape[0])
+    if L.triangle_route(sheet) != "walk":
+        raise RuntimeError("the 20,736-triangle sheet is not on the walk")
     reset_counts()
     ek = V.emit_vlps(key, sheet, n, **cuda)
     tk = MT.mlt_vlps(key, sheet, n, rounds, **cuda)
@@ -1009,9 +1091,9 @@ def phase_light_pass(gt, card: str) -> dict:
     tp, q_ms = timed_call(lambda: MT.mlt_vlps(key, sheet, n, rounds,
                                               **plain))
     print(f"  {int(sheet.tri_v0.shape[0])}-triangle sheet ({n} a light, "
-          f"{rounds} rounds), kernels vs the plain light pass (B7 plain for "
-          f"its triangles; {p_ms / 1e3:.1f} s + {q_ms / 1e3:.1f} s): "
-          f"launches {[c[k] for k in LIGHT_KERNELS]}")
+          f"{rounds} rounds), the culled walk vs the plain light pass (B7 "
+          f"plain for its triangles; {p_ms / 1e3:.1f} s + "
+          f"{q_ms / 1e3:.1f} s): launches {[c[k] for k in LIGHT_KERNELS]}")
     sheet_err = {}
     for stage, got, want in (("L1", ek, ep), ("L2", tk, tp)):
         nd, total, d = sheet_differences(stage, got, want, nl, n)
@@ -1024,52 +1106,119 @@ def phase_light_pass(gt, card: str) -> dict:
             failed.append(f"sheet {stage}")
     if [c[k] for k in LIGHT_KERNELS] != [1, 1, 1]:
         failed.append(f"sheet launches {c}")
+    # every trace of one light pass: the walk against the full scan
+    caps = {"L1": 1, "L2a": 4, "L2b": 4 + 11 * rounds}
+    logged = {}
+    for culled in (True, False):
+        logs = {k: (torch.full((nl * n, cap), -1.0, device="cuda"),
+                    torch.full((nl * n, cap), -2, dtype=torch.int32,
+                               device="cuda")) for k, cap in caps.items()}
+        kw = dict(device="cuda", culled=culled)
+        e = L.emit(key, sheet, n, DEFAULT, log=logs["L1"], **kw)
+        sd = L.mlt_seed(key, sheet, n, DEFAULT, log=logs["L2a"], **kw)
+        t = L.mlt_mutate_emit(key, sheet, n, rounds, DEFAULT, 1e-3, sd,
+                              log=logs["L2b"], **kw)
+        logged[culled] = (logs, (e, *sd, t))
+    line = []
+    for k in caps:
+        (wt, wi), (ft, fi) = logged[True][0][k], logged[False][0][k]
+        traces = int((fi != -2).sum())
+        bad = int(((wt != ft) | (wi != fi)).sum())
+        line.append(f"{k} {bad} of {traces} traces differ in (t, index) "
+                    f"({int((fi >= 0).sum())} triangle hits)")
+        if bad:
+            failed.append(f"sheet walk vs full scan {k}")
+    same = all(torch.equal(a, b) for a, b in zip(logged[True][1],
+                                                  logged[False][1]))
+    print(f"    the culled walk vs the kernel's full scan: {'; '.join(line)};"
+          f" tables {'equal' if same else 'DIFFER'}")
+    if not same:
+        failed.append("sheet walk vs full scan tables")
     if failed:
         raise RuntimeError(f"light-pass kernels on the sheet: {failed}")
 
-    # times and bounds: on the main paths' configuration (demo, default;
-    # the kernels line's) and on the sheet
+    # work, times and bounds: on the main paths' configuration (demo,
+    # default; the kernels line's), on the band and on the sheet
     def timings(scn, plain_runs):
         seed = MT.mlt_seed(key, scn, n, DEFAULT, **cuda)
-        calls = {
-            "L1": (lambda tr=None: L.emit(key, scn, n, DEFAULT, traces=tr),
-                   lambda: V.emit_vlps(key, scn, n, **plain)),
-            "L2a": (lambda tr=None: L.mlt_seed(key, scn, n, DEFAULT,
-                                               traces=tr),
-                    lambda: MT.mlt_seed(key, scn, n, **plain)),
-            "L2b": (lambda tr=None: L.mlt_mutate_emit(
-                key, scn, n, rounds, DEFAULT, 1e-3, seed, traces=tr),
-                lambda: MT.mlt_mutate_emit(key, scn, n, rounds, DEFAULT,
-                                           1e-3, seed, **plain))}
+
+        def calls(**kw):
+            return {
+                "L1": lambda: L.emit(key, scn, n, DEFAULT, **kw),
+                "L2a": lambda: L.mlt_seed(key, scn, n, DEFAULT, **kw),
+                "L2b": lambda: L.mlt_mutate_emit(key, scn, n, rounds,
+                                                 DEFAULT, 1e-3, seed, **kw)}
+        plain_fns = {
+            "L1": lambda: V.emit_vlps(key, scn, n, **plain),
+            "L2a": lambda: MT.mlt_seed(key, scn, n, **plain),
+            "L2b": lambda: MT.mlt_mutate_emit(key, scn, n, rounds, DEFAULT,
+                                              1e-3, seed, **plain)}
         nl = int(scn.lights.shape[0])
-        scene_bytes = 4 * scene_buffer(scn, "cuda")[0].numel()
+        walk = L.triangle_route(scn) == "walk"
+        scene_bytes = 4 * (sum(t.numel() for t in block_tables(scn, "cuda"))
+                           if walk else scene_buffer(scn, "cuda")[0].numel())
         out_bytes = {"L1": nl * n * 16, "L2a": nl * n * 52,
                      "L2b": nl * n * 52 + 4 * nl * n * 16}
+        kernel_names = {"L1": "light_emit_kernel",
+                        "L2a": "light_mlt_seed_kernel",
+                        "L2b": "light_mlt_chain_kernel"}
         st = {}
-        for name, (kernel, plain_fn) in calls.items():
-            traces = torch.zeros(1, dtype=torch.int64, device="cuda")
-            kernel(traces)
-            torch.cuda.synchronize()
-            tr = int(traces)
-            ms = time_ms(kernel, TIMED_RUNS)
+        for name in ("L1", "L2a", "L2b"):
+            tallies = {}
+            for design, kw in (("parent", dict(serial=True)), ("new", {})):
+                stats = L.new_stats("cuda")
+                calls(stats=stats, **kw)[name]()
+                tallies[design] = L.read_stats(stats)
+            tr = tallies["new"]["traces"]
+            # the parent design and the new one in turns: parent, new,
+            # new, parent
+            turns = {"parent": [], "new": []}
+            for design in ("parent", "new", "new", "parent"):
+                turns[design].append(time_ms(
+                    calls(serial=design == "parent")[name], TIMED_RUNS))
+            ms = sum(turns["new"]) / 2
+            # the kernels' device time a launch (events also hold the
+            # wrapper's host time between short launches)
+            dev = {d: device_ms(calls(serial=d == "parent")[name], 10,
+                                kernel_names[name])[0]
+                   for d in ("parent", "new")}
             runs = plain_runs[name]
-            p_ms = time_ms(plain_fn, runs, warm_up=runs > 1)
-            b_ms, b_by = bound(tr * light_trace_ops(scn),
-                               scene_bytes + out_bytes[name])
+            p_ms = (time_ms(plain_fns[name], runs, warm_up=runs > 1)
+                    if runs else None)
+            nbytes = scene_bytes + out_bytes[name]
+            b_ms, b_by = bound(tr * light_trace_ops(scn), nbytes)
+            r_ms, r_by = bound(light_restated_ops(scn, tallies["new"]),
+                               nbytes)
             st[name] = dict(ms=ms, plain_ms=p_ms, bound_ms=b_ms,
                             bound_by=b_by, traces=tr)
-            print(f"  {name}: {ms:.4f} ms, plain {p_ms:.1f} ms; {tr} traces "
-                  f"x {light_trace_ops(scn)} operations: bound {b_ms:.6f} "
-                  f"ms ({b_by}, {100 * b_ms / ms:.2f}% of the kernel's "
-                  "time)")
+            dev_line = ", ".join(
+                f"{d} {v:.4f}" if v is not None else f"{d} not measured"
+                for d, v in dev.items())
+            plain_line = ("not timed here (BAND_CHECK)" if p_ms is None
+                          else f"{p_ms:.1f} ms")
+            print(f"  {name}: {ms:.4f} ms (turns: parent "
+                  f"{turns['parent'][0]:.4f}, new {turns['new'][0]:.4f}, "
+                  f"new {turns['new'][1]:.4f}, parent "
+                  f"{turns['parent'][1]:.4f}; "
+                  f"{sum(turns['parent']) / (2 * ms):.2f}x; device time a "
+                  f"launch: {dev_line}), plain {plain_line}; bound "
+                  f"{b_ms:.6f} ms ({b_by}; yardstick: "
+                  f"{tr} traces x {light_trace_ops(scn)} operations, "
+                  f"{100 * b_ms / ms:.2f}% of the kernel's time), restated "
+                  f"over the design's own work {r_ms:.6f} ms ({r_by}, "
+                  f"{100 * r_ms / ms:.2f}%)")
+            for design in ("parent", "new"):
+                print(f"    {design}: {light_split(tallies[design])}")
         return st
 
     print(f"light pass on the demo scene, {n} a light, {rounds} rounds "
           f"({card}):")
     st = timings(demo, {"L1": 3, "L2a": 3, "L2b": 1})
-    print(f"light pass on the {int(sheet.tri_v0.shape[0])}-triangle sheet "
-          f"(read in place), {n} a light, {rounds} rounds ({card}):")
-    timings(sheet, {"L1": 1, "L2a": 1, "L2b": 1})
+    for scn, runs in ((band, 0), (sheet, 1)):
+        print(f"light pass on the {int(scn.tri_v0.shape[0])}-triangle sheet "
+              f"({L.triangle_route(scn)}), {n} a light, {rounds} rounds "
+              f"({card}):")
+        timings(scn, dict.fromkeys(("L1", "L2a", "L2b"), runs))
     l2 = {k: st["L2a"][k] + st["L2b"][k]
           for k in ("ms", "plain_ms", "bound_ms")}
     return {"emit": dict(st["L1"], max_abs=max(err["L1"], sheet_err["L1"])),
@@ -1126,8 +1275,9 @@ def phase_vlp_main_paths(card: str) -> dict:
                 return V.emit_vlps(key, scn, 512, device="cuda"), None
         else:
             def light_pass():
+                # B4 reads only the grid's frame: the render builds no more
                 vl = mlt_vlps(key, scn, 512, 8, device="cuda")
-                grid = (V.build_vlp_grid(
+                grid = (V.vlp_grid_frame(
                     vl, V.vlp_grid_static_res(int(vl.shape[0])))
                     if use_grid else None)
                 return vl, grid
@@ -1154,6 +1304,8 @@ def phase_vlp_main_paths(card: str) -> dict:
         if not torch.equal(vlps, plain):
             raise RuntimeError(f"{variant} on {stag}: the light pass's "
                                "table differs from its plain version's")
+        if use_grid:
+            grid_frame_line(variant, scene, scn, key, vlps, film, ms)
         n_live = int((vlps[:, 3] > 0).sum())
         print(f"main path: {variant} {VW}x{VH}x{VSPP} on {stag}: "
               f"{ms:.1f} ms/render, {mpaths:.1f} Mpaths/s ({card}); light "
@@ -1162,6 +1314,42 @@ def phase_vlp_main_paths(card: str) -> dict:
               f"bit-equal to the plain light pass's); film mean/spp "
               f"{float(f.mean()) / VSPP:.4f}, launches {counts}")
     return {"launches": total, "light": light}
+
+
+def grid_frame_line(variant, scene, scn, key, vlps, film, ms):
+    """The grid render builds only the grid's frame on B4's route: a
+    profiled render launches L2a, L2b and B4 and the frame's few ops, no
+    item-list build, and its film is the render pass's over the fully
+    built grid, bit for bit; printed beside the 11.4-13.3 ms a render
+    measured with the full build (NVIDIA H100 80GB HBM3, 700 W)."""
+    import torch
+    import opencl_montecarlo_path_tracing_tpu_torch as pt
+    from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import DEFAULT
+    from opencl_montecarlo_path_tracing_tpu_torch.models.bidirectional import (
+        film_vlp)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import grid as G
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as V
+    builds, real = [], G.build_grid_cellscan
+    G.build_grid_cellscan = lambda *a, **k: builds.append(1) or real(*a, **k)
+    try:
+        reset_counts()
+        _, line = profiled("render", lambda: pt.render(
+            variant, scene, VW, VH, spp=VSPP, seed=0, device="cuda"))
+        counts = read_counts()
+    finally:
+        G.build_grid_cellscan = real
+    full = V.build_vlp_grid(vlps, V.vlp_grid_static_res(int(vlps.shape[0])))
+    same = torch.equal(film, film_vlp(key, scn, vlps, full, VW, VH, VSPP, 0,
+                                      VSPP, DEFAULT, device="cuda"))
+    launched = {k: v for k, v in counts.items() if v}
+    print(f"  C1, {variant}: {line}; kernel launches {launched}, grid "
+          f"item-list builds {len(builds)}; the film "
+          f"{'bit-equal' if same else 'DIFFERS'} to the render pass over "
+          f"the full grid; {ms:.1f} ms a render (11.4-13.3 ms with the "
+          "full build)")
+    if builds or not same or launched != {
+            "light_mlt_seed": 1, "light_mlt_chain": 1, "mega_vlp": 1}:
+        raise RuntimeError(f"{variant}: the grid render is not the frame's")
 
 
 def phase_tier1_route(card: str) -> dict:

@@ -9,20 +9,20 @@
 // fori_loop).  The port's plain version of it (ops/vlp.py::emit_vlps,
 // models/metropolis.py::mlt_seed and mlt_mutate_emit with plain=True)
 // traces every chain at every stage and masks the results, ~1,500 small
-// launches a trace.  Here one thread runs one (light, work item) or one
+// launches a trace.  Here one warp runs one (light, work item) or one
 // (light, chain) from its first draw to its table rows.
 //
-// - L1: one thread per (light l, work item gi) of the window [gi0, gi0 +
+// - L1: one warp per (light l, work item gi) of the window [gi0, gi0 +
 //   count): the uniform-sphere direction drawn at site SITE_VLP_DIR (+ l
 //   unless reuse_light_direction), one closest-hit trace from the light,
 //   and the VLP row vlp[l * count + gi - gi0] (ops/vlp.py::
 //   vlp_from_light_sample).
-// - L2a: one thread per (light, chain) of the window [chain0, chain0 +
+// - L2a: one warp per (light, chain) of the window [chain0, chain0 +
 //   chains): GetRandomPath (models/metropolis.py::_random_path) from the
 //   light at sites SITE_SEED + 4 l + i; writes the seed state v (4 x 3
 //   floats, unused slots zero) and its length.
-// - L2b: one thread per (light, chain), its four vertices and its length
-//   in registers (local memory where indexed) across every round: the
+// - L2b: one warp per (light, chain), its four vertices and its length in
+//   registers (local memory where indexed) across every round: the
 //   mutation_rounds Mutate rounds (models/metropolis.py::_mutate; round r
 //   of light l draws at SITE_MLT + (r + l * rounds) * 16 + purpose), then
 //   the emission of <= 4 VLPs, intensity halved a depth, into the
@@ -32,8 +32,45 @@
 // result the plain version masks away is not made.  That is exact, as
 // every draw is keyed on (key, chain or work item, site) alone, so a
 // skipped trace consumes nothing that another draw reads; the same keying
-// makes a thread per chain sound (a chain's rows depend on its own draws
+// makes a warp per chain sound (a chain's rows depend on its own draws
 // only).
+//
+// Design (what bounds it and what the design does about it).  The work is
+// FP32 issue in the traces' triangle stage: ~48 operations a (ray,
+// triangle) pair, against ~19 a sphere; a 2-light Metropolis pass of 512
+// chains makes ~12,800 traces on the demo scene, and the bytes (the scene
+// and the table) are negligible.  The main paths run 1,024 chains or work
+// items, too few to fill the card one a thread (the parent design: 32
+// one-warp blocks on 32 of 132 SMs, each lane a different chain, so
+// mutation branches and path lengths diverged, and each trace one
+// thread's serial scan of every row).  So a trace gets a whole warp: the
+// 1,024 warps, 4 a block, spread over every SM, and a chain's control
+// flow is warp-uniform - every lane computes the same draws, path and
+// branches on the same data (redundant lanes cost no issue slot), and the
+// lanes split only the triangle stage (pt_device.cuh::warp_scan_closest,
+// warp_walk_closest):
+// - below 2,048 triangles (the wrapper's choice, ops/light_pass.py::
+//   triangle_route) the full scan, 32 rows a step with a ballot and the
+//   ordered update, which repeats the sequential scan's running minimum,
+//   rounding and ties exactly, so the tables stay bit-equal to the plain
+//   light pass; the scene staged in shared memory once a block up to
+//   kStageTriangles (B1's and B4's tier), past it read in place;
+// - from 2,048 triangles the culled walk over B2/B3's block tables
+//   (ops/tri_blocks.py::walk_tables, built once a prepared scene): the
+//   node tree, a macro's sub-block boxes one a lane, a taken sub-block's
+//   rows one a lane (~120-175 rows a trace on a 20,736-triangle sheet);
+//   the plain light pass there takes B7's matmul form, which agrees with
+//   any scan to rounding, not bit for bit (exact ties: the lowest
+//   original index, the full scan's earliest row).
+// What bounds it now: one chain a warp is a dependent chain of draws,
+// tests and branches, so the kernels are latency-bound (on the demo L2b
+// spends ~44% of its cycles in the chain's own logic and ~28% in the
+// floor, squares and spheres), and a 1,024-warp launch is short enough
+// that its launch counts.  The parent design is kept as an instantiation
+// (kWarp = false) for the same-call A/B and is held bit-equal to the warp
+// design.  A counting instantiation (kStats) tallies traces, rows tested,
+// box tests, ordered-update candidates and a clock64 split of the stages,
+// and can log each trace's (t, triangle index).
 //
 // Exactness: the plain version's float operations in its order, so the
 // tables are bit-equal to it on the card.  Built with --fmad=false and no
@@ -47,26 +84,14 @@
 // constant is a float literal (torch compares a float32 tensor with a
 // Python float in float32); the float constants of the plain modules
 // (2 pi, S1, S1 / S2, the perturbation offset) come from the wrapper.
-//
-// What bounds it on an H100: FP32 issue in the traces - per trace ~48
-// operations a triangle of the mesh, ~19 a sphere; a 2-light Metropolis
-// pass of 512 chains makes ~50 traces a chain.  The bytes (the scene and
-// the table) are negligible.  Design, simple first: the scene
-// (ops/mega_super.py::pack_scene, B1's buffer) staged in shared memory
-// once a block up to kStageTriangles (B1's and B4's shared-memory tier),
-// past it read in place from global memory, where the L1 and L2 caches
-// hold it (a 20,736-triangle mesh is ~1 MB); blocks of kBlock = 32
-// threads so that the main paths' 1,024 threads spread over 32 SMs; no
-// per-warp cull.  Every triangle is scanned with the det-scaled test at
-// every size, as B2/B3 scan theirs; past 2,048 triangles the plain
-// version's traces take kernel B7's matmul form instead (ops/intersect.py
-// ::trace_ray), which agrees with it to rounding, not bit for bit.
 
 #include "pt_device.cuh"
 
 namespace {
 
-constexpr int kBlock = 32;
+constexpr int kWarps = 4;              // warps a block (the warp design)
+constexpr int kBlockWarp = 32 * kWarps;
+constexpr int kBlockSerial = 32;       // the parent design's block
 constexpr int kStageTriangles = 512;   // ops/mega_super.py MAX_SMEM_TRIANGLES
 constexpr uint32_t kSiteVlpDir = 64;   // ops/vlp.py SITE_VLP_DIR
 constexpr uint32_t kSiteSeed = 192;    // models/metropolis.py _SITE_SEED
@@ -119,16 +144,130 @@ __device__ __forceinline__ float clamp1(float x) {
   return x > 1.0f ? 1.0f : x;
 }
 
+// The counting instantiation's tally of one work unit (a warp, or a thread
+// in the parent design), added to the stats buffer at the end: [0] traces,
+// [1] triangle rows tested (the parent design: every row of each trace),
+// [2] tree-node and [3] sub-block box tests, [4] candidates through the
+// ordered update (pt_device.cuh kTal*), clock64 cycles [5] in the floor,
+// square and sphere stages, [6] in the triangle stage, [7] in the whole
+// kernel (the rest is threefry and the chain's own logic).
+constexpr int kStatSlots = 8;
+
+template <bool kStats>
+struct Tally {
+  unsigned long long v[kStatSlots] = {};
+  __device__ __forceinline__ void add(int slot, long long n) { v[slot] += n; }
+  __device__ __forceinline__ long long clock() { return clock64(); }
+  __device__ __forceinline__ void flush(unsigned long long* stats) {
+    for (int i = 0; i < kStatSlots; ++i) atomicAdd(stats + i, v[i]);
+  }
+};
+
+template <>
+struct Tally<false> {
+  __device__ __forceinline__ void add(int, long long) {}
+  __device__ __forceinline__ long long clock() { return 0; }
+  __device__ __forceinline__ void flush(unsigned long long*) {}
+};
+
+// What every launch shares: the scene (the packed buffer, staged or read
+// in place; without triangles on the culled route), the block tables of
+// the culled route, the key, the quirk, the float constants, and the
+// counting instantiation's stats buffer and per-trace log (each work unit
+// owns log_cap slots of log_t / log_i, from its row).
+struct Common {
+  const float* scene;
+  bool staged;
+  int ntp, nl, ns, nq;
+  Mesh M;
+  bool walk;
+  uint32_t k0, k1;
+  bool neg_t;
+  Consts K;
+  unsigned long long* stats;
+  float* log_t;
+  int* log_i;
+  int log_cap;
+};
+
+// One work unit's closest-hit traces: the warp-cooperative trace (kWarp)
+// or the parent design's one-thread sequential scan, counted (n) and, in
+// the counting instantiation, tallied and logged.
+template <bool kWarp, bool kStats>
+struct Tracer {
+  Scene S;
+  Mesh M;
+  bool walk, neg_t;
+  Tally<kStats> T;
+  float* log_t;
+  int* log_i;
+  int log_cap;
+  unsigned long long n = 0;   // traces made
+
+  __device__ Tracer(const Scene& s, const Common& c, long long unit)
+      : S(s), M(c.M), walk(c.walk), neg_t(c.neg_t),
+        log_t(kStats && c.log_t ? c.log_t + unit * c.log_cap : nullptr),
+        log_i(kStats && c.log_i ? c.log_i + unit * c.log_cap : nullptr),
+        log_cap(c.log_cap) {}
+
+  // Closest hit from (ox, oy, oz) along (dx, dy, dz): trace_open's result,
+  // its sphere normal not yet renormalised.
+  __device__ PreHit operator()(float ox, float oy, float oz, float dx,
+                               float dy, float dz) {
+    const long long c0 = T.clock();
+    PreHit h = pre_tri(S, ox, oy, oz, dx, dy, dz, kBig, neg_t, 3);
+    const long long c1 = T.clock();
+    int tri = -1;
+    if constexpr (!kWarp) {
+      scan_open(S, ox, oy, oz, dx, dy, dz, neg_t, h);
+      T.add(kTalRows, S.ntp);
+    } else if (walk || S.ntp) {
+      float bn = h.t, bd = 1.0f;
+      int row;
+      float4 e;
+      if (walk) {
+        row = warp_walk_closest(M, ox, oy, oz, dx, dy, dz, neg_t, bn, bd, T);
+        if (row >= 0) {
+          e = __ldg(M.rows + 4 * row + 2);
+          tri = __float_as_int(__ldg(M.rows + 4 * row + 3).x);
+        }
+      } else {
+        row = warp_scan_closest(S, ox, oy, oz, dx, dy, dz, neg_t, bn, bd, T);
+        if (row >= 0) {
+          e = reinterpret_cast<const float4*>(S.tri)[3 * row + 2];
+          tri = row;
+        }
+      }
+      if (row >= 0) {
+        h.m = 4;
+        h.nx = e.y;
+        h.ny = e.z;
+        h.nz = e.w;
+        h.needs = false;
+      }
+      h.t = bn / bd;
+    }
+    T.add(5, c1 - c0);
+    T.add(6, T.clock() - c1);
+    if (log_t != nullptr && n < (unsigned long long)log_cap &&
+        (threadIdx.x & 31) == 0) {
+      log_t[n] = h.t;
+      log_i[n] = tri;
+    }
+    ++n;
+    return h;
+  }
+};
+
 // ops/vlp.py::vlp_from_light_sample for one ray: trace from o along d,
 // return (hit position, scaled intensity), zeros on a miss.  `li` is the
 // light intensity (already halved per depth in the Metropolis emission),
 // `inv_scale` the float32 reciprocal of the scale denominator.
-__device__ float4 vlp_from_sample(const Scene& S, float ox, float oy,
-                                  float oz, float dx, float dy, float dz,
-                                  float li, float inv_scale, bool mlt,
-                                  bool neg_t) {
-  const Hit h = finish_rsqrt(trace_open(S, ox, oy, oz, dx, dy, dz, kBig,
-                                        neg_t));
+template <class Tr>
+__device__ float4 vlp_from_sample(Tr& trace, float ox, float oy, float oz,
+                                  float dx, float dy, float dz, float li,
+                                  float inv_scale, bool mlt) {
+  const Hit h = finish_rsqrt(trace(ox, oy, oz, dx, dy, dz));
   if (h.m == 0) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const float x = ox + dx * h.t;
   const float y = oy + dy * h.t;
@@ -151,10 +290,10 @@ struct Path {
 // GetRandomPath (models/metropolis.py::_random_path) from (ox, oy, oz):
 // up to 4 chained random vertices at sites site_base + i; stops at the
 // first miss.  Unused slots are zero.
-__device__ void random_path(const Scene& S, uint32_t k0, uint32_t k1,
+template <class Tr>
+__device__ void random_path(Tr& trace, uint32_t k0, uint32_t k1,
                             uint32_t chain, float ox, float oy, float oz,
-                            uint32_t site_base, float two_pi, bool neg_t,
-                            Path& p, unsigned long long& traces) {
+                            uint32_t site_base, float two_pi, Path& p) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) p.v[i][0] = p.v[i][1] = p.v[i][2] = 0.0f;
   p.len = 0;
@@ -163,8 +302,7 @@ __device__ void random_path(const Scene& S, uint32_t k0, uint32_t k1,
     float u1, u2, dx, dy, dz;
     rand2(k0, k1, chain, site_base + (uint32_t)i, u1, u2);
     uniform_sphere(u1, u2, two_pi, dx, dy, dz);
-    const PreHit h = trace_open(S, cx, cy, cz, dx, dy, dz, kBig, neg_t);
-    ++traces;
+    const PreHit h = trace(cx, cy, cz, dx, dy, dz);
     if (h.m == 0) break;
     cx = cx + dx * h.t;
     cy = cy + dy * h.t;
@@ -199,14 +337,13 @@ __device__ __forceinline__ void perturb(uint32_t k0, uint32_t k1,
 // VerifyIntersection (models/metropolis.py::_verify): the first hit from
 // `o` toward `dest` is `dest`, exactly (exact) or within eps (eps2 the
 // float32 eps * eps).
-__device__ bool verify(const Scene& S, const float* o, const float* dest,
-                       bool exact, float eps2, bool neg_t,
-                       unsigned long long& traces) {
+template <class Tr>
+__device__ bool verify(Tr& trace, const float* o, const float* dest,
+                       bool exact, float eps2) {
   const float qx = dest[0] - o[0], qy = dest[1] - o[1], qz = dest[2] - o[2];
   const float n = sqrtf(qx * qx + qy * qy + qz * qz);
   const float dx = qx / n, dy = qy / n, dz = qz / n;
-  const PreHit h = trace_open(S, o[0], o[1], o[2], dx, dy, dz, kBig, neg_t);
-  ++traces;
+  const PreHit h = trace(o[0], o[1], o[2], dx, dy, dz);
   if (h.m == 0) return false;
   const float x = o[0] + dx * h.t;
   const float y = o[1] + dy * h.t;
@@ -218,14 +355,14 @@ __device__ bool verify(const Scene& S, const float* o, const float* dest,
 
 // One Mutate round (models/metropolis.py::_mutate) of one chain; `lp` the
 // light's position, `base` the round's site base.
-__device__ void mutate(const Scene& S, uint32_t k0, uint32_t k1,
-                       uint32_t chain, const float* lp, uint32_t base,
-                       const Consts& K, bool exact, float eps2, bool neg_t,
-                       Path& p, unsigned long long& traces) {
+template <class Tr>
+__device__ void mutate(Tr& trace, uint32_t k0, uint32_t k1, uint32_t chain,
+                       const float* lp, uint32_t base, const Consts& K,
+                       bool exact, float eps2, Path& p) {
   // an empty path: try to build a fresh one
   if (p.len == 0)
-    random_path(S, k0, k1, chain, lp[0], lp[1], lp[2], base + kPRebuild,
-                K.two_pi, neg_t, p, traces);
+    random_path(trace, k0, k1, chain, lp[0], lp[1], lp[2], base + kPRebuild,
+                K.two_pi, p);
   if (p.len == 0) return;
   float r1, r2;
   rand2(k0, k1, chain, base + kPDecide, r1, r2);
@@ -240,7 +377,7 @@ __device__ void mutate(const Scene& S, uint32_t k0, uint32_t k1,
   for (int i = 0; i < p.len; ++i) {
     perturb(k0, k1, chain, base + kPPerturb + (uint32_t)i, p.v[i], K,
             tv[i]);
-    if (!verify(S, cur, tv[i], exact, eps2, neg_t, traces)) break;
+    if (!verify(trace, cur, tv[i], exact, eps2)) break;
     cur = tv[i];
     ++tlen;
   }
@@ -265,9 +402,7 @@ __device__ void mutate(const Scene& S, uint32_t k0, uint32_t k1,
     float u1, u2, dx, dy, dz;
     rand2(k0, k1, chain, base + kPAdd + (uint32_t)j, u1, u2);
     uniform_sphere(u1, u2, K.two_pi, dx, dy, dz);
-    const PreHit h = trace_open(S, o[0], o[1], o[2], dx, dy, dz, kBig,
-                                neg_t);
-    ++traces;
+    const PreHit h = trace(o[0], o[1], o[2], dx, dy, dz);
     if (h.m == 0) break;
     const float x = o[0] + dx * h.t;
     const float y = o[1] + dy * h.t;
@@ -279,93 +414,107 @@ __device__ void mutate(const Scene& S, uint32_t k0, uint32_t k1,
   }
 }
 
-// The scene a block reads: copied into shared memory `smem` when `staged`
+// The scene a block reads: copied into shared memory `smem` when staged
 // (the launcher's choice, the same for every block), else read in place.
-__device__ __forceinline__ Scene block_scene(const float* __restrict__ scene,
-                                             bool staged, float* smem,
-                                             int ntp, int nl, int ns,
-                                             int nq) {
-  if (!staged) return scene_view(scene, ntp, nl, ns, nq);
-  const Scene S = stage_scene(scene, smem, ntp, nl, ns, nq);
+__device__ __forceinline__ Scene block_scene(const Common& C, float* smem) {
+  if (!C.staged) return scene_view(C.scene, C.ntp, C.nl, C.ns, C.nq);
+  const Scene S = stage_scene(C.scene, smem, C.ntp, C.nl, C.ns, C.nq);
   __syncthreads();
   return S;
 }
 
-__device__ __forceinline__ void add_traces(unsigned long long* out,
-                                           unsigned long long n) {
-  if (out != nullptr) atomicAdd(out, n);
+// This thread's work unit: its warp (kWarp) or itself.
+template <bool kWarp>
+__device__ __forceinline__ long long work_unit() {
+  return kWarp ? (long long)blockIdx.x * kWarps + (threadIdx.x >> 5)
+               : (long long)blockIdx.x * blockDim.x + threadIdx.x;
+}
+
+// Whether this thread writes its unit's outputs: lane 0 of a warp (every
+// lane holds the same values), or every thread of the parent design.
+template <bool kWarp>
+__device__ __forceinline__ bool writer() {
+  return !kWarp || (threadIdx.x & 31) == 0;
+}
+
+template <bool kWarp, bool kStats>
+__device__ __forceinline__ void finish_unit(Tracer<kWarp, kStats>& tr,
+                                            long long k_start,
+                                            unsigned long long* stats) {
+  tr.T.add(0, tr.n);
+  tr.T.add(7, tr.T.clock() - k_start);
+  if (writer<kWarp>()) tr.T.flush(stats);
 }
 
 // L1: rows [0, nl * count); row i = l * count + g, work item gi0 + g.
-__global__ void __launch_bounds__(kBlock)
-light_emit_kernel(const float* __restrict__ scene, bool staged, int ntp,
-                  int nl, int ns, int nq, uint32_t k0, uint32_t k1, uint32_t gi0, int count,
-                  bool reuse_dir, bool neg_t, Consts K, float inv_scale,
-                  float4* __restrict__ out,
-                  unsigned long long* __restrict__ traces) {
+template <bool kWarp, bool kStats>
+__global__ void __launch_bounds__(kWarp ? kBlockWarp : kBlockSerial)
+light_emit_kernel(Common C, uint32_t gi0, int count, bool reuse_dir,
+                  float inv_scale, float4* __restrict__ out) {
+  const long long k_start = kStats ? clock64() : 0;
   extern __shared__ float4 smem4[];
-  const Scene S = block_scene(scene, staged, reinterpret_cast<float*>(smem4),
-                              ntp, nl, ns, nq);
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)nl * count) return;
+  const Scene S = block_scene(C, reinterpret_cast<float*>(smem4));
+  const long long i = work_unit<kWarp>();
+  if (i >= (long long)C.nl * count) return;
+  Tracer<kWarp, kStats> trace(S, C, i);
   const int l = (int)(i / count);
   const uint32_t gi = gi0 + (uint32_t)(i % count);
   const float* lp = S.lights + 4 * l;
   float u1, u2, dx, dy, dz;
-  rand2(k0, k1, gi, kSiteVlpDir + (reuse_dir ? 0u : (uint32_t)l), u1, u2);
-  uniform_sphere(u1, u2, K.two_pi, dx, dy, dz);
-  out[i] = vlp_from_sample(S, lp[0], lp[1], lp[2], dx, dy, dz, lp[3],
-                           inv_scale, false, neg_t);
-  add_traces(traces, 1);
+  rand2(C.k0, C.k1, gi, kSiteVlpDir + (reuse_dir ? 0u : (uint32_t)l), u1,
+        u2);
+  uniform_sphere(u1, u2, C.K.two_pi, dx, dy, dz);
+  const float4 row = vlp_from_sample(trace, lp[0], lp[1], lp[2], dx, dy, dz,
+                                     lp[3], inv_scale, false);
+  if (writer<kWarp>()) out[i] = row;
+  finish_unit(trace, k_start, C.stats);
 }
 
 // L2a: rows [0, nl * chains); row i = l * chains + c, chain chain0 + c.
-__global__ void __launch_bounds__(kBlock)
-light_mlt_seed_kernel(const float* __restrict__ scene, bool staged, int ntp,
-                      int nl, int ns, int nq, uint32_t k0, uint32_t k1,
-                      uint32_t chain0, int chains, bool neg_t, Consts K,
-                      float* __restrict__ v_out, int* __restrict__ len_out,
-                      unsigned long long* __restrict__ traces) {
+template <bool kWarp, bool kStats>
+__global__ void __launch_bounds__(kWarp ? kBlockWarp : kBlockSerial)
+light_mlt_seed_kernel(Common C, uint32_t chain0, int chains,
+                      float* __restrict__ v_out, int* __restrict__ len_out) {
+  const long long k_start = kStats ? clock64() : 0;
   extern __shared__ float4 smem4[];
-  const Scene S = block_scene(scene, staged, reinterpret_cast<float*>(smem4),
-                              ntp, nl, ns, nq);
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)nl * chains) return;
+  const Scene S = block_scene(C, reinterpret_cast<float*>(smem4));
+  const long long i = work_unit<kWarp>();
+  if (i >= (long long)C.nl * chains) return;
+  Tracer<kWarp, kStats> trace(S, C, i);
   const int l = (int)(i / chains);
   const uint32_t chain = chain0 + (uint32_t)(i % chains);
   const float* lp = S.lights + 4 * l;
   Path p;
-  unsigned long long n = 0;
-  random_path(S, k0, k1, chain, lp[0], lp[1], lp[2],
-              kSiteSeed + 4u * (uint32_t)l, K.two_pi, neg_t, p, n);
-  float* v = v_out + 12 * i;
+  random_path(trace, C.k0, C.k1, chain, lp[0], lp[1], lp[2],
+              kSiteSeed + 4u * (uint32_t)l, C.K.two_pi, p);
+  if (writer<kWarp>()) {
+    float* v = v_out + 12 * i;
 #pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    v[3 * s] = p.v[s][0];
-    v[3 * s + 1] = p.v[s][1];
-    v[3 * s + 2] = p.v[s][2];
+    for (int s = 0; s < 4; ++s) {
+      v[3 * s] = p.v[s][0];
+      v[3 * s + 1] = p.v[s][1];
+      v[3 * s + 2] = p.v[s][2];
+    }
+    len_out[i] = p.len;
   }
-  len_out[i] = p.len;
-  add_traces(traces, n);
+  finish_unit(trace, k_start, C.stats);
 }
 
 // L2b: the chain of row i = l * chains + c from its seed state, then its
 // emission into rows (l * 4 + slot) * chains + c of `out`.
-__global__ void __launch_bounds__(kBlock)
-light_mlt_chain_kernel(const float* __restrict__ scene, bool staged,
-                       int ntp, int nl, int ns, int nq, uint32_t k0,
-                       uint32_t k1, uint32_t chain0, int chains, int rounds,
-                       bool neg_t, Consts K, bool exact,
-                       float eps2, float inv_scale,
+template <bool kWarp, bool kStats>
+__global__ void __launch_bounds__(kWarp ? kBlockWarp : kBlockSerial)
+light_mlt_chain_kernel(Common C, uint32_t chain0, int chains, int rounds,
+                       bool exact, float eps2, float inv_scale,
                        const float* __restrict__ v_in,
                        const int* __restrict__ len_in,
-                       float4* __restrict__ out,
-                       unsigned long long* __restrict__ traces) {
+                       float4* __restrict__ out) {
+  const long long k_start = kStats ? clock64() : 0;
   extern __shared__ float4 smem4[];
-  const Scene S = block_scene(scene, staged, reinterpret_cast<float*>(smem4),
-                              ntp, nl, ns, nq);
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)nl * chains) return;
+  const Scene S = block_scene(C, reinterpret_cast<float*>(smem4));
+  const long long i = work_unit<kWarp>();
+  if (i >= (long long)C.nl * chains) return;
+  Tracer<kWarp, kStats> trace(S, C, i);
   const int l = (int)(i / chains);
   const int c = (int)(i % chains);
   const uint32_t chain = chain0 + (uint32_t)c;
@@ -379,11 +528,10 @@ light_mlt_chain_kernel(const float* __restrict__ scene, bool staged,
     p.v[s][2] = v[3 * s + 2];
   }
   p.len = len_in[i];
-  unsigned long long n = 0;
   for (int r = 0; r < rounds; ++r) {
     const uint32_t rnd = (uint32_t)r + (uint32_t)l * (uint32_t)rounds;
-    mutate(S, k0, k1, chain, lp, kSiteMlt + rnd * 16u, K, exact, eps2,
-           neg_t, p, n);
+    mutate(trace, C.k0, C.k1, chain, lp, kSiteMlt + rnd * 16u, C.K, exact,
+           eps2, p);
   }
 
   // emit <= 4 VLPs, intensity halved a depth; stop at the first dead one
@@ -396,9 +544,8 @@ light_mlt_chain_kernel(const float* __restrict__ scene, bool staged,
       const float qx = p.v[s][0] - ox, qy = p.v[s][1] - oy,
                   qz = p.v[s][2] - oz;
       const float len = sqrtf(qx * qx + qy * qy + qz * qz);
-      row = vlp_from_sample(S, ox, oy, oz, qx / len, qy / len, qz / len,
-                            lp[3] * inv_depth[s], inv_scale, true, neg_t);
-      ++n;
+      row = vlp_from_sample(trace, ox, oy, oz, qx / len, qy / len, qz / len,
+                            lp[3] * inv_depth[s], inv_scale, true);
       alive = row.w > 0.0f;
       if (!alive) row = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       ox = p.v[s][0];
@@ -407,105 +554,139 @@ light_mlt_chain_kernel(const float* __restrict__ scene, bool staged,
     } else {
       alive = false;
     }
-    out[((long long)l * 4 + s) * chains + c] = row;
+    if (writer<kWarp>()) out[((long long)l * 4 + s) * chains + c] = row;
   }
-  add_traces(traces, n);
+  finish_unit(trace, k_start, C.stats);
 }
 
-// Whether the kernel stages the scene, and its shared memory (the packed
-// scene, or none), with the attribute set past 48 KB; returns the error
-// or cudaSuccess.
-template <typename Kernel>
-cudaError_t scene_smem(Kernel kernel, int ntp, int nl, int ns, int nq,
-                       bool& staged, size_t& bytes) {
-  staged = ntp <= kStageTriangles;
-  bytes = staged ? sizeof(float) * (size_t)(ntp * 12 + 12 + nl * 4 + ns * 3
-                                            + 2 * nq)
-                 : 0;
-  if (bytes > 48 * 1024)
-    return cudaFuncSetAttribute(
+// The launch's shared arguments; the scene is staged when the buffer's
+// triangles (none on the culled route) fit kStageTriangles.
+Common common(const float* scene, int ntp, int nl, int ns, int nq,
+              const float* rows, const float* subs, const float* nodes,
+              int n_nodes, unsigned k0, unsigned k1, int neg_t,
+              float two_pi, float s1, float ratio, float dx_offset,
+              void* stats, float* log_t, int* log_i, int log_cap) {
+  Common C{};
+  C.scene = scene;
+  C.staged = ntp <= kStageTriangles;
+  C.ntp = ntp;
+  C.nl = nl;
+  C.ns = ns;
+  C.nq = nq;
+  C.M.rows = reinterpret_cast<const float4*>(rows);
+  C.M.subs = reinterpret_cast<const float4*>(subs);
+  C.M.nodes = reinterpret_cast<const float4*>(nodes);
+  C.M.n_nodes = n_nodes;
+  C.walk = rows != nullptr;
+  C.k0 = k0;
+  C.k1 = k1;
+  C.neg_t = neg_t != 0;
+  C.K = Consts{two_pi, s1, ratio, dx_offset};
+  C.stats = reinterpret_cast<unsigned long long*>(stats);
+  C.log_t = log_t;
+  C.log_i = log_i;
+  C.log_cap = log_cap;
+  return C;
+}
+
+// Launch `kernel` (the instantiation for serial / stats) over `units` work
+// units with the scene's shared memory (the packed scene when staged, the
+// attribute set past 48 KB); returns the error or cudaSuccess.
+template <class Kernel, class... Args>
+cudaError_t launch(const Common& C, long long units, bool serial,
+                   Kernel kernel, void* stream, Args... args) {
+  const size_t bytes =
+      C.staged ? sizeof(float) * (size_t)(C.ntp * 12 + 12 + C.nl * 4 +
+                                          C.ns * 3 + 2 * C.nq)
+               : 0;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  return cudaSuccess;
+    if (e != cudaSuccess) return e;
+  }
+  const int per_block = serial ? kBlockSerial : kWarps;
+  const int threads = serial ? kBlockSerial : kBlockWarp;
+  const unsigned grid = (unsigned)((units + per_block - 1) / per_block);
+  kernel<<<grid, threads, bytes, (cudaStream_t)stream>>>(C, args...);
+  return cudaGetLastError();
 }
 
-unsigned blocks(long long rows) {
-  return (unsigned)((rows + kBlock - 1) / kBlock);
-}
+// The instantiation of a kernel template K for (serial, stats).
+#define PICK(K, serial, stats)                                   \
+  ((serial) ? ((stats) ? K<false, true> : K<false, false>)        \
+            : ((stats) ? K<true, true> : K<true, false>))
 
 }  // namespace
 
 // Launches on `stream`; each returns cudaGetLastError() (0 on success).
-// `scene` is ops/mega_super.py::pack_scene's buffer; `traces` (nullable)
-// a device uint64 to which the launch adds the traces it makes.  consts:
-// 2 pi, S1, S1 / S2, the perturbation offset (float32).
+// `scene` is ops/mega_super.py::pack_scene's buffer (without triangles,
+// ntp 0, on the culled route); `rows` / `subs` / `nodes` (n_nodes of them)
+// the block tables of ops/tri_blocks.py::walk_tables, or null for the full
+// scan; `serial` runs the parent design (one thread a work unit, the
+// sequential scan; full scan only); `stats` (nullable) kStatSlots zeroed
+// uint64 counters: the counting instantiation runs and adds its tally
+// there, and logs each trace's (t, triangle index) into log_t / log_i
+// (nullable; log_cap slots a work unit).  consts: 2 pi, S1, S1 / S2, the
+// perturbation offset (float32).
 //
 // L1: out (nl * count, 4) float32.
-extern "C" int light_emit_launch(const float* scene, int ntp, int nl, int ns,
-                                 int nq, unsigned k0, unsigned k1,
-                                 unsigned gi0, int count, int reuse_dir,
-                                 int neg_t, float two_pi, float s1,
-                                 float ratio, float dx_offset,
-                                 float inv_scale, float* out,
-                                 unsigned long long* traces, void* stream) {
-  const long long rows = (long long)nl * count;
-  if (rows <= 0) return 0;
-  bool staged;
-  size_t smem;
-  cudaError_t e =
-      scene_smem(light_emit_kernel, ntp, nl, ns, nq, staged, smem);
-  if (e != cudaSuccess) return (int)e;
-  light_emit_kernel<<<blocks(rows), kBlock, smem, (cudaStream_t)stream>>>(
-      scene, staged, ntp, nl, ns, nq, k0, k1, gi0, count, reuse_dir != 0,
-      neg_t != 0,
-      Consts{two_pi, s1, ratio, dx_offset}, inv_scale,
-      reinterpret_cast<float4*>(out), traces);
-  return (int)cudaGetLastError();
+extern "C" int light_emit_launch(
+    const float* scene, int ntp, int nl, int ns, int nq, const float* rows,
+    const float* subs, const float* nodes, int n_nodes, unsigned k0,
+    unsigned k1, unsigned gi0, int count, int reuse_dir, int neg_t,
+    float two_pi, float s1, float ratio, float dx_offset, float inv_scale,
+    float* out, int serial, void* stats, float* log_t, int* log_i,
+    int log_cap, void* stream) {
+  const long long units = (long long)nl * count;
+  if (units <= 0) return 0;
+  const Common C = common(scene, ntp, nl, ns, nq, rows, subs, nodes, n_nodes,
+                          k0, k1, neg_t, two_pi, s1, ratio, dx_offset, stats,
+                          log_t, log_i, log_cap);
+  return (int)launch(C, units, serial != 0,
+                     PICK(light_emit_kernel, serial != 0, stats != nullptr),
+                     stream, (uint32_t)gi0, count, reuse_dir != 0,
+                     inv_scale, reinterpret_cast<float4*>(out));
 }
 
 // L2a: v (nl * chains, 4, 3) float32, length (nl * chains,) int32.
-extern "C" int light_mlt_seed_launch(const float* scene, int ntp, int nl,
-                                     int ns, int nq, unsigned k0,
-                                     unsigned k1, unsigned chain0,
-                                     int chains, int neg_t, float two_pi,
-                                     float s1, float ratio, float dx_offset,
-                                     float* v, int* length,
-                                     unsigned long long* traces,
-                                     void* stream) {
-  const long long rows = (long long)nl * chains;
-  if (rows <= 0) return 0;
-  bool staged;
-  size_t smem;
-  cudaError_t e =
-      scene_smem(light_mlt_seed_kernel, ntp, nl, ns, nq, staged, smem);
-  if (e != cudaSuccess) return (int)e;
-  light_mlt_seed_kernel<<<blocks(rows), kBlock, smem,
-                          (cudaStream_t)stream>>>(
-      scene, staged, ntp, nl, ns, nq, k0, k1, chain0, chains, neg_t != 0,
-      Consts{two_pi, s1, ratio, dx_offset}, v, length, traces);
-  return (int)cudaGetLastError();
+extern "C" int light_mlt_seed_launch(
+    const float* scene, int ntp, int nl, int ns, int nq, const float* rows,
+    const float* subs, const float* nodes, int n_nodes, unsigned k0,
+    unsigned k1, unsigned chain0, int chains, int neg_t, float two_pi,
+    float s1, float ratio, float dx_offset, float* v, int* length,
+    int serial, void* stats, float* log_t, int* log_i, int log_cap,
+    void* stream) {
+  const long long units = (long long)nl * chains;
+  if (units <= 0) return 0;
+  const Common C = common(scene, ntp, nl, ns, nq, rows, subs, nodes, n_nodes,
+                          k0, k1, neg_t, two_pi, s1, ratio, dx_offset, stats,
+                          log_t, log_i, log_cap);
+  return (int)launch(
+      C, units, serial != 0,
+      PICK(light_mlt_seed_kernel, serial != 0, stats != nullptr), stream,
+      (uint32_t)chain0, chains, v, length);
 }
 
 // L2b: from the seed state (v_in, len_in), out (nl * 4 * chains, 4)
 // float32; `exact` is verify_eps == 0, eps2 the float32 eps * eps.
 extern "C" int light_mlt_chain_launch(
-    const float* scene, int ntp, int nl, int ns, int nq, unsigned k0,
-    unsigned k1, unsigned chain0, int chains, int rounds, int neg_t, float two_pi, float s1, float ratio, float dx_offset,
-    int exact, float eps2, float inv_scale, const float* v_in,
-    const int* len_in, float* out, unsigned long long* traces,
-    void* stream) {
-  const long long rows = (long long)nl * chains;
-  if (rows <= 0) return 0;
-  bool staged;
-  size_t smem;
-  cudaError_t e =
-      scene_smem(light_mlt_chain_kernel, ntp, nl, ns, nq, staged, smem);
-  if (e != cudaSuccess) return (int)e;
-  light_mlt_chain_kernel<<<blocks(rows), kBlock, smem,
-                           (cudaStream_t)stream>>>(
-      scene, staged, ntp, nl, ns, nq, k0, k1, chain0, chains, rounds,
-      neg_t != 0, Consts{two_pi, s1, ratio, dx_offset}, exact != 0, eps2,
-      inv_scale, v_in, len_in, reinterpret_cast<float4*>(out), traces);
-  return (int)cudaGetLastError();
+    const float* scene, int ntp, int nl, int ns, int nq, const float* rows,
+    const float* subs, const float* nodes, int n_nodes, unsigned k0,
+    unsigned k1, unsigned chain0, int chains, int rounds, int neg_t,
+    float two_pi, float s1, float ratio, float dx_offset, int exact,
+    float eps2, float inv_scale, const float* v_in, const int* len_in,
+    float* out, int serial, void* stats, float* log_t, int* log_i,
+    int log_cap, void* stream) {
+  const long long units = (long long)nl * chains;
+  if (units <= 0) return 0;
+  const Common C = common(scene, ntp, nl, ns, nq, rows, subs, nodes, n_nodes,
+                          k0, k1, neg_t, two_pi, s1, ratio, dx_offset, stats,
+                          log_t, log_i, log_cap);
+  return (int)launch(
+      C, units, serial != 0,
+      PICK(light_mlt_chain_kernel, serial != 0, stats != nullptr), stream,
+      (uint32_t)chain0, chains, rounds, exact != 0, eps2, inv_scale, v_in,
+      len_in, reinterpret_cast<float4*>(out));
 }
 
 extern "C" const char* light_pass_error_string(int code) {

@@ -60,24 +60,6 @@ namespace {
 constexpr int kTileW = 16;            // block tile: 16 x 8 pixels,
 constexpr int kTileH = 8;             // warp w on the 8 x 4 patch (w&1, w>>1)
 constexpr int kBlock = kTileW * kTileH;
-constexpr int kRowsPerBlock = 128;    // triangles per Morton block
-constexpr int kSubRows = 32;          // rows per sub-block
-constexpr int kSubs = kRowsPerBlock / kSubRows;
-
-// The block tables (ops/tri_blocks.py::walk_tables): 4 float4 per row
-// (v0.xyz e0.x | e0.yz e2.xy | e2.z n.xyz | index bits, pad), 2 per block
-// box (lo.xyz 0 | hi.xyz 0), 2 per sub-block (lo.xyz row count | hi.xyz
-// 0), 2 per tree node in depth-first order: a macro leaf (lo.xyz block
-// count | hi.xyz first block) or an internal node (lo.xyz index of the
-// node after its subtree | hi.xyz -1).
-struct Mesh {
-  const float4* rows;
-  const float4* boxes;
-  const float4* subs;
-  const float4* nodes;
-  int n_blocks;
-  int n_nodes;
-};
 
 // Warp-wide work tally of the counting instantiation (kStats): every lane
 // keeps the same counts (they follow warp votes), lane 0 adds them to the

@@ -1,11 +1,14 @@
 // Device code shared by the megakernels (csrc/mega_super.cu, kernel B1;
 // csrc/mega_vlp.cu, kernel B4; csrc/mega_blocked.cu, kernels B2/B3;
 // csrc/mega_simple.cu, kernel B5), the light pass (csrc/light_pass.cu,
-// kernels L1 and L2) and the cell-walk diagnostic (csrc/diag_dda.cu): the threefry stream, the packed scene in shared
-// memory, the thin-lens primary ray, the det-scaled triangle row test, the
-// closest-hit trace and its non-triangle stage, the capped any-hit
-// occlusion test and its non-triangle stage, the NaN-safe slab test of the
-// per-warp culls and their box predicates, and the 4-material shading.
+// kernels L1 and L2) and the cell-walk diagnostic (csrc/diag_dda.cu): the
+// threefry stream, the packed scene in shared memory, the thin-lens primary
+// ray, the det-scaled triangle row test, the closest-hit trace and its
+// non-triangle stage, the capped any-hit occlusion test and its
+// non-triangle stage, the NaN-safe slab test of the per-warp culls and
+// their box predicates, a large mesh's block tables, the warp-cooperative
+// closest hit (one ray a warp: the full scan and the culled walk), and the
+// 4-material shading.
 //
 // Everything sits in an anonymous namespace, so every translation unit
 // that includes this header gets its own internal copy and the kernels
@@ -313,15 +316,11 @@ __device__ __forceinline__ Hit finish_rsqrt(const PreHit& h) {
   return Hit{h.t, h.m, nx, ny, nz};
 }
 
-// Closest hit (ops/intersect.py::trace_ray, sphere material 3), seeded
-// with the running distance t0, over the shared-memory triangle table,
-// before its sphere normal is renormalised (trace and the light pass's
-// traces finish it their own ways).
-__device__ __forceinline__ PreHit trace_open(const Scene& S, float ox,
-                                             float oy, float oz, float dx,
-                                             float dy, float dz, float t0,
-                                             bool neg_t) {
-  PreHit h = pre_tri(S, ox, oy, oz, dx, dy, dz, t0, neg_t, 3);
+// The triangle stage of a closest-hit trace: one thread's sequential scan
+// of every row of the packed table, from the running hit h of pre_tri.
+__device__ __forceinline__ void scan_open(const Scene& S, float ox, float oy,
+                                          float oz, float dx, float dy,
+                                          float dz, bool neg_t, PreHit& h) {
   if (S.ntp) {
     // division-free scan: the running minimum is carried det-scaled as
     // (bn, bd); file order decides exact ties (strict <)
@@ -362,6 +361,18 @@ __device__ __forceinline__ PreHit trace_open(const Scene& S, float ox,
     }
     h.t = bn / bd;
   }
+}
+
+// Closest hit (ops/intersect.py::trace_ray, sphere material 3), seeded
+// with the running distance t0, over the shared-memory triangle table,
+// before its sphere normal is renormalised (trace and the light pass's
+// traces finish it their own ways).
+__device__ __forceinline__ PreHit trace_open(const Scene& S, float ox,
+                                             float oy, float oz, float dx,
+                                             float dy, float dz, float t0,
+                                             bool neg_t) {
+  PreHit h = pre_tri(S, ox, oy, oz, dx, dy, dz, t0, neg_t, 3);
+  scan_open(S, ox, oy, oz, dx, dy, dz, neg_t, h);
   return h;
 }
 
@@ -488,6 +499,157 @@ __device__ __forceinline__ bool box_occ(float4 lo, float4 hi,
   bool hit = tmax >= tmin;
   if (!neg_t) hit = hit && tmax >= kEps && tmin <= tl * kSlack;
   return hit;
+}
+
+// The block tables of a large mesh (ops/tri_blocks.py::walk_tables), walked
+// by kernels B2/B3 and by the light pass's culled trace: 4 float4 per row
+// (v0.xyz e0.x | e0.yz e2.xy | e2.z n.xyz | index bits, pad), 2 per block
+// box (lo.xyz 0 | hi.xyz 0), 2 per sub-block (lo.xyz row count | hi.xyz
+// 0), 2 per tree node in depth-first order: a macro leaf (lo.xyz block
+// count | hi.xyz first block) or an internal node (lo.xyz index of the
+// node after its subtree | hi.xyz -1).
+constexpr int kRowsPerBlock = 128;    // triangles per Morton block
+constexpr int kSubRows = 32;          // rows per sub-block
+constexpr int kSubs = kRowsPerBlock / kSubRows;
+
+struct Mesh {
+  const float4* rows;
+  const float4* boxes;
+  const float4* subs;
+  const float4* nodes;
+  int n_blocks;
+  int n_nodes;
+};
+
+// Warp-cooperative closest hit (the light pass, csrc/light_pass.cu): the 32
+// lanes of a warp trace ONE ray, and every lane ends with the same result.
+// Each lane tests its own rows (row_quads and the tests that do not read
+// the running minimum); a ballot collects the candidates, and the warp
+// applies the running-minimum update to them one at a time in row order,
+// each candidate's (tn_s, dd) broadcast by a shuffle.  That is the
+// sequential scan's update in the sequential scan's order, so its result
+// and rounding are scan_open's bit for bit (a min-reduction would not be:
+// the cross-multiplied compare is not transitive under rounding).
+// Candidates are rare, so the ordered part is short.  `T` is a work tally
+// with add(slot, n); the slots it counts:
+constexpr int kTalRows = 1;    // triangle rows tested
+constexpr int kTalNodes = 2;   // tree-node box tests (culled walk)
+constexpr int kTalSubs = 3;    // sub-block box tests (culled walk)
+constexpr int kTalCands = 4;   // candidates through the ordered update
+
+// The full scan: row base + j of each 32-row chunk on lane j, in file
+// order (strict <: an exact tie keeps the earlier row).  Updates the
+// det-scaled minimum (bn, bd); returns the winning row, or -1.
+template <class T>
+__device__ __forceinline__ int warp_scan_closest(
+    const Scene& S, float ox, float oy, float oz, float dx, float dy,
+    float dz, bool neg_t, float& bn, float& bd, T& tally) {
+  const int lane = threadIdx.x & 31;
+  const float4* rows = reinterpret_cast<const float4*>(S.tri);
+  int best = -1;
+  for (int base = 0; base < S.ntp; base += 32) {
+    const int i = base + lane;
+    Quads q{0.0f, 0.0f, 0.0f, 0.0f};
+    bool cand = false;
+    if (i < S.ntp) {
+      q = row_quads(rows[3 * i], rows[3 * i + 1], rows[3 * i + 2], ox, oy,
+                    oz, dx, dy, dz);
+      cand = quads_valid(q, neg_t);
+    }
+    unsigned m = __ballot_sync(kAll, cand);
+    tally.add(kTalRows, min(32, S.ntp - base));
+    while (m != 0u) {
+      const int k = __ffs(m) - 1;
+      m &= m - 1u;
+      const float tn = __shfl_sync(kAll, q.tn_s, k);
+      const float dd = __shfl_sync(kAll, q.dd, k);
+      tally.add(kTalCands, 1);
+      if (tn * bd < bn * dd) {
+        bn = tn;
+        bd = dd;
+        best = base + k;
+      }
+    }
+  }
+  return best;
+}
+
+// The culled walk over a mesh's block tables, one ray a warp.  The node
+// tree is walked without a stack, as B2/B3 walk it: every lane tests the
+// same node, and a node whose padded box fails box_closest is skipped
+// with its subtree.  In a taken macro, lane j tests the box of the
+// macro's sub-block j (<= 8 blocks x 4; a sub-block's box lies inside its
+// block's, so the block level adds no cull), and the warp scans the
+// sub-blocks that pass, in order, row j on lane j, with the ordered
+// update; after an update the macro's later sub-blocks are tested again
+// against the closer minimum.  Every test is conservative, so no row that
+// could win is skipped.  Rows are in Morton order, so an exact
+// cross-multiplied tie goes to the lowest original index, carried from -1
+// so that a tie against a floor, square or sphere hit is never stolen (as
+// in B2/B3).  Updates (bn, bd); returns the winning row's position in
+// M.rows, or -1.
+template <class T>
+__device__ __forceinline__ int warp_walk_closest(
+    const Mesh& M, float ox, float oy, float oz, float dx, float dy,
+    float dz, bool neg_t, float& bn, float& bd, T& tally) {
+  const int lane = threadIdx.x & 31;
+  const RayInv ri = ray_inv(ox, oy, oz, dx, dy, dz);
+  int best = -1, bi = -1;
+  int ni = 0;
+  while (ni < M.n_nodes) {
+    const float4 lo = __ldg(M.nodes + 2 * ni);
+    const float4 hi = __ldg(M.nodes + 2 * ni + 1);
+    const int first = __float_as_int(hi.w);   // -1: an internal node
+    tally.add(kTalNodes, 1);
+    if (!box_closest(lo, hi, ri, bn, bd, neg_t)) {
+      ni = first < 0 ? __float_as_int(lo.w) : ni + 1;
+      continue;
+    }
+    ++ni;
+    if (first < 0) continue;                   // descend
+    float4 slo = make_float4(0.0f, 0.0f, 0.0f, 0.0f), shi = slo;
+    if (lane < kSubs * __float_as_int(lo.w)) {
+      slo = __ldg(M.subs + 2 * (kSubs * first + lane));
+      shi = __ldg(M.subs + 2 * (kSubs * first + lane) + 1);
+    }
+    const bool live = __float_as_int(slo.w) != 0;   // rows in it
+    tally.add(kTalSubs, __popc(__ballot_sync(kAll, live)));
+    unsigned m = __ballot_sync(
+        kAll, live && box_closest(slo, shi, ri, bn, bd, neg_t));
+    while (m != 0u) {
+      const int k = __ffs(m) - 1;
+      m &= m - 1u;
+      const int s = kSubs * first + k;
+      const float4* row = M.rows + 4 * ((long long)kSubRows * s + lane);
+      const int idx = __float_as_int(__ldg(row + 3).x);
+      const Quads q = row_quads(__ldg(row), __ldg(row + 1), __ldg(row + 2),
+                                ox, oy, oz, dx, dy, dz);
+      unsigned cm = __ballot_sync(kAll, quads_valid(q, neg_t));
+      tally.add(kTalRows, __float_as_int(__shfl_sync(kAll, slo.w, k)));
+      bool moved = false;
+      while (cm != 0u) {
+        const int j = __ffs(cm) - 1;
+        cm &= cm - 1u;
+        const float tn = __shfl_sync(kAll, q.tn_s, j);
+        const float dd = __shfl_sync(kAll, q.dd, j);
+        const int id = __shfl_sync(kAll, idx, j);
+        tally.add(kTalCands, 1);
+        const float num = tn * bd;
+        const float den = bn * dd;
+        if (num < den || (num == den && id < bi)) {
+          bn = tn;
+          bd = dd;
+          bi = id;
+          best = kSubRows * s + j;
+          moved = true;
+        }
+      }
+      if (moved)
+        m &= __ballot_sync(kAll,
+                           live && box_closest(slo, shi, ri, bn, bd, neg_t));
+    }
+  }
+  return best;
 }
 
 // Sky colour (1 - dz)^4 * (0.7, 0.6, 1) (pathtracer.ocl:160).

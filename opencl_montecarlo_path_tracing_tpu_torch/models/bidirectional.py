@@ -131,6 +131,23 @@ def cuda_route(scn: SceneArrays, quirks: Quirks,
     return "tier1"
 
 
+def vlp_grid(vlps, res, frame_only: bool):
+    """The VLP grid of a grid render: only its frame where B4 renders the
+    pass (``frame_only``: :func:`grid_frame_only`), else the full item
+    lists the tier-1 gather reads."""
+    if frame_only:
+        return vlpmod.vlp_grid_frame(vlps, res)
+    return vlpmod.build_vlp_grid(vlps, res)
+
+
+def grid_frame_only(scn: SceneArrays, quirks: Quirks, max_bounces,
+                    device) -> bool:
+    """Whether a grid render of this configuration needs only the grid's
+    frame: on B4's route, decided before any launch."""
+    return (device.type == "cuda"
+            and cuda_route(scn, quirks, max_bounces) == "mega_vlp")
+
+
 def film_vlp(key, scn: SceneArrays, vlps, grid, width, height, spp,
              spp_offset, spp_total, quirks, max_bounces=C.MAX_BOUNCES,
              row_offset=0, rows=None, device="cuda"):
@@ -155,10 +172,11 @@ def film_bidirectional(key, scn: SceneArrays, width, height, spp, spp_offset,
                        precomputed_grid=None, row_offset=0, rows=None,
                        device="cuda"):
     """Both passes on ``device``: emit VLPs, (optionally) build the VLP
-    grid, render.  ``precomputed_vlps``/``precomputed_grid`` let a caller
-    stage the pipeline (or carry the JAX package's light pass across,
-    convert.py)."""
+    grid (on B4's route only its frame: :func:`vlp_grid`), render.
+    ``precomputed_vlps``/``precomputed_grid`` let a caller stage the
+    pipeline (or carry the JAX package's light pass across, convert.py)."""
     device = check_device(device)
+    frame_only = grid_frame_only(scn, quirks, max_bounces, device)
     if precomputed_vlps is not None:
         vlps = torch.as_tensor(precomputed_vlps, dtype=torch.float32,
                                device=device)
@@ -167,7 +185,7 @@ def film_bidirectional(key, scn: SceneArrays, width, height, spp, spp_offset,
     grid = precomputed_grid
     if use_grid and grid is None:
         res = vlpmod.vlp_grid_static_res(int(vlps.shape[0]), grid_modifier)
-        grid = vlpmod.build_vlp_grid(vlps, res)
+        grid = vlp_grid(vlps, res, frame_only)
     return film_vlp(key, scn, vlps, grid, width, height, spp, spp_offset,
                     spp_total, quirks, max_bounces, row_offset, rows, device)
 

@@ -10,7 +10,8 @@ then emits <= 4 VLPs per path with intensity halved per depth
 (light_intensity / (1 << i), ocl:524); (c) ``pathTracer`` gathers the VLPs
 like the bidirectional tracer.  The _vlpgrid variant additionally reduces
 the VLP bounding box, builds a uniform grid over the VLPs and gathers only
-the shading point's cell.
+the shading point's cell (on B4's route only the grid's frame is built:
+B4 bins each VLP itself).
 
 The JAX package's deliberate repairs of reference defects are kept (the
 seed pass output feeds the mutation pass; counter-based draws per
@@ -18,7 +19,7 @@ seed pass output feeds the mutation pass; counter-based draws per
 0.0 reproducing the reference's always-reject exact equality; a
 device-resident bounding-box reduction).  On a CUDA device
 (``ops/light_pass.py::light_route``) the seed paths are one launch of
-kernel L2a and the chain with its emission one of L2b, one thread a
+kernel L2a and the chain with its emission one of L2b, one warp a
 chain.  The plain version, on the CPU or with ``plain=True``, is batched
 PyTorch on the film's device: ~100
 ``trace_ray`` calls on nlights * n_seedpaths rays, every chain traced at
@@ -37,7 +38,7 @@ from ..ops import light_pass
 from ..ops import vlp as vlpmod
 from ..scene.scene import Scene
 from . import common as C
-from .bidirectional import check_device, film_vlp
+from .bidirectional import check_device, film_vlp, grid_frame_only, vlp_grid
 
 # RNG site space: chains use ray_id = chain index and sites >= 256
 _SITE_SEED = 192          # + vertex slot (seed-path directions)
@@ -291,6 +292,7 @@ def film_metropolis(key, scn: SceneArrays, width, height, spp, spp_offset,
                     precomputed_vlps=None, precomputed_grid=None,
                     grid_res=None, row_offset=0, rows=None, device="cuda"):
     device = check_device(device)
+    frame_only = grid_frame_only(scn, quirks, max_bounces, device)
     if precomputed_vlps is not None:
         vlps = torch.as_tensor(precomputed_vlps, dtype=torch.float32,
                                device=device)
@@ -302,7 +304,7 @@ def film_metropolis(key, scn: SceneArrays, width, height, spp, spp_offset,
         res = (grid_res if grid_res is not None else
                vlpmod.vlp_grid_static_res(int(vlps.shape[0]),
                                           grid_modifier))
-        grid = vlpmod.build_vlp_grid(vlps, res)
+        grid = vlp_grid(vlps, res, frame_only)
     return film_vlp(key, scn, vlps, grid, width, height, spp, spp_offset,
                     spp_total, quirks, max_bounces, row_offset, rows, device)
 

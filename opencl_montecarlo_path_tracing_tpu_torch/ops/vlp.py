@@ -296,15 +296,32 @@ def vlp_aabbs(vlps):
     return amin, amax
 
 
-def build_vlp_grid(vlps, res, cap: int = gridmod.MAX_NELS_PER_CELL):
-    """initVLPsGrid (metropolispathtracer.ocl:626-647) without atomics:
-    AABBs = pos +- 16*sqrt(I), per-cell scan build (deterministic)."""
+class GridFrame(NamedTuple):
+    """A VLP grid's frame without its item lists: all that kernel B4 reads
+    of a grid (``ops/mega_vlp.py::vlp_table`` bins each VLP itself)."""
+    res: tuple               # (rx, ry, rz) Python ints
+    vmin: torch.Tensor       # (3,) float32
+    cell_size: torch.Tensor  # (3,) float32
+
+
+def vlp_grid_frame(vlps, res) -> GridFrame:
+    """The frame of :func:`build_vlp_grid`'s grid, from the same float
+    operations: the VLP box's corner and the cell size (vmax - vmin) / res
+    clamped at 1e-6."""
     vmin, vmax = vlp_bounds(vlps)
     cell = (vmax - vmin) / torch.as_tensor(res, dtype=torch.float32,
                                            device=vlps.device)
     cell = torch.clamp_min(cell, 1e-6)
+    return GridFrame(tuple(int(r) for r in res), vmin, cell)
+
+
+def build_vlp_grid(vlps, res, cap: int = gridmod.MAX_NELS_PER_CELL):
+    """initVLPsGrid (metropolispathtracer.ocl:626-647) without atomics:
+    AABBs = pos +- 16*sqrt(I), per-cell scan build (deterministic)."""
+    f = vlp_grid_frame(vlps, res)
     amin, amax = vlp_aabbs(vlps)
-    return gridmod.build_grid_cellscan(amin, amax, vmin, cell, res, cap=cap)
+    return gridmod.build_grid_cellscan(amin, amax, f.vmin, f.cell_size, res,
+                                       cap=cap)
 
 
 def gather_vlps_grid(x, n, vlps, grid: gridmod.UniformGrid):

@@ -33,8 +33,11 @@ tolerance ``tests/test_mxu_triangles.py`` gives two such orders).  The B8
 kernels (the grid cell-walk pair, the take-list primitives, the loop arms)
 and the light pass's (L1, L2a, L2b: tables and seed states) equal their
 plain versions bit for bit: the same float operations in the same order,
-none contracted; the light pass's tables, read back to the host, also
-hold to the port's NumPy oracles (``hold_light_pass_to_oracles``).
+none contracted, below 2,048 triangles (the full warp scan repeats the
+sequential scan's update in its order); from 2,048 the culled walk gives
+the full-scan instantiation's (t, triangle index) on every trace; the
+light pass's tables, read back to the host, also hold to the port's
+NumPy oracles (``hold_light_pass_to_oracles``).
 """
 
 import os
@@ -1043,6 +1046,158 @@ def test_light_pass_reads_a_large_scene_in_place(cuda_device):
             hits = (int((a.abs().sum(1) > 0).sum()),
                     int((seed[1] > 0).sum()))
     assert min(hits) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["default", "REFERENCE_LMEM, verify_eps 0"])
+def test_light_pass_below_the_walk_bit_equal_plain(case, cuda_device):
+    """An 1,800-triangle sheet (between the shared-memory stage's 512 and
+    the culled walk's 2,048): the warp design's full scan, read in place,
+    equals the plain light pass bit for bit, and so does the parent
+    design's instantiation (serial=True)."""
+    from opencl_montecarlo_path_tracing_tpu_torch.models import (
+        metropolis as TM)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import light_pass as L
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as TV
+    scn = prep_scene(sheet_scene(30, 30))
+    assert 512 < scn.tri_v0.shape[0] == 1800 < 2048
+    assert L.triangle_route(scn) == "scan"
+    q, eps = (DEFAULT, 1e-3) if case == "default" else (REFERENCE_LMEM, 0.0)
+    key, n, rounds = (6, 0), 64, 3
+    plain = dict(device=cuda_device, plain=True)
+    c0 = light_counts()
+    a = TV.emit_vlps(key, scn, n, q, device=cuda_device)
+    seed = TM.mlt_seed(key, scn, n, q, device=cuda_device)
+    b = TM.mlt_mutate_emit(key, scn, n, rounds, q, eps, seed,
+                           device=cuda_device)
+    torch.cuda.synchronize()
+    assert light_counts() == tuple(c + 1 for c in c0)
+    assert torch.equal(a, TV.emit_vlps(key, scn, n, q, **plain))
+    pv, pl = TM.mlt_seed(key, scn, n, q, **plain)
+    assert torch.equal(seed[0], pv) and torch.equal(seed[1], pl)
+    assert torch.equal(b, TM.mlt_mutate_emit(key, scn, n, rounds, q, eps,
+                                             seed, **plain))
+    assert int((seed[1] > 0).sum()) > 0 and int((a.abs().sum(1) > 0).sum())
+    ser = dict(device=cuda_device, serial=True)
+    assert torch.equal(a, L.emit(key, scn, n, q, **ser))
+    sv, sl = L.mlt_seed(key, scn, n, q, **ser)
+    assert torch.equal(sv, pv) and torch.equal(sl, pl)
+    assert torch.equal(b, L.mlt_mutate_emit(key, scn, n, rounds, q, eps,
+                                            seed, **ser))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["demo", "dense"])
+def test_parent_design_instantiation_bit_equal(scene, cuda_device):
+    """The parent design (one thread a chain, the sequential scan), kept as
+    the serial instantiation for the same-call A/B, gives the warp
+    design's tables and trace counts bit for bit."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import light_pass as L
+    scn = prep_scene(demo_scene()[0] if scene == "demo"
+                     else dense_vlp_scene())
+    key, n, rounds = (8, 0), 96, 3
+    for serial in (False, True):
+        st = [L.new_stats(cuda_device) for _ in range(3)]
+        kw = dict(device=cuda_device, serial=serial)
+        e = L.emit(key, scn, n, DEFAULT, stats=st[0], **kw)
+        sd = L.mlt_seed(key, scn, n, DEFAULT, stats=st[1], **kw)
+        t = L.mlt_mutate_emit(key, scn, n, rounds, DEFAULT, 1e-3, sd,
+                              stats=st[2], **kw)
+        got = (e, sd[0], sd[1], t, [L.read_stats(x) for x in st])
+        if not serial:
+            want = got
+    for a, b in zip(got[:4], want[:4]):
+        assert torch.equal(a, b)
+    nt = int(scn.tri_v0.shape[0])
+    for s_ser, s_warp in zip(got[4], want[4]):
+        assert s_ser["traces"] == s_warp["traces"] > 0
+        assert s_ser["rows"] == s_warp["rows"] == s_ser["traces"] * nt
+
+
+@pytest.mark.gpu
+def test_light_pass_culled_walk_equals_the_full_scan(cuda_device):
+    """On the 20,736-triangle sheet (the culled walk's route) every trace
+    of one light pass - L1, L2a and L2b, logged by the counting launch -
+    gives the (t, triangle index) of the same kernel's full-scan
+    instantiation (culled=False), and so the tables are equal; the walk
+    tests a small share of the rows."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import light_pass as L
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        large_mesh_scene)
+    scn = prep_scene(large_mesh_scene())
+    nt = int(scn.tri_v0.shape[0])
+    assert L.triangle_route(scn) == "walk" and nt == 20736
+    key, n, rounds = (4, 0), 64, 3
+    nl = int(scn.lights.shape[0])
+    caps = (1, 4, 4 + 11 * rounds)
+    runs = {}
+    for culled in (True, False):
+        logs = [(torch.full((nl * n, c), -1.0, device=cuda_device),
+                 torch.full((nl * n, c), -2, dtype=torch.int32,
+                            device=cuda_device)) for c in caps]
+        st = [L.new_stats(cuda_device) for _ in caps]
+        kw = dict(device=cuda_device, culled=culled)
+        e = L.emit(key, scn, n, DEFAULT, stats=st[0], log=logs[0], **kw)
+        sd = L.mlt_seed(key, scn, n, DEFAULT, stats=st[1], log=logs[1],
+                        **kw)
+        t = L.mlt_mutate_emit(key, scn, n, rounds, DEFAULT, 1e-3, sd,
+                              stats=st[2], log=logs[2], **kw)
+        runs[culled] = ((e, sd[0], sd[1], t), logs,
+                        [L.read_stats(x) for x in st])
+    (tw, lw, sw), (ts, ls, ss) = runs[True], runs[False]
+    for (a_t, a_i), (b_t, b_i) in zip(lw, ls):
+        assert torch.equal(a_i, b_i)
+        assert torch.equal(a_t, b_t)
+    for a, b in zip(tw, ts):
+        assert torch.equal(a, b)
+    hits = int((ls[2][1] >= 0).sum())
+    assert hits > 50
+    for w, f in zip(sw, ss):
+        assert w["traces"] == f["traces"] > 0
+        assert f["rows"] == f["traces"] * nt
+        assert w["rows"] < 0.05 * f["rows"]
+        assert w["node_tests"] > 0 and f["node_tests"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+def test_vlpgrid_render_builds_only_the_grid_frame(dynamic, cuda_device,
+                                                   monkeypatch):
+    """On B4's route a metropolis_vlpgrid render builds only the grid's
+    frame: it launches L2a, L2b and B4 once each and never the item-list
+    build, and its film is bit-equal to the render pass over the fully
+    built grid."""
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.models.bidirectional import (
+        film_vlp)
+    from opencl_montecarlo_path_tracing_tpu_torch.models import (
+        metropolis as TM)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import grid as TG
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as TV
+    builds, real = [], TG.build_grid_cellscan
+    monkeypatch.setattr(TG, "build_grid_cellscan",
+                        lambda *a, **k: builds.append(1) or real(*a, **k))
+    scene = demo_scene()[0]
+    c0 = light_counts() + (M4.LAUNCHES,)
+    film = TM.render_metropolis(make_key(1), scene, 64, 64, spp=2,
+                                n_seedpaths=16, mutation_rounds=2,
+                                use_grid=True, dynamic_grid_res=dynamic,
+                                device=cuda_device)
+    torch.cuda.synchronize()
+    got = tuple(a - b for a, b in zip(light_counts() + (M4.LAUNCHES,), c0))
+    assert got == (0, 1, 1, 1) and builds == []
+    scn = prep_scene(scene)
+    vlps = TM.mlt_vlps(make_key(1), scn, 16, 2, device=cuda_device)
+    if dynamic:
+        vmin, vmax = (b.cpu().numpy() for b in TV.vlp_bounds(vlps))
+        res = TV.vlp_grid_dynamic_res(vmin, vmax, int(vlps.shape[0]))
+    else:
+        res = TV.vlp_grid_static_res(int(vlps.shape[0]))
+    full = TV.build_vlp_grid(vlps, res)
+    assert builds == [1]
+    want = film_vlp(make_key(1), scn, vlps, full, 64, 64, 2, 0, 2, DEFAULT,
+                    device=cuda_device)
+    assert torch.equal(film, want)
 
 
 # the light pass against the port's NumPy oracles (models/oracle_bpt.py::
