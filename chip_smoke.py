@@ -41,12 +41,11 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    under the default quirks and under REFERENCE_LMEM (the reused light
    direction, negative t) with verify_eps 0, and on a 1,800-triangle
    sheet (read in place, below the walk) under the default quirks at 64
-   a light and 2 rounds (its plain version takes ~2 min at 512 x 8); the
-   parent design's instantiation (one thread a chain, ``serial=True``)
-   against the warp design, bit for bit; a window of each against the
-   same rows of the full run.  A difference prints every differing row
-   or chain with its light, slot and draw site, and the first round at
-   which the first differing chain of light 0 differs.  The kernels'
+   a light and 2 rounds (its plain version takes ~2 min at 512 x 8); a
+   window of each against the same rows of the full run.  A difference
+   prints every differing row or chain with its light, slot and draw
+   site, and the first round at which the first differing chain of light
+   0 differs.  The kernels'
    tables, read back to the host, against the port's NumPy oracles
    (``models/oracle_{bpt,mlt}.py``) on both scenes, under the default and
    the reference quirks and in a window (the cases of
@@ -60,13 +59,13 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    and the 20,736 sheets each kernel's work tally (traces, rows tested,
    node and sub-block box tests, ordered-update candidates, the clock64
    split of the floor / square / sphere stages, the triangle stage and
-   the rest) for the parent design and the new one, and its time (CUDA
-   events, warm, 3 runs) in turns, parent, new, new, parent, with each
-   design's device time a launch (torch.profiler), beside its plain
-   version (not on the 1,800 sheet), the yardstick's bound over the
-   traces it makes (every
+   the rest), and its time (CUDA events, warm, 3 runs) with its device
+   time a launch (torch.profiler), beside its plain version (not on the
+   1,800 sheet), the yardstick's bound over the traces it makes (every
    triangle of each) and the bound restated over the design's own work
-   (rows tested, box tests);
+   (the rows it tests and its box tests; on the walk, their bytes, each
+   table at most once).  The parent commit's kernels are timed against
+   these in turns by ``tools/ab_light_pass.py``, not here;
 6. the VLP main paths: ``api.render`` at 512x512 with 256 spp -
    bidirectional, metropolis and metropolis_vlpgrid on ``demo_scene()``,
    bidirectional on ``dense_vlp_scene()`` - each timed over 3 runs after a
@@ -946,10 +945,9 @@ def phase_light_pass(gt, card: str) -> dict:
     the default quirks and under REFERENCE_LMEM (negative t accepted,
     the light direction reused) with verify_eps 0 (the reference's exact
     test), and on the 1,800-triangle sheet (past the shared-memory stage,
-    below the culled walk) under the default quirks at ``BAND_CHECK``;
-    the parent design's instantiation (``serial=True``) against the warp
-    design, bit for bit; a window of each equal to the same rows of the
-    full run (demo and dense).  The tables
+    below the culled walk) under the default quirks at ``BAND_CHECK``; a
+    window of each equal to the same rows of the full run (demo and
+    dense).  The tables
     against the NumPy oracles (``gt``: tests/test_torch_gpu.py).  On the
     20,736-triangle sheet (the culled walk) against the plain light pass,
     whose traces take B7's matmul form: <= ``SHEET_DIFFER`` of the rows
@@ -957,10 +955,8 @@ def phase_light_pass(gt, card: str) -> dict:
     pass against the full-scan instantiation (``culled=False``), equal in
     (t, triangle index).  Each kernel's work tally (a counting launch) and
     its times (CUDA events, warm, 3 runs) on the demo, the 1,800 sheet
-    and the 20,736 sheet: the parent design and the warp design in turns
-    (parent, new, new, parent), each one's device time a launch
-    (torch.profiler), the plain version (not on the 1,800 sheet), the
-    yardstick's bound
+    and the 20,736 sheet, with its device time a launch (torch.profiler),
+    the plain version (not on the 1,800 sheet), the yardstick's bound
     (every triangle of each trace) and the bound restated over the
     design's own work.  Returns the kernels line's rows for L1 and for L2
     (L2a + L2b)."""
@@ -1028,17 +1024,6 @@ def phase_light_pass(gt, card: str) -> dict:
                             + (f"{nd} rows DIFFER" if nd else "bit-equal"))
                 if nd:
                     failed.append(f"{sname} {qname} {stage}")
-            # the parent design's instantiation against the warp design's
-            ser = dict(device="cuda", serial=True)
-            same = (torch.equal(L.emit(key, scn, n, q, **ser), e),
-                    all(torch.equal(a, b) for a, b in zip(
-                        L.mlt_seed(key, scn, n, q, **ser), sk)),
-                    torch.equal(L.mlt_mutate_emit(key, scn, n, rounds, q,
-                                                  eps, sp, **ser), t))
-            line.append("the parent design's instantiation "
-                        + ("bit-equal" if all(same) else f"DIFFERS {same}"))
-            if not all(same):
-                failed.append(f"{sname} {qname} serial")
             live = (int((e[:, 3] > 0).sum()), int((t[:, 3] > 0).sum()))
             print(f"  {sname}, {qname} ({n} a light, {rounds} rounds): "
                   f"{', '.join(line)} (live rows: emitted {live[0]} of "
@@ -1155,8 +1140,19 @@ def phase_light_pass(gt, card: str) -> dict:
                                               1e-3, seed, **plain)}
         nl = int(scn.lights.shape[0])
         walk = L.triangle_route(scn) == "walk"
-        scene_bytes = 4 * (sum(t.numel() for t in block_tables(scn, "cuda"))
-                           if walk else scene_buffer(scn, "cuda")[0].numel())
+        # the yardstick reads every triangle once; the walk reads the
+        # scene without triangles and, each at most once, the rows and
+        # boxes it tests (a row 64 bytes, a box 32)
+        yard_bytes = 4 * scene_buffer(scn, "cuda")[0].numel()
+
+        def own_bytes(t):
+            if not walk:
+                return yard_bytes
+            buf, rows_t, _, subs, nodes = block_tables(scn, "cuda")
+            return 4 * buf.numel() + sum(
+                min(n_read * per, 4 * tab.numel()) for n_read, per, tab in (
+                    (t["rows"], 64, rows_t), (t["sub_tests"], 32, subs),
+                    (t["node_tests"], 32, nodes)))
         out_bytes = {"L1": nl * n * 16, "L2a": nl * n * 52,
                      "L2b": nl * n * 52 + 4 * nl * n * 16}
         kernel_names = {"L1": "light_emit_kernel",
@@ -1164,51 +1160,35 @@ def phase_light_pass(gt, card: str) -> dict:
                         "L2b": "light_mlt_chain_kernel"}
         st = {}
         for name in ("L1", "L2a", "L2b"):
-            tallies = {}
-            for design, kw in (("parent", dict(serial=True)), ("new", {})):
-                stats = L.new_stats("cuda")
-                calls(stats=stats, **kw)[name]()
-                tallies[design] = L.read_stats(stats)
-            tr = tallies["new"]["traces"]
-            # the parent design and the new one in turns: parent, new,
-            # new, parent
-            turns = {"parent": [], "new": []}
-            for design in ("parent", "new", "new", "parent"):
-                turns[design].append(time_ms(
-                    calls(serial=design == "parent")[name], TIMED_RUNS))
-            ms = sum(turns["new"]) / 2
-            # the kernels' device time a launch (events also hold the
+            stats = L.new_stats("cuda")
+            calls(stats=stats)[name]()
+            tally = L.read_stats(stats)
+            tr = tally["traces"]
+            ms = time_ms(calls()[name], TIMED_RUNS)
+            # the kernel's device time a launch (events also hold the
             # wrapper's host time between short launches)
-            dev = {d: device_ms(calls(serial=d == "parent")[name], 10,
-                                kernel_names[name])[0]
-                   for d in ("parent", "new")}
+            dev, _ = device_ms(calls()[name], 10, kernel_names[name])
             runs = plain_runs[name]
             p_ms = (time_ms(plain_fns[name], runs, warm_up=runs > 1)
                     if runs else None)
-            nbytes = scene_bytes + out_bytes[name]
-            b_ms, b_by = bound(tr * light_trace_ops(scn), nbytes)
-            r_ms, r_by = bound(light_restated_ops(scn, tallies["new"]),
-                               nbytes)
+            b_ms, b_by = bound(tr * light_trace_ops(scn),
+                               yard_bytes + out_bytes[name])
+            r_ms, r_by = bound(light_restated_ops(scn, tally),
+                               own_bytes(tally) + out_bytes[name])
             st[name] = dict(ms=ms, plain_ms=p_ms, bound_ms=b_ms,
                             bound_by=b_by, traces=tr)
-            dev_line = ", ".join(
-                f"{d} {v:.4f}" if v is not None else f"{d} not measured"
-                for d, v in dev.items())
+            dev_line = ("not measured (the profiler recorded no launch)"
+                        if dev is None else f"{dev:.4f} ms")
             plain_line = ("not timed here (BAND_CHECK)" if p_ms is None
                           else f"{p_ms:.1f} ms")
-            print(f"  {name}: {ms:.4f} ms (turns: parent "
-                  f"{turns['parent'][0]:.4f}, new {turns['new'][0]:.4f}, "
-                  f"new {turns['new'][1]:.4f}, parent "
-                  f"{turns['parent'][1]:.4f}; "
-                  f"{sum(turns['parent']) / (2 * ms):.2f}x; device time a "
-                  f"launch: {dev_line}), plain {plain_line}; bound "
+            print(f"  {name}: {ms:.4f} ms (device time a launch: "
+                  f"{dev_line}), plain {plain_line}; bound "
                   f"{b_ms:.6f} ms ({b_by}; yardstick: "
                   f"{tr} traces x {light_trace_ops(scn)} operations, "
                   f"{100 * b_ms / ms:.2f}% of the kernel's time), restated "
                   f"over the design's own work {r_ms:.6f} ms ({r_by}, "
                   f"{100 * r_ms / ms:.2f}%)")
-            for design in ("parent", "new"):
-                print(f"    {design}: {light_split(tallies[design])}")
+            print(f"    {light_split(tally)}")
         return st
 
     print(f"light pass on the demo scene, {n} a light, {rounds} rounds "

@@ -66,11 +66,9 @@
 // tests and branches, so the kernels are latency-bound (on the demo L2b
 // spends ~44% of its cycles in the chain's own logic and ~28% in the
 // floor, squares and spheres), and a 1,024-warp launch is short enough
-// that its launch counts.  The parent design is kept as an instantiation
-// (kWarp = false) for the same-call A/B and is held bit-equal to the warp
-// design.  A counting instantiation (kStats) tallies traces, rows tested,
-// box tests, ordered-update candidates and a clock64 split of the stages,
-// and can log each trace's (t, triangle index).
+// that its launch counts.  A counting instantiation (kStats) tallies
+// traces, rows tested, box tests, ordered-update candidates and a clock64
+// split of the stages, and can log each trace's (t, triangle index).
 //
 // Exactness: the plain version's float operations in its order, so the
 // tables are bit-equal to it on the card.  Built with --fmad=false and no
@@ -89,9 +87,8 @@
 
 namespace {
 
-constexpr int kWarps = 4;              // warps a block (the warp design)
-constexpr int kBlockWarp = 32 * kWarps;
-constexpr int kBlockSerial = 32;       // the parent design's block
+constexpr int kWarps = 4;              // warps a block, one a work unit
+constexpr int kBlock = 32 * kWarps;
 constexpr int kStageTriangles = 512;   // ops/mega_super.py MAX_SMEM_TRIANGLES
 constexpr uint32_t kSiteVlpDir = 64;   // ops/vlp.py SITE_VLP_DIR
 constexpr uint32_t kSiteSeed = 192;    // models/metropolis.py _SITE_SEED
@@ -144,10 +141,9 @@ __device__ __forceinline__ float clamp1(float x) {
   return x > 1.0f ? 1.0f : x;
 }
 
-// The counting instantiation's tally of one work unit (a warp, or a thread
-// in the parent design), added to the stats buffer at the end: [0] traces,
-// [1] triangle rows tested (the parent design: every row of each trace),
-// [2] tree-node and [3] sub-block box tests, [4] candidates through the
+// The counting instantiation's tally of one work unit (a warp), added to
+// the stats buffer at the end: [0] traces, [1] triangle rows tested, [2]
+// tree-node and [3] sub-block box tests, [4] candidates through the
 // ordered update (pt_device.cuh kTal*), clock64 cycles [5] in the floor,
 // square and sphere stages, [6] in the triangle stage, [7] in the whole
 // kernel (the rest is threefry and the chain's own logic).
@@ -190,10 +186,9 @@ struct Common {
   int log_cap;
 };
 
-// One work unit's closest-hit traces: the warp-cooperative trace (kWarp)
-// or the parent design's one-thread sequential scan, counted (n) and, in
-// the counting instantiation, tallied and logged.
-template <bool kWarp, bool kStats>
+// One work unit's closest-hit traces, each made by the whole warp, counted
+// (n) and, in the counting instantiation, tallied and logged.
+template <bool kStats>
 struct Tracer {
   Scene S;
   Mesh M;
@@ -218,10 +213,7 @@ struct Tracer {
     PreHit h = pre_tri(S, ox, oy, oz, dx, dy, dz, kBig, neg_t, 3);
     const long long c1 = T.clock();
     int tri = -1;
-    if constexpr (!kWarp) {
-      scan_open(S, ox, oy, oz, dx, dy, dz, neg_t, h);
-      T.add(kTalRows, S.ntp);
-    } else if (walk || S.ntp) {
+    if (walk || S.ntp) {
       float bn = h.t, bd = 1.0f;
       int row;
       float4 e;
@@ -423,40 +415,35 @@ __device__ __forceinline__ Scene block_scene(const Common& C, float* smem) {
   return S;
 }
 
-// This thread's work unit: its warp (kWarp) or itself.
-template <bool kWarp>
+// This thread's work unit: its warp.
 __device__ __forceinline__ long long work_unit() {
-  return kWarp ? (long long)blockIdx.x * kWarps + (threadIdx.x >> 5)
-               : (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  return (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
 }
 
-// Whether this thread writes its unit's outputs: lane 0 of a warp (every
-// lane holds the same values), or every thread of the parent design.
-template <bool kWarp>
-__device__ __forceinline__ bool writer() {
-  return !kWarp || (threadIdx.x & 31) == 0;
-}
+// Whether this thread writes its unit's outputs: lane 0 of the warp (every
+// lane holds the same values).
+__device__ __forceinline__ bool writer() { return (threadIdx.x & 31) == 0; }
 
-template <bool kWarp, bool kStats>
-__device__ __forceinline__ void finish_unit(Tracer<kWarp, kStats>& tr,
+template <bool kStats>
+__device__ __forceinline__ void finish_unit(Tracer<kStats>& tr,
                                             long long k_start,
                                             unsigned long long* stats) {
   tr.T.add(0, tr.n);
   tr.T.add(7, tr.T.clock() - k_start);
-  if (writer<kWarp>()) tr.T.flush(stats);
+  if (writer()) tr.T.flush(stats);
 }
 
 // L1: rows [0, nl * count); row i = l * count + g, work item gi0 + g.
-template <bool kWarp, bool kStats>
-__global__ void __launch_bounds__(kWarp ? kBlockWarp : kBlockSerial)
+template <bool kStats>
+__global__ void __launch_bounds__(kBlock)
 light_emit_kernel(Common C, uint32_t gi0, int count, bool reuse_dir,
                   float inv_scale, float4* __restrict__ out) {
   const long long k_start = kStats ? clock64() : 0;
   extern __shared__ float4 smem4[];
   const Scene S = block_scene(C, reinterpret_cast<float*>(smem4));
-  const long long i = work_unit<kWarp>();
+  const long long i = work_unit();
   if (i >= (long long)C.nl * count) return;
-  Tracer<kWarp, kStats> trace(S, C, i);
+  Tracer<kStats> trace(S, C, i);
   const int l = (int)(i / count);
   const uint32_t gi = gi0 + (uint32_t)(i % count);
   const float* lp = S.lights + 4 * l;
@@ -466,28 +453,28 @@ light_emit_kernel(Common C, uint32_t gi0, int count, bool reuse_dir,
   uniform_sphere(u1, u2, C.K.two_pi, dx, dy, dz);
   const float4 row = vlp_from_sample(trace, lp[0], lp[1], lp[2], dx, dy, dz,
                                      lp[3], inv_scale, false);
-  if (writer<kWarp>()) out[i] = row;
+  if (writer()) out[i] = row;
   finish_unit(trace, k_start, C.stats);
 }
 
 // L2a: rows [0, nl * chains); row i = l * chains + c, chain chain0 + c.
-template <bool kWarp, bool kStats>
-__global__ void __launch_bounds__(kWarp ? kBlockWarp : kBlockSerial)
+template <bool kStats>
+__global__ void __launch_bounds__(kBlock)
 light_mlt_seed_kernel(Common C, uint32_t chain0, int chains,
                       float* __restrict__ v_out, int* __restrict__ len_out) {
   const long long k_start = kStats ? clock64() : 0;
   extern __shared__ float4 smem4[];
   const Scene S = block_scene(C, reinterpret_cast<float*>(smem4));
-  const long long i = work_unit<kWarp>();
+  const long long i = work_unit();
   if (i >= (long long)C.nl * chains) return;
-  Tracer<kWarp, kStats> trace(S, C, i);
+  Tracer<kStats> trace(S, C, i);
   const int l = (int)(i / chains);
   const uint32_t chain = chain0 + (uint32_t)(i % chains);
   const float* lp = S.lights + 4 * l;
   Path p;
   random_path(trace, C.k0, C.k1, chain, lp[0], lp[1], lp[2],
               kSiteSeed + 4u * (uint32_t)l, C.K.two_pi, p);
-  if (writer<kWarp>()) {
+  if (writer()) {
     float* v = v_out + 12 * i;
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
@@ -502,8 +489,8 @@ light_mlt_seed_kernel(Common C, uint32_t chain0, int chains,
 
 // L2b: the chain of row i = l * chains + c from its seed state, then its
 // emission into rows (l * 4 + slot) * chains + c of `out`.
-template <bool kWarp, bool kStats>
-__global__ void __launch_bounds__(kWarp ? kBlockWarp : kBlockSerial)
+template <bool kStats>
+__global__ void __launch_bounds__(kBlock)
 light_mlt_chain_kernel(Common C, uint32_t chain0, int chains, int rounds,
                        bool exact, float eps2, float inv_scale,
                        const float* __restrict__ v_in,
@@ -512,9 +499,9 @@ light_mlt_chain_kernel(Common C, uint32_t chain0, int chains, int rounds,
   const long long k_start = kStats ? clock64() : 0;
   extern __shared__ float4 smem4[];
   const Scene S = block_scene(C, reinterpret_cast<float*>(smem4));
-  const long long i = work_unit<kWarp>();
+  const long long i = work_unit();
   if (i >= (long long)C.nl * chains) return;
-  Tracer<kWarp, kStats> trace(S, C, i);
+  Tracer<kStats> trace(S, C, i);
   const int l = (int)(i / chains);
   const int c = (int)(i % chains);
   const uint32_t chain = chain0 + (uint32_t)c;
@@ -554,7 +541,7 @@ light_mlt_chain_kernel(Common C, uint32_t chain0, int chains, int rounds,
     } else {
       alive = false;
     }
-    if (writer<kWarp>()) out[((long long)l * 4 + s) * chains + c] = row;
+    if (writer()) out[((long long)l * 4 + s) * chains + c] = row;
   }
   finish_unit(trace, k_start, C.stats);
 }
@@ -589,12 +576,12 @@ Common common(const float* scene, int ntp, int nl, int ns, int nq,
   return C;
 }
 
-// Launch `kernel` (the instantiation for serial / stats) over `units` work
-// units with the scene's shared memory (the packed scene when staged, the
-// attribute set past 48 KB); returns the error or cudaSuccess.
+// Launch `kernel` (the instantiation for stats) over `units` work units,
+// kWarps a block, with the scene's shared memory (the packed scene when
+// staged, the attribute set past 48 KB); returns the error or cudaSuccess.
 template <class Kernel, class... Args>
-cudaError_t launch(const Common& C, long long units, bool serial,
-                   Kernel kernel, void* stream, Args... args) {
+cudaError_t launch(const Common& C, long long units, Kernel kernel,
+                   void* stream, Args... args) {
   const size_t bytes =
       C.staged ? sizeof(float) * (size_t)(C.ntp * 12 + 12 + C.nl * 4 +
                                           C.ns * 3 + 2 * C.nq)
@@ -604,17 +591,13 @@ cudaError_t launch(const Common& C, long long units, bool serial,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
   }
-  const int per_block = serial ? kBlockSerial : kWarps;
-  const int threads = serial ? kBlockSerial : kBlockWarp;
-  const unsigned grid = (unsigned)((units + per_block - 1) / per_block);
-  kernel<<<grid, threads, bytes, (cudaStream_t)stream>>>(C, args...);
+  const unsigned grid = (unsigned)((units + kWarps - 1) / kWarps);
+  kernel<<<grid, kBlock, bytes, (cudaStream_t)stream>>>(C, args...);
   return cudaGetLastError();
 }
 
-// The instantiation of a kernel template K for (serial, stats).
-#define PICK(K, serial, stats)                                   \
-  ((serial) ? ((stats) ? K<false, true> : K<false, false>)        \
-            : ((stats) ? K<true, true> : K<true, false>))
+// The instantiation of a kernel template K for stats.
+#define PICK(K, stats) ((stats) ? K<true> : K<false>)
 
 }  // namespace
 
@@ -622,10 +605,8 @@ cudaError_t launch(const Common& C, long long units, bool serial,
 // `scene` is ops/mega_super.py::pack_scene's buffer (without triangles,
 // ntp 0, on the culled route); `rows` / `subs` / `nodes` (n_nodes of them)
 // the block tables of ops/tri_blocks.py::walk_tables, or null for the full
-// scan; `serial` runs the parent design (one thread a work unit, the
-// sequential scan; full scan only); `stats` (nullable) kStatSlots zeroed
-// uint64 counters: the counting instantiation runs and adds its tally
-// there, and logs each trace's (t, triangle index) into log_t / log_i
+// scan; `stats` (nullable) kStatSlots zeroed uint64 counters: the
+// counting instantiation runs and adds its tally there, and logs each trace's (t, triangle index) into log_t / log_i
 // (nullable; log_cap slots a work unit).  consts: 2 pi, S1, S1 / S2, the
 // perturbation offset (float32).
 //
@@ -635,15 +616,14 @@ extern "C" int light_emit_launch(
     const float* subs, const float* nodes, int n_nodes, unsigned k0,
     unsigned k1, unsigned gi0, int count, int reuse_dir, int neg_t,
     float two_pi, float s1, float ratio, float dx_offset, float inv_scale,
-    float* out, int serial, void* stats, float* log_t, int* log_i,
-    int log_cap, void* stream) {
+    float* out, void* stats, float* log_t, int* log_i, int log_cap,
+    void* stream) {
   const long long units = (long long)nl * count;
   if (units <= 0) return 0;
   const Common C = common(scene, ntp, nl, ns, nq, rows, subs, nodes, n_nodes,
                           k0, k1, neg_t, two_pi, s1, ratio, dx_offset, stats,
                           log_t, log_i, log_cap);
-  return (int)launch(C, units, serial != 0,
-                     PICK(light_emit_kernel, serial != 0, stats != nullptr),
+  return (int)launch(C, units, PICK(light_emit_kernel, stats != nullptr),
                      stream, (uint32_t)gi0, count, reuse_dir != 0,
                      inv_scale, reinterpret_cast<float4*>(out));
 }
@@ -654,16 +634,14 @@ extern "C" int light_mlt_seed_launch(
     const float* subs, const float* nodes, int n_nodes, unsigned k0,
     unsigned k1, unsigned chain0, int chains, int neg_t, float two_pi,
     float s1, float ratio, float dx_offset, float* v, int* length,
-    int serial, void* stats, float* log_t, int* log_i, int log_cap,
-    void* stream) {
+    void* stats, float* log_t, int* log_i, int log_cap, void* stream) {
   const long long units = (long long)nl * chains;
   if (units <= 0) return 0;
   const Common C = common(scene, ntp, nl, ns, nq, rows, subs, nodes, n_nodes,
                           k0, k1, neg_t, two_pi, s1, ratio, dx_offset, stats,
                           log_t, log_i, log_cap);
   return (int)launch(
-      C, units, serial != 0,
-      PICK(light_mlt_seed_kernel, serial != 0, stats != nullptr), stream,
+      C, units, PICK(light_mlt_seed_kernel, stats != nullptr), stream,
       (uint32_t)chain0, chains, v, length);
 }
 
@@ -675,16 +653,15 @@ extern "C" int light_mlt_chain_launch(
     unsigned k1, unsigned chain0, int chains, int rounds, int neg_t,
     float two_pi, float s1, float ratio, float dx_offset, int exact,
     float eps2, float inv_scale, const float* v_in, const int* len_in,
-    float* out, int serial, void* stats, float* log_t, int* log_i,
-    int log_cap, void* stream) {
+    float* out, void* stats, float* log_t, int* log_i, int log_cap,
+    void* stream) {
   const long long units = (long long)nl * chains;
   if (units <= 0) return 0;
   const Common C = common(scene, ntp, nl, ns, nq, rows, subs, nodes, n_nodes,
                           k0, k1, neg_t, two_pi, s1, ratio, dx_offset, stats,
                           log_t, log_i, log_cap);
   return (int)launch(
-      C, units, serial != 0,
-      PICK(light_mlt_chain_kernel, serial != 0, stats != nullptr), stream,
+      C, units, PICK(light_mlt_chain_kernel, stats != nullptr), stream,
       (uint32_t)chain0, chains, rounds, exact != 0, eps2, inv_scale, v_in,
       len_in, reinterpret_cast<float4*>(out));
 }

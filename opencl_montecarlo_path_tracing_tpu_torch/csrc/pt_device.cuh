@@ -316,11 +316,15 @@ __device__ __forceinline__ Hit finish_rsqrt(const PreHit& h) {
   return Hit{h.t, h.m, nx, ny, nz};
 }
 
-// The triangle stage of a closest-hit trace: one thread's sequential scan
-// of every row of the packed table, from the running hit h of pre_tri.
-__device__ __forceinline__ void scan_open(const Scene& S, float ox, float oy,
-                                          float oz, float dx, float dy,
-                                          float dz, bool neg_t, PreHit& h) {
+// Closest hit (ops/intersect.py::trace_ray, sphere material 3), seeded
+// with the running distance t0, over the shared-memory triangle table,
+// before its sphere normal is renormalised (trace and the light pass's
+// traces finish it their own ways).
+__device__ __forceinline__ PreHit trace_open(const Scene& S, float ox,
+                                             float oy, float oz, float dx,
+                                             float dy, float dz, float t0,
+                                             bool neg_t) {
+  PreHit h = pre_tri(S, ox, oy, oz, dx, dy, dz, t0, neg_t, 3);
   if (S.ntp) {
     // division-free scan: the running minimum is carried det-scaled as
     // (bn, bd); file order decides exact ties (strict <)
@@ -361,18 +365,6 @@ __device__ __forceinline__ void scan_open(const Scene& S, float ox, float oy,
     }
     h.t = bn / bd;
   }
-}
-
-// Closest hit (ops/intersect.py::trace_ray, sphere material 3), seeded
-// with the running distance t0, over the shared-memory triangle table,
-// before its sphere normal is renormalised (trace and the light pass's
-// traces finish it their own ways).
-__device__ __forceinline__ PreHit trace_open(const Scene& S, float ox,
-                                             float oy, float oz, float dx,
-                                             float dy, float dz, float t0,
-                                             bool neg_t) {
-  PreHit h = pre_tri(S, ox, oy, oz, dx, dy, dz, t0, neg_t, 3);
-  scan_open(S, ox, oy, oz, dx, dy, dz, neg_t, h);
   return h;
 }
 
@@ -528,8 +520,8 @@ struct Mesh {
 // applies the running-minimum update to them one at a time in row order,
 // each candidate's (tn_s, dd) broadcast by a shuffle.  That is the
 // sequential scan's update in the sequential scan's order, so its result
-// and rounding are scan_open's bit for bit (a min-reduction would not be:
-// the cross-multiplied compare is not transitive under rounding).
+// and rounding are trace_open's scan bit for bit (a min-reduction would
+// not be: the cross-multiplied compare is not transitive under rounding).
 // Candidates are rare, so the ordered part is short.  `T` is a work tally
 // with add(slot, n); the slots it counts:
 constexpr int kTalRows = 1;    // triangle rows tested

@@ -39,8 +39,7 @@ the rows scanned and the box tests, from the counting launch (``stats``).
 :func:`light_route` decides, before any launch, whether a light pass
 takes the kernels (a CUDA device) and :func:`triangle_route` how they
 trace the scene's triangles (its size).  A kernel that fails to build or
-launch raises.  ``serial=True`` runs the parent design (one thread a
-chain, the sequential scan), kept for the same-call A/B.
+launch raises.
 
 :func:`scan_twin` and :func:`walk_twin` are NumPy twins of the two
 triangle stages, float32 operation for operation, which the CPU tests
@@ -173,17 +172,10 @@ def read_stats(stats: torch.Tensor) -> dict:
     return dict(zip(STAT_NAMES, stats.tolist()))
 
 
-def _prologue(scn: SceneArrays, device, stats, log, culled, serial):
-    """The device checks and the route; (library, indexed device, the
-    launchers' leading arguments: scene and block tables, their trailing
-    ones: serial, stats and log)."""
-    device = check_device(device)
-    if device.type != "cuda":
-        raise ValueError(f"the light-pass kernels run on a CUDA device, "
-                         f"not {device}")
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    if log is not None and stats is None:
+def _counting_args(device, stats, log) -> tuple:
+    """The launchers' trailing arguments for the counting instantiation:
+    the stats buffer (made when only a log is given) and the log."""
+    if stats is None:
         stats = new_stats(device)
     for name, t, dtype in (("stats", stats, torch.int64),
                            ("log times", None if log is None else log[0],
@@ -194,14 +186,30 @@ def _prologue(scn: SceneArrays, device, stats, log, culled, serial):
                               or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous {dtype} tensor "
                              f"on {device}")
-    if stats is not None and stats.numel() != len(STAT_NAMES):
+    if stats.numel() != len(STAT_NAMES):
         raise ValueError(f"stats must hold {len(STAT_NAMES)} counters")
-    if culled is None:       # the parent design has only the full scan
-        culled = not serial and triangle_route(scn) == "walk"
-    walk = bool(culled)
-    if walk and (serial or int(scn.tri_v0.shape[0]) == 0):
-        raise ValueError("the culled walk needs triangles and the warp "
-                         "design")
+    if log is None:
+        return stats.data_ptr(), None, None, 0
+    return (stats.data_ptr(), log[0].data_ptr(), log[1].data_ptr(),
+            int(log[0].shape[1]))
+
+
+def _prologue(scn: SceneArrays, device, stats, log, culled):
+    """The device checks and the route; (library, indexed device, the
+    launchers' leading arguments: scene and block tables, their trailing
+    ones: stats and log)."""
+    device = check_device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the light-pass kernels run on a CUDA device, "
+                         f"not {device}")
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    tail = ((None, None, None, 0) if stats is None and log is None
+            else _counting_args(device, stats, log))
+    walk = (triangle_route(scn) == "walk" if culled is None
+            else bool(culled))
+    if walk and int(scn.tri_v0.shape[0]) == 0:
+        raise ValueError("the culled walk needs triangles")
     nl, ns = int(scn.lights.shape[0]), int(scn.sphere_centers.shape[0])
     nq = int(scn.square_k.shape[0])
     if walk:
@@ -211,10 +219,6 @@ def _prologue(scn: SceneArrays, device, stats, log, culled, serial):
     else:
         buf, ntp = scene_buffer(scn, device)
         lead = (buf.data_ptr(), ntp, nl, ns, nq, None, None, None, 0)
-    cap = 0 if log is None else int(log[0].shape[1])
-    tail = (int(bool(serial)), None if stats is None else stats.data_ptr(),
-            None if log is None else log[0].data_ptr(),
-            None if log is None else log[1].data_ptr(), cap)
     from ..utils.build import load
     return load(), device, lead, tail
 
@@ -235,7 +239,7 @@ def _raise(lib, err: int, name: str):
 
 def emit(key, scn: SceneArrays, n_vlp: int, quirks: Quirks, gi0: int = 0,
          count: int | None = None, device="cuda", stats=None, log=None,
-         culled: bool | None = None, serial: bool = False):
+         culled: bool | None = None):
     """L1: ``ops/vlp.py::emit_vlps`` (same arguments and output) in one
     launch on a CUDA ``device``.  ``stats``: an optional zeroed
     (len(STAT_NAMES),) int64 tensor on the device, which makes the launch
@@ -243,11 +247,9 @@ def emit(key, scn: SceneArrays, n_vlp: int, quirks: Quirks, gi0: int = 0,
     (t float32, index int32) tensors of shape (rows, cap) that receive the
     first ``cap`` traces of each row (the counting instantiation);
     ``culled``: force the culled walk (True) or the full scan (False)
-    instead of :func:`triangle_route`; ``serial``: the parent design (the
-    full scan at every size)."""
+    instead of :func:`triangle_route`."""
     global EMIT_LAUNCHES
-    lib, device, lead, tail = _prologue(scn, device, stats, log, culled,
-                                        serial)
+    lib, device, lead, tail = _prologue(scn, device, stats, log, culled)
     a = emit_args(key, scn, n_vlp, quirks, gi0, count)
     _check_log(log, a.nl * a.count)
     out = torch.empty((a.nl * a.count, 4), dtype=torch.float32,
@@ -266,14 +268,12 @@ def emit(key, scn: SceneArrays, n_vlp: int, quirks: Quirks, gi0: int = 0,
 
 def mlt_seed(key, scn: SceneArrays, n_seedpaths: int, quirks: Quirks,
              chain0: int = 0, chains: int | None = None, device="cuda",
-             stats=None, log=None, culled: bool | None = None,
-             serial: bool = False):
+             stats=None, log=None, culled: bool | None = None):
     """L2a: ``models/metropolis.py::mlt_seed`` (same arguments and
     output: the seed state v (B, 4, 3) float32 and length (B,) int32) in
     one launch on a CUDA ``device``; the rest as :func:`emit`."""
     global SEED_LAUNCHES
-    lib, device, lead, tail = _prologue(scn, device, stats, log, culled,
-                                        serial)
+    lib, device, lead, tail = _prologue(scn, device, stats, log, culled)
     a = chain_args(key, scn, n_seedpaths, quirks, chain0=chain0,
                    chains=chains)
     rows = a.nl * a.chains
@@ -297,14 +297,13 @@ def mlt_mutate_emit(key, scn: SceneArrays, n_seedpaths: int,
                     verify_eps: float = 1e-3, seed_state=None,
                     chain0: int = 0, chains: int | None = None,
                     device="cuda", stats=None, log=None,
-                    culled: bool | None = None, serial: bool = False):
+                    culled: bool | None = None):
     """L2b: ``models/metropolis.py::mlt_mutate_emit`` (same arguments and
     output: the (nl * 4 * B, 4) table, [light][slot][chain]) in one launch
     on a CUDA ``device``, from the seed state ``(v, length)``; the rest as
     :func:`emit`."""
     global CHAIN_LAUNCHES
-    lib, device, lead, tail = _prologue(scn, device, stats, log, culled,
-                                        serial)
+    lib, device, lead, tail = _prologue(scn, device, stats, log, culled)
     a = chain_args(key, scn, n_seedpaths, quirks, mutation_rounds,
                    verify_eps, chain0, chains)
     rows = a.nl * a.chains
@@ -334,7 +333,8 @@ def mlt_mutate_emit(key, scn: SceneArrays, n_seedpaths: int,
 
 # ---------------------------------------------------------------------------
 # NumPy twins of the kernels' triangle stage (csrc/pt_device.cuh::
-# warp_scan_closest, warp_walk_closest; the sequential scan_open), float32
+# warp_scan_closest, warp_walk_closest; trace_open's sequential scan),
+# float32
 # operation for operation, for the CPU tests.  Rays are (R, 3) float32; t0
 # (R,) is the running distance the floor, squares and spheres leave; each
 # returns (t (R,) float32, triangle index (R,) int, -1 where none wins).
@@ -381,7 +381,8 @@ def _f32(o, d, t0):
 
 
 def sequential_scan(tri, o, d, t0, neg_t: bool = False):
-    """scan_open: every row of ``tri`` (N, 12) in file order, strict <."""
+    """trace_open's scan: every row of ``tri`` (N, 12) in file order,
+    strict <."""
     o, d, bn = _f32(o, d, t0)
     bd = np.ones_like(bn)
     best = np.full(bn.shape, -1, np.int64)

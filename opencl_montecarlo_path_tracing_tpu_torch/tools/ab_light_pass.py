@@ -2,7 +2,7 @@
 source trees, on one CUDA GPU.
 
     python -m opencl_montecarlo_path_tracing_tpu_torch.tools.ab_light_pass \
-        --trees OLD NEW [--runs 3]
+        --trees OLD NEW [--runs 10]
 
 Each tree is the root of a checkout (an older commit unpacked with
 ``git archive`` into a git-ignored directory, and ``.``).  The trees are
@@ -11,9 +11,12 @@ imports that tree's package and builds its kernels first: L1, L2a and L2b
 through the tree's ``ops/light_pass.py`` wrappers (the arguments every
 version takes) on ``demo_scene()`` and on the 20,736-triangle sheet
 (``large_mesh_scene()``), at the main paths' 512 work items / chains a
-light and 8 rounds, each the mean of ``--runs`` calls on CUDA events after
-a warm-up.  Prints every turn's times (one JSON line a turn) and each
-kernel's mean OLD / NEW ratio.
+light and 8 rounds, after a warm-up: each call's mean time over
+``--runs`` calls on CUDA events (what a caller waits, the wrapper's host
+time included where it exceeds the kernel's) and the kernel's device time
+a launch over the launches a torch.profiler trace of ``--runs`` calls
+holds.  Prints every turn's times (one JSON line a turn) and each
+measure's mean OLD / NEW ratio.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import subprocess
 import sys
 
 N, ROUNDS = 512, 8
+KERNELS = {"L1": "light_emit_kernel", "L2a": "light_mlt_seed_kernel",
+           "L2b": "light_mlt_chain_kernel"}
 
 
 def time_tree(tree: str, runs: int) -> dict:
@@ -41,6 +46,9 @@ def time_tree(tree: str, runs: int) -> dict:
     if not os.path.abspath(L.__file__).startswith(tree + os.sep):
         raise RuntimeError(f"imported {L.__file__}, not {tree}'s package")
 
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     def ms(fn) -> float:
         fn()
         torch.cuda.synchronize()
@@ -53,22 +61,34 @@ def time_tree(tree: str, runs: int) -> dict:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / runs
 
+    def device_ms(fn, kernel: str):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        return sum(ev) / 1e3 / len(ev) if ev else None
+
     key, out = make_key(0), {}
     for name, scene in (("demo", demo_scene()[0]),
                         ("sheet", large_mesh_scene())):
         scn = prep_scene(scene)
         seed = L.mlt_seed(key, scn, N, DEFAULT)
-        out[f"{name} L1"] = ms(lambda: L.emit(key, scn, N, DEFAULT))
-        out[f"{name} L2a"] = ms(lambda: L.mlt_seed(key, scn, N, DEFAULT))
-        out[f"{name} L2b"] = ms(lambda: L.mlt_mutate_emit(
-            key, scn, N, ROUNDS, DEFAULT, 1e-3, seed))
+        for k, fn in (
+                ("L1", lambda: L.emit(key, scn, N, DEFAULT)),
+                ("L2a", lambda: L.mlt_seed(key, scn, N, DEFAULT)),
+                ("L2b", lambda: L.mlt_mutate_emit(key, scn, N, ROUNDS,
+                                                  DEFAULT, 1e-3, seed))):
+            out[f"{name} {k} events"] = ms(fn)
+            out[f"{name} {k} device"] = device_ms(fn, KERNELS[k])
     return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trees", nargs=2, metavar=("OLD", "NEW"))
-    ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--runs", type=int, default=10)
     ap.add_argument("--time", metavar="TREE", help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.time:
@@ -90,6 +110,9 @@ def main(argv=None) -> int:
         times[tree].append(t)
         print(json.dumps({"tree": tree, "ms": t}))
     for k in times[old][0]:
+        if any(t[k] is None for t in times[old] + times[new]):
+            print(f"{k}: not measured (the profiler recorded no launch)")
+            continue
         o = sum(t[k] for t in times[old]) / 2
         n = sum(t[k] for t in times[new]) / 2
         print(f"{k}: old {o:.4f} ms, new {n:.4f} ms, {o / n:.2f}x")

@@ -67,14 +67,14 @@ _SIGNATURES = {
     "diag_loops_launch": (_I, [_I, _P, _P, _P, _I, _I, _P, _P]),
     "diag_loops_error_string": (ctypes.c_char_p, [_I]),
     "light_emit_launch": (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _I, _U, _U,
-                               _U, _I, _I, _I, _F, _F, _F, _F, _F, _P, _I,
-                               _P, _P, _P, _I, _P]),
+                               _U, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P,
+                               _P, _P, _I, _P]),
     "light_mlt_seed_launch": (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _I, _U,
                                    _U, _U, _I, _I, _F, _F, _F, _F, _P, _P,
-                                   _I, _P, _P, _P, _I, _P]),
+                                   _P, _P, _P, _I, _P]),
     "light_mlt_chain_launch": (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _I, _U,
                                     _U, _U, _I, _I, _I, _F, _F, _F, _F, _I,
-                                    _F, _F, _P, _P, _P, _I, _P, _P, _P, _I,
+                                    _F, _F, _P, _P, _P, _P, _P, _P, _I,
                                     _P]),
     "light_pass_error_string": (ctypes.c_char_p, [_I]),
 }

@@ -107,6 +107,20 @@ def _warm_sqrt():
     torch.sqrt(torch.rand(16384) * 400.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _share_of_the_cores():
+    """Run this module's renders on this process's share of the cores:
+    under pytest-xdist each worker's torch otherwise starts a thread per
+    core, and with six workers on eight cores a 512x512 plain render then
+    took over 4x longer than on one thread each.  The films do not depend
+    on the thread count."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("name", ["simple", "trianglegrid", "nodof"])
 def test_plain_film_matches_the_record(name):
     np.testing.assert_allclose(summarize(port_film(name, "cpu")),

@@ -1053,12 +1053,15 @@ def test_light_pass_reads_a_large_scene_in_place(cuda_device):
 def test_light_pass_below_the_walk_bit_equal_plain(case, cuda_device):
     """An 1,800-triangle sheet (between the shared-memory stage's 512 and
     the culled walk's 2,048): the warp design's full scan, read in place,
-    equals the plain light pass bit for bit, and so does the parent
-    design's instantiation (serial=True)."""
+    equals the plain light pass bit for bit, and its counting
+    instantiation gives the same tables and tests every row of each
+    trace."""
     from opencl_montecarlo_path_tracing_tpu_torch.models import (
         metropolis as TM)
     from opencl_montecarlo_path_tracing_tpu_torch.ops import light_pass as L
     from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as TV
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.mega_super import (
+        scene_buffer)
     scn = prep_scene(sheet_scene(30, 30))
     assert 512 < scn.tri_v0.shape[0] == 1800 < 2048
     assert L.triangle_route(scn) == "scan"
@@ -1078,40 +1081,18 @@ def test_light_pass_below_the_walk_bit_equal_plain(case, cuda_device):
     assert torch.equal(b, TM.mlt_mutate_emit(key, scn, n, rounds, q, eps,
                                              seed, **plain))
     assert int((seed[1] > 0).sum()) > 0 and int((a.abs().sum(1) > 0).sum())
-    ser = dict(device=cuda_device, serial=True)
-    assert torch.equal(a, L.emit(key, scn, n, q, **ser))
-    sv, sl = L.mlt_seed(key, scn, n, q, **ser)
-    assert torch.equal(sv, pv) and torch.equal(sl, pl)
-    assert torch.equal(b, L.mlt_mutate_emit(key, scn, n, rounds, q, eps,
-                                            seed, **ser))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("scene", ["demo", "dense"])
-def test_parent_design_instantiation_bit_equal(scene, cuda_device):
-    """The parent design (one thread a chain, the sequential scan), kept as
-    the serial instantiation for the same-call A/B, gives the warp
-    design's tables and trace counts bit for bit."""
-    from opencl_montecarlo_path_tracing_tpu_torch.ops import light_pass as L
-    scn = prep_scene(demo_scene()[0] if scene == "demo"
-                     else dense_vlp_scene())
-    key, n, rounds = (8, 0), 96, 3
-    for serial in (False, True):
-        st = [L.new_stats(cuda_device) for _ in range(3)]
-        kw = dict(device=cuda_device, serial=serial)
-        e = L.emit(key, scn, n, DEFAULT, stats=st[0], **kw)
-        sd = L.mlt_seed(key, scn, n, DEFAULT, stats=st[1], **kw)
-        t = L.mlt_mutate_emit(key, scn, n, rounds, DEFAULT, 1e-3, sd,
-                              stats=st[2], **kw)
-        got = (e, sd[0], sd[1], t, [L.read_stats(x) for x in st])
-        if not serial:
-            want = got
-    for a, b in zip(got[:4], want[:4]):
-        assert torch.equal(a, b)
-    nt = int(scn.tri_v0.shape[0])
-    for s_ser, s_warp in zip(got[4], want[4]):
-        assert s_ser["traces"] == s_warp["traces"] > 0
-        assert s_ser["rows"] == s_warp["rows"] == s_ser["traces"] * nt
+    st = [L.new_stats(cuda_device) for _ in range(3)]
+    kw = dict(device=cuda_device)
+    sd = L.mlt_seed(key, scn, n, q, stats=st[1], **kw)
+    got = (L.emit(key, scn, n, q, stats=st[0], **kw), *sd,
+           L.mlt_mutate_emit(key, scn, n, rounds, q, eps, seed, stats=st[2],
+                             **kw))
+    for x, y in zip(got, (a, *seed, b)):
+        assert torch.equal(x, y)
+    ntp = scene_buffer(scn, cuda_device)[1]     # the padded table's rows
+    for tally in map(L.read_stats, st):
+        assert tally["traces"] > 0
+        assert tally["rows"] == tally["traces"] * ntp
 
 
 @pytest.mark.gpu
