@@ -76,14 +76,18 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    the grid render builds only the grid's frame (B4 bins each VLP
    itself): a profiled render launches L2a, L2b and B4 and no item-list
    build, and its film equals the render pass's over the full grid;
-7. the tier-1 VLP route: bidirectional under the REFERENCE_LMEM quirks
-   (outside B4's gate) at 256x256x4 runs the plain wavefront on the card,
-   whose gather is B6; its film is held to the contract against the same
-   render with the plain scan gather, and B6 at the render's shape (each
-   call's 65,536 points against the render's live-first table, recorded)
-   against its plain version (rtol = atol = 1e-5), timed there: the
-   kernel's device time from a torch.profiler trace (the kernels line's)
-   and the wrapper's with CUDA events;
+7. the tier-1 VLP route, which B4's gate keeps for more than 8 lights
+   and max_bounces < 1: bidirectional on a 9-light copy of
+   ``large_mesh_scene()`` at 256x256x4 runs the plain wavefront on the
+   card, whose traces are B7 and whose gather is B6 (counted: L1, B7 and
+   B6, not B4); its film is held to the contract against its plain
+   version (scan gather, B7's plain version), and B6 at the render's shape
+   (each call's 65,536 points against the render's live-first table,
+   recorded) against its plain version (rtol = atol = 1e-5), timed there:
+   the kernel's device time from a torch.profiler trace (the kernels
+   line's) and the wrapper's with CUDA events.  REFERENCE_LMEM is inside
+   B4's gate: a demo render launches L1 and B4, its film the REFERENCE
+   render's bit for bit;
 8. B2/B3 (``mega_blocked``) vs B1 and vs its plain version: forced onto
    B1's cases and the demo scene (max abs against B1's film), on an
    1,800-triangle ripple sheet against the plain scan, and against the
@@ -98,19 +102,27 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    of the cycles into walk and row scans, and beside the yardstick's bound
    the bound restated over the design's own need and over the tested
    pairs;
+8b. B4's walk route (``mega_vlp`` past 512 triangles, over B2/B3's
+   block tables) vs its plain version under the contract: the 1,800 and
+   20,736 sheets at 512x512, samples 0-1 of 4, and the 262,144 sheet on
+   rows 248-279, each with the emitted (dense) and the Metropolis (grid)
+   table, the reference quirks too on the 20,736 sheet; ``force_walk``
+   against the shared-memory route on the bench tables (max abs 2e-5
+   where no pixel ties); the walk at 256x256x16 on the 20,736 sheet timed
+   beside its plain version, its tally (tested pairs, its own need, node /
+   block / sub-block box tests, the clock64 split) and the bound over its
+   tested pairs and gathered terms (the kernels line's ``mega_vlp_walk``),
+   over its own need and the yardstick;
 9. B7 (``tri_closest``) vs its plain version on the 512x512 primary rays
    of the large-mesh scene x 20,736 triangles, and on the inputs of every
-   B7 call of one bidirectional main-path render there (camera and shadow
-   rays; its light pass is L1): hit/miss and index agreement >= 99.9%, ``t`` at
-   rtol 2e-4 where both take the same triangle; and that render's film
-   against its plain version (plain gather, B7's plain version) under the
-   contract; B6 on that render's calls against its plain version, timed
-   there (the large-mesh tier-1 table);
+   B7 call of phase 7's tier-1 render (camera and shadow rays): hit/miss
+   and index agreement >= 99.9%, ``t`` at rtol 2e-4 where both take the
+   same triangle;
 10. the large-mesh main paths through ``api.render``: trianglegrid on
    ``large_mesh_scene()`` at 512x512x64 (``accel="auto"``: B2/B3), super
-   on it and on the 262,144-triangle sheet at 512x512x4, bidirectional on
-   it at 256x256x16 (the tier-1 route: L1, B7 and B6), each timed over 3
-   runs;
+   on it and on the 262,144-triangle sheet at 512x512x4, bidirectional,
+   metropolis and metropolis_vlpgrid on it at 256x256x16 (each render
+   exactly L1, or L2a and L2b, and B4's walk), each timed over 3 runs;
    ``accel="dda"`` (the uniform-grid walk) on a band, held against the
    kernel under the contract;
 11. B5 (``mega_simple``) vs its plain version under the simple family's
@@ -197,8 +209,8 @@ larger of its bytes (inputs read once, output written once) over 3.35 TB/s
 and its operations over 3.345e13 FP32 ops/s (132 SMs x 128 lanes x 1.98
 GHz, one multiply or add an instruction: the kernels build with
 --fmad=false), counting the (ray, triangle) pairs this run's data needs
-(B4: the pairs its culled warps test and the terms its lit samples
-gather, from its counting launch; B6: the live rows; L1 and L2: the
+(B4, on either route: the pairs its culled warps test and the terms its
+lit samples gather, from its counting launch; B6: the live rows; L1 and L2: the
 traces they make, from a counting launch, each over the floor, every
 square, sphere and triangle: the yardstick; phase 5b prints beside it
 the bound over the rows the warps test and their box tests); for the
@@ -237,8 +249,9 @@ PKG = "opencl_montecarlo_path_tracing_tpu_torch"
 LW = LH = 512          # the large-mesh main paths: bench.py:92-104, 112-163
 LSPP_GRID = 64         # trianglegrid row
 LSPP = 4               # super_largemesh / super_stream rows
-BW = BH = 256          # bidirectional on the large mesh
+BW = BH = 256          # the VLP family on the large mesh
 BSPP = 16
+TIER1_SPP = 4          # phase 7's tier-1 render (256x256) of 9 lights
 
 # the card's ceilings for bound_ms (H100 SXM data sheet; FP32 without FMA
 # contraction: each multiply and add is one instruction per lane)
@@ -778,23 +791,25 @@ def device_ms(fn, runs: int, kernel: str):
     """(mean device ms a launch of the CUDA kernels whose name holds
     ``kernel``, over the launches a torch.profiler trace (CUDA activity
     only) of ``runs`` calls of ``fn`` holds, after one warm-up call, or
-    None when it holds none; the launches traced).  A trace taken late in
-    a long process may drop launches; each one it holds is a whole
-    launch's device time."""
+    None when three traces in turn hold none; the launches traced).  A
+    trace taken late in a long process may drop launches; each one it
+    holds is a whole launch's device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    if not ev:
-        return None, 0
-    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / len(ev), len(ev)
+    for _ in range(3):   # a trace now and then holds no device activity
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if ev:
+            return (sum(e.time_range.elapsed_us() for e in ev) / 1e3
+                    / len(ev), len(ev))
+    return None, 0
 
 
 def profiled(name, fn):
@@ -1332,54 +1347,84 @@ def grid_frame_line(variant, scene, scn, key, vlps, film, ms):
         raise RuntimeError(f"{variant}: the grid render is not the frame's")
 
 
+def nine_lights(scene):
+    """``scene`` with 9 lights (its own, repeated): past B4's gate (8 RNG
+    sites a bounce), so a VLP render takes the tier-1 wavefront."""
+    n = int(scene.lights.shape[0])
+    return dataclasses.replace(
+        scene, lights=np.tile(scene.lights, (-(-9 // n), 1))[:9])
+
+
 def phase_tier1_route(card: str) -> dict:
-    """bidirectional under REFERENCE_LMEM: B6 launches, B4 does not; its
-    film against the scan gather's, and B6 at the render's shape (each
-    call's inputs, recorded) against its plain version.  Returns the
-    kernels line's row for B6 (the render's shape) and its launches."""
+    """The VLP family's tier-1 route, which B4's gate keeps for more than
+    8 lights and max_bounces < 1: bidirectional on a 9-light copy of
+    large_mesh_scene() at 256x256x4 launches L1, B7 and B6 and not B4; its
+    film against the plain render pass (scan gather, B7's plain version);
+    B6 at the render's shape (each call's inputs, recorded) against its
+    plain version.  REFERENCE_LMEM is inside B4's gate (no VLP-family
+    function reads shadow_carry_t): a demo render launches L1 and B4 once,
+    its film the REFERENCE render's bit for bit.  Returns the kernels
+    line's row for B6 and the tier-1 render's launches."""
     import torch
     import opencl_montecarlo_path_tracing_tpu_torch as pt
     from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
-        REFERENCE_LMEM)
+        REFERENCE, REFERENCE_LMEM)
     from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
     from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_vlp as M
     from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as V
     from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
         prep_scene)
     from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
-        demo_scene)
-    w = h = 256
-    spp = 4
-    scene = demo_scene()[0]
+        demo_scene, large_mesh_scene)
+    w = h = BW
+    spp = TIER1_SPP
+    scene = nine_lights(large_mesh_scene())
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
     film = pt.render("bidirectional", scene, w, h, spp=spp, seed=0,
-                     quirks=REFERENCE_LMEM, device="cuda")
+                     device="cuda")
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     counts = read_counts()
-    if counts["gather_vlp"] == 0 or counts["mega_vlp"]:
-        raise RuntimeError(f"REFERENCE_LMEM route: launches {counts}")
+    launched = {k: v for k, v in counts.items() if v}
+    if set(launched) != {"light_emit", "tri_closest", "gather_vlp"}:
+        raise RuntimeError(f"tier-1 route (9 lights): launches {counts}")
     scn = prep_scene(scene)
     key = make_key(0)
-    vlps = V.emit_vlps(key, scn, 512, REFERENCE_LMEM, device="cuda")
-    want = M.film_vlp_mega_plain(key, scn, vlps, w, h, spp,
-                                 quirks=REFERENCE_LMEM, device="cuda")
+    vlps = V.emit_vlps(key, scn, 512, device="cuda")
+    want, p_ms = timed_call(lambda: M.film_vlp_mega_plain(
+        key, scn, vlps, w, h, spp, device="cuda"))
     failed = []
-    check_crn(f"tier-1 bidirectional REFERENCE_LMEM {w}x{h}x{spp} (B6) vs "
-              "scan gather", film, want, spp, failed)
+    check_crn(f"tier-1 bidirectional, 9 lights, {scene.n_triangles} "
+              f"triangles, {w}x{h}x{spp} (B7, B6) vs plain ({p_ms / 1e3:.1f}"
+              " s)", film, want, spp, failed)
     if failed:
-        raise RuntimeError("tier-1 route: B6 film vs scan film violated")
-    print(f"tier-1 route: {ms:.1f} ms ({card}), launches {counts}")
+        raise RuntimeError("tier-1 route: film vs plain violated")
+    print(f"tier-1 route: {ms:.1f} ms ({card}), launches {launched}")
+
+    demo = demo_scene()[0]
+    reset_counts()
+    lmem = pt.render("bidirectional", demo, w, h, spp=spp, seed=0,
+                     quirks=REFERENCE_LMEM, device="cuda")
+    torch.cuda.synchronize()
+    lc = {k: v for k, v in read_counts().items() if v}
+    same = torch.equal(lmem, pt.render("bidirectional", demo, w, h, spp=spp,
+                                       seed=0, quirks=REFERENCE,
+                                       device="cuda"))
+    print(f"  REFERENCE_LMEM bidirectional {w}x{h}x{spp} on the demo: "
+          f"launches {lc}, the film {'bit-equal' if same else 'DIFFERS'} to"
+          " REFERENCE's")
+    if lc != {"light_emit": 1, "mega_vlp": 1} or not same:
+        raise RuntimeError("REFERENCE_LMEM is not B4's REFERENCE film")
 
     # B6 at the render's shape: the same render with each call's inputs
     # kept (the live-first table is built once a render)
     calls = recorded_b6_calls(lambda: pt.render(
-        "bidirectional", scene, w, h, spp=spp, seed=0,
-        quirks=REFERENCE_LMEM, device="cuda"))
+        "bidirectional", scene, w, h, spp=spp, seed=0, device="cuda"))
     row = b6_at_render_shape("B6 at the render's shape", calls, card)
     return dict(row, launches=counts["gather_vlp"],
+                tri_closest=counts["tri_closest"],
                 light_emit=counts["light_emit"])
 
 
@@ -1570,6 +1615,115 @@ def blocked_split(st: dict, n: int) -> str:
             f" row scans {100 * st['scan_cycles'] / kc:.1f}%")
 
 
+def walk_bound(st: dict, R: int, nt: int, nl: int, n_live: int,
+               nbytes: float) -> dict:
+    """B4's walk route's bounds from its tally over ``R`` samples: over the
+    pairs its warps test and the terms its lit samples gather (the kernels
+    line's, as for the shared-memory route), over its own need, and the
+    yardstick (every camera ray and cast against every triangle, a term for
+    every sample and live VLP)."""
+    gather = st["gather_pairs"] * GATHER_PAIR_OPS
+    tested = bound(st["tested"] * PAIR_OPS + gather, nbytes)
+    own = bound(st["own_need"] * PAIR_OPS + gather, nbytes)
+    yard = bound((R + st["lit"] * nl) * nt * PAIR_OPS
+                 + R * n_live * GATHER_PAIR_OPS, nbytes)
+    return {"bound_ms": tested[0], "bound_by": tested[1], "own_ms": own[0],
+            "yard_ms": yard[0]}
+
+
+def phase_vlp_walk_vs_plain(gt, card: str) -> dict:
+    """B4's walk route (past 512 triangles, over B2/B3's block tables)
+    against its plain version under the CRN contract: the 1,800-triangle
+    sheet of tests/test_torch_gpu.py and the 20,736 sheet at 512x512,
+    samples 0-1 of 4, the 262,144 sheet on rows 248-279 (its plain film is
+    slow), each with the emitted table (dense) and the Metropolis table
+    (grid), the default quirks, and the reference quirks on the 20,736
+    sheet; ``force_walk`` against the shared-memory route on the bench
+    tables (max abs 2e-5 where no pixel ties); then the walk at the
+    large-mesh VLP paths' shape (256x256x16 on the 20,736 sheet), timed
+    beside its plain version, with its tally and its bounds.  Returns the
+    kernels line's row for the walk."""
+    import torch
+    from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
+        DEFAULT, REFERENCE)
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.models.metropolis import (
+        mlt_vlps)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_vlp as M
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as V
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
+        prep_scene)
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        large_mesh_scene)
+    print("B4 mega_vlp walk route vs plain:")
+    key = make_key(0)
+    worst, failed = 0.0, []
+    sheets = [(prep_scene(gt.sheet_scene(30, 30)), {}, (DEFAULT,)),
+              (prep_scene(large_mesh_scene()), {}, (DEFAULT, REFERENCE)),
+              (prep_scene(large_mesh_scene(512, 256)),
+               dict(row_offset=248, rows=32), (DEFAULT,))]
+    for scn, band, quirk_sets in sheets:
+        nt = int(scn.tri_v0.shape[0])
+        emitted = V.emit_vlps(key, scn, 512, device="cuda")
+        ml = mlt_vlps(key, scn, 512, 8, device="cuda")
+        grid = V.build_vlp_grid(ml, V.vlp_grid_static_res(int(ml.shape[0])))
+        for tname, vlps, g in (("dense", emitted, None), ("grid", ml, grid)):
+            for q in quirk_sets:
+                kw = dict(spp_total=4, grid=g, quirks=q, device="cuda",
+                          **band)
+                a = M.film_vlp_mega(key, scn, vlps, LW, LH, 2, **kw)
+                b, p_ms = timed_call(lambda: M.film_vlp_mega_plain(
+                    key, scn, vlps, LW, LH, 2, **kw))
+                rows = band.get("rows", LH)
+                r0 = band.get("row_offset", 0)
+                worst = max(worst, check_crn(
+                    f"sheet {nt}, {tname} ({int((vlps[:, 3] > 0).sum())} "
+                    f"live), {'reference' if q == REFERENCE else 'default'} "
+                    f"quirks, {LW}x{LH} rows {r0}-{r0 + rows - 1}, samples "
+                    f"0-1 of 4 (plain {p_ms / 1e3:.1f} s)", a, b, 2, failed))
+    for name, scn, vlps, grid in vlp_bench_tables():
+        kw = dict(spp_total=VSPP, grid=grid, device="cuda")
+        a = M.film_vlp_mega(key, scn, vlps, VW, VH, 2, force_walk=True, **kw)
+        b = M.film_vlp_mega(key, scn, vlps, VW, VH, 2, **kw)
+        check_crn(f"{name}: force_walk vs shared memory", a, b, 2, failed,
+                  atol=2e-5)
+    if failed:
+        raise RuntimeError(f"B4 walk route vs plain violated: {failed}")
+
+    # the walk at the large-mesh VLP paths' launch: 256x256x16 on 20,736
+    scn = sheets[1][0]
+    nt, nl = int(scn.tri_v0.shape[0]), int(scn.lights.shape[0])
+    vlps = V.emit_vlps(key, scn, 512, device="cuda")
+    n_live = int((vlps[:, 3] > 0).sum())
+    k_ms = time_ms(lambda: M.film_vlp_mega(key, scn, vlps, BW, BH, BSPP,
+                                           device="cuda"), 10)
+    _, p_ms = timed_call(lambda: M.film_vlp_mega_plain(
+        key, scn, vlps, BW, BH, BSPP, device="cuda"))
+    st = M.vlp_stats(key, scn, vlps, BW, BH, BSPP)
+    R = BW * BH * BSPP
+    b = walk_bound(st, R, nt, nl, n_live,
+                   nt * 64 + vlps.shape[0] * 32 + BW * BH * 12)
+    ws = R / 32
+    print(f"  sheet {nt}, {BW}x{BH}x{BSPP} ({n_live} live VLPs): kernel "
+          f"{k_ms:.3f} ms, plain PyTorch {p_ms:.1f} ms; bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}; tested pairs and "
+          "gathered terms, "
+          f"{100 * b['bound_ms'] / k_ms:.1f}% of the kernel's time), over "
+          f"its own need {b['own_ms']:.4f} ms, yardstick {b['yard_ms']:.4f} "
+          f"ms ({card})")
+    print(f"    a sample: {st['tested'] / R:.1f} tested pairs, "
+          f"{st['own_need'] / R:.1f} own need; lit {st['lit']}, casts "
+          f"{st['casts']} ({st['casts_tri']} reach the triangles), gather "
+          f"terms {st['gather_pairs']}; a warp-sample: "
+          f"{st['node_tests'] / ws:.1f} node, {st['block_tests'] / ws:.1f} "
+          f"block and {st['sub_tests'] / ws:.1f} sub-block box tests; "
+          f"split {vlp_split(st)}")
+    if not st["tested"] >= st["own_need"] > 0:
+        raise RuntimeError(f"B4 walk tally inconsistent: {st}")
+    return {"max_abs": worst, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+
+
 def b7_agreement(name, calls, min_hits: float) -> tuple[float, bool]:
     """B7 against its plain version on each (o, d, scn, quirks) of
     ``calls``: hit/miss agreement >= 99.9%; where both hit, the same
@@ -1655,10 +1809,9 @@ def recorded_b7_calls(fn) -> list:
 
 def phase_tri_closest_vs_plain(card: str) -> dict:
     """B7 on the 512x512 primary rays (sample 0) of the large-mesh scene
-    x its 20,736 triangles (also timed), and on every trace of one
-    bidirectional main-path render there (camera and shadow rays; its
-    light pass is L1), whose film is then held against its plain version; and B6 on
-    that render's calls (the large-mesh tier-1 table)."""
+    x its 20,736 triangles (also timed), and on every trace of phase 7's
+    tier-1 render (bidirectional on the 9-light copy at 256x256x4: camera
+    and shadow rays; its film is held there)."""
     import torch
     import opencl_montecarlo_path_tracing_tpu_torch as pt
     from opencl_montecarlo_path_tracing_tpu_torch.core import rng as R
@@ -1667,10 +1820,7 @@ def phase_tri_closest_vs_plain(card: str) -> dict:
     from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import DEFAULT
     from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
     from opencl_montecarlo_path_tracing_tpu_torch.models import common as C
-    from opencl_montecarlo_path_tracing_tpu_torch.models.bidirectional import (
-        film_vlp_plain)
     from opencl_montecarlo_path_tracing_tpu_torch.ops import tri_closest as B7
-    from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as V
     from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
         prep_scene)
     from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
@@ -1686,45 +1836,31 @@ def phase_tri_closest_vs_plain(card: str) -> dict:
     R_ = LW * LH
     err, ok = b7_agreement(f"{R_} primary rays x {nt} triangles",
                            [(o, d, scn, DEFAULT)], min_hits=0.5)
-    films, b6_calls = [], []
-    calls = recorded_b7_calls(lambda: b6_calls.extend(recorded_b6_calls(
-        lambda: films.append(pt.render("bidirectional", scene, BW, BH,
-                                       spp=BSPP, seed=0, device="cuda")))))
+    calls = recorded_b7_calls(lambda: pt.render(
+        "bidirectional", nine_lights(scene), BW, BH, spp=TIER1_SPP, seed=0,
+        device="cuda"))
     sizes = sorted({int(c[0].shape[0]) for c in calls})
     err2, ok2 = b7_agreement(
-        f"the traces of bidirectional {BW}x{BH}x{BSPP} (rays a call: "
-        f"{sizes})", calls, min_hits=0.0)
+        f"the traces of tier-1 bidirectional, 9 lights, {BW}x{BH}x"
+        f"{TIER1_SPP} (rays a call: {sizes})", calls, min_hits=0.0)
     del calls
-    # what the flips do to that film: the tier-1 render pass (B7, B6)
-    # against its plain version on the same VLP table
-    key = make_key(0)
-    vlps = V.emit_vlps(key, scn, 512, device="cuda")
-    plain, ms = timed_call(lambda: film_vlp_plain(
-        key, scn, vlps, None, BW, BH, BSPP, 0, BSPP, DEFAULT,
-        device="cuda"))
-    failed = []
-    check_crn(f"bidirectional {BW}x{BH}x{BSPP} tier 1 (B7, B6) vs plain "
-              f"({ms / 1e3:.1f} s)", films[0], plain, BSPP, failed)
-    # B6 on the same render's calls: the large-mesh tier-1 table
-    b6_at_render_shape(f"B6 in bidirectional {BW}x{BH}x{BSPP} on {nt} "
-                       "triangles", b6_calls, card)
-    del b6_calls
     k_ms = time_ms(lambda: B7.triangle_closest(o, d, scn, DEFAULT), 10)
     p_ms = time_ms(lambda: B7.triangle_closest_plain(o, d, scn, DEFAULT), 1,
                    warm_up=False)
     b_ms, b_by = bound(R_ * nt * B7_PAIR_OPS, R_ * 60 + nt * 256)
     print(f"  {R_} rays x {nt} triangles: kernel {k_ms:.3f} ms, plain "
           f"PyTorch {p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}) ({card})")
-    if not (ok and ok2) or failed:
+    if not (ok and ok2):
         raise RuntimeError("B7 kernel vs plain outside its tolerance")
     return {"max_abs": max(err, err2), "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
 def phase_large_mesh_main_paths(card: str) -> dict:
-    """trianglegrid (auto) and super on the large meshes (B2/B3),
-    bidirectional on large_mesh_scene() (tier-1: L1, B7 + B6); then the DDA
-    walk on a band against the kernel."""
+    """trianglegrid (auto) and super on the large meshes (B2/B3); the VLP
+    family on large_mesh_scene() at 256x256x16, each render exactly its
+    light pass's kernels (L1, or L2a and L2b) and B4's walk, nothing else;
+    then the DDA walk on a band against the kernel."""
     import torch
     import opencl_montecarlo_path_tracing_tpu_torch as pt
     from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import DEFAULT
@@ -1739,21 +1875,25 @@ def phase_large_mesh_main_paths(card: str) -> dict:
         large_mesh_scene)
     large = large_mesh_scene()
     stream = large_mesh_scene(512, 256)
+    mlt = ("light_mlt_seed", "light_mlt_chain", "mega_vlp")
     paths = [("trianglegrid", large, LW, LH, LSPP_GRID, ("mega_blocked",)),
              ("super", large, LW, LH, LSPP, ("mega_blocked",)),
              ("super", stream, LW, LH, LSPP, ("mega_blocked",)),
              ("bidirectional", large, BW, BH, BSPP,
-              ("light_emit", "tri_closest", "gather_vlp"))]
-    total = dict.fromkeys(("mega_blocked", "light_emit", "tri_closest",
-                           "gather_vlp"), 0)
+              ("light_emit", "mega_vlp")),
+             ("metropolis", large, BW, BH, BSPP, mlt),
+             ("metropolis_vlpgrid", large, BW, BH, BSPP, mlt)]
+    total = dict.fromkeys(("mega_blocked", "light_emit", "light_mlt_seed",
+                           "light_mlt_chain", "mega_vlp"), 0)
     for variant, scene, w, h, spp, want in paths:
         film, ms, counts = timed_renders(lambda: pt.render(
             variant, scene, w, h, spp=spp, seed=0, device="cuda"))
-        if any(counts[k] == 0 for k in want) or any(
-                counts[k] for k in counts if k not in want):
+        # B2/B3 once a render; a VLP render each of its kernels once
+        if counts != {k: TIMED_RUNS if k in want else 0 for k in counts}:
             raise RuntimeError(f"{variant} on {scene.n_triangles} "
-                               f"triangles: launches {counts}, want only "
-                               f"{want}")
+                               f"triangles: launches {counts} in "
+                               f"{TIMED_RUNS} renders, want {want} once "
+                               "each, nothing else")
         for k in want:
             total[k] += counts[k]
         f = film.cpu().numpy()
@@ -3018,6 +3158,7 @@ def main() -> int:
     vp = phase(phase_vlp_main_paths, card)
     b6 = phase(phase_tier1_route, card)
     b23 = phase(phase_blocked_kernel_vs_plain, gt, card)
+    b4w = phase(phase_vlp_walk_vs_plain, gt, card)
     b7 = phase(phase_tri_closest_vs_plain, card)
     lp = phase(phase_large_mesh_main_paths, card)
     b5 = phase(phase_simple_kernel_vs_plain, gt, card)
@@ -3048,13 +3189,16 @@ def main() -> int:
             dict(mp, max_abs=b1_err)),
         row("mega_vlp", "mega_vlp.cu", f"{ref}/pallas_bpt.py:434",
             vp["launches"] + sh["mega_vlp"], b4),
+        # the same kernel's walk instantiation, past 512 triangles
+        row("mega_vlp_walk", "mega_vlp.cu", f"{ref}/pallas_bpt.py:434",
+            lp["mega_vlp"], b4w),
         row("gather_vlp", "gather_vlp.cu", f"{ref}/pallas_vlp.py:111",
-            b6["launches"] + lp["gather_vlp"],
+            b6["launches"],
             dict(b6, max_abs=max(b6["max_abs"], b6_table["max_abs"]))),
         row("mega_blocked", "mega_blocked.cu", f"{ref}/pallas_super.py:2228",
             lp["mega_blocked"] + sh["mega_blocked"], b23),
         row("tri_closest", "tri_closest.cu", f"{ref}/pallas_tri.py:89",
-            lp["tri_closest"], b7),
+            b6["tri_closest"], b7),
         row("mega_simple", "mega_simple.cu", f"{ref}/pallas_simple.py:352",
             sp["launches"] + sh["mega_simple"], b5),
         row("diag_dda_closest", "diag_dda.cu", "tools/diag_dda_pallas.py:163",
@@ -3075,7 +3219,7 @@ def main() -> int:
         row("light_mlt", "light_pass.cu",
             "opencl_montecarlo_path_tracing_tpu/models/metropolis.py:234-289"
             " (none: XLA fori_loop under jax.jit)",
-            sum(vp["light"][k] + ut["light"][k] + sh[k]
+            sum(vp["light"][k] + ut["light"][k] + lp[k] + sh[k]
                 for k in ("light_mlt_seed", "light_mlt_chain")),
             lpk["mlt"]),
     ]

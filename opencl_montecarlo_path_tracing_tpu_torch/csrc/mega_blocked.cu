@@ -41,10 +41,11 @@
 // warp pays for the union of its lanes' work, so the design keeps that
 // union small.  One thread per pixel, a warp on a compact 8x4 pixel patch
 // (a block of 4 warps on 16x8) so that its rays are coherent and its votes
-// cull.  Per trace the warp walks the node tree without a stack: a node no
-// lane needs is skipped with its subtree (the node stores the index after
-// it), so the walk grows with the tree's depth, not with the macro count.
-// In a taken macro the warp votes on each block, in a taken block on each
+// cull.  The walk is pt_device.cuh's walk_closest / walk_occluded, which
+// B4 shares past 512 triangles.  Per trace the warp walks the node tree
+// without a stack: a node no lane needs is skipped with its subtree (the
+// node stores the index after it), so the walk grows with the tree's
+// depth, not with the macro count.  In a taken macro the warp votes on each block, in a taken block on each
 // 32-row sub-block, and scans only the sub-blocks some lane needs
 // (broadcast float4 loads, every lane the same row).  Shadow rays the
 // shading ignores (sky, facing-ratio, back-facing lights) do not vote, and
@@ -85,6 +86,17 @@ struct Tally {
   }
   __device__ __forceinline__ void add(int slot, long long n) { v[slot] += n; }
   __device__ __forceinline__ long long clock() { return clock64(); }
+  // the hooks of pt_device.cuh's walk
+  __device__ __forceinline__ void walk_node() { v[2] += 1; }
+  __device__ __forceinline__ void walk_block() { v[3] += 1; }
+  __device__ __forceinline__ void walk_sub(bool sneed, int rows) {
+    v[4] += 1;
+    need(8, sneed, rows);
+  }
+  __device__ __forceinline__ void walk_scan(long long cycles) {
+    v[1] += 32 * kSubRows;
+    v[6] += cycles;
+  }
   __device__ __forceinline__ void flush(unsigned long long* stats) {
     if ((threadIdx.x & 31) != 0) return;
     for (int i = 0; i < kStatSlots; ++i) atomicAdd(stats + i, v[i]);
@@ -96,42 +108,12 @@ struct Tally<false> {
   __device__ __forceinline__ void need(int, bool, int) {}
   __device__ __forceinline__ void add(int, long long) {}
   __device__ __forceinline__ long long clock() { return 0; }
+  __device__ __forceinline__ void walk_node() {}
+  __device__ __forceinline__ void walk_block() {}
+  __device__ __forceinline__ void walk_sub(bool, int) {}
+  __device__ __forceinline__ void walk_scan(long long) {}
   __device__ __forceinline__ void flush(unsigned long long*) {}
 };
-
-// The closest-hit row test of the kRows rows from `rows`: updates the
-// det-scaled running minimum (bn, bd), its original index bi and the
-// hit's material and normal, for `active` lanes.  The row pointer steps
-// by one row, so a row's four loads take immediate offsets from it (rows
-// past the mesh are zero: det = 0 never hits).
-template <int kRows>
-__device__ __forceinline__ void scan_closest(const float4* rows, float ox,
-                                             float oy, float oz, float dx,
-                                             float dy, float dz, bool neg_t,
-                                             bool active, float& bn,
-                                             float& bd, int& bi, PreHit& h) {
-#pragma unroll 2
-  for (int i = 0; i < kRows; ++i, rows += 4) {
-    const float4 a = __ldg(rows);
-    const float4 c = __ldg(rows + 1);
-    const float4 e = __ldg(rows + 2);
-    const int idx = __float_as_int(__ldg(rows + 3).x);
-    const Quads q = row_quads(a, c, e, ox, oy, oz, dx, dy, dz);
-    const float num = q.tn_s * bd;
-    const float den = bn * q.dd;
-    if (active && quads_valid(q, neg_t) &&
-        (num < den || (num == den && idx < bi))) {
-      bn = q.tn_s;
-      bd = q.dd;
-      bi = idx;
-      h.m = 4;
-      h.nx = e.y;
-      h.ny = e.z;
-      h.nz = e.w;
-      h.needs = false;
-    }
-  }
-}
 
 // The yardstick's count of a closest-hit trace (counting instantiation
 // only): the parent design's walk, replayed from the running distance
@@ -205,44 +187,8 @@ __device__ Hit trace_blocked(const Scene& S, const Mesh& M, float ox,
   float bn = h.t, bd = 1.0f;
   int bi = -1;
   const long long w0 = T.clock();
-  int ni = 0;
-  while (ni < M.n_nodes) {
-    const float4 lo = __ldg(M.nodes + 2 * ni);
-    const float4 hi = __ldg(M.nodes + 2 * ni + 1);
-    const int first = __float_as_int(hi.w);   // -1: an internal node
-    T.add(2, 1);
-    if (!__any_sync(kAll, active && box_closest(lo, hi, ri, bn, bd,
-                                                neg_t))) {
-      ni = first < 0 ? __float_as_int(lo.w) : ni + 1;
-      continue;
-    }
-    ++ni;
-    if (first < 0) continue;                   // descend
-    const int last = first + __float_as_int(lo.w);
-    for (int b = first; b < last; ++b) {
-      const bool need =
-          active && box_closest(__ldg(M.boxes + 2 * b),
-                                __ldg(M.boxes + 2 * b + 1), ri, bn, bd,
-                                neg_t);
-      T.add(3, 1);
-      if (!__any_sync(kAll, need)) continue;
-      for (int k = 0; k < kSubs; ++k) {
-        const float4 slo = __ldg(M.subs + 2 * (kSubs * b + k));
-        const float4 shi = __ldg(M.subs + 2 * (kSubs * b + k) + 1);
-        if (__float_as_int(slo.w) == 0) break;  // past the mesh's last row
-        T.add(4, 1);
-        const bool sneed = need && box_closest(slo, shi, ri, bn, bd, neg_t);
-        T.need(8, sneed, __float_as_int(slo.w));
-        if (!__any_sync(kAll, sneed)) continue;
-        const long long s0 = T.clock();
-        scan_closest<kSubRows>(
-            M.rows + 4 * ((long long)kRowsPerBlock * b + kSubRows * k), ox,
-            oy, oz, dx, dy, dz, neg_t, active, bn, bd, bi, h);
-        T.add(1, 32 * kSubRows);
-        T.add(6, T.clock() - s0);
-      }
-    }
-  }
+  walk_closest(M, ri, ox, oy, oz, dx, dy, dz, neg_t, active, bn, bd, bi, h,
+               T);
   T.add(5, T.clock() - w0);
   if constexpr (kStats) {
     const long long y0 = T.clock();
@@ -270,58 +216,8 @@ __device__ bool occluded_blocked(const Scene& S, const Mesh& M, float ox,
     T.add(7, y0 - T.clock());                 // not the kernel's own work
   }
   const long long w0 = T.clock();
-  int ni = 0;
-  while (ni < M.n_nodes) {
-    if (!__any_sync(kAll, active && !occ)) break;
-    const float4 lo = __ldg(M.nodes + 2 * ni);
-    const float4 hi = __ldg(M.nodes + 2 * ni + 1);
-    const int first = __float_as_int(hi.w);
-    T.add(2, 1);
-    if (!__any_sync(kAll, active && !occ &&
-                              box_occ(lo, hi, ri, t_limit, neg_t))) {
-      ni = first < 0 ? __float_as_int(lo.w) : ni + 1;
-      continue;
-    }
-    ++ni;
-    if (first < 0) continue;
-    const int last = first + __float_as_int(lo.w);
-    for (int b = first; b < last; ++b) {
-      const bool need =
-          active && !occ &&
-          box_occ(__ldg(M.boxes + 2 * b), __ldg(M.boxes + 2 * b + 1), ri,
-                  t_limit, neg_t);
-      T.add(3, 1);
-      if (!__any_sync(kAll, need)) continue;
-      for (int k = 0; k < kSubs; ++k) {
-        const float4 slo = __ldg(M.subs + 2 * (kSubs * b + k));
-        const float4 shi = __ldg(M.subs + 2 * (kSubs * b + k) + 1);
-        if (__float_as_int(slo.w) == 0) break;
-        T.add(4, 1);
-        const bool sneed =
-            need && !occ && box_occ(slo, shi, ri, t_limit, neg_t);
-        T.need(8, sneed, __float_as_int(slo.w));
-        if (!__any_sync(kAll, sneed)) continue;
-        const long long s0 = T.clock();
-        if (active && !occ) {
-          const float4* rows =
-              M.rows + 4 * ((long long)kRowsPerBlock * b + kSubRows * k);
-#pragma unroll 2
-          for (int i = 0; i < kSubRows; ++i, rows += 4) {
-            const float4 a = __ldg(rows);
-            const float4 c = __ldg(rows + 1);
-            const float4 e = __ldg(rows + 2);
-            const Quads q = row_quads(a, c, e, ox, oy, oz, dx, dy, dz);
-            if (quads_valid(q, neg_t) && q.tn_s < t_limit * q.dd) {
-              occ = true;
-              break;
-            }
-          }
-        }
-        T.add(1, 32 * kSubRows);
-        T.add(6, T.clock() - s0);
-      }
-    }
-  }
+  walk_occluded(M, ri, ox, oy, oz, dx, dy, dz, t_limit, neg_t, active, occ,
+                T);
   T.add(5, T.clock() - w0);
   return occ;
 }

@@ -46,6 +46,22 @@
 // waits.  An occlusion walk ends when every casting lane is occluded.  The
 // arithmetic keeps the JAX kernel's operation order, with 1.0f / sqrtf
 // where it uses rsqrt; built with --fmad=false and without fast math.
+//
+// Past 512 triangles (the kWalk instantiation; `force_walk` in the wrapper
+// picks it on any mesh) the table does not fit shared memory beside a VLP
+// chunk: shared memory holds only the scene without triangles and the VLP
+// chunk, and the camera ray's closest hit and each light's capped shadow
+// ray walk B2/B3's block tables (ops/tri_blocks.py::walk_tables, the
+// tensors ops/mega_super.py::block_tables caches per scene) in place in
+// device memory, through pt_device.cuh's walk_closest / walk_occluded -
+// B2/B3's own walk: the node tree, Morton blocks and 32-row sub-blocks
+// behind conservative per-warp votes, exact ties to the lowest original
+// index, carried from -1.  The lanes that vote are the same as above
+// (inside pixels for the camera rays, lit samples for the shadow rays),
+// and the gather, shading, RNG sites and spp loop are the same code.  The
+// film is the same function; the walk visits the triangles in another
+// order, so it is held to the plain version under the CRN contract, not
+// bit for bit.
 
 #include "pt_device.cuh"
 
@@ -67,11 +83,16 @@ constexpr int kTriRows = 32;    // triangle rows a culled block
 // that reach the triangles (not occluded by the floor, squares or
 // spheres), [kTested] (ray, triangle) pairs the warps test (32 lanes x the
 // rows a warp scans), [kGatherPairs] (lit sample, VLP) terms gathered (in
-// grid mode those in the shading point's cell).  The timed instantiations
-// keep none of it.
+// grid mode those in the shading point's cell); the walk's warp counts
+// (lane 0's; 0 on the shared-memory route) [kNodeTests], [kBlockTests],
+// [kSubTests] box tests of tree nodes, blocks and 32-row sub-blocks,
+// [kOwnNeed] the walk's own need: the real rows of the sub-blocks whose
+// box each lane's own test passes.  The timed instantiations keep none of
+// it.
 enum Slot {
   kCamRest, kCamTri, kGather, kShadowRest, kShadowTri, kStage, kKernel,
-  kLit, kCasts, kCastsTri, kTested, kGatherPairs, kStatSlots
+  kLit, kCasts, kCastsTri, kTested, kGatherPairs,
+  kNodeTests, kBlockTests, kSubTests, kOwnNeed, kStatSlots
 };
 
 template <bool kStats>
@@ -79,9 +100,21 @@ struct Tally {
   unsigned long long v[kStatSlots] = {};
   __device__ __forceinline__ void add(int slot, long long n) { v[slot] += n; }
   __device__ __forceinline__ long long clock() { return clock64(); }
+  // the hooks of pt_device.cuh's walk (the warp's counts, and a lane's
+  // share of the tested pairs)
+  __device__ __forceinline__ void walk_node() { v[kNodeTests] += 1; }
+  __device__ __forceinline__ void walk_block() { v[kBlockTests] += 1; }
+  __device__ __forceinline__ void walk_sub(bool sneed, int rows) {
+    v[kSubTests] += 1;
+    v[kOwnNeed] += (unsigned long long)__popc(__ballot_sync(kAll, sneed)) *
+                   (unsigned)rows;
+  }
+  __device__ __forceinline__ void walk_scan(long long) {
+    v[kTested] += kSubRows;
+  }
   // every lane of the warp calls it once, at the end
   __device__ __forceinline__ void flush(unsigned long long* stats) {
-    for (int i = kLit; i < kStatSlots; ++i)
+    for (int i = kLit; i <= kGatherPairs; ++i)
       for (int o = 16; o > 0; o >>= 1) v[i] += __shfl_xor_sync(kAll, v[i], o);
     if ((threadIdx.x & 31) != 0) return;
     for (int i = 0; i < kStatSlots; ++i) atomicAdd(stats + i, v[i]);
@@ -92,6 +125,10 @@ template <>
 struct Tally<false> {
   __device__ __forceinline__ void add(int, long long) {}
   __device__ __forceinline__ long long clock() { return 0; }
+  __device__ __forceinline__ void walk_node() {}
+  __device__ __forceinline__ void walk_block() {}
+  __device__ __forceinline__ void walk_sub(bool, int) {}
+  __device__ __forceinline__ void walk_scan(long long) {}
   __device__ __forceinline__ void flush(unsigned long long*) {}
 };
 
@@ -102,17 +139,30 @@ struct TriBlocks {
   int n;
 };
 
+// The triangles of an instantiation: the shared-memory table's blocks, or
+// past 512 triangles (kWalk) B2/B3's block tables in device memory.
+template <bool kWalk> struct TriSource { using type = TriBlocks; };
+template <> struct TriSource<true> { using type = Mesh; };
+template <bool kWalk> using Tris = typename TriSource<kWalk>::type;
+
 // Closest hit over floor, squares, spheres and the triangle blocks
-// (pt_device.cuh::trace's arithmetic and order).  `active` lanes vote and
-// update; the others vote no and return the non-triangle hit.
-template <bool kStats, bool kCull>
-__device__ Hit trace_vlp(const Scene& S, const TriBlocks& B, float ox,
+// (pt_device.cuh::trace's arithmetic and order), or the walk.  `active`
+// lanes vote and update; the others vote no and return the non-triangle
+// hit.
+template <bool kStats, bool kCull, bool kWalk>
+__device__ Hit trace_vlp(const Scene& S, const Tris<kWalk>& B, float ox,
                          float oy, float oz, float dx, float dy, float dz,
                          bool neg_t, bool active, Tally<kStats>& T) {
   const long long c0 = T.clock();
   PreHit h = pre_tri(S, ox, oy, oz, dx, dy, dz, kBig, neg_t, 3);
   const long long c1 = T.clock();
-  if (S.ntp) {
+  if constexpr (kWalk) {
+    float bn = h.t, bd = 1.0f;
+    int bi = -1;
+    walk_closest(B, ray_inv(ox, oy, oz, dx, dy, dz), ox, oy, oz, dx, dy, dz,
+                 neg_t, active, bn, bd, bi, h, T);
+    h.t = bn / bd;
+  } else if (S.ntp) {
     const RayInv ri = ray_inv(ox, oy, oz, dx, dy, dz);
     float bn = h.t, bd = 1.0f;
     const float4* rows = reinterpret_cast<const float4*>(S.tri);
@@ -158,11 +208,11 @@ __device__ Hit trace_vlp(const Scene& S, const TriBlocks& B, float ox,
 }
 
 // Any-hit occlusion below t_limit over floor, squares, spheres and the
-// triangle blocks (pt_device.cuh::occluded's arithmetic), for `cast` lanes
-// (the others return false).  The walk ends when every casting lane is
-// occluded.
-template <bool kStats, bool kCull>
-__device__ bool occluded_vlp(const Scene& S, const TriBlocks& B, float ox,
+// triangle blocks (pt_device.cuh::occluded's arithmetic), or the walk, for
+// `cast` lanes (the others return false).  The walk ends when every
+// casting lane is occluded.
+template <bool kStats, bool kCull, bool kWalk>
+__device__ bool occluded_vlp(const Scene& S, const Tris<kWalk>& B, float ox,
                              float oy, float oz, float dx, float dy,
                              float dz, float t_limit, bool neg_t, bool cast,
                              Tally<kStats>& T) {
@@ -170,7 +220,10 @@ __device__ bool occluded_vlp(const Scene& S, const TriBlocks& B, float ox,
   bool occ = cast && occluded_pre(S, ox, oy, oz, dx, dy, dz, t_limit, neg_t);
   const long long c1 = T.clock();
   T.add(kCastsTri, cast && !occ);
-  if (S.ntp) {
+  if constexpr (kWalk) {
+    walk_occluded(B, ray_inv(ox, oy, oz, dx, dy, dz), ox, oy, oz, dx, dy, dz,
+                  t_limit, neg_t, cast, occ, T);
+  } else if (S.ntp) {
     const RayInv ri = ray_inv(ox, oy, oz, dx, dy, dz);
     const float4* rows = reinterpret_cast<const float4*>(S.tri);
     int nb = B.n;
@@ -213,10 +266,10 @@ __device__ __forceinline__ void stage_rows(const float4* __restrict__ src,
   for (int i = threadIdx.x; i < n4; i += blockDim.x) dst[i] = src[i];
 }
 
-template <bool kStats, bool kCull>
+template <bool kStats, bool kCull, bool kWalk>
 __global__ void __launch_bounds__(kBlock)
 mega_vlp_kernel(const float* __restrict__ scene, int ntp, int nl, int ns,
-                int nq, TriBlocks B, uint32_t k0, uint32_t k1,
+                int nq, Tris<kWalk> B, uint32_t k0, uint32_t k1,
                 uint32_t spp_offset, uint32_t spp_total, uint32_t row_offset,
                 int rows, int width, int spp, int neg_t_flag,
                 const float* __restrict__ vlp, int nvp, int stride,
@@ -264,8 +317,8 @@ mega_vlp_kernel(const float* __restrict__ scene, int ntp, int nl, int ns,
     const uint32_t s32 = (uint32_t)s + spp_offset;
     const uint32_t ray_id = pixel_index * spp_total + s32;
     const Ray ry = primary_ray(S, k0, k1, ray_id, ii, jj);
-    const Hit h = trace_vlp<kStats, kCull>(S, B, ry.ox, ry.oy, ry.oz, ry.dx,
-                                           ry.dy, ry.dz, neg_t, inside, T);
+    const Hit h = trace_vlp<kStats, kCull, kWalk>(
+        S, B, ry.ox, ry.oy, ry.oz, ry.dx, ry.dy, ry.dz, neg_t, inside, T);
     const bool lit = inside && (h.m == 1 || h.m == 3);
     T.add(kLit, lit);
     const float x = ry.ox + ry.dx * h.t;
@@ -356,8 +409,8 @@ mega_vlp_kernel(const float* __restrict__ scene, int ntp, int nl, int ns,
         const float dqx = lx - x, dqy = ly - y, dqz = lz - z;
         const float tl = sqrtf(dqx * dqx + dqy * dqy + dqz * dqz);
         T.add(kCasts, lit);
-        if (occluded_vlp<kStats, kCull>(S, B, x, y, z, ldx, ldy, ldz, tl,
-                                        neg_t, lit, T))
+        if (occluded_vlp<kStats, kCull, kWalk>(S, B, x, y, z, ldx, ldy, ldz,
+                                               tl, neg_t, lit, T))
           ti = ti - inv_nl;
       }
     }
@@ -387,9 +440,9 @@ mega_vlp_kernel(const float* __restrict__ scene, int ntp, int nl, int ns,
   T.flush(stats);
 }
 
-template <bool kStats, bool kCull>
+template <bool kStats, bool kCull, bool kWalk>
 int launch(const float* scene, int ntp, int nl, int ns, int nq,
-           TriBlocks B, unsigned k0, unsigned k1, unsigned spp_offset,
+           Tris<kWalk> B, unsigned k0, unsigned k1, unsigned spp_offset,
            unsigned spp_total, unsigned row_offset, int rows, int width,
            int spp, int neg_t, const float* vlp, int nvp, int stride,
            int chunk, const int* n_live, const float* gridp, float inv_nl,
@@ -400,13 +453,13 @@ int launch(const float* scene, int ntp, int nl, int ns, int nq,
                        (size_t)min(chunk, nvp) * stride);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mega_vlp_kernel<kStats, kCull>,
+        mega_vlp_kernel<kStats, kCull, kWalk>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned)((width + kTileW - 1) / kTileW),
                   (unsigned)((rows + kTileH - 1) / kTileH));
-  mega_vlp_kernel<kStats, kCull><<<grid, kBlock, smem, stream>>>(
+  mega_vlp_kernel<kStats, kCull, kWalk><<<grid, kBlock, smem, stream>>>(
       scene, ntp, nl, ns, nq, B, k0, k1, spp_offset, spp_total, row_offset,
       rows, width, spp, neg_t, vlp, nvp, stride, chunk, n_live, gridp,
       inv_nl, out, stats);
@@ -415,18 +468,24 @@ int launch(const float* scene, int ntp, int nl, int ns, int nq,
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).  `boxes`
-// holds n_boxes records of 2 float4 (lo.xyz and a row count as int bits,
-// hi.xyz and 0): the mesh's box, then its blocks of 32 rows; `vlp` is the (nvp,
-// stride) float32 table, stride 8 (dense) or 12 (grid mode, with `gridp`
-// the 9 grid floats; NULL in dense mode); `n_live` a device int32; `chunk`
-// the rows staged in shared memory at a time (all of them once a launch
-// when n_live <= chunk).  `cull` 0 scans every triangle block (the
-// cull-free instantiation, the same film); `stats`, when not null, points
-// to kStatSlots zeroed uint64 counters: the counting instantiation runs
-// and adds its Tally there.
+// Launch on `stream`; returns cudaGetLastError() (0 on success).  `vlp` is
+// the (nvp, stride) float32 table, stride 8 (dense) or 12 (grid mode, with
+// `gridp` the 9 grid floats; NULL in dense mode); `n_live` a device int32;
+// `chunk` the rows staged in shared memory at a time (all of them once a
+// launch when n_live <= chunk).  The triangles: with `rows_tbl` NULL, the
+// shared-memory route - `scene` holds ntp triangle rows and `boxes`
+// n_boxes records of 2 float4 (lo.xyz and a row count as int bits, hi.xyz
+// and 0): the mesh's box, then its blocks of 32 rows; `cull` 0 scans every
+// triangle block (the cull-free instantiation, the same film).  With
+// `rows_tbl` set, the walk: `scene` holds no triangles (ntp 0) and
+// `rows_tbl`, `boxes` (n_boxes blocks), `subs` and `nodes` (n_nodes) are
+// ops/tri_blocks.py::walk_tables' tables; `cull` must be 1.  `stats`, when
+// not null, points to kStatSlots zeroed uint64 counters: the counting
+// instantiation runs and adds its Tally there.
 extern "C" int mega_vlp_launch(const float* scene, int ntp, int nl, int ns,
                                int nq, const float* boxes, int n_boxes,
+                               const float* rows_tbl, const float* subs,
+                               const float* nodes, int n_nodes,
                                unsigned k0, unsigned k1, unsigned spp_offset,
                                unsigned spp_total, unsigned row_offset,
                                int rows, int width, int spp, int neg_t,
@@ -436,13 +495,32 @@ extern "C" int mega_vlp_launch(const float* scene, int ntp, int nl, int ns,
                                float* out, void* stats, void* stream) {
   if ((long long)rows * width <= 0) return 0;
   if ((stride != 8 && stride != 12) || chunk < 1 || nvp < 1 ||
-      n_boxes < 1 || (n_boxes - 1) * kTriRows < ntp || boxes == nullptr)
+      boxes == nullptr)
     return (int)cudaErrorInvalidValue;
-  const TriBlocks B{reinterpret_cast<const float4*>(boxes), n_boxes - 1};
   auto* st = reinterpret_cast<unsigned long long*>(stats);
   auto* s = (cudaStream_t)stream;
-  auto kernel = stats ? (cull ? launch<true, true> : launch<true, false>)
-                      : (cull ? launch<false, true> : launch<false, false>);
+  if (rows_tbl != nullptr) {
+    if (ntp != 0 || !cull || n_boxes < 1 || n_nodes < 1 || subs == nullptr ||
+        nodes == nullptr)
+      return (int)cudaErrorInvalidValue;
+    Mesh M;
+    M.rows = reinterpret_cast<const float4*>(rows_tbl);
+    M.boxes = reinterpret_cast<const float4*>(boxes);
+    M.subs = reinterpret_cast<const float4*>(subs);
+    M.nodes = reinterpret_cast<const float4*>(nodes);
+    M.n_blocks = n_boxes;
+    M.n_nodes = n_nodes;
+    auto kernel = stats ? launch<true, true, true> : launch<false, true, true>;
+    return kernel(scene, ntp, nl, ns, nq, M, k0, k1, spp_offset, spp_total,
+                  row_offset, rows, width, spp, neg_t, vlp, nvp, stride,
+                  chunk, n_live, gridp, inv_nl, out, st, s);
+  }
+  if (n_boxes < 1 || (n_boxes - 1) * kTriRows < ntp)
+    return (int)cudaErrorInvalidValue;
+  const TriBlocks B{reinterpret_cast<const float4*>(boxes), n_boxes - 1};
+  auto kernel =
+      stats ? (cull ? launch<true, true, false> : launch<true, false, false>)
+            : (cull ? launch<false, true, false> : launch<false, false, false>);
   return kernel(scene, ntp, nl, ns, nq, B, k0, k1, spp_offset, spp_total,
                 row_offset, rows, width, spp, neg_t, vlp, nvp, stride, chunk,
                 n_live, gridp, inv_nl, out, st, s);

@@ -6,9 +6,10 @@
 // ray, the det-scaled triangle row test, the closest-hit trace and its
 // non-triangle stage, the capped any-hit occlusion test and its
 // non-triangle stage, the NaN-safe slab test of the per-warp culls and
-// their box predicates, a large mesh's block tables, the warp-cooperative
-// closest hit (one ray a warp: the full scan and the culled walk), and the
-// 4-material shading.
+// their box predicates, a large mesh's block tables with the culled walk of
+// a warp of rays over them (B2/B3, and B4 past 512 triangles), the
+// warp-cooperative closest hit (one ray a warp: the full scan and the
+// culled walk), and the 4-material shading.
 //
 // Everything sits in an anonymous namespace, so every translation unit
 // that includes this header gets its own internal copy and the kernels
@@ -494,7 +495,8 @@ __device__ __forceinline__ bool box_occ(float4 lo, float4 hi,
 }
 
 // The block tables of a large mesh (ops/tri_blocks.py::walk_tables), walked
-// by kernels B2/B3 and by the light pass's culled trace: 4 float4 per row
+// by kernels B2/B3, by B4 past 512 triangles and by the light pass's culled
+// trace: 4 float4 per row
 // (v0.xyz e0.x | e0.yz e2.xy | e2.z n.xyz | index bits, pad), 2 per block
 // box (lo.xyz 0 | hi.xyz 0), 2 per sub-block (lo.xyz row count | hi.xyz
 // 0), 2 per tree node in depth-first order: a macro leaf (lo.xyz block
@@ -512,6 +514,168 @@ struct Mesh {
   int n_blocks;
   int n_nodes;
 };
+
+// The closest-hit row test of the kRows rows from `rows`: updates the
+// det-scaled running minimum (bn, bd), its original index bi and the
+// hit's material and normal, for `active` lanes.  The row pointer steps
+// by one row, so a row's four loads take immediate offsets from it (rows
+// past the mesh are zero: det = 0 never hits).
+template <int kRows>
+__device__ __forceinline__ void scan_closest(const float4* rows, float ox,
+                                             float oy, float oz, float dx,
+                                             float dy, float dz, bool neg_t,
+                                             bool active, float& bn,
+                                             float& bd, int& bi, PreHit& h) {
+#pragma unroll 2
+  for (int i = 0; i < kRows; ++i, rows += 4) {
+    const float4 a = __ldg(rows);
+    const float4 c = __ldg(rows + 1);
+    const float4 e = __ldg(rows + 2);
+    const int idx = __float_as_int(__ldg(rows + 3).x);
+    const Quads q = row_quads(a, c, e, ox, oy, oz, dx, dy, dz);
+    const float num = q.tn_s * bd;
+    const float den = bn * q.dd;
+    if (active && quads_valid(q, neg_t) &&
+        (num < den || (num == den && idx < bi))) {
+      bn = q.tn_s;
+      bd = q.dd;
+      bi = idx;
+      h.m = 4;
+      h.nx = e.y;
+      h.ny = e.z;
+      h.nz = e.w;
+      h.needs = false;
+    }
+  }
+}
+
+// The culled walk of a warp of rays, one a lane, over a mesh's block
+// tables (kernels B2/B3, and B4 past 512 triangles).  The warp walks the
+// node tree without a stack: a node no lane needs is skipped with its
+// subtree (the node stores the index after it), so the walk grows with
+// the tree's depth, not with the macro count.  In a taken macro the warp
+// votes on each block, in a taken block on each 32-row sub-block, and
+// scans only the sub-blocks some lane needs (broadcast float4 loads,
+// every lane the same row).  A box is skipped only when no lane's ray can
+// hit a triangle in it closer than its running best: box_closest /
+// box_occ, the slab of the padded box, the eps/forward check and the
+// running-t prune with _PRUNE_SLACK, all conservative.  Every box lies
+// inside its parent's and a sub-block is padded by its block's pad, so a
+// lane that passes a box passes every box above it.  Scanning rows a lane
+// did not need re-tests them against its strictly closer running minimum,
+// so the result does not change.  Rows are Morton-ordered, so an exact
+// cross-multiplied tie goes to the lowest original index, carried in bi
+// from -1 so that a tie against a floor or sphere hit is never stolen.
+// Every lane runs every walk and reaches every vote; lanes that are not
+// `active` vote no and keep their state.
+//
+// `T` is the kernel's work tally: clock(), walk_node() and walk_block()
+// (a node's or a block's box test), walk_sub(sneed, rows) (a sub-block's
+// box test, whether the lane's own test passes, its real rows) and
+// walk_scan(cycles) (a sub-block scanned, its clock64 cycles).
+//
+// Closest hit: updates (bn, bd), bi and the hit h of each active lane.
+template <class T>
+__device__ __forceinline__ void walk_closest(
+    const Mesh& M, const RayInv& ri, float ox, float oy, float oz,
+    float dx, float dy, float dz, bool neg_t, bool active, float& bn,
+    float& bd, int& bi, PreHit& h, T& tally) {
+  int ni = 0;
+  while (ni < M.n_nodes) {
+    const float4 lo = __ldg(M.nodes + 2 * ni);
+    const float4 hi = __ldg(M.nodes + 2 * ni + 1);
+    const int first = __float_as_int(hi.w);   // -1: an internal node
+    tally.walk_node();
+    if (!__any_sync(kAll, active && box_closest(lo, hi, ri, bn, bd,
+                                                neg_t))) {
+      ni = first < 0 ? __float_as_int(lo.w) : ni + 1;
+      continue;
+    }
+    ++ni;
+    if (first < 0) continue;                   // descend
+    const int last = first + __float_as_int(lo.w);
+    for (int b = first; b < last; ++b) {
+      const bool need =
+          active && box_closest(__ldg(M.boxes + 2 * b),
+                                __ldg(M.boxes + 2 * b + 1), ri, bn, bd,
+                                neg_t);
+      tally.walk_block();
+      if (!__any_sync(kAll, need)) continue;
+      for (int k = 0; k < kSubs; ++k) {
+        const float4 slo = __ldg(M.subs + 2 * (kSubs * b + k));
+        const float4 shi = __ldg(M.subs + 2 * (kSubs * b + k) + 1);
+        if (__float_as_int(slo.w) == 0) break;  // past the mesh's last row
+        const bool sneed = need && box_closest(slo, shi, ri, bn, bd, neg_t);
+        tally.walk_sub(sneed, __float_as_int(slo.w));
+        if (!__any_sync(kAll, sneed)) continue;
+        const long long s0 = tally.clock();
+        scan_closest<kSubRows>(
+            M.rows + 4 * ((long long)kRowsPerBlock * b + kSubRows * k), ox,
+            oy, oz, dx, dy, dz, neg_t, active, bn, bd, bi, h);
+        tally.walk_scan(tally.clock() - s0);
+      }
+    }
+  }
+}
+
+// Any hit below t_limit: sets `occ` of each active lane whose ray hits a
+// triangle there; the walk ends when every active lane is occluded.
+template <class T>
+__device__ __forceinline__ void walk_occluded(
+    const Mesh& M, const RayInv& ri, float ox, float oy, float oz,
+    float dx, float dy, float dz, float t_limit, bool neg_t, bool active,
+    bool& occ, T& tally) {
+  int ni = 0;
+  while (ni < M.n_nodes) {
+    if (!__any_sync(kAll, active && !occ)) break;
+    const float4 lo = __ldg(M.nodes + 2 * ni);
+    const float4 hi = __ldg(M.nodes + 2 * ni + 1);
+    const int first = __float_as_int(hi.w);
+    tally.walk_node();
+    if (!__any_sync(kAll, active && !occ &&
+                              box_occ(lo, hi, ri, t_limit, neg_t))) {
+      ni = first < 0 ? __float_as_int(lo.w) : ni + 1;
+      continue;
+    }
+    ++ni;
+    if (first < 0) continue;
+    const int last = first + __float_as_int(lo.w);
+    for (int b = first; b < last; ++b) {
+      const bool need =
+          active && !occ &&
+          box_occ(__ldg(M.boxes + 2 * b), __ldg(M.boxes + 2 * b + 1), ri,
+                  t_limit, neg_t);
+      tally.walk_block();
+      if (!__any_sync(kAll, need)) continue;
+      for (int k = 0; k < kSubs; ++k) {
+        const float4 slo = __ldg(M.subs + 2 * (kSubs * b + k));
+        const float4 shi = __ldg(M.subs + 2 * (kSubs * b + k) + 1);
+        if (__float_as_int(slo.w) == 0) break;
+        const bool sneed =
+            need && !occ && box_occ(slo, shi, ri, t_limit, neg_t);
+        tally.walk_sub(sneed, __float_as_int(slo.w));
+        if (!__any_sync(kAll, sneed)) continue;
+        const long long s0 = tally.clock();
+        if (active && !occ) {
+          const float4* rows =
+              M.rows + 4 * ((long long)kRowsPerBlock * b + kSubRows * k);
+#pragma unroll 2
+          for (int i = 0; i < kSubRows; ++i, rows += 4) {
+            const float4 a = __ldg(rows);
+            const float4 c = __ldg(rows + 1);
+            const float4 e = __ldg(rows + 2);
+            const Quads q = row_quads(a, c, e, ox, oy, oz, dx, dy, dz);
+            if (quads_valid(q, neg_t) && q.tn_s < t_limit * q.dd) {
+              occ = true;
+              break;
+            }
+          }
+        }
+        tally.walk_scan(tally.clock() - s0);
+      }
+    }
+  }
+}
 
 // Warp-cooperative closest hit (the light pass, csrc/light_pass.cu): the 32
 // lanes of a warp trace ONE ray, and every lane ends with the same result.

@@ -16,10 +16,21 @@ binning of ``ops/grid.py::build_grid_cellscan`` - padded to 12.  The live
 count reaches the kernel as a device int32, so the host never waits.  The
 kernel scans every live row, masked by cell membership in grid mode, so
 it is uncapped where the tier-1 grid gather keeps at most 62 items a cell:
-the two agree wherever no live VLP overflows a cell.  The kernel culls its
-triangle scans per warp over :func:`tri_block_boxes`; ``cull=False``
-launches the instantiation that scans every block (the same film, for the
-tests), and :func:`vlp_stats` the counting one.
+the two agree wherever no live VLP overflows a cell.
+
+The kernel has two routes for the triangles, chosen by :func:`uses_walk`
+before the launch:
+
+* up to ``MAX_SMEM_TRIANGLES`` (512) the table is staged in shared memory
+  and scanned in index-order blocks of 32 rows behind per-warp votes over
+  :func:`tri_block_boxes`; ``cull=False`` launches the instantiation that
+  scans every block (the same film, for the tests);
+* past 512 triangles (or with ``force_walk=True``, for the tests) shared
+  memory holds the scene without triangles, and the traces walk B2/B3's
+  block tables in device memory - ``mega_super.block_tables``, the same
+  tensors B2/B3 and the light pass read, built once per prepared scene.
+
+:func:`vlp_stats` launches the counting instantiation of either route.
 
 ``film_vlp_mega_plain`` is the same function in plain PyTorch - the
 tier-1 composition ``accumulate_spp(sample_super(illum_fn=illum_vlp))``
@@ -37,7 +48,7 @@ from ..core.quirks import Quirks, DEFAULT
 from ..models import common as C
 from .intersect import SceneArrays, derived
 from .mega_super import (MAX_LIGHTS, MAX_SMEM_TRIANGLES, _check, _stream,
-                         _u32_arg, scene_buffer)
+                         _u32_arg, block_tables, scene_buffer)
 from .vlp import live_first, vlp_aabbs
 
 #: Launches of the CUDA kernel since the last reset (the wrapper adds one
@@ -57,21 +68,29 @@ TRI_BLOCK_ROWS = 32   # triangle rows a culled block (csrc/mega_vlp.cu)
 def unsupported_reason(scn: SceneArrays, quirks: Quirks = DEFAULT,
                        max_bounces: int = C.MAX_BOUNCES) -> str | None:
     """Why the kernel cannot render this configuration, or None when it
-    can (the port's form of ``pallas_bpt.supported()``)."""
-    if quirks.shadow_carry_t:
-        return ("the shadow_carry_t quirk (_lmem reference mode): the VLP "
-                "megakernel does not cover it")
+    can (the port's form of ``pallas_bpt.supported()``).
+
+    It differs from the JAX gate only where the film is provably the same:
+    any mesh size (past 512 triangles the walk route), and any ``quirks``
+    - the one the JAX gate refuses, ``shadow_carry_t``, is read only by
+    the super family's direct light (``models/super.py::illum_direct``),
+    never by the VLP family's ``illum_vlp`` or ``any_hit``, so a VLP film
+    under ``REFERENCE_LMEM`` is the film under ``REFERENCE``."""
     nl = int(scn.lights.shape[0])
     if nl > MAX_LIGHTS:
         return (f"{nl} lights: the VLP megakernel covers <= {MAX_LIGHTS} "
                 "lights (8 RNG sites per bounce)")
     if max_bounces < 1:
         return f"max_bounces={max_bounces}: the VLP megakernel runs one bounce"
-    nt = int(scn.tri_v0.shape[0])
-    if nt > MAX_SMEM_TRIANGLES:
-        return (f"{nt} triangles: the VLP megakernel stages <= "
-                f"{MAX_SMEM_TRIANGLES} triangles in shared memory")
     return None
+
+
+def uses_walk(scn: SceneArrays, force_walk: bool = False) -> bool:
+    """Whether ``film_vlp_mega`` walks B2/B3's block tables (past
+    ``MAX_SMEM_TRIANGLES``, or forced on any mesh with triangles), else
+    stages the triangle table in shared memory."""
+    nt = int(scn.tri_v0.shape[0])
+    return nt > MAX_SMEM_TRIANGLES or (bool(force_walk) and nt > 0)
 
 
 def vlp_table(vlps, grid=None):
@@ -108,7 +127,8 @@ def vlp_table(vlps, grid=None):
 
 
 def tri_block_boxes(scn: SceneArrays) -> np.ndarray:
-    """(1 + n_blocks, 8) float32 records of the kernel's triangle cull,
+    """(1 + n_blocks, 8) float32 records of the shared-memory route's
+    triangle cull (the walk route reads B2/B3's tables instead),
     each lo.xyz, a row count (int32 bits), hi.xyz, 0: the triangles in
     index order, ``TRI_BLOCK_ROWS`` a block, each block's box the bounds of
     its triangles (v0, v0 + e0, v0 + e2 in float32, as
@@ -137,13 +157,20 @@ def tri_block_boxes(scn: SceneArrays) -> np.ndarray:
     return recs
 
 
-def kernel_inputs(scn: SceneArrays, device) -> tuple:
-    """(scene buffer, padded triangle count, triangle block boxes) on
-    ``device``, built once per prepared scene: ``mega_super.scene_buffer``
-    and :func:`tri_block_boxes`."""
+def kernel_inputs(scn: SceneArrays, device, walk: bool = False) -> tuple:
+    """(scene buffer, padded triangle count, boxes, rows, subs, nodes) on
+    ``device``, built once per prepared scene and device.  The shared-memory
+    route: ``mega_super.scene_buffer`` and :func:`tri_block_boxes`, no
+    tables (None).  The walk route: the tensors of
+    ``mega_super.block_tables``, the very objects B2/B3 and the light pass
+    read - the scene without triangles (0 rows), the block boxes, rows,
+    sub-block boxes and node tree."""
+    if walk:
+        buf, rows, boxes, subs, nodes = block_tables(scn, device)
+        return buf, 0, boxes, rows, subs, nodes
     boxes = derived(scn, "mega_vlp.tri_block_boxes", device,
                     lambda s: torch.from_numpy(tri_block_boxes(s)).to(device))
-    return (*scene_buffer(scn, device), boxes)
+    return (*scene_buffer(scn, device), boxes, None, None, None)
 
 
 def film_vlp_mega_plain(key, scn: SceneArrays, vlps, width: int,
@@ -168,19 +195,22 @@ def film_vlp_mega(key, scn: SceneArrays, vlps, width: int, height: int,
                   spp_total: int | None = None, quirks: Quirks = DEFAULT,
                   row_offset: int = 0, rows: int | None = None, grid=None,
                   device="cuda", chunk_rows: int | None = None,
-                  cull: bool = True):
+                  cull: bool = True, force_walk: bool = False):
     """Pre-ambient (rows, W, 3) float32 film of the band
     [row_offset, row_offset+rows) with global samples
     [spp_offset, spp_offset+spp) of spp_total, gathering the (V, 4) VLP
     table ``vlps`` (grid-limited when ``grid`` is an ops/grid.py
     ``UniformGrid`` over it), on ``device``.
 
-    On a CUDA device: one launch of the CUDA kernel; raises
-    ``NotImplementedError`` for a configuration it does not cover.  On the
-    CPU: :func:`film_vlp_mega_plain`.  ``chunk_rows`` sets how many table
-    rows the kernel stages at a time (default: ``VLP_SMEM_BYTES`` of rows)
-    and ``cull=False`` launches the instantiation without the triangle
-    cull; the film depends on neither."""
+    On a CUDA device: one launch of the CUDA kernel, on the route
+    :func:`uses_walk` picks; raises ``NotImplementedError`` for a
+    configuration it does not cover.  On the CPU:
+    :func:`film_vlp_mega_plain`.  ``chunk_rows`` sets how many table rows
+    the kernel stages at a time (default: ``VLP_SMEM_BYTES`` of rows) and
+    ``cull=False`` launches the shared-memory route's instantiation without
+    the triangle cull; the film depends on neither.  ``force_walk=True``
+    (for the tests) walks the block tables on a mesh of <= 512 triangles
+    too: the same film up to the triangles' visiting order."""
     device = torch.device(device)
     if spp_total is None:
         spp_total = spp
@@ -194,7 +224,8 @@ def film_vlp_mega(key, scn: SceneArrays, vlps, width: int, height: int,
                                    row_offset, rows, grid, device)
     out = _film_out(scn, quirks, device, width, rows)
     _launch(key, scn, vlps, grid, spp, spp_offset, spp_total, quirks,
-            row_offset, out, chunk_rows, cull, None)
+            row_offset, out, chunk_rows, cull, uses_walk(scn, force_walk),
+            None)
     return out
 
 
@@ -219,23 +250,29 @@ def _film_out(scn: SceneArrays, quirks: Quirks, device, width, rows):
 
 
 def _launch(key, scn: SceneArrays, vlps, grid, spp, spp_offset, spp_total,
-            quirks: Quirks, row_offset, out, chunk_rows, cull: bool, stats):
-    """One launch of B4 into ``out``; ``stats`` (a zeroed int64 tensor of
-    ``len(STAT_NAMES)`` slots, or None) makes it the counting
-    instantiation."""
+            quirks: Quirks, row_offset, out, chunk_rows, cull: bool,
+            walk: bool, stats):
+    """One launch of B4 into ``out``, on the walk route when ``walk``;
+    ``stats`` (a zeroed int64 tensor of ``len(STAT_NAMES)`` slots, or None)
+    makes it the counting instantiation."""
     global LAUNCHES
     device = out.device
     rows, width = int(out.shape[0]), int(out.shape[1])
     spp = int(spp)
     if spp < 0:
         raise ValueError(f"spp={spp} < 0")
-    buf, ntp, boxes = kernel_inputs(scn, device)
+    if walk and not cull:
+        raise ValueError("cull=False names the shared-memory route's "
+                         "cull-free instantiation; the walk has none")
+    buf, ntp, boxes, rows_t, subs, nodes = kernel_inputs(scn, device, walk)
     tab, n_live, gridp = vlp_table(torch.as_tensor(vlps, device=device),
                                    grid)
     stride = DENSE_STRIDE if gridp is None else GRID_STRIDE
+    tables = (("rows", rows_t), ("subs", subs), ("nodes", nodes)) \
+        if walk else ()
     _check((("scene", buf), ("triangle boxes", boxes), ("vlp table", tab),
-            ("out", out)) + ((("grid", gridp),) if gridp is not None else ()),
-           device)
+            ("out", out)) + tables
+           + ((("grid", gridp),) if gridp is not None else ()), device)
     if n_live.device != device or n_live.dtype != torch.int32:
         raise ValueError(f"n_live must be an int32 tensor on {device}")
     if tab.shape[1] != stride or tab.shape[0] >= 1 << 27:
@@ -253,7 +290,10 @@ def _launch(key, scn: SceneArrays, vlps, grid, spp, spp_offset, spp_total,
         err = lib.mega_vlp_launch(
             buf.data_ptr(), ntp, nl, int(scn.sphere_centers.shape[0]),
             int(scn.square_k.shape[0]), boxes.data_ptr(),
-            int(boxes.shape[0]), _u32_arg("k0", key[0]),
+            int(boxes.shape[0]), *((rows_t.data_ptr(), subs.data_ptr(),
+                                    nodes.data_ptr(), int(nodes.shape[0]))
+                                   if walk else (None, None, None, 0)),
+            _u32_arg("k0", key[0]),
             _u32_arg("k1", key[1]), _u32_arg("spp_offset", spp_offset),
             _u32_arg("spp_total", spp_total),
             _u32_arg("row_offset", row_offset), rows, width, spp,
@@ -271,16 +311,18 @@ def _launch(key, scn: SceneArrays, vlps, grid, spp, spp_offset, spp_total,
 #: B4's work tally, in the order of its slots (csrc/mega_vlp.cu, Slot).
 STAT_NAMES = ("cam_rest", "cam_tri", "gather", "shadow_rest", "shadow_tri",
               "stage", "kernel", "lit", "casts", "casts_tri", "tested",
-              "gather_pairs")
+              "gather_pairs", "node_tests", "block_tests", "sub_tests",
+              "own_need")
 
 
 def vlp_stats(key, scn: SceneArrays, vlps, width: int, height: int,
               spp: int, spp_offset: int = 0, spp_total: int | None = None,
               quirks: Quirks = DEFAULT, grid=None, cull: bool = True,
-              device="cuda") -> dict:
+              device="cuda", force_walk: bool = False) -> dict:
     """B4's work over one render pass of this configuration (one launch of
-    the counting instantiation on ``device``, with or without the cull; the
-    film is discarded):
+    the counting instantiation on ``device``, on the route ``film_vlp_mega``
+    takes, the shared-memory one with or without the cull; the film is
+    discarded):
 
     * ``lit``: samples whose primary ray hits the floor or a diffuse
       surface (the shading gathers and casts there); ``casts``: their
@@ -295,12 +337,17 @@ def vlp_stats(key, scn: SceneArrays, vlps, width: int, height: int,
       (votes and scans); ``gather``; ``shadow_rest`` / ``shadow_tri``
       likewise for the shadow rays; ``stage``, the VLP table's staging
       with its syncs; ``kernel``, the whole kernel (the rest - threefry,
-      camera, shading - is ``kernel`` less the others)."""
+      camera, shading - is ``kernel`` less the others);
+    * on the walk route (0 on the other), summed over warps:
+      ``node_tests``, ``block_tests`` and ``sub_tests``, box tests of tree
+      nodes, blocks and 32-row sub-blocks; ``own_need``, the walk's own
+      need - the real rows of the sub-blocks whose box each ray's own test
+      passes, at most ``tested``."""
     device = torch.device(device)
     if spp_total is None:
         spp_total = spp
     out = _film_out(scn, quirks, device, width, height)
     stats = torch.zeros(len(STAT_NAMES), dtype=torch.int64, device=device)
     _launch(key, scn, vlps, grid, spp, spp_offset, spp_total, quirks, 0,
-            out, None, cull, stats)
+            out, None, cull, uses_walk(scn, force_walk), stats)
     return dict(zip(STAT_NAMES, stats.tolist()))

@@ -217,8 +217,10 @@ def test_cuda_request_never_falls_back_to_cpu(variant):
 
 
 def test_cuda_route_is_decided_from_the_configuration():
-    """B4 when its gate passes; the tier-1 wavefront (gather B6) outside
-    it, whose traces of a mesh of >= 2048 triangles are kernel B7."""
+    """B4 when its gate passes - every quirk set and mesh size, past 512
+    triangles over B2/B3's block tables; the tier-1 wavefront (gather B6,
+    whose traces of a mesh of >= 2048 triangles are kernel B7) only for
+    more than 8 lights or max_bounces < 1."""
     from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
         REFERENCE, REFERENCE_LMEM)
     from opencl_montecarlo_path_tracing_tpu_torch.models.bidirectional import (
@@ -229,7 +231,7 @@ def test_cuda_route_is_decided_from_the_configuration():
     demo = prep_scene(demo_scene()[0])
     assert cuda_route(demo, DEFAULT) == "mega_vlp"
     assert cuda_route(demo, REFERENCE) == "mega_vlp"
-    assert cuda_route(demo, REFERENCE_LMEM) == "tier1"
+    assert cuda_route(demo, REFERENCE_LMEM) == "mega_vlp"
     assert cuda_route(demo, DEFAULT, max_bounces=0) == "tier1"
     base = demo_scene()[0]
     tri = np.random.default_rng(0).uniform(0, 10, (2048, 3, 3))
@@ -237,4 +239,43 @@ def test_cuda_route_is_decided_from_the_configuration():
                            square_kj=base.square_kj,
                            triangles=tri.astype(np.float32),
                            lights=base.lights))
-    assert cuda_route(big, DEFAULT) == "tier1"
+    assert cuda_route(big, DEFAULT) == "mega_vlp"
+    nine = prep_scene(Scene(sphere_centers=base.sphere_centers,
+                            square_kj=base.square_kj,
+                            triangles=base.triangles,
+                            lights=np.tile(base.lights, (5, 1))[:9]))
+    assert cuda_route(nine, DEFAULT) == "tier1"
+
+
+@pytest.mark.parametrize("sheet", [(30, 30), (144, 72)],
+                         ids=["1800", "20736"])
+def test_cuda_route_on_the_sheets(sheet):
+    """The 1,800- and 20,736-triangle sheets render on B4's walk route under
+    every quirk set, so a grid render there builds only the grid's frame
+    (C1 on large meshes); a 9-light copy and max_bounces 0 stay on tier 1,
+    with the full grid."""
+    from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
+        REFERENCE, REFERENCE_LMEM)
+    from opencl_montecarlo_path_tracing_tpu_torch.models.bidirectional import (
+        cuda_route, grid_frame_only)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_vlp as M4
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
+        prep_scene)
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        large_mesh_scene)
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.scene import Scene
+    scene = large_mesh_scene(*sheet)
+    scn = prep_scene(scene)
+    cuda = torch.device("cuda")
+    assert M4.uses_walk(scn)
+    for q in (DEFAULT, REFERENCE, REFERENCE_LMEM):
+        assert cuda_route(scn, q) == "mega_vlp"
+        assert grid_frame_only(scn, q, 5, cuda)
+    assert cuda_route(scn, DEFAULT, max_bounces=0) == "tier1"
+    assert not grid_frame_only(scn, DEFAULT, 0, cuda)
+    nine = prep_scene(Scene(sphere_centers=scene.sphere_centers,
+                            square_kj=scene.square_kj,
+                            triangles=scene.triangles,
+                            lights=np.tile(scene.lights, (5, 1))[:9]))
+    assert cuda_route(nine, REFERENCE_LMEM) == "tier1"
+    assert not grid_frame_only(nine, DEFAULT, 5, cuda)

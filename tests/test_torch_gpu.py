@@ -432,16 +432,31 @@ def test_gather_kernel_matches_plain_on_gpu(R, V, cuda_device):
 
 @pytest.mark.gpu
 def test_lmem_route_launches_gather_kernel_not_vlp_kernel(cuda_device):
-    """bidirectional under REFERENCE_LMEM is outside B4's gate: the render
-    runs the tier-1 wavefront on the card, whose gather is B6."""
+    """bidirectional under REFERENCE_LMEM with 9 lights is outside B4's
+    gate: the render runs the tier-1 wavefront on the card, whose gather is
+    B6.  With the demo's lights REFERENCE_LMEM is inside it (the VLP family
+    reads no shadow_carry_t): one B4 launch, the film of REFERENCE bit for
+    bit."""
     import opencl_montecarlo_path_tracing_tpu_torch as pt
+    base = demo_scene()[0]
+    nine = Scene(sphere_centers=base.sphere_centers,
+                 square_kj=base.square_kj, triangles=base.triangles,
+                 lights=np.tile(base.lights, (5, 1))[:9])
+    kw = dict(spp=1, seed=2, n_vlp=64, device=cuda_device)
     b4, b6 = M4.LAUNCHES, G6.LAUNCHES
-    film = pt.render("bidirectional", demo_scene()[0], 64, 64, spp=1,
-                     seed=2, quirks=REFERENCE_LMEM, n_vlp=64,
-                     device=cuda_device)
+    film = pt.render("bidirectional", nine, 64, 64, quirks=REFERENCE_LMEM,
+                     **kw)
     torch.cuda.synchronize()
     assert M4.LAUNCHES == b4 and G6.LAUNCHES > b6
     assert film.shape == (64, 64, 3) and torch.isfinite(film).all()
+    b4, b6 = M4.LAUNCHES, G6.LAUNCHES
+    lmem = pt.render("bidirectional", base, 64, CONTENT_ROW + 64,
+                     quirks=REFERENCE_LMEM, **kw)
+    torch.cuda.synchronize()
+    assert M4.LAUNCHES == b4 + 1 and G6.LAUNCHES == b6
+    assert torch.equal(lmem, pt.render("bidirectional", base, 64,
+                                       CONTENT_ROW + 64, quirks=REFERENCE,
+                                       **kw))
 
 
 @pytest.mark.gpu
@@ -457,6 +472,139 @@ def test_vlp_render_on_gpu_launches_the_kernel(variant, cuda_device):
     torch.cuda.synchronize()
     assert M4.LAUNCHES == before + 1
     assert film.shape == (64, 64, 3) and torch.isfinite(film).all()
+
+
+def sheet_tables(sheet, table, device):
+    """(scene arrays, key, VLP table, grid) of B4's walk cases on a ripple
+    sheet: the emitted table (dense) or the Metropolis one with its grid."""
+    from opencl_montecarlo_path_tracing_tpu_torch.models.metropolis import (
+        mlt_vlps)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as TV
+    scn = prep_scene(sheet_scene(*sheet))
+    key = (0, 0)
+    if table == "dense":
+        return scn, key, TV.emit_vlps(key, scn, 512, device=device), None
+    vlps = mlt_vlps(key, scn, 512, 8, device=device)
+    return scn, key, vlps, TV.build_vlp_grid(
+        vlps, TV.vlp_grid_static_res(int(vlps.shape[0])))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qname", ["default", "reference"])
+@pytest.mark.parametrize("table", ["dense", "grid"])
+@pytest.mark.parametrize("sheet", [(30, 30), (144, 72)],
+                         ids=["1800", "20736"])
+def test_vlp_walk_matches_plain_on_gpu(sheet, table, qname, cuda_device):
+    """B4's walk route (past 512 triangles) against its plain version on
+    the 1,800- and 20,736-triangle sheets, 512x512 samples 0-1 of 4, under
+    the CRN contract; one launch each."""
+    scn, key, vlps, grid = sheet_tables(sheet, table, cuda_device)
+    assert M4.uses_walk(scn)
+    kw = dict(spp_total=4, grid=grid, quirks=QUIRKS[qname],
+              device=cuda_device)
+    before = M4.LAUNCHES
+    got = M4.film_vlp_mega(key, scn, vlps, 512, 512, 2, **kw)
+    torch.cuda.synchronize()
+    assert M4.LAUNCHES == before + 1
+    want = M4.film_vlp_mega_plain(key, scn, vlps, 512, 512, 2, **kw)
+    ok, st = crn_ok(got, want, 2)
+    assert ok, st
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(VLP_CASES) + ["demo_emitted"])
+def test_vlp_force_walk_matches_smem_route(name, cuda_device):
+    """``force_walk=True`` walks B2/B3's block tables on the shared-memory
+    route's meshes: the same film under the CRN contract and within 2e-5
+    where no pixel ties (as B2/B3 forced is held to B1), under the default
+    and the reference quirks."""
+    if name == "demo_emitted":
+        from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as TV
+        scn = prep_scene(demo_scene()[0])
+        key = (5, 0)
+        vlps = TV.emit_vlps(key, scn, 512, device=cuda_device)
+        grid, (w, h, spp), kw = None, (512, 512, 2), {}
+    else:
+        scn, key, vlps, grid, (w, h, spp), kw = vlp_case_inputs(name,
+                                                                cuda_device)
+    for quirks in (DEFAULT, REFERENCE):
+        a = M4.film_vlp_mega(key, scn, vlps, w, h, spp, grid=grid,
+                             quirks=quirks, device=cuda_device,
+                             force_walk=True, **kw)
+        b = M4.film_vlp_mega(key, scn, vlps, w, h, spp, grid=grid,
+                             quirks=quirks, device=cuda_device, **kw)
+        ok, st = crn_ok(a, b, spp)
+        assert ok and (st["tie_frac"] > 0 or st["max_abs"] <= 2e-5), st
+    with pytest.raises(ValueError, match="cull-free"):
+        M4.film_vlp_mega(key, scn, vlps, w, h, spp, grid=grid,
+                         device=cuda_device, force_walk=True, cull=False,
+                         **kw)
+
+
+@pytest.mark.gpu
+def test_vlp_walk_stats_are_consistent(cuda_device):
+    """The walk's counting launch on the 20,736 sheet: the warps test at
+    least the pairs the rays' own sub-block tests need (32 x 32 a scanned
+    sub-block), a lit hit casts one ray a light and gathers one term a live
+    VLP, the walk tests boxes at every level, and the film is untouched by
+    the count; on the shared-memory route the walk's slots stay 0."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as TV
+    scn, key, vlps, _ = sheet_tables((144, 72), "dense", cuda_device)
+    st = M4.vlp_stats(key, scn, vlps, 256, 256, 2, spp_total=16)
+    n_live = int((vlps[:, 3] > 0).sum())
+    assert st["tested"] >= st["own_need"] > 0
+    assert st["tested"] % (32 * 32) == 0
+    assert st["node_tests"] > 0 and st["block_tests"] > 0
+    assert st["sub_tests"] > 0
+    assert st["casts"] == st["lit"] * int(scn.lights.shape[0])
+    assert st["gather_pairs"] == st["lit"] * n_live
+    demo = prep_scene(demo_scene()[0])
+    dv = TV.emit_vlps(key, demo, 512, device=cuda_device)
+    sm = M4.vlp_stats(key, demo, dv, 512, 512, 1, spp_total=8)
+    assert sm["tested"] > 0 and sm["own_need"] == sm["node_tests"] == 0
+    fw = M4.vlp_stats(key, demo, dv, 512, 512, 1, spp_total=8,
+                      force_walk=True)
+    assert fw["tested"] >= fw["own_need"] > 0
+    for k in ("lit", "casts", "casts_tri", "gather_pairs"):
+        assert fw[k] == sm[k], k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["bidirectional", "metropolis",
+                                     "metropolis_vlpgrid"])
+def test_vlp_render_on_the_sheet_launches_light_pass_and_b4(variant,
+                                                            cuda_device):
+    """On the 20,736-triangle sheet a VLP render is the light pass's kernels
+    and one B4 launch (the walk), no B6, no B7."""
+    import opencl_montecarlo_path_tracing_tpu_torch as pt
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import light_pass as L
+    kw = (dict(n_vlp=64) if variant == "bidirectional"
+          else dict(n_seedpaths=16, mutation_rounds=2))
+    counts = lambda: (M4.LAUNCHES, G6.LAUNCHES, B7.LAUNCHES,  # noqa
+                      L.EMIT_LAUNCHES, L.SEED_LAUNCHES, L.CHAIN_LAUNCHES)
+    c0 = counts()
+    film = pt.render(variant, sheet_scene(144, 72), 64, 64, spp=2, seed=1,
+                     device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    light = (1, 0, 0) if variant == "bidirectional" else (0, 1, 1)
+    assert counts() == (c0[0] + 1, c0[1], c0[2]) + tuple(
+        a + b for a, b in zip(c0[3:], light))
+    assert film.shape == (64, 64, 3) and torch.isfinite(film).all()
+
+
+@pytest.mark.gpu
+def test_crn_frame_tool_on_gpu(cuda_device, monkeypatch, capsys):
+    """The A14 tool at 64x64x2 on the card: every family within its
+    contract (exit 0); a perturbed film violates it (exit 1)."""
+    from opencl_montecarlo_path_tracing_tpu_torch import api
+    from opencl_montecarlo_path_tracing_tpu_torch.tools import (
+        validate_crn_frame as V)
+    assert V.main(["--size", "64", "--spp", "2"]) == 0
+    assert "contract OK" in capsys.readouterr().out
+    real = api.render
+    monkeypatch.setattr(api, "render", lambda *a, **k: real(*a, **k) + 0.05)
+    assert V.main(["--size", "64", "--spp", "2", "--families", "bidir"]) == 1
+    assert "contract VIOLATED" in capsys.readouterr().out
 
 
 @pytest.mark.gpu
@@ -599,9 +747,8 @@ def test_render_routes_launch_their_kernels(cuda_device):
     film = pt.render("bidirectional", sheet_scene(32, 32), 64, 64, spp=1,
                      seed=2, n_vlp=64, device=cuda_device)
     torch.cuda.synchronize()
-    c1 = counts()
-    assert c1[:2] == c0[:2] and c1[3] == c0[3]
-    assert c1[2] > c0[2] and c1[4] > c0[4]
+    # 2,048 triangles: B4 walks the block tables; no B7, no B6
+    assert counts() == c0[:3] + (c0[3] + 1, c0[4])
     assert film.shape == (64, 64, 3) and torch.isfinite(film).all()
 
 

@@ -258,15 +258,17 @@ def test_grid_frame_equals_the_full_grid_build(case):
 
 def test_grid_frame_only_on_b4s_route():
     """The frame alone where B4 renders the pass (a CUDA device and B4's
-    gate), the full grid wherever the tier-1 gather reads its lists: on
-    the CPU, and on the card under the shadow_carry_t quirk."""
+    gate, which takes the shadow_carry_t quirk since the VLP family never
+    reads it), the full grid wherever the tier-1 gather reads its lists: on
+    the CPU, and on the card for max_bounces 0."""
     from opencl_montecarlo_path_tracing_tpu_torch.models import (
         bidirectional as TB)
     scn = scenes()["demo"]
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert TB.grid_frame_only(scn, DEFAULT, 2, cuda)
     assert not TB.grid_frame_only(scn, DEFAULT, 2, cpu)
-    assert not TB.grid_frame_only(scn, REFERENCE_LMEM, 2, cuda)
+    assert TB.grid_frame_only(scn, REFERENCE_LMEM, 2, cuda)
+    assert not TB.grid_frame_only(scn, REFERENCE_LMEM, 0, cuda)
     vlps = TM.mlt_vlps((4, 0), scn, 8, 1, device="cpu")
     assert isinstance(TB.vlp_grid(vlps, (3, 3, 3), True), TV.GridFrame)
     assert TB.vlp_grid(vlps, (3, 3, 3), False).items.shape == (27, 62)

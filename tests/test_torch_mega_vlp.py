@@ -22,8 +22,16 @@ Tolerances, each with its reason:
   bound between the kernel (rsqrt) and the scan (division),
   ``tests/test_megakernel.py:665-668``.
 
+The gate: the port's differs from ``pallas_bpt.supported()`` only where
+the film is provably the same - REFERENCE_LMEM (the plain films under it
+and under REFERENCE are bit-equal, and the JAX package's op-by-op film
+under it holds to ATOL_VLP) and meshes past 512 triangles (the walk route
+over ``mega_super.block_tables``, whose cached tensors the wrapper
+reuses).
+
 The CUDA kernel runs only on a GPU: ``tests/test_torch_gpu.py`` holds it
-against this plain version on the same cases (``gpu`` marker).
+against this plain version on the same cases and on the ripple sheets
+(``gpu`` marker).
 """
 
 import functools
@@ -35,6 +43,8 @@ import jax
 import jax.numpy as jnp
 
 from opencl_montecarlo_path_tracing_tpu.core.quirks import DEFAULT as J_DEFAULT
+from opencl_montecarlo_path_tracing_tpu.core.quirks import (
+    REFERENCE_LMEM as J_REFERENCE_LMEM)
 from opencl_montecarlo_path_tracing_tpu.core.rng import make_key
 from opencl_montecarlo_path_tracing_tpu.models.bidirectional import (
     film_bidirectional)
@@ -46,13 +56,16 @@ from opencl_montecarlo_path_tracing_tpu_torch.convert import (
     grid_from_numpy, key_from_jax, scene_arrays_from_numpy, vlps_from_numpy)
 from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
     DEFAULT, REFERENCE, REFERENCE_LMEM)
+from opencl_montecarlo_path_tracing_tpu_torch.models import (
+    bidirectional as TB, metropolis as TM)
+from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_super as MS
 from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_vlp as M
 from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import prep_scene
 from opencl_montecarlo_path_tracing_tpu_torch.ops.vlp import vlp_aabbs
 from opencl_montecarlo_path_tracing_tpu_torch.scene.scene import Scene
 from opencl_montecarlo_path_tracing_tpu_torch.utils.crn import crn_ok
 from tests.test_torch_gpu import (CONTENT_ROW, VLP_CASES, mlt_table,
-                                  small_scene, synth_vlps)
+                                  sheet_scene, small_scene, synth_vlps)
 
 ATOL_VLP = 6e-5
 
@@ -198,18 +211,118 @@ def _with(n_tri=None, n_lights=None):
 
 def test_gate():
     """pallas_bpt.supported()'s cases (tests/test_megakernel.py:794-800)
-    plus the triangle bound and max_bounces."""
+    plus the triangle count and max_bounces.  The port's gate differs from
+    the JAX one only where the film is provably the same: REFERENCE_LMEM
+    passes (its one extra quirk, shadow_carry_t, is read by no VLP-family
+    function: test_lmem_vlp_film_is_the_reference_film), and so does a
+    mesh past 512 triangles (the walk route); more than 8 lights and
+    max_bounces < 1 stay on tier 1."""
     scn = prep_scene(small_scene())
     assert M.unsupported_reason(scn, DEFAULT) is None
     assert M.unsupported_reason(scn, REFERENCE) is None
-    assert "shadow_carry_t" in M.unsupported_reason(scn, REFERENCE_LMEM)
+    assert M.unsupported_reason(scn, REFERENCE_LMEM) is None
     assert "lights" in M.unsupported_reason(_with(n_lights=9), DEFAULT)
     assert M.unsupported_reason(_with(n_lights=8), DEFAULT) is None
     assert M.unsupported_reason(_with(n_tri=512), DEFAULT) is None
-    assert "triangles" in M.unsupported_reason(_with(n_tri=513), DEFAULT)
+    assert M.unsupported_reason(_with(n_tri=513), DEFAULT) is None
+    assert not M.uses_walk(_with(n_tri=512))
+    assert M.uses_walk(_with(n_tri=513))
+    assert M.uses_walk(_with(n_tri=512), force_walk=True)
+    assert not M.uses_walk(_with(n_tri=0), force_walk=True)
     assert "max_bounces" in M.unsupported_reason(scn, DEFAULT, 0)
     vlps = torch.from_numpy(synth_vlps())
-    for s, q in ((scn, REFERENCE_LMEM), (_with(n_lights=9), DEFAULT)):
-        with pytest.raises(NotImplementedError):
-            M.film_vlp_mega((0, 0), s, vlps, 8, 8, 1, quirks=q,
-                            device="cuda")
+    with pytest.raises(NotImplementedError):
+        M.film_vlp_mega((0, 0), _with(n_lights=9), vlps, 8, 8, 1,
+                        device="cuda")
+    # inside the gate a CUDA request launches the kernel, never the CPU
+    if torch.cuda.is_available():
+        film = M.film_vlp_mega((0, 0), scn, vlps, 8, 8, 1,
+                               quirks=REFERENCE_LMEM, device="cuda")
+        assert film.shape == (8, 8, 3)
+    else:
+        with pytest.raises(RuntimeError, match="is_available"):
+            M.film_vlp_mega((0, 0), scn, vlps, 8, 8, 1,
+                            quirks=REFERENCE_LMEM, device="cuda")
+
+
+def test_walk_route_reads_the_cached_block_tables():
+    """Past 512 triangles the wrapper's inputs are the very tensors of
+    ``mega_super.block_tables`` that B2/B3 and the light pass read (one
+    host preparation per prepared scene and device), the scene without
+    triangles; up to 512 the scene buffer and the 32-row block boxes."""
+    scn = prep_scene(sheet_scene(30, 30))
+    inputs = M.kernel_inputs(scn, "cpu", walk=True)
+    buf, rows, boxes, subs, nodes = MS.block_tables(scn, "cpu")
+    assert inputs[1] == 0
+    for got, want in zip(inputs[:1] + inputs[2:], (buf, boxes, rows, subs,
+                                                   nodes)):
+        assert got is want
+    assert all(a is b for a, b in zip(M.kernel_inputs(scn, "cpu", True),
+                                      inputs))
+    assert buf.numel() == MS.pack_scene(scn, triangles=False)[0].size
+    small = prep_scene(small_scene())
+    buf, ntp, boxes, *tables = M.kernel_inputs(small, "cpu")
+    assert buf is MS.scene_buffer(small, "cpu")[0] and ntp == 8
+    assert boxes.shape == (2, 8) and tables == [None, None, None]
+
+
+@pytest.mark.parametrize("variant,scene", [
+    ("bidirectional", "demo"), ("metropolis", "demo"),
+    ("bidirectional", "sheet_600")])
+def test_lmem_vlp_film_is_the_reference_film(variant, scene):
+    """Both passes of a VLP render in plain PyTorch under REFERENCE_LMEM
+    give the film of REFERENCE, bit for bit: shadow_carry_t, the one quirk
+    between them, is read only by the super family's direct light
+    (models/super.py::illum_direct), never by the light pass, illum_vlp or
+    any_hit.  On the demo scene and on a mesh past 512 triangles."""
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        demo_scene)
+    scn = prep_scene(demo_scene()[0] if scene == "demo"
+                     else sheet_scene(15, 20))
+    kw = dict(row_offset=CONTENT_ROW, rows=4, device="cpu")
+
+    def film(quirks):
+        if variant == "bidirectional":
+            return TB.film_bidirectional((9, 0), scn, 64, CONTENT_ROW + 4, 2,
+                                         0, 2, 32, quirks, **kw)
+        return TM.film_metropolis((9, 0), scn, 64, CONTENT_ROW + 4, 2, 0, 2,
+                                  16, 2, quirks, **kw)
+
+    a = film(REFERENCE)
+    assert a.abs().max() > 1e-3
+    assert torch.equal(a, film(REFERENCE_LMEM))
+
+
+# (scene, seed, first row), both under REFERENCE_LMEM: the content band of
+# small_scene, and a ripple sheet past 512 triangles (the walk route's
+# meshes; below 2,048 both sides trace them with the plain scan; op by op
+# the JAX side takes ~30 s at 600 triangles, ~70 s at 1,800)
+PLAIN_CASES = {
+    "content": (small_scene, 7, CONTENT_ROW),
+    "sheet_600": (lambda: sheet_scene(15, 20), 3, 200),
+}
+
+
+@pytest.mark.parametrize("name", list(PLAIN_CASES))
+def test_plain_film_matches_jax_op_by_op(name):
+    """B4's plain version against the JAX package's film_bidirectional -
+    the program render_bidirectional compiles - evaluated op by op
+    (``jax.disable_jit``), on the same Metropolis table, at ATOL_VLP, under
+    REFERENCE_LMEM (which the JAX gate sends to that composition): on the
+    content band and on a sheet past 512 triangles."""
+    make, seed, row = PLAIN_CASES[name]
+    jscn = JI.prep_scene(make())
+    vlps = mlt_table(seed).numpy()
+    key = make_key(seed)
+    w, rows, spp = 40, 8, 2
+    with jax.disable_jit():
+        want = np.asarray(film_bidirectional(
+            key, jscn, w, row + rows, spp, 0, spp, 8, J_REFERENCE_LMEM,
+            precomputed_vlps=jnp.asarray(vlps), row_offset=row, rows=rows))
+    got = M.film_vlp_mega_plain(
+        key_from_jax(key), scene_arrays_from_numpy(jscn),
+        vlps_from_numpy(vlps), w, row + rows, spp, quirks=REFERENCE_LMEM,
+        row_offset=row, rows=rows, device="cpu").numpy()
+    assert got.shape == want.shape == (rows, w, 3)
+    assert np.abs(got).max() > 1e-3
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_VLP)
