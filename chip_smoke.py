@@ -65,7 +65,7 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    triangle of each) and the bound restated over the design's own work
    (the rows it tests and its box tests; on the walk, their bytes, each
    table at most once).  The parent commit's kernels are timed against
-   these in turns by ``tools/ab_light_pass.py``, not here;
+   these in turns by ``tools/ab_trees.py --set light_pass``, not here;
 6. the VLP main paths: ``api.render`` at 512x512 with 256 spp -
    bidirectional, metropolis and metropolis_vlpgrid on ``demo_scene()``,
    bidirectional on ``dense_vlp_scene()`` - each timed over 3 runs after a
@@ -108,11 +108,14 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    rows 248-279, each with the emitted (dense) and the Metropolis (grid)
    table, the reference quirks too on the 20,736 sheet; ``force_walk``
    against the shared-memory route on the bench tables (max abs 2e-5
-   where no pixel ties); the walk at 256x256x16 on the 20,736 sheet timed
-   beside its plain version, its tally (tested pairs, its own need, node /
-   block / sub-block box tests, the clock64 split) and the bound over its
-   tested pairs and gathered terms (the kernels line's ``mega_vlp_walk``),
-   over its own need and the yardstick;
+   where no pixel ties), and the two routes timed in turns (shared, walk,
+   walk, shared) at the main paths' 512x512x256; the walk at 256x256x16
+   on the 20,736 sheet, the large-mesh VLP paths' launch, held against
+   its plain film under the contract and timed beside it, its tally
+   (tested pairs, its own need, node / block / sub-block box tests, the
+   clock64 split) and the bound over its own need and gathered terms (the
+   kernels line's ``mega_vlp_walk``), over its tested pairs and the
+   yardstick;
 9. B7 (``tri_closest``) vs its plain version on the 512x512 primary rays
    of the large-mesh scene x 20,736 triangles, and on the inputs of every
    B7 call of phase 7's tier-1 render (camera and shadow rays): hit/miss
@@ -1617,17 +1620,18 @@ def blocked_split(st: dict, n: int) -> str:
 
 def walk_bound(st: dict, R: int, nt: int, nl: int, n_live: int,
                nbytes: float) -> dict:
-    """B4's walk route's bounds from its tally over ``R`` samples: over the
-    pairs its warps test and the terms its lit samples gather (the kernels
-    line's, as for the shared-memory route), over its own need, and the
+    """B4's walk route's bounds from its tally over ``R`` samples: over its
+    own need (the pairs of the sub-blocks each ray's own test passes) and
+    the terms its lit samples gather (the kernels line's), over the pairs
+    its warps test (a lane re-tests rows a neighbour's ray needed), and the
     yardstick (every camera ray and cast against every triangle, a term for
     every sample and live VLP)."""
     gather = st["gather_pairs"] * GATHER_PAIR_OPS
-    tested = bound(st["tested"] * PAIR_OPS + gather, nbytes)
     own = bound(st["own_need"] * PAIR_OPS + gather, nbytes)
+    tested = bound(st["tested"] * PAIR_OPS + gather, nbytes)
     yard = bound((R + st["lit"] * nl) * nt * PAIR_OPS
                  + R * n_live * GATHER_PAIR_OPS, nbytes)
-    return {"bound_ms": tested[0], "bound_by": tested[1], "own_ms": own[0],
+    return {"bound_ms": own[0], "bound_by": own[1], "tested_ms": tested[0],
             "yard_ms": yard[0]}
 
 
@@ -1639,10 +1643,11 @@ def phase_vlp_walk_vs_plain(gt, card: str) -> dict:
     slow), each with the emitted table (dense) and the Metropolis table
     (grid), the default quirks, and the reference quirks on the 20,736
     sheet; ``force_walk`` against the shared-memory route on the bench
-    tables (max abs 2e-5 where no pixel ties); then the walk at the
-    large-mesh VLP paths' shape (256x256x16 on the 20,736 sheet), timed
-    beside its plain version, with its tally and its bounds.  Returns the
-    kernels line's row for the walk."""
+    tables (max abs 2e-5 where no pixel ties), and the two routes timed in
+    turns at 512x512x256 on those tables; then the walk at the large-mesh
+    VLP paths' shape (256x256x16 on the 20,736 sheet), held against its
+    plain film under the contract and timed beside it, with its tally and
+    its bounds.  Returns the kernels line's row for the walk."""
     import torch
     from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
         DEFAULT, REFERENCE)
@@ -1685,8 +1690,19 @@ def phase_vlp_walk_vs_plain(gt, card: str) -> dict:
         kw = dict(spp_total=VSPP, grid=grid, device="cuda")
         a = M.film_vlp_mega(key, scn, vlps, VW, VH, 2, force_walk=True, **kw)
         b = M.film_vlp_mega(key, scn, vlps, VW, VH, 2, **kw)
-        check_crn(f"{name}: force_walk vs shared memory", a, b, 2, failed,
-                  atol=2e-5)
+        worst = max(worst, check_crn(
+            f"{name}: force_walk vs shared memory", a, b, 2, failed,
+            atol=2e-5))
+        # the two routes at the main paths' launch, in turns
+        shared = lambda: M.film_vlp_mega(  # noqa: E731
+            key, scn, vlps, VW, VH, VSPP, grid=grid, device="cuda")
+        walk = lambda: M.film_vlp_mega(  # noqa: E731
+            key, scn, vlps, VW, VH, VSPP, grid=grid, force_walk=True,
+            device="cuda")
+        s1, w1, w2, s2 = (time_ms(f, 5) for f in (shared, walk, walk, shared))
+        print(f"  {name} {VW}x{VH}x{VSPP}: shared memory {s1:.3f} / {s2:.3f}"
+              f" ms, walk {w1:.3f} / {w2:.3f} ms (turns shared, walk, walk, "
+              f"shared), walk / shared {(w1 + w2) / (s1 + s2):.3f} ({card})")
     if failed:
         raise RuntimeError(f"B4 walk route vs plain violated: {failed}")
 
@@ -1695,10 +1711,16 @@ def phase_vlp_walk_vs_plain(gt, card: str) -> dict:
     nt, nl = int(scn.tri_v0.shape[0]), int(scn.lights.shape[0])
     vlps = V.emit_vlps(key, scn, 512, device="cuda")
     n_live = int((vlps[:, 3] > 0).sum())
+    film = M.film_vlp_mega(key, scn, vlps, BW, BH, BSPP, device="cuda")
+    want, p_ms = timed_call(lambda: M.film_vlp_mega_plain(
+        key, scn, vlps, BW, BH, BSPP, device="cuda"))
+    worst = max(worst, check_crn(
+        f"sheet {nt}, dense ({n_live} live), default quirks, {BW}x{BH}x"
+        f"{BSPP} (plain {p_ms / 1e3:.1f} s)", film, want, BSPP, failed))
+    if failed:
+        raise RuntimeError(f"B4 walk route vs plain violated: {failed}")
     k_ms = time_ms(lambda: M.film_vlp_mega(key, scn, vlps, BW, BH, BSPP,
                                            device="cuda"), 10)
-    _, p_ms = timed_call(lambda: M.film_vlp_mega_plain(
-        key, scn, vlps, BW, BH, BSPP, device="cuda"))
     st = M.vlp_stats(key, scn, vlps, BW, BH, BSPP)
     R = BW * BH * BSPP
     b = walk_bound(st, R, nt, nl, n_live,
@@ -1706,11 +1728,12 @@ def phase_vlp_walk_vs_plain(gt, card: str) -> dict:
     ws = R / 32
     print(f"  sheet {nt}, {BW}x{BH}x{BSPP} ({n_live} live VLPs): kernel "
           f"{k_ms:.3f} ms, plain PyTorch {p_ms:.1f} ms; bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']}; tested pairs and "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}; its own need and "
           "gathered terms, "
           f"{100 * b['bound_ms'] / k_ms:.1f}% of the kernel's time), over "
-          f"its own need {b['own_ms']:.4f} ms, yardstick {b['yard_ms']:.4f} "
-          f"ms ({card})")
+          f"its tested pairs {b['tested_ms']:.4f} ms "
+          f"({100 * b['tested_ms'] / k_ms:.1f}%), yardstick "
+          f"{b['yard_ms']:.4f} ms ({card})")
     print(f"    a sample: {st['tested'] / R:.1f} tested pairs, "
           f"{st['own_need'] / R:.1f} own need; lit {st['lit']}, casts "
           f"{st['casts']} ({st['casts_tri']} reach the triangles), gather "

@@ -1,0 +1,227 @@
+"""Same-call A/B of two source trees' kernels on one CUDA GPU: their films
+bit for bit, and their times.
+
+    python -m opencl_montecarlo_path_tracing_tpu_torch.tools.ab_trees \
+        --set films|light_pass --trees OLD NEW [--runs 10]
+
+Each tree is the root of a checkout (an older commit unpacked with
+``git archive`` into a git-ignored directory, and ``.``).  The trees run
+in turns OLD, NEW, NEW, OLD, each turn in a process of its own that
+imports that tree's package, builds its kernels and runs the set's
+workloads through the wrappers' arguments every version takes:
+
+``films``
+    B2/B3 (``film_super_mega``) on the 20,736- and 262,144-triangle sheets
+    (``large_mesh_scene``) at 512x512x4 under the default and the
+    reference quirks, and forced onto ``demo_scene()``; B4
+    (``film_vlp_mega``) on the VLP main paths' tables - the demo's and
+    ``dense_vlp_scene()``'s emitted tables, the demo's Metropolis table
+    dense and with its grid - at 512x512, samples 0-1 of 256, culled and
+    cull-free, under the default and the reference quirks.  Times: B2/B3
+    at 512x512x4 on each sheet, B4's render pass at 512x512x256 on each
+    table.
+``light_pass``
+    L1, L2a and L2b through ``ops/light_pass.py`` on ``demo_scene()`` and
+    on the 20,736-triangle sheet, at the main paths' 512 work items /
+    chains a light and 8 rounds.  Times: each call on CUDA events (what a
+    caller waits, the wrapper's host time included where it exceeds the
+    kernel's) and the kernel's device time a launch over the launches a
+    torch.profiler trace of ``--runs`` calls holds.  No films.
+
+Event times are the mean of ``--runs`` calls after a warm-up.  A turn
+writes its films to a ``.npz`` file and prints one JSON line of times.
+Then every turn's films are compared with the first OLD turn's, bit for
+bit, and each time's mean OLD / NEW ratio is printed; the command exits 1
+if a film differs or a turn fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+
+W = H = 512
+VSPP = 256
+N, ROUNDS = 512, 8
+KERNELS = {"L1": "light_emit_kernel", "L2a": "light_mlt_seed_kernel",
+           "L2b": "light_mlt_chain_kernel"}
+
+
+def event_ms(fn, runs: int) -> float:
+    """Mean ms a call of ``fn`` over ``runs`` calls on CUDA events, after
+    one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def device_ms(fn, runs: int, kernel: str):
+    """Device ms a launch of ``kernel`` in a torch.profiler trace of
+    ``runs`` calls of ``fn``; None when the trace holds no launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return sum(ev) / 1e3 / len(ev) if ev else None
+
+
+def films_turn(runs: int) -> tuple[dict, dict]:
+    """The ``films`` set: (films, times in ms)."""
+    import torch
+    from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
+        DEFAULT, REFERENCE)
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.models.metropolis import (
+        mlt_vlps)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_super as M
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_vlp as M4
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as V
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
+        prep_scene)
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        demo_scene, dense_vlp_scene, large_mesh_scene)
+    key = make_key(0)
+    films, times = {}, {}
+    quirk_sets = (("default", DEFAULT), ("reference", REFERENCE))
+    for nm in ((144, 72), (512, 256)):
+        scn = prep_scene(large_mesh_scene(*nm))
+        nt = int(scn.tri_v0.shape[0])
+        for qn, q in quirk_sets:
+            films[f"B2/B3 sheet {nt} {qn}"] = M.film_super_mega(
+                key, scn, W, H, 4, quirks=q, device="cuda")
+        times[f"B2/B3 sheet {nt} {W}x{H}x4"] = event_ms(
+            lambda: M.film_super_mega(key, scn, W, H, 4, device="cuda"), runs)
+    demo = prep_scene(demo_scene()[0])
+    films["B2/B3 forced demo"] = M.film_super_mega(
+        key, demo, W, H, 4, device="cuda", force_blocked=True)
+    dense = prep_scene(dense_vlp_scene())
+    mlt = mlt_vlps(key, demo, 512, 8, device="cuda")
+    grid = V.build_vlp_grid(mlt, V.vlp_grid_static_res(int(mlt.shape[0])))
+    for name, scn, vlps, g in (
+            ("demo emitted", demo, V.emit_vlps(key, demo, 512, device="cuda"),
+             None),
+            ("dense emitted", dense,
+             V.emit_vlps(key, dense, 512, device="cuda"), None),
+            ("demo Metropolis", demo, mlt, None),
+            ("demo Metropolis, grid", demo, mlt, grid)):
+        films[f"B4 {name} table"] = vlps
+        for qn, q in quirk_sets:
+            for cull in (True, False):
+                films[f"B4 {name} {qn} cull={cull}"] = M4.film_vlp_mega(
+                    key, scn, vlps, W, H, 2, spp_total=VSPP, grid=g,
+                    quirks=q, cull=cull, device="cuda")
+        times[f"B4 {name} {W}x{H}x{VSPP}"] = event_ms(
+            lambda: M4.film_vlp_mega(key, scn, vlps, W, H, VSPP, grid=g,
+                                     device="cuda"), runs)
+    torch.cuda.synchronize()
+    return {k: v.cpu().numpy() for k, v in films.items()}, times
+
+
+def light_pass_turn(runs: int) -> tuple[dict, dict]:
+    """The ``light_pass`` set: (no films, times in ms)."""
+    from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import DEFAULT
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import light_pass as L
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
+        prep_scene)
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        demo_scene, large_mesh_scene)
+    key, times = make_key(0), {}
+    for name, scene in (("demo", demo_scene()[0]),
+                        ("sheet", large_mesh_scene())):
+        scn = prep_scene(scene)
+        seed = L.mlt_seed(key, scn, N, DEFAULT)
+        for k, fn in (
+                ("L1", lambda: L.emit(key, scn, N, DEFAULT)),
+                ("L2a", lambda: L.mlt_seed(key, scn, N, DEFAULT)),
+                ("L2b", lambda: L.mlt_mutate_emit(key, scn, N, ROUNDS,
+                                                  DEFAULT, 1e-3, seed))):
+            times[f"{name} {k} events"] = event_ms(fn, runs)
+            times[f"{name} {k} device"] = device_ms(fn, runs, KERNELS[k])
+    return {}, times
+
+
+SETS = {"films": films_turn, "light_pass": light_pass_turn}
+
+
+def run_turn(name: str, tree: str, out: str, runs: int) -> dict:
+    """One turn of set ``name`` with ``tree``'s package: writes its films
+    to ``out`` and returns its times."""
+    sys.path.insert(0, tree)
+    import opencl_montecarlo_path_tracing_tpu_torch as pkg
+    if not os.path.abspath(pkg.__file__).startswith(tree + os.sep):
+        raise RuntimeError(f"imported {pkg.__file__}, not {tree}'s package")
+    films, times = SETS[name](runs)
+    np.savez(out, **films)
+    return times
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--set", choices=sorted(SETS), required=True)
+    ap.add_argument("--trees", nargs=2, metavar=("OLD", "NEW"))
+    ap.add_argument("--runs", type=int, default=10)
+    ap.add_argument("--one", nargs=2, metavar=("TREE", "OUT"),
+                    help=argparse.SUPPRESS)   # a turn, in its own process
+    args = ap.parse_args(argv)
+    if args.one:
+        tree, out = args.one
+        print(json.dumps(run_turn(args.set, os.path.abspath(tree), out,
+                                  args.runs)))
+        return 0
+    if not args.trees:
+        ap.error("--trees OLD NEW is required")
+    old, new = (os.path.abspath(t) for t in args.trees)
+    turns = [("OLD", old), ("NEW", new), ("NEW", new), ("OLD", old)]
+    times = {"OLD": [], "NEW": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for i, (tag, tree) in enumerate(turns):
+            out = os.path.join(tmp, f"turn{i}.npz")
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--set", args.set,
+                 "--runs", str(args.runs), "--one", tree, out], cwd=tree,
+                capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                print(proc.stdout + proc.stderr, file=sys.stderr)
+                return 1
+            t = json.loads(proc.stdout.strip().splitlines()[-1])
+            print(f"turn {i} {tag}: " + json.dumps(t), flush=True)
+            times[tag].append(t)
+            files.append(out)
+        first = np.load(files[0])
+        differ = sorted({k for f in files[1:] for k in first.files
+                         if not np.array_equal(first[k], np.load(f)[k])})
+        print(f"films: {len(first.files)} a turn; differing from the first "
+              f"OLD turn's: {differ or 'none'}")
+    for k in times["OLD"][0]:
+        if any(t[k] is None for t in times["OLD"] + times["NEW"]):
+            print(f"{k}: not measured (the profiler recorded no launch)")
+            continue
+        o = np.mean([t[k] for t in times["OLD"]])
+        n = np.mean([t[k] for t in times["NEW"]])
+        print(f"{k}: OLD {o:.4f} ms, NEW {n:.4f} ms, OLD / NEW {o / n:.3f}")
+    return 1 if differ else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

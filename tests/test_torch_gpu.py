@@ -722,7 +722,9 @@ def test_render_routes_launch_their_kernels(cuda_device):
     """super on a 1800-triangle sheet launches B2/B3; trianglegrid's auto
     accel launches it too and its DDA launches nothing and renders the
     same film under the contract; bidirectional on a 2048-triangle sheet
-    (outside B4's gate) runs the tier-1 route with B7 and B6."""
+    launches B4 once (its walk over the block tables) and neither B7 nor
+    B6; a 9-light copy of that sheet (outside B4's gate) runs the tier-1
+    route with B7 and B6 and no B4."""
     import opencl_montecarlo_path_tracing_tpu_torch as pt
     from opencl_montecarlo_path_tracing_tpu_torch.ops import gather_vlp as G
     sheet = sheet_scene(30, 30)
@@ -749,6 +751,19 @@ def test_render_routes_launch_their_kernels(cuda_device):
     torch.cuda.synchronize()
     # 2,048 triangles: B4 walks the block tables; no B7, no B6
     assert counts() == c0[:3] + (c0[3] + 1, c0[4])
+    assert film.shape == (64, 64, 3) and torch.isfinite(film).all()
+    nine = sheet_scene(32, 32)
+    nine = Scene(sphere_centers=nine.sphere_centers, square_kj=nine.square_kj,
+                 triangles=nine.triangles,
+                 lights=np.tile(nine.lights, (5, 1))[:9])
+    c0 = counts()
+    film = pt.render("bidirectional", nine, 64, 64, spp=1, seed=2, n_vlp=64,
+                     device=cuda_device)
+    torch.cuda.synchronize()
+    # 9 lights: the tier-1 route, its traces on B7 (>= 2,048 triangles)
+    c1 = counts()
+    assert c1[:2] == c0[:2] and c1[3] == c0[3]
+    assert c1[2] > c0[2] and c1[4] > c0[4]
     assert film.shape == (64, 64, 3) and torch.isfinite(film).all()
 
 
