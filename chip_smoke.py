@@ -157,7 +157,14 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    512x512 on the demo scene and the 5k and 20,736-triangle sheets - the
    cell-list walk, the Morton take-list twin, the shadow arm of each, the
    dense scan and the per-lane DDA - every kernel call then held against
-   its plain version (bit-equal maps), and cell == Morton == dense;
+   its plain version (bit-equal maps), and cell == Morton == dense; on the
+   20k sheet's cell lists (the closest call and each light's occlusion
+   call) the counting launches' tally (``ops/diag_dda.py::STAT_NAMES``:
+   the rows a tile lists - minimum, mean, maximum - pairs tested and
+   needed, rows staged and stages, the clock64 split of list loads and
+   copy issue, copy waits, barriers and row tests), the device time a
+   call with the tiles ranked and in index order, and the kernels'
+   resident blocks an SM;
 17. CLI: ``super``, ``bidirectional`` and ``metropolis_vlpgrid`` at 256x256
    with 4 spp on a scene written to text files, ``trianglegrid`` on the
    large-mesh scene's files, ``nodof`` on the demo files and ``simple`` /
@@ -2532,25 +2539,46 @@ def listed_pairs(arm) -> tuple[int, int]:
     return (int(rows.sum()) * 2048, int(arm.table.count.long()[used].sum()))
 
 
-def occ_pairs_needed(arm) -> int:
-    """(ray, triangle) pairs an occlusion call needs: each ray's rows in
-    walk order up to its first occluder, or all of them."""
-    import torch
+def dda_split(st: dict) -> str:
+    """A B8-dda tally's clock64 cycles as shares of the kernel's."""
+    k = max(1, st["kernel_cycles"])
+    return ", ".join(f"{n} {100 * st[f'{n}_cycles'] / k:.1f}%"
+                     for n in ("issue", "wait", "barrier", "test"))
+
+
+def dda_tally(r: dict, card: str) -> None:
+    """B8-dda's counting launches on one scene's cell-list calls (the
+    closest call and each light's occlusion call): the rows a tile lists
+    (minimum, mean, maximum), pairs tested and needed, rows staged, stages
+    and the clock64 split, the timed call's device ms (a call is one
+    launch) in a torch.profiler trace of 10 calls, with the tiles ranked
+    as the tool ranks them and in index order; and the timed kernels'
+    resident blocks an SM."""
     from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_dda as K
-    o, d, tl = arm.rays
-    h, w = tl.shape
-    ot, dt, tlt = K._rays_in_tiles(o, d, tl, w, h)
-    first = torch.zeros(tlt.shape, dtype=torch.int64, device=tl.device)
-    for c, (ok, dd, tn_s, _) in enumerate(K._chunks(arm.lists, arm.table,
-                                                   ot, dt)):
-        hit = ok & (tn_s < tlt[..., None] * dd)
-        pos = hit.to(torch.int8).argmax(-1) + c * K._CHUNK + 1
-        first = torch.where((first == 0) & hit.any(-1), pos, first)
-    llen, ids = arm.lists.llen.long(), arm.lists.ids.long()
-    k = torch.arange(ids.shape[1], device=ids.device)[None]
-    rows = torch.where(k < llen[:, None], arm.table.count.long()[ids],
-                       0).sum(-1)                       # a tile's rows
-    return int(torch.where(first > 0, first, rows[:, None]).sum())
+    occ = K.occupancy()
+    print("  resident blocks an SM (threads a block): " + ", ".join(
+        f"{n} {v['blocks_per_sm']} ({v['threads']})" for n, v in occ.items()))
+    arms = [("closest", r["closest"]["cell"], None)] + [
+        (f"shadow L{li}", a, a.rays)
+        for li, a in enumerate(r["shadow"]["cell"])]
+    for name, arm, rays in arms:
+        rows = K.tile_rows(arm.lists, arm.table)
+        st = (K.closest_stats(arm.lists, arm.table, DIAG_SIZE, DIAG_SIZE)
+              if rays is None else K.occluded_stats(arm.lists, arm.table,
+                                                    *rays))
+        devs = []
+        for ls in (arm.lists, arm.lists._replace(order=None)):
+            dev, n = device_ms(
+                (lambda ls=ls: K.closest(ls, arm.table, DIAG_SIZE, DIAG_SIZE))
+                if rays is None else
+                (lambda ls=ls: K.occluded(ls, arm.table, *rays)), 10, "dda_")
+            devs.append("not measured" if dev is None else f"{dev:.4f} ms")
+        print(f"  {r['tag']} cell {name}: rows a tile min {int(rows.min())} "
+              f"mean {float(rows.float().mean()):.1f} max {int(rows.max())}; "
+              f"pairs tested {st['tested']} needed {st['needed']}, rows "
+              f"staged {st['rows_staged']} in {st['stages']} stages; cycles "
+              f"{dda_split(st)}; device a call {devs[0]} ranked, {devs[1]} in "
+              f"index order ({n} launches traced) ({card})")
 
 
 def phase_diag_dda(card: str) -> tuple[dict, dict]:
@@ -2633,7 +2661,7 @@ def phase_diag_dda(card: str) -> tuple[dict, dict]:
     pairs, rows = listed_pairs(c_arm)
     bc_ms, bc_by = bound(pairs * PAIR_OPS + npix * CAMERA_OPS,
                          rows * 64 + c_arm.lists.ids.numel() * 4 + npix * 8)
-    o_pairs = occ_pairs_needed(o_arm)
+    o_pairs = K.needed_pairs(o_arm.lists, o_arm.table, *o_arm.rays)
     _, o_rows = listed_pairs(o_arm)
     bo_ms, bo_by = bound(o_pairs * PAIR_OPS,
                          o_rows * 64 + o_arm.lists.ids.numel() * 4 + npix * 32)
@@ -2642,6 +2670,7 @@ def phase_diag_dda(card: str) -> tuple[dict, dict]:
           f"pairs); cell shadow L0: kernel {o_arm.ms:.3f} ms, plain PyTorch "
           f"{po_ms:.1f} ms, bound {bo_ms:.4f} ms ({bo_by}; {o_pairs} needed "
           f"pairs) ({card})")
+    dda_tally(r, card)
     closest = {"launches": counts["diag_dda_closest"], "max_abs": worst_c,
                "ms": c_arm.ms, "plain_ms": pc_ms, "bound_ms": bc_ms,
                "bound_by": bc_by}

@@ -23,11 +23,17 @@ On a CUDA tensor they launch the hand-written kernels of
 PyTorch, on any device; the wrappers take them only when the tensors lie
 on the CPU.  Both sides round every multiply and add on its own (the
 kernels build with --fmad=false), so the kernel's maps equal the plain
-ones bit for bit.
+ones bit for bit.  Each call is one launch.  Its blocks take the tiles
+in the order ``Lists.order`` gives, which :func:`ranked` sets once per set
+of lists to the tiles by descending listed rows, so that the longest
+tiles start first; without it they take them in index order.  The order
+moves only the time, never a map.  ``closest_stats`` / ``occluded_stats``
+launch the counting instantiation (:data:`STAT_NAMES`).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -54,9 +60,11 @@ class Table(NamedTuple):
 
 
 class Lists(NamedTuple):
-    """Each tile's list of box ids, on one device."""
+    """Each tile's list of box ids, on one device, and the order in which
+    the kernels take the tiles (None: index order; see :func:`ranked`)."""
     llen: torch.Tensor    # (n_tiles,) int32
     ids: torch.Tensor     # (n_tiles, lmax) int32
+    order: torch.Tensor | None = None   # (n_tiles,) int32 permutation
 
 
 def table_on(boxes, device) -> Table:
@@ -69,6 +77,15 @@ def lists_on(lists, device) -> Lists:
     """A host ``tools.diag_host.TileLists`` as :class:`Lists`."""
     return Lists(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                    for a in (lists.llen, lists.ids)))
+
+
+def ranked(lists: Lists, table: Table) -> Lists:
+    """``lists`` with ``order`` the tiles by descending listed rows, ties
+    by index (plain PyTorch, on the lists' device; made once per set of
+    lists, as the lists themselves are)."""
+    order = torch.sort(tile_rows(lists, table), descending=True,
+                       stable=True).indices
+    return lists._replace(order=order.to(torch.int32).contiguous())
 
 
 def tile_pixels(width: int, height: int, device):
@@ -93,12 +110,18 @@ def pinhole_rays(width: int, height: int, device):
                         py.to(torch.float32), half, half, half, half)
 
 
-def camera_on(device) -> torch.Tensor:
-    """The 12-float camera the kernel takes: up, right, eye_offset, pos."""
-    cam = make_camera(z_sign=-1.0)
-    return torch.from_numpy(np.concatenate(
-        [cam.up, cam.right, cam.eye_offset, cam.pos]).astype(
-            np.float32)).to(device)
+_CAM = None   # the closest kernel's camera, 12 host floats
+
+
+def _camera():
+    """The 12-float camera the closest kernel takes by value (up, right,
+    eye_offset, pos), as a ctypes array."""
+    global _CAM
+    if _CAM is None:
+        cam = make_camera(z_sign=-1.0)
+        v = np.concatenate([cam.up, cam.right, cam.eye_offset, cam.pos])
+        _CAM = (ctypes.c_float * 12)(*v.astype(np.float32).tolist())
+    return _CAM
 
 
 def _check(width: int, height: int, lists: Lists, table: Table, dev):
@@ -109,6 +132,8 @@ def _check(width: int, height: int, lists: Lists, table: Table, dev):
     if tuple(lists.llen.shape) != (n_tiles,) or lists.ids.dim() != 2 \
             or lists.ids.shape[0] != n_tiles:
         raise ValueError(f"lists do not cover {n_tiles} tiles")
+    if lists.order is not None and tuple(lists.order.shape) != (n_tiles,):
+        raise ValueError(f"the order must hold {n_tiles} tiles")
     if table.rows.dim() != 2 or table.rows.shape[1] != 16:
         raise ValueError("the row table must be (n_rows, 16)")
     if table.start.shape != table.count.shape:
@@ -117,7 +142,10 @@ def _check(width: int, height: int, lists: Lists, table: Table, dev):
                         ("ids", lists.ids, torch.int32),
                         ("rows", table.rows, torch.float32),
                         ("start", table.start, torch.int32),
-                        ("count", table.count, torch.int32)):
+                        ("count", table.count, torch.int32),
+                        ("order", lists.order, torch.int32)):
+        if a is None:
+            continue
         if a.dtype != dt or a.device != dev or not a.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dt} tensor on "
                              f"{dev}")
@@ -220,6 +248,20 @@ def occluded_plain(lists: Lists, table: Table, o, d, tl):
     return _to_map(occ.to(torch.int32), px, py, width, height)
 
 
+def needed_pairs(lists: Lists, table: Table, o, d, tl) -> int:
+    """(ray, row) pairs an occlusion call needs: each ray's rows in walk
+    order up to its first occluder, or all of them (plain PyTorch)."""
+    height, width = tl.shape
+    ot, dt, tlt = _rays_in_tiles(o, d, tl, width, height)
+    first = torch.zeros(tlt.shape, dtype=torch.int64, device=tl.device)
+    for c, (ok, dd, tn_s, _) in enumerate(_chunks(lists, table, ot, dt)):
+        hit = ok & (tn_s < tlt[..., None] * dd)
+        pos = hit.to(torch.int8).argmax(-1) + c * _CHUNK + 1
+        first = torch.where((first == 0) & hit.any(-1), pos, first)
+    rows = tile_rows(lists, table)[:, None]
+    return int(torch.where(first > 0, first, rows).sum())
+
+
 def _launch(name: str, *args):
     from ..utils.build import load
     lib = load()
@@ -230,49 +272,126 @@ def _launch(name: str, *args):
                            f"({msg})")
 
 
+def _device(table: Table):
+    dev = table.rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if table.rows.data_ptr() % 16:
+        raise ValueError("the row table must be 16-byte aligned (the "
+                         "kernels copy it 16 bytes at a time)")
+    return dev
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _order_ptr(lists: Lists):
+    return None if lists.order is None else lists.order.data_ptr()
+
+
+def _closest_launch(lists: Lists, table: Table, width: int, height: int,
+                    stats):
+    dev = _device(table)
+    _check(width, height, lists, table, dev)
+    t = torch.empty((height, width), dtype=torch.float32, device=dev)
+    m = torch.empty((height, width), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("closest", lists.llen.data_ptr(), lists.ids.data_ptr(),
+                int(lists.ids.shape[1]), table.start.data_ptr(),
+                table.count.data_ptr(), table.rows.data_ptr(),
+                ctypes.addressof(_camera()), width // TILE_W,
+                height // TILE_H, t.data_ptr(), m.data_ptr(),
+                _order_ptr(lists),
+                None if stats is None else stats.data_ptr(), _stream(dev))
+    return t, m
+
+
+def _occ_launch(lists: Lists, table: Table, o, d, tl, stats):
+    dev = _device(table)
+    height, width = tl.shape
+    _check(width, height, lists, table, dev)
+    _check_rays(o, d, tl, width, height, dev)
+    occ = torch.empty((height, width), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("occ", lists.llen.data_ptr(), lists.ids.data_ptr(),
+                int(lists.ids.shape[1]), table.start.data_ptr(),
+                table.count.data_ptr(), table.rows.data_ptr(), o.data_ptr(),
+                d.data_ptr(), tl.data_ptr(), width // TILE_W,
+                height // TILE_H, occ.data_ptr(),
+                _order_ptr(lists),
+                None if stats is None else stats.data_ptr(), _stream(dev))
+    return occ
+
+
 def closest(lists: Lists, table: Table, width: int, height: int):
     """(t, m) (height, width) maps; a CUDA table launches the kernel (or
     raises), a CPU one takes :func:`closest_plain`."""
     global CLOSEST_LAUNCHES
-    dev = table.rows.device
-    if dev.type == "cpu":
+    if table.rows.device.type == "cpu":
         return closest_plain(lists, table, width, height)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    _check(width, height, lists, table, dev)
-    t = torch.empty((height, width), dtype=torch.float32, device=dev)
-    m = torch.empty((height, width), dtype=torch.int32, device=dev)
-    cam = camera_on(dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("closest", lists.llen.data_ptr(), lists.ids.data_ptr(),
-                int(lists.ids.shape[1]), table.start.data_ptr(),
-                table.count.data_ptr(), table.rows.data_ptr(),
-                cam.data_ptr(), width // TILE_W, height // TILE_H,
-                t.data_ptr(), m.data_ptr(), stream)
+    out = _closest_launch(lists, table, width, height, None)
     CLOSEST_LAUNCHES += 1
-    return t, m
+    return out
 
 
 def occluded(lists: Lists, table: Table, o, d, tl):
     """(height, width) int32 0/1 occlusion map; a CUDA table launches the
     kernel (or raises), a CPU one takes :func:`occluded_plain`."""
     global OCC_LAUNCHES
-    dev = table.rows.device
-    if dev.type == "cpu":
+    if table.rows.device.type == "cpu":
         return occluded_plain(lists, table, o, d, tl)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    height, width = tl.shape
-    _check(width, height, lists, table, dev)
-    _check_rays(o, d, tl, width, height, dev)
-    occ = torch.empty((height, width), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("occ", lists.llen.data_ptr(), lists.ids.data_ptr(),
-                int(lists.ids.shape[1]), table.start.data_ptr(),
-                table.count.data_ptr(), table.rows.data_ptr(), o.data_ptr(),
-                d.data_ptr(), tl.data_ptr(), width // TILE_W,
-                height // TILE_H, occ.data_ptr(), stream)
+    out = _occ_launch(lists, table, o, d, tl, None)
     OCC_LAUNCHES += 1
-    return occ
+    return out
+
+
+#: The counting launches' tally (csrc/diag_dda.cu, Tally): (ray, row)
+#: pairs the warps test (their lanes' rays x the rows a warp runs) and the
+#: pairs the rays need (closest: every listed pair; occlusion: each ray's
+#: rows up to its first occluder), rows copied into shared memory and
+#: stages (summed over blocks), and clock64 cycles summed over warps
+#: loading list chunks and issuing copies, waiting for copies, in
+#: barriers, testing rows, and in the whole kernel.
+STAT_NAMES = ("tested", "needed", "rows_staged", "stages", "issue_cycles",
+              "wait_cycles", "barrier_cycles", "test_cycles",
+              "kernel_cycles")
+
+
+def _stats(launch, dev) -> dict:
+    stats = torch.zeros(len(STAT_NAMES), dtype=torch.int64, device=dev)
+    launch(stats)
+    return dict(zip(STAT_NAMES, stats.tolist()))
+
+
+def closest_stats(lists: Lists, table: Table, width: int, height: int):
+    """The work of one :func:`closest` call: a launch of the counting
+    instantiation on the card (not counted in ``CLOSEST_LAUNCHES``; the
+    maps are discarded), its tally by :data:`STAT_NAMES`."""
+    return _stats(lambda s: _closest_launch(lists, table, width, height, s),
+                  _device(table))
+
+
+def occluded_stats(lists: Lists, table: Table, o, d, tl):
+    """The work of one :func:`occluded` call, as :func:`closest_stats`."""
+    return _stats(lambda s: _occ_launch(lists, table, o, d, tl, s),
+                  _device(table))
+
+
+def occupancy() -> dict:
+    """Resident blocks an SM and threads a block of the two timed kernels
+    on the current card (the occupancy calculator's)."""
+    from ..utils.build import load
+    lib, out = load(), {}
+    for which, name in enumerate(("closest", "occ")):
+        threads = ctypes.c_int(0)
+        blocks = lib.diag_dda_occupancy(which, ctypes.byref(threads))
+        out[name] = {"blocks_per_sm": blocks, "threads": threads.value}
+    return out
+
+
+def tile_rows(lists: Lists, table: Table) -> torch.Tensor:
+    """(n_tiles,) int64: the rows each tile's list names."""
+    k = torch.arange(lists.ids.shape[1], device=lists.ids.device)[None, :]
+    n = table.count.to(torch.int64)[lists.ids.to(torch.int64)]
+    return torch.where(k < lists.llen[:, None].to(torch.int64), n, 0).sum(1)

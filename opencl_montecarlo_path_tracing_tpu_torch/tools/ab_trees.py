@@ -2,7 +2,7 @@
 bit for bit, and their times.
 
     python -m opencl_montecarlo_path_tracing_tpu_torch.tools.ab_trees \
-        --set films|light_pass --trees OLD NEW [--runs 10]
+        --set films|light_pass|dda --trees OLD NEW [--runs 10]
 
 Each tree is the root of a checkout (an older commit unpacked with
 ``git archive`` into a git-ignored directory, and ``.``).  The trees run
@@ -27,6 +27,16 @@ workloads through the wrappers' arguments every version takes:
     caller waits, the wrapper's host time included where it exceeds the
     kernel's) and the kernel's device time a launch over the launches a
     torch.profiler trace of ``--runs`` calls holds.  No films.
+``dda``
+    B8-dda-closest and B8-dda-occ through ``ops/diag_dda.py`` on the grid
+    diagnostic's scenes (``tools/diag_dda.py``: the demo scene and the 5k
+    and 20k sheets) at 512x512, with every structure the tool runs there:
+    the closest call over cell, Morton and (up to 25,000 triangles) dense
+    lists, and each light's occlusion call over cell and Morton shadow
+    lists from the Morton call's hit points, each set of lists ranked once
+    (``ranked``) where the tree has it.  Films: every t, m and occlusion
+    map.  Times: each call on CUDA events, and the device time a call of
+    every kernel the calls launch.
 
 Event times are the mean of ``--runs`` calls after a warm-up.  A turn
 writes its films to a ``.npz`` file and prints one JSON line of times.
@@ -69,9 +79,11 @@ def event_ms(fn, runs: int) -> float:
     return start.elapsed_time(end) / runs
 
 
-def device_ms(fn, runs: int, kernel: str):
+def device_ms(fn, runs: int, kernel: str | None):
     """Device ms a launch of ``kernel`` in a torch.profiler trace of
-    ``runs`` calls of ``fn``; None when the trace holds no launch."""
+    ``runs`` calls of ``fn``, or with ``kernel`` None the device ms a call
+    of every kernel the calls launch; None when the trace holds no
+    launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -80,8 +92,11 @@ def device_ms(fn, runs: int, kernel: str):
             fn()
         torch.cuda.synchronize()
     ev = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    return sum(ev) / 1e3 / len(ev) if ev else None
+          if e.device_type == DeviceType.CUDA
+          and (kernel is None or kernel in e.name)]
+    if not ev:
+        return None
+    return sum(ev) / 1e3 / (runs if kernel is None else len(ev))
 
 
 def films_turn(runs: int) -> tuple[dict, dict]:
@@ -160,7 +175,56 @@ def light_pass_turn(runs: int) -> tuple[dict, dict]:
     return {}, times
 
 
-SETS = {"films": films_turn, "light_pass": light_pass_turn}
+def dda_turn(runs: int) -> tuple[dict, dict]:
+    """The ``dda`` set: (maps, times in ms)."""
+    import torch
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_dda as K
+    from opencl_montecarlo_path_tracing_tpu_torch.tools import diag_dda as TD
+    from opencl_montecarlo_path_tracing_tpu_torch.tools import (
+        diag_host as DH)
+    films, times = {}, {}
+
+    def timed(name, fn):
+        times[f"{name} events"] = event_ms(fn, runs)
+        times[f"{name} device"] = device_ms(fn, runs, None)
+
+    def on_card(lists, table):
+        ls = K.lists_on(lists, "cuda")
+        return K.ranked(ls, table) if hasattr(K, "ranked") else ls
+
+    o, d = DH.primary_rays(W)
+    for tag in ("demo", "5k", "20k"):
+        scn = TD.scene_arrays(tag)
+        boxes = {"cell": DH.cell_boxes(scn)[2], "morton": DH.morton_boxes(scn)}
+        if int(scn.tri_v0.shape[0]) <= TD.DENSE_MAX:
+            boxes["dense"] = DH.dense_boxes(scn)
+        for name, bx in boxes.items():
+            lists = (DH.dense_lists(len(bx.start), W, H) if name == "dense"
+                     else DH.tile_lists(o, d, bx, W, H, device="cuda"))
+            tb = K.table_on(bx, "cuda")
+            ls = on_card(lists, tb)
+            fn = lambda: K.closest(ls, tb, W, H)
+            films[f"{tag} {name} t"], films[f"{tag} {name} m"] = fn()
+            timed(f"{tag} {name} closest", fn)
+        x = DH.hit_points(*(films[f"{tag} morton {k}"].cpu().numpy()
+                            for k in "tm"), o, d)
+        for li, light in enumerate(np.asarray(scn.lights, np.float64)):
+            sd, dist = DH.shadow_rays(x, light)
+            rays = [torch.from_numpy(a).cuda()
+                    for a in DH.shadow_inputs(x, sd, dist, W, H)]
+            for name in ("cell", "morton"):
+                tb = K.table_on(boxes[name], "cuda")
+                ls = on_card(DH.tile_lists(
+                    x, sd, boxes[name], W, H, tmax_cap=dist, sort_near=False,
+                    device="cuda"), tb)
+                fn = lambda: K.occluded(ls, tb, *rays)
+                films[f"{tag} {name} occ L{li}"] = fn()
+                timed(f"{tag} {name} occ L{li}", fn)
+    torch.cuda.synchronize()
+    return {k: v.cpu().numpy() for k, v in films.items()}, times
+
+
+SETS = {"films": films_turn, "light_pass": light_pass_turn, "dda": dda_turn}
 
 
 def run_turn(name: str, tree: str, out: str, runs: int) -> dict:

@@ -96,7 +96,8 @@ def _host(fn):
 
 
 def _closest(lists, boxes, size, device, tag):
-    ls, tb = K.lists_on(lists, device), K.table_on(boxes, device)
+    tb = K.table_on(boxes, device)
+    ls = K.ranked(K.lists_on(lists, device), tb)
     out, ms = _bench(lambda: K.closest(ls, tb, size, size), device, size,
                      tag)
     return Arm(ls, tb, None, out, ms)
@@ -112,7 +113,7 @@ def _shadow(name, boxes, x, lights, size, device):
             x, sd, boxes, size, size, tmax_cap=dist, sort_near=False,
             device=device))
         host_s += s
-        ls = K.lists_on(lists, device)
+        ls = K.ranked(K.lists_on(lists, device), tb)
         rays = tuple(torch.from_numpy(a).to(device)
                      for a in H.shadow_inputs(x, sd, dist, size, size))
         out, ms = _bench(lambda: K.occluded(ls, tb, *rays), device, size,

@@ -58,9 +58,10 @@ _SIGNATURES = {
                                 _I, _I, _I, _P, _P]),
     "mega_simple_error_string": (ctypes.c_char_p, [_I]),
     "diag_dda_closest_launch": (_I, [_P, _P, _I, _P, _P, _P, _P, _I, _I, _P,
-                                     _P, _P]),
+                                     _P, _P, _P, _P]),
     "diag_dda_occ_launch": (_I, [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                                 _P, _P]),
+                                 _P, _P, _P, _P]),
+    "diag_dda_occupancy": (_I, [_I, _P]),
     "diag_dda_error_string": (ctypes.c_char_p, [_I]),
     "diag_takelist_launch": (_I, [_I, _P, _P, _I, _I, _P, _P, _P]),
     "diag_takelist_error_string": (ctypes.c_char_p, [_I]),

@@ -910,6 +910,155 @@ def test_diag_dda_kernels_match_plain_on_gpu(structure, cuda_device):
         before[0] + 1, before[1] + len(scn.lights))
 
 
+def dda_sheet_inputs(size, device, n_major=30, n_minor=30):
+    """A sheet's cell boxes and lists at size x size, the closest maps'
+    hit points and light 0's shadow rays, lists and table (the B8-dda
+    cases below)."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_dda as K8
+    from opencl_montecarlo_path_tracing_tpu_torch.tools import (
+        diag_host as H8)
+    scn = prep_scene(sheet_scene(n_major, n_minor))
+    o, d = H8.primary_rays(size)
+    cells = H8.cell_boxes(scn)[2]
+    lists = H8.tile_lists(o, d, cells, size, size, device=device)
+    t, m = K8.closest_plain(K8.lists_on(lists, device),
+                            K8.table_on(cells, device), size, size)
+    x = H8.hit_points(t.cpu().numpy(), m.cpu().numpy(), o, d)
+    shadows = []
+    for light in np.asarray(scn.lights, np.float64):
+        sd, dist = H8.shadow_rays(x, light)
+        shadows.append((K8.lists_on(H8.tile_lists(
+            x, sd, cells, size, size, tmax_cap=dist, sort_near=False,
+            device=device), device), [torch.from_numpy(a).to(device)
+                                      for a in H8.shadow_inputs(
+                                          x, sd, dist, size, size)]))
+    return scn, cells, lists, shadows
+
+
+def dda_equal_plain(lists, table, size, shadow_rays=()):
+    """B8-dda-closest on (lists, table) and B8-dda-occ on each (lists,
+    rays) of ``shadow_rays`` over ``table``, the tiles in index order and
+    ranked (``ops/diag_dda.py::ranked``), each == its plain version bit
+    for bit; returns the closest maps."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_dda as K8
+    pt_, pm = K8.closest_plain(lists, table, size, size)
+    for ls in (lists, K8.ranked(lists, table)):
+        t, m = K8.closest(ls, table, size, size)
+        torch.cuda.synchronize()
+        assert torch.equal(t, pt_) and torch.equal(m, pm)
+    for sl, rays in shadow_rays:
+        plain = K8.occluded_plain(sl, table, *rays)
+        for ls in (sl, K8.ranked(sl, table)):
+            occ = K8.occluded(ls, table, *rays)
+            torch.cuda.synchronize()
+            assert torch.equal(occ, plain)
+    return t, m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["box past a stage", "empty lists",
+                                  "mid-stage ends", "past a list chunk"])
+def test_diag_dda_stage_edges_match_plain_on_gpu(case, cuda_device):
+    """B8-dda's staging at its edges, on the 1,800-triangle sheet at
+    128x128 (8 tiles), each map == plain bit for bit: one box of all 1,800
+    rows (14 stages and 8 rows); the cell lists with every other tile's
+    list emptied; 37-row boxes, so that every tile's rows end inside a
+    stage; 600 boxes of 3 rows, a list of 600 entries (past the 256 a block
+    holds at a time)."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_dda as K8
+    size = 128
+    _, cells, lists, shadows = dda_sheet_inputs(size, cuda_device)
+    table = K8.table_on(cells, cuda_device)
+    n_tiles = (size // 64) * (size // 32)
+    rows, nrows = table.rows, int(table.rows.shape[0])
+    if case == "empty lists":
+        lists = K8.lists_on(lists, cuda_device)
+        keep = (torch.arange(n_tiles, device=cuda_device) % 2 == 0)
+        lists = K8.Lists((lists.llen * keep).to(torch.int32), lists.ids)
+        shadows = [(K8.Lists((sl.llen * keep).to(torch.int32), sl.ids), r)
+                   for sl, r in shadows]
+    else:
+        per = {"box past a stage": nrows, "mid-stage ends": 37,
+               "past a list chunk": 3}[case]
+        start = torch.arange(0, nrows, per, dtype=torch.int32,
+                             device=cuda_device)
+        count = torch.clamp(nrows - start, max=per).to(torch.int32)
+        table = K8.Table(rows, start, count)
+        ids = torch.arange(start.shape[0], dtype=torch.int32,
+                           device=cuda_device).expand(n_tiles, -1)
+        lists = K8.Lists(torch.full((n_tiles,), start.shape[0],
+                                    dtype=torch.int32, device=cuda_device),
+                         ids.contiguous())
+        shadows = [(lists, r) for _, r in shadows]
+    t, m = dda_equal_plain(lists, table, size, shadows)
+    if case != "empty lists":
+        assert float((m == 4).float().mean()) > 0.99
+
+
+@pytest.mark.gpu
+def test_diag_dda_rays_occluded_by_their_first_row_on_gpu(cuda_device):
+    """Every ray of every tile occluded by the first row of its list (a
+    large triangle across all of them), the sheet's 1,800 rows after it:
+    B8-dda-occ leaves the walk at its warps' first vote after that row
+    (the vote is taken every second row), its map (all 1) == plain."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_dda as K8
+    size = 128
+    _, cells, _, _ = dda_sheet_inputs(size, cuda_device)
+    n = size * size
+    g = np.random.default_rng(3)
+    o = np.zeros((size, size, 3), np.float32)
+    o[..., :2] = g.uniform(-1, 1, (size, size, 2))
+    dv = np.zeros((size, size, 3), np.float32)
+    dv[..., 2] = 1.0
+    tl = np.full((size, size), 10.0, np.float32)
+    # the first row: v0 (-100, -100, 1), e0 (400, 0, 0), e2 (0, 400, 0),
+    # the normal +z, index 0
+    big = np.zeros((1, 16), np.float32)
+    big[0, :12] = [-100, -100, 1, 400, 0, 0, 0, 400, 0, 0, 0, 1]
+    rows = torch.from_numpy(np.concatenate([big, cells.rows])).to(
+        cuda_device)
+    table = K8.Table(rows, torch.tensor([0, 1], dtype=torch.int32,
+                                        device=cuda_device),
+                     torch.tensor([1, rows.shape[0] - 1], dtype=torch.int32,
+                                  device=cuda_device))
+    n_tiles = n // 2048
+    lists = K8.Lists(torch.full((n_tiles,), 2, dtype=torch.int32,
+                                device=cuda_device),
+                     torch.tensor([[0, 1]] * n_tiles, dtype=torch.int32,
+                                  device=cuda_device))
+    rays = [torch.from_numpy(a).to(cuda_device) for a in (o, dv, tl)]
+    occ = K8.occluded(lists, table, *rays)
+    torch.cuda.synchronize()
+    assert torch.equal(occ, K8.occluded_plain(lists, table, *rays))
+    assert int(occ.sum()) == n
+    st = K8.occluded_stats(lists, table, *rays)
+    assert st["needed"] == n                 # one row a ray
+    assert st["tested"] == 2 * n             # rows 0 and 1, then the vote
+
+
+@pytest.mark.gpu
+def test_diag_dda_20k_cell_lists_match_plain_on_gpu(cuda_device):
+    """The smoke's size: the 20,736-triangle sheet's cell lists at 512x512
+    (``tools/diag_dda.py``'s 20k scene), the closest maps and both
+    lights' occlusion maps == plain bit for bit; the counting launch's
+    tally counts every listed pair, and the occlusion call's needed pairs
+    are the plain walk's."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_dda as K8
+    size = 512
+    _, cells, lists, shadows = dda_sheet_inputs(size, cuda_device, 144, 72)
+    table = K8.table_on(cells, cuda_device)
+    lists = K8.ranked(K8.lists_on(lists, cuda_device), table)
+    t, m = dda_equal_plain(lists, table, size, shadows)
+    assert float((m == 4).float().mean()) > 0.99
+    st = K8.closest_stats(lists, table, size, size)
+    listed = int(K8.tile_rows(lists, table).sum()) * 2048
+    assert st["tested"] == st["needed"] == listed
+    sl, rays = shadows[0]
+    st = K8.occluded_stats(sl, table, *rays)
+    assert st["needed"] == K8.needed_pairs(sl, table, *rays)
+    assert st["needed"] <= st["tested"]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("arm", ["noop", "anycond", "scalarcond",
                                  "takelist"])
