@@ -147,12 +147,14 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    (16.7 M rays, reduced on the card): <= 1 uint8 step, >= 99% exact;
 14. B8-loops (``diag_loops``): the 13 arms of ``tools/diag_loops.py``
    against their plain versions at 1/100 of the JAX tool's trip counts
-   (bit-equal; both timed there, the ``kernels`` line's row), then the
-   tool's run at its own counts (ns an iteration);
+   (bit-equal; both timed there, the ``kernels`` line's row: device time,
+   events beside), then the tool's run at its own counts (ns an
+   iteration), and each arm's device time there against its restated
+   bound;
 15. B8-prim (``diag_takelist``): the four arms of
    ``tools/diag_primitives.py`` at 128 blocks x 200 repetitions (ns a
    block), each bit-equal to its plain version, the take-list's count the
-   64 flagged blocks;
+   64 flagged blocks, each arm's device time a launch;
 16. B8-dda (``diag_dda``, closest and occlusion): ``tools/diag_dda.py`` at
    512x512 on the demo scene and the 5k and 20,736-triangle sheets - the
    cell-list walk, the Morton take-list twin, the shadow arm of each, the
@@ -225,11 +227,12 @@ traces they make, from a counting launch, each over the floor, every
 square, sphere and triangle: the yardstick; phase 5b prints beside it
 the bound over the rows the warps test and their box tests); for the
 loop and primitive arms, each one dependent chain, the chain's FP32
-operations x 4 cycles over the SM clock (``bound_by``
-``"latency"``).  The last line of standard output is ``{"ok": true,
-"device": {...}}``; the line before it is the card's name and power limit,
-the line before that each kernel's launches, error, times and bound.  The
-script imports no JAX.  It exits non-zero, printing no result, without a
+operations x 4 cycles over the SM clock, plus for the loop arms the links
+of ``LOOP_LINK_CYCLES`` (``bound_by`` ``"operations"``: a chain of them;
+the FP32 chain alone is printed beside it as the yardstick).  The last
+line of standard output is ``{"ok": true, "device": {...}}``; the line
+before it is the card's name and power limit, the line before that each
+kernel's launches, error, times and bound.  The script imports no JAX.  It exits non-zero, printing no result, without a
 GPU or without the package beside it.
 """
 
@@ -315,12 +318,44 @@ DIAG_SIZE = 512
 DIAG_SCENES = ("demo", "5k", "20k")
 FP32_CHAIN_CYCLES = 4
 # FP32 operations a loop iteration's chain holds: one multiply and one add
-# a step; the broadcast an add; a reduce its tree depth (the full reduce 5
-# shuffle levels and 5 across 32 warps, the lane reduce 5 and 2 across a
-# row's 4 warps, the sub reduce 3 across 8 rows) plus a multiply and an
-# add; the copy and scalar arms one add
+# a step; the broadcast an add; a reduce its tree depth (the full reduce
+# log2(1,024) = 10, the lane reduce log2(128) = 7, the sub reduce log2(8) =
+# 3) plus a multiply and an add; the copy and scalar arms one add
 LOOP_CHAIN_OPS = {"bcast": 1, "reduce_full": 12, "reduce_lane": 9,
                   "reduce_sub": 5, "copy": 1, "scalar": 1}
+# The restated B8-loops bound adds, to that chain, each link that is not an
+# FP32 operation but that the arm's definition puts on the chain in every
+# design, at a latency a published microbenchmark study measured (Jia,
+# Maggioni, Staiger, Scarpazza 2018, "Dissecting the NVIDIA Volta GPU
+# Architecture via Microbenchmarking", on a Tesla V100; Hopper's are not
+# lower there, so the bound can only err low).  A link with no published
+# latency counts 0.
+# - reduce_full: the tile's max feeds the next update.  A design that keeps
+#   the tile in one warp issues >= 3 x 32 FP32 operations a lane an
+#   iteration (a multiply, an add and a max an element), more than the
+#   chain's 48 cycles plus any exchange below; every other design passes
+#   the warps' maxima through shared memory: one shared-memory load, 19
+#   cycles on the V100 (the study's shared-memory latency).
+# - reduce_lane: a row of 128 fits one warp, whose exchange is a shuffle;
+#   no published shuffle latency is used here, so 0.  reduce_sub: a column
+#   of 8 fits one thread, no exchange, 0.
+# - copy: each iteration copies its slice from device memory and reads it
+#   before the next copy overwrites it, so one round trip an iteration lies
+#   on the chain, at least an L2 hit (the 128 KB table stays in L2; a copy
+#   served from L1 would reuse an earlier iteration's data): 193 cycles on
+#   the V100 (the study's L2 hit latency).  The read of the slice counts 0
+#   (a design may copy into registers).
+# - bcast's conversion of i and scalar's store do not feed the chain: 0.
+# - Every rolled arm's loop branch: its compare's predicate and the branch
+#   lie on each iteration's path, but no published study gives their
+#   latency, so 0 (PERF.md, open questions).
+# B8-prim keeps its bound, the adds alone: its votes, flag reads, list
+# builds and loop branches depend on the block index and the tile, never
+# on the accumulator, so a design can overlap them with the adds.
+SHARED_LOAD_CYCLES = 19
+L2_HIT_CYCLES = 193
+LOOP_LINK_CYCLES = {"reduce_full": SHARED_LOAD_CYCLES,
+                    "copy": L2_HIT_CYCLES}
 
 
 def card_line() -> str:
@@ -797,28 +832,34 @@ def phase_super_main_path(card: str) -> dict:
             "mpaths": mpaths, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def device_ms(fn, runs: int, kernel: str):
+def device_ms(fn, runs: int, kernel: str, same_work: bool = False):
     """(mean device ms a launch of the CUDA kernels whose name holds
     ``kernel``, over the launches a torch.profiler trace (CUDA activity
     only) of ``runs`` calls of ``fn`` holds, after one warm-up call, or
     None when three traces in turn hold none; the launches traced).  A
     trace taken late in a long process may drop launches; each one it
-    holds is a whole launch's device time."""
+    holds is a whole launch's device time.  With ``same_work`` (each call
+    one launch of the same work) a trace counts only if it holds at most
+    ``runs`` launches whose times agree within 25%, and five are tried
+    (a trace has read flat16 at half its time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):   # a trace now and then holds no device activity
+    for _ in range(5 if same_work else 3):   # a trace may hold no launch
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        ev = [e for e in prof.events()
+        us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == DeviceType.CUDA and kernel in e.name]
-        if ev:
-            return (sum(e.time_range.elapsed_us() for e in ev) / 1e3
-                    / len(ev), len(ev))
+        if us and (not same_work or (len(us) <= runs
+                                     and max(us) <= 1.25 * min(us))):
+            return sum(us) / 1e3 / len(us), len(us)
+        if us:
+            print(f"  ({kernel} trace rejected: {len(us)} launches of "
+                  f"{runs}, us {[round(u, 2) for u in us]})")
     return None, 0
 
 
@@ -2409,8 +2450,8 @@ def sm_clock_hz(query: str = "clocks.max.sm") -> float:
 
 
 def latency_bound(chain_ops: float) -> tuple[float, str]:
-    """(bound_ms, "latency") of a dependent chain of FP32 operations."""
-    return chain_ops * FP32_CHAIN_CYCLES / sm_clock_hz() * 1e3, "latency"
+    """(bound_ms, "operations") of a dependent chain of FP32 operations."""
+    return chain_ops * FP32_CHAIN_CYCLES / sm_clock_hz() * 1e3, "operations"
 
 
 def max_abs(a, b) -> float:
@@ -2419,7 +2460,8 @@ def max_abs(a, b) -> float:
 
 
 def loop_chain_ops(arm: str, n1: int, n2: int) -> int:
-    """FP32 operations in the dependent chain of one B8-loops call."""
+    """FP32 operations in the dependent chain of one B8-loops call (the
+    yardstick bound's count)."""
     from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_loops as L
     steps = L.STEPS.get(arm)
     if steps:
@@ -2427,11 +2469,41 @@ def loop_chain_ops(arm: str, n1: int, n2: int) -> int:
     return LOOP_CHAIN_OPS[arm] * n1
 
 
+def loop_bound_cycles(arm: str, n1: int, n2: int) -> int:
+    """The restated bound of one B8-loops call, in SM cycles: the FP32
+    chain plus the links of LOOP_LINK_CYCLES, one an iteration."""
+    return (loop_chain_ops(arm, n1, n2) * FP32_CHAIN_CYCLES
+            + LOOP_LINK_CYCLES.get(arm, 0) * n1)
+
+
+def loop_bounds(counts: dict) -> tuple[dict, float]:
+    """({arm: restated bound ms}, yardstick bound ms summed) of the 13 arms
+    at ``counts`` ({arm: (n1, n2)}), at the SM's maximum clock."""
+    hz = sm_clock_hz()
+    per = {a: loop_bound_cycles(a, *counts[a]) / hz * 1e3 for a in counts}
+    return per, latency_bound(sum(loop_chain_ops(a, *counts[a])
+                                  for a in counts))[0]
+
+
+def device_or_events(fn, runs: int, kernel: str, events: float) -> float:
+    """Device ms a launch of ``kernel`` (device_ms over launches of the
+    same work), or ``events`` with a note when no trace holds such."""
+    dev, _ = device_ms(fn, runs, kernel, same_work=True)
+    if dev is None:
+        print(f"  (no trace of agreeing {kernel} launches: events stand in)")
+        return events
+    return dev
+
+
 def phase_diag_loops(card: str) -> dict:
     """B8-loops: each of the 13 arms against its plain version at 1/100 of
     the JAX tool's trip counts (a random start and table; bit-equal), both
-    timed there (the kernels line's row), then the tool's run at its own
-    counts (ns an iteration), counts set to 0 just before it."""
+    timed there (the kernels line's row: the kernel's device time a launch,
+    summed over the arms; events beside), the reduce arms on the reduce
+    probe (bit-equal, each output showing its group's max), then the
+    tool's run at its own counts (ns an iteration), counts set to 0 just
+    before it, and each arm's device time there against the restated
+    bound."""
     import torch
     from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_loops as L
     from opencl_montecarlo_path_tracing_tpu_torch.tools import (
@@ -2442,22 +2514,41 @@ def phase_diag_loops(card: str) -> dict:
                .cuda() for _ in range(2))
     table = torch.from_numpy(rng.rand(*L.TABLE_SHAPE).astype(np.float32)
                              ).cuda()
-    worst, failed, k_ms, p_ms, chain = 0.0, [], 0.0, 0.0, 0
+    worst, failed, k_ms, e_ms, p_ms = 0.0, [], 0.0, 0.0, 0.0
+    small = {a: (max(1, n1 // 100), n2) for a, (n1, n2) in TL.COUNTS.items()}
     for arm in L.ARMS:
-        n1, n2 = TL.COUNTS[arm]
-        n1 = max(1, n1 // 100)
-        k = L.run(arm, x, n1, n2, acc0, table)
-        k_ms += time_ms(lambda: L.run(arm, x, n1, n2, acc0, table), 5)
+        n1, n2 = small[arm]
+        fn = lambda: L.run(arm, x, n1, n2, acc0, table)
+        k = fn()
+        ev = time_ms(fn, 5)
+        e_ms += ev
+        k_ms += device_or_events(fn, 5, "loops_", ev)
         p, ms = timed_call(lambda: L.run_plain(arm, x, n1, n2, acc0, table))
         p_ms += ms
-        chain += loop_chain_ops(arm, n1, n2)
         worst = max(worst, max_abs(k, p))
         if not torch.equal(k, p):
             failed.append(arm)
-    b_ms, b_by = latency_bound(chain)
-    print(f"  13 arms at 1/100 of the tool's counts: kernel {k_ms:.4f} ms, "
-          f"plain PyTorch {p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}; "
-          f"{chain} chained FP32 operations x {FP32_CHAIN_CYCLES} cycles at "
+    # the reduce probe: every group's max distinct and shown in every
+    # output (tools/diag_loops.py::reduce_probe)
+    for arm in TL.REDUCE_AXIS:
+        for shift in TL.PROBE_SHIFTS:
+            px, pacc = (torch.from_numpy(a).cuda()
+                        for a in TL.reduce_probe(shift))
+            k = L.run(arm, px, 64, 0, pacc)
+            if not torch.equal(k, L.run_plain(arm, px, 64, 0, pacc)) or \
+                    not TL.probe_decodes(arm, k.cpu(), px.cpu(), pacc.cpu(),
+                                         64):
+                failed.append(f"{arm} probe shift {shift}")
+    verdict = ("bit-equal, every output names its group's max"
+               if not failed else f"FAILED: {failed}")
+    print(f"  reduce probe (3 arms x {len(TL.PROBE_SHIFTS)} shifts, 64 "
+          f"iterations): {verdict}")
+    per, y_ms = loop_bounds(small)
+    b_ms = sum(per.values())
+    print(f"  13 arms at 1/100 of the tool's counts: kernel {k_ms:.4f} ms "
+          f"device ({e_ms:.4f} ms events), plain PyTorch {p_ms:.1f} ms, "
+          f"bound {b_ms:.4f} ms restated (yardstick {y_ms:.4f} ms: the FP32 "
+          f"chain alone, x {FP32_CHAIN_CYCLES} cycles at "
           f"{sm_clock_hz() / 1e6:.0f} MHz); max abs {worst:.3e}, "
           f"{'bit-equal' if not failed else f'DIFFER: {failed}'} ({card})")
     if failed:
@@ -2478,14 +2569,29 @@ def phase_diag_loops(card: str) -> dict:
             bool(torch.isfinite(o).all()) for o, _, _ in res.values()):
         raise RuntimeError("B8-loops at the tool's counts: the 25,600-step "
                            "chains disagree or an output is not finite")
-    f_ms = sum(ms for _, ms, _ in res.values())
-    f_bound, _ = latency_bound(sum(loop_chain_ops(a, *TL.COUNTS[a])
-                                   for a in L.ARMS))
-    print(f"  13 arms at the tool's counts: kernel {f_ms:.3f} ms in all, "
-          f"bound {f_bound:.4f} ms (latency); the 25,600-step chains agree "
-          f"bit for bit ({card})")
+    per, y_ms = loop_bounds(TL.COUNTS)
+    zero = torch.zeros((8, 128), dtype=torch.float32, device="cuda")
+    ztable = torch.zeros(L.TABLE_SHAPE, dtype=torch.float32, device="cuda")
+    hz, dev = sm_clock_hz(), {}
+    print("  the tool's counts, device ms a launch against the restated "
+          "bound:")
+    for arm in L.ARMS:
+        n1, n2 = TL.COUNTS[arm]
+        dev[arm] = device_or_events(
+            lambda: L.run(arm, zero, n1, n2, zero, ztable), 3, "loops_",
+            res[arm][1])
+        it = TL.iterations(arm, n1, n2)
+        print(f"    {arm}: {dev[arm]:.4f} ms, {dev[arm] * 1e-3 * hz / it:.2f} "
+              f"cycles an iteration at {hz / 1e6:.0f} MHz; bound "
+              f"{per[arm]:.4f} ms, {100 * per[arm] / dev[arm]:.1f}%")
+    f_ms, f_bound = sum(dev.values()), sum(per.values())
+    print(f"  13 arms at the tool's counts: kernel {f_ms:.3f} ms device "
+          f"({sum(ms for _, ms, _ in res.values()):.3f} ms events, best of "
+          f"5), bound {f_bound:.4f} ms restated ({100 * f_bound / f_ms:.1f}%;"
+          f" yardstick {y_ms:.4f} ms); the 25,600-step chains agree bit for "
+          f"bit ({card})")
     return {"launches": counts["diag_loops"], "max_abs": worst, "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": "operations"}
 
 
 def phase_diag_primitives(card: str) -> dict:
@@ -2517,12 +2623,21 @@ def phase_diag_primitives(card: str) -> dict:
             raise RuntimeError(f"B8-prim {arm}: kernel vs plain differ (count "
                                f"{res[arm][1]}, plain {int(cnt[0])}, want "
                                f"{want})")
-    k_ms = sum(ms for _, _, ms in res.values())
-    # chained adds: every block for noop, the 64 flagged ones otherwise
+    e_ms = sum(ms for _, _, ms in res.values())
+    k_ms = 0.0
+    for arm in P.ARMS:
+        ms = device_or_events(lambda: P.run(arm, x, P.NB, P.REPS, flags), 5,
+                              "takelist_kernel", res[arm][2])
+        print(f"  {arm}: {ms:.4f} ms device a launch, {res[arm][2]:.4f} ms "
+              f"events (best of {TP.REPEATS})")
+        k_ms += ms
+    # chained adds: every block for noop, the 64 flagged ones otherwise;
+    # restated, the bound stays the adds (see LOOP_LINK_CYCLES)
     b_ms, b_by = latency_bound(P.REPS * (P.NB + 3 * 64))
-    print(f"  4 arms: kernel {k_ms:.3f} ms, plain PyTorch {p_ms:.1f} ms "
-          f"(bit-equal; take-list count 64 of {P.NB}), bound {b_ms:.4f} ms "
-          f"({b_by}) ({card})")
+    print(f"  4 arms: kernel {k_ms:.4f} ms device ({e_ms:.4f} ms events), "
+          f"plain PyTorch {p_ms:.1f} ms (bit-equal; take-list count 64 of "
+          f"{P.NB}), bound {b_ms:.4f} ms ({b_by}; restated = yardstick, the "
+          f"adds alone) ({card})")
     return {"launches": counts["diag_takelist"], "max_abs": worst,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
 

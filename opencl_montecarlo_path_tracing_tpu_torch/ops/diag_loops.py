@@ -22,10 +22,18 @@ at ``acc0`` (zeros by default, as in the JAX tool), and returns a + x:
 On a CUDA tensor ``run`` launches the hand-written kernel of
 ``csrc/diag_loops.cu``, which replaces the TPU kernels of the JAX
 package's ``tools/diag_loops.py`` (``pl.pallas_call`` at :47, :70, :85,
-:103, :119, :136).  ``run_plain`` is the same chain in plain PyTorch, on
-any device; each multiply and add rounds on its own on both sides (the
-kernel builds with --fmad=false, and a max is exact), so the two agree bit
-for bit.  The wrapper takes it only for a CPU tensor.
+:103, :119, :136).  Its layout gives each chain a thread and each warp
+a scheduler: the element-wise arms run 8 blocks of 128 threads, a thread
+an element; the full reduce one block of 4 warps, the lane reduce a warp
+a row, the sub reduce a thread a column; the copy one warp's 16-byte
+cp.async, a 512-byte row a step, waited on and then a warp barrier; the
+scalar arm one thread.  Each arm is bound by its chain's latency (and,
+for the full reduce and the copy, the exchange across warps and the
+round trip to L2 that lie on it).
+``run_plain`` is the same chain in plain PyTorch, on any device; each
+multiply and add rounds on its own on both sides (the kernel builds with
+--fmad=false, and a max is exact), so the two agree bit for bit.  The
+wrapper takes it only for a CPU tensor.
 """
 
 from __future__ import annotations

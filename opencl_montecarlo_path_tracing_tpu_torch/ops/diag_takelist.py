@@ -20,10 +20,15 @@ On a CUDA tensor ``run`` launches the hand-written kernel of
 ``csrc/diag_takelist.cu``, which replaces the TPU kernels of the JAX
 package's ``tools/diag_primitives.py`` (``pl.pallas_call`` at :145):
 ``kernel_noop``, ``kernel_anycond``, ``kernel_scalarcond`` and
-``kernel_takelist``.  ``run_plain`` is the same function in plain PyTorch,
-on any device, with the same float operations in the same order (an add a
-block, the take-list's 1e-6 * b rounded before its add), so the two agree
-bit for bit; the wrapper takes it only for a CPU tensor.
+``kernel_takelist``.  The kernel holds the tile in one warp, 32 elements
+a lane, and makes each block's decision with one warp vote; a lane's
+predicate is one compare of its elements' max against the block's
+threshold, from a table of b / nb made once a launch.  Each arm is one
+chain of adds on a, which bounds it (the votes, flag reads and list
+builds do not depend on a).  ``run_plain`` is the same function in plain
+PyTorch, on any device, with the same float operations in the same order
+(an add a block, the take-list's 1e-6 * b rounded before its add), so the
+two agree bit for bit; the wrapper takes it only for a CPU tensor.
 """
 
 from __future__ import annotations

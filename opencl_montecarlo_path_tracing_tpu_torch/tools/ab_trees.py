@@ -2,7 +2,7 @@
 bit for bit, and their times.
 
     python -m opencl_montecarlo_path_tracing_tpu_torch.tools.ab_trees \
-        --set films|light_pass|dda --trees OLD NEW [--runs 10]
+        --set films|light_pass|dda|diag --trees OLD NEW [--runs 10]
 
 Each tree is the root of a checkout (an older commit unpacked with
 ``git archive`` into a git-ignored directory, and ``.``).  The trees run
@@ -37,6 +37,15 @@ workloads through the wrappers' arguments every version takes:
     (``ranked``) where the tree has it.  Films: every t, m and occlusion
     map.  Times: each call on CUDA events, and the device time a call of
     every kernel the calls launch.
+``diag``
+    B8-prim's four arms (``ops/diag_takelist.py``) on the primitives
+    tool's inputs at its 128 blocks x 200 repetitions, and B8-loops' 13
+    arms (``ops/diag_loops.py``) at the loop tool's trip counts from a
+    random start, tile and table (``RandomState(3)``).  Films: every
+    output and the take-list's count.  Times: each call on CUDA events,
+    and the device time a call of the arm's kernel (B8-prim: the
+    ``takelist_kernel`` launches, not the wrapper's fill of the count;
+    B8-loops: every kernel the call launches, which is the arm's alone).
 
 Event times are the mean of ``--runs`` calls after a warm-up.  A turn
 writes its films to a ``.npz`` file and prints one JSON line of times.
@@ -224,7 +233,40 @@ def dda_turn(runs: int) -> tuple[dict, dict]:
     return {k: v.cpu().numpy() for k, v in films.items()}, times
 
 
-SETS = {"films": films_turn, "light_pass": light_pass_turn, "dda": dda_turn}
+def diag_turn(runs: int) -> tuple[dict, dict]:
+    """The ``diag`` set: (outputs, times in ms)."""
+    import torch
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_loops as L
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import (
+        diag_takelist as P)
+    from opencl_montecarlo_path_tracing_tpu_torch.tools import (
+        diag_loops as TL)
+    from opencl_montecarlo_path_tracing_tpu_torch.tools import (
+        diag_primitives as TP)
+    films, times = {}, {}
+    x, flags = TP.inputs("cuda")
+    for arm in P.ARMS:
+        fn = lambda: P.run(arm, x, P.NB, P.REPS, flags)
+        films[f"prim {arm}"], films[f"prim {arm} count"] = fn()
+        times[f"prim {arm} events"] = event_ms(fn, runs)
+        times[f"prim {arm} device"] = device_ms(fn, runs, "takelist_kernel")
+    rng = np.random.RandomState(3)
+    x, acc0 = (torch.from_numpy(rng.rand(8, 128).astype(np.float32)).cuda()
+               for _ in range(2))
+    table = torch.from_numpy(rng.rand(*L.TABLE_SHAPE).astype(np.float32)
+                             ).cuda()
+    for arm in L.ARMS:
+        n1, n2 = TL.COUNTS[arm]
+        fn = lambda: L.run(arm, x, n1, n2, acc0, table)
+        films[f"loops {arm}"] = fn()
+        times[f"loops {arm} events"] = event_ms(fn, runs)
+        times[f"loops {arm} device"] = device_ms(fn, runs, None)
+    torch.cuda.synchronize()
+    return {k: v.cpu().numpy() for k, v in films.items()}, times
+
+
+SETS = {"films": films_turn, "light_pass": light_pass_turn, "dda": dda_turn,
+        "diag": diag_turn}
 
 
 def run_turn(name: str, tree: str, out: str, runs: int) -> dict:

@@ -19,6 +19,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+import numpy as np
 import torch
 
 from ..ops import diag_loops as L
@@ -51,6 +52,43 @@ def iterations(arm: str, n1: int, n2: int) -> int:
     if arm.startswith("chunk"):
         return n1 * L.STEPS[arm]
     return n1 * n2 if arm == "nested" else n1
+
+
+#: reduce_probe's shifts: the tile's max at column 127 - shift, in warp 3,
+#: 2, 1 and 0 of the full reduce's block; the rows' maxima in slot 3, 2, 1
+#: and 0 of the lane reduce's lanes
+PROBE_SHIFTS = (0, 37, 74, 111)
+#: the reduce axes of each reduce arm (None: the whole tile)
+REDUCE_AXIS = {"reduce_full": None, "reduce_lane": 1, "reduce_sub": 0}
+
+
+def reduce_probe(shift: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """(x, acc0), float32 (8, 128), on which every output of the three
+    reduce arms shows the max that its group read.
+
+    x and acc0's background are uniform in [0, 1e-6), where an increment
+    max * 1e-9 is thousands of ulps.  Column c holds one planted value,
+    1 + (c + shift) % 128, at row c % 8: the columns' maxima are 1-128,
+    the rows' 121-128 and the tile's 128, so two groups' maxima differ by
+    at least 1/128 of the larger, and so does a group's max from the max
+    of the group short of any one element (``probe_decodes``)."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(0.0, 1e-6, (8, 128)).astype(np.float32)
+    acc0 = rng.uniform(0.0, 1e-6, (8, 128)).astype(np.float32)
+    c = np.arange(128)
+    acc0[c % 8, c] = 1 + (c + shift) % 128
+    return x, acc0
+
+
+def probe_decodes(arm: str, out, x, acc0, n1: int) -> bool:
+    """Whether every background element of ``out`` - ``arm`` run n1 >= 1
+    iterations on ``reduce_probe``'s x and acc0 - rose by n1 times its own
+    group's max * 1e-9, to 0.1%: an element that read another group's max,
+    or a max short of one element, is off by 0.78% or more."""
+    out, x, acc0 = (np.asarray(a, np.float64) for a in (out, x, acc0))
+    want = np.max(acc0, axis=REDUCE_AXIS[arm], keepdims=True)
+    got = (out - x - acc0) / (n1 * 1e-9)
+    return bool(np.all(np.abs(got / want - 1.0)[acc0 < 0.5] < 1e-3))
 
 
 def run_arms(device, counts=None) -> dict:

@@ -17,7 +17,12 @@ iterations, where the port's eager chain is quick.  Tolerances:
 * the copy and scalar arms exactly;
 * the port's plain chains, broadcast and reductions bit for bit against a
   NumPy float32 evaluation of the same recurrence from a random start (no
-  contraction on either side), which also tests ``acc0``.
+  contraction on either side), which also tests ``acc0``;
+* the reduce probe (``tools/diag_loops.py::reduce_probe``, on which the
+  card tests hold the kernel's reduce arms): the plain reductions show
+  every group's max in every output, and each grouping error a kernel
+  could make (another group, a warp, slot, shuffle or row left out) shows
+  on at least one of its shifts.
 
 The CUDA kernel runs only on a GPU: ``tests/test_torch_gpu.py`` and
 ``chip_smoke.py`` hold it against this plain version.
@@ -111,6 +116,76 @@ def test_plain_chain_equals_numpy_float32(arm):
     out = L.run_plain(arm, torch.from_numpy(x), n1, n2,
                       acc0=torch.from_numpy(acc0))
     np.testing.assert_array_equal(out.numpy(), want)
+
+
+PROBE_ITERS = 64
+_COL = np.arange(128)
+_ROW = np.arange(8)
+
+
+@pytest.mark.parametrize("shift", TL.PROBE_SHIFTS)
+@pytest.mark.parametrize("arm", list(TL.REDUCE_AXIS))
+def test_reduce_probe_decodes_the_plain_chain(arm, shift):
+    """On ``reduce_probe``'s inputs the plain reduce equals the NumPy
+    float32 recurrence bit for bit, and every background output names its
+    own group's max."""
+    x, acc0 = TL.reduce_probe(shift)
+    out = L.run_plain(arm, torch.from_numpy(x), PROBE_ITERS,
+                      acc0=torch.from_numpy(acc0)).numpy()
+    np.testing.assert_array_equal(
+        out, _numpy_chain(arm, acc0.copy(), PROBE_ITERS, 0) + x)
+    assert TL.probe_decodes(arm, out, x, acc0, PROBE_ITERS)
+
+
+def _halves_max(a):
+    """Each lane's row max with the shuffle at distance 16 left out: the
+    max over the 16 lanes of its half."""
+    half = (_COL % 32) // 16
+    m = np.stack([a[:, half == h].max(axis=1) for h in (0, 1)], axis=1)
+    return m[:, half]
+
+
+#: a kernel's grouping errors, as the max each element reads instead of
+#: its group's: the full reduce's block holds column t in thread t (warp
+#: t // 32), the lane reduce's warp holds column k * 32 + l in lane l's
+#: slot k, the sub reduce's thread holds a column's 8 rows
+GROUPING_FAULTS = {
+    **{f"full drops warp {w}": (
+        "reduce_full", lambda a, w=w: a[:, _COL // 32 != w].max())
+       for w in range(4)},
+    "lane reads the next row": (
+        "reduce_lane",
+        lambda a: np.roll(a.max(axis=1, keepdims=True), 1, axis=0)),
+    **{f"lane drops slot {k}": (
+        "reduce_lane",
+        lambda a, k=k: a[:, _COL // 32 != k].max(axis=1, keepdims=True))
+       for k in range(4)},
+    "lane skips the shuffle at 16": ("reduce_lane", _halves_max),
+    "sub reads the next column": (
+        "reduce_sub",
+        lambda a: np.roll(a.max(axis=0, keepdims=True), 1, axis=1)),
+    **{f"sub drops row {r}": (
+        "reduce_sub",
+        lambda a, r=r: a[_ROW != r].max(axis=0, keepdims=True))
+       for r in range(8)},
+}
+
+
+@pytest.mark.parametrize("fault", list(GROUPING_FAULTS))
+def test_reduce_probe_catches_a_wrong_grouping(fault):
+    """A reduce that reads another group's max, or its own short of one
+    warp, slot, shuffle or row, fails ``probe_decodes`` on at least one of
+    the probe's shifts (the card tests hold the kernel to the probe)."""
+    arm, group_max = GROUPING_FAULTS[fault]
+    caught = []
+    for shift in TL.PROBE_SHIFTS:
+        x, acc0 = TL.reduce_probe(shift)
+        a = acc0.copy()
+        for _ in range(PROBE_ITERS):
+            a = a + group_max(a) * np.float32(1e-9)
+        caught.append(not TL.probe_decodes(arm, a + x, x, acc0,
+                                           PROBE_ITERS))
+    assert any(caught)
 
 
 def test_copy_and_scalar_arms_count_exactly():

@@ -1059,49 +1059,148 @@ def test_diag_dda_20k_cell_lists_match_plain_on_gpu(cuda_device):
     assert st["needed"] <= st["tested"]
 
 
+PRIM_ARMS = ["noop", "anycond", "scalarcond", "takelist"]
+LOOP_ARMS = ["flat1", "flat4", "flat16", "flat64", "chunk32", "chunk128",
+             "nested", "bcast", "reduce_full", "reduce_lane", "reduce_sub",
+             "copy", "scalar"]
+
+
+def prim_equal_plain(arm, x, nb, reps, flags):
+    """One B8-prim launch against its plain version: out bit for bit and
+    the count; returns the count."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import (
+        diag_takelist as P8)
+    before = P8.LAUNCHES
+    out, cnt = P8.run(arm, x, nb, reps, flags)
+    torch.cuda.synchronize()
+    assert P8.LAUNCHES == before + 1
+    p_out, p_cnt = P8.run_plain(arm, x, nb, reps, flags)
+    assert torch.equal(out, p_out)
+    assert int(cnt[0]) == int(p_cnt[0])
+    return int(cnt[0])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("arm", ["noop", "anycond", "scalarcond",
-                                 "takelist"])
-def test_diag_takelist_kernel_matches_plain_on_gpu(arm, cuda_device):
-    """B8-prim at NB = 128, 3 repetitions: out bit-equal to the plain
-    version, the take-list's count the 64 flagged blocks, 0 elsewhere."""
+@pytest.mark.parametrize("nb, reps", [(128, 3), (100, 2), (1000, 2),
+                                      (4096, 2), (128, 0)])
+@pytest.mark.parametrize("arm", PRIM_ARMS)
+def test_diag_takelist_kernel_matches_plain_on_gpu(arm, nb, reps,
+                                                   cuda_device):
+    """B8-prim at NB = 128 (3 repetitions), at 100, 1,000 and 4,096 (the
+    limit) fake blocks, and with no repetition: out bit-equal to the plain
+    version; the take-list's count the flagged blocks (64 of 128), -1 with
+    no repetition, 0 from the other arms."""
     from opencl_montecarlo_path_tracing_tpu_torch.ops import (
         diag_takelist as P8)
     from opencl_montecarlo_path_tracing_tpu_torch.tools import (
         diag_primitives as TP8)
-    x, flags = TP8.inputs(cuda_device)
-    before = P8.LAUNCHES
-    out, cnt = P8.run(arm, x, P8.NB, 3, flags)
-    torch.cuda.synchronize()
-    assert P8.LAUNCHES == before + 1
-    p_out, p_cnt = P8.run_plain(arm, x, P8.NB, 3, flags)
-    assert torch.equal(out, p_out)
-    assert int(cnt[0]) == int(p_cnt[0]) == (64 if arm == "takelist" else 0)
+    x, flags = TP8.inputs(cuda_device, nb)
+    cnt = prim_equal_plain(arm, x, nb, reps, flags)
+    if arm != "takelist":
+        assert cnt == 0
+    elif reps == 0:
+        assert cnt == -1
+    else:
+        assert cnt == int(P8.flagged(x, nb).sum())
+        assert nb != 128 or cnt == 64
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arm", ["flat1", "flat4", "flat16", "flat64",
-                                 "chunk32", "chunk128", "nested", "bcast",
-                                 "reduce_full", "reduce_lane", "reduce_sub",
-                                 "copy", "scalar"])
-def test_diag_loops_kernel_matches_plain_on_gpu(arm, cuda_device):
-    """B8-loops at 1/100 of the JAX tool's trip counts, from a random
-    start and over a random table: bit-equal to the plain version."""
+@pytest.mark.parametrize("arm", PRIM_ARMS)
+def test_diag_takelist_kernel_with_nan_in_the_tile(arm, cuda_device):
+    """B8-prim on a tile with NaNs - scattered, and filling all 32
+    elements one lane holds - is bit-equal to the plain version: a NaN
+    flags no block (the lane's fmaxf drops it, as x > thr is false)."""
+    from opencl_montecarlo_path_tracing_tpu_torch.tools import (
+        diag_primitives as TP8)
+    x, flags = TP8.inputs(cuda_device)
+    x = x.clone().flatten()
+    x[3::32] = float("nan")            # every element of lane 3
+    x[[0, 70, 511, 1023]] = float("nan")
+    x[100] = 1.5                      # one element flags every block
+    cnt = prim_equal_plain(arm, x.reshape(8, 128), 128, 2, flags)
+    assert cnt == (128 if arm == "takelist" else 0)
+
+
+def loops_inputs(seed, device, low=0.0, high=1.0):
+    """(x, acc0, table) of B8-loops, uniform in [low, high)."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_loops as L8
+    rng = np.random.RandomState(seed)
+    x, acc0 = (torch.from_numpy(rng.uniform(low, high, (8, 128))
+                                .astype(np.float32)).to(device)
+               for _ in range(2))
+    table = torch.from_numpy(rng.rand(*L8.TABLE_SHAPE).astype(np.float32)
+                             ).to(device)
+    return x, acc0, table
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trips", ["hundredth", (0, 0), (1, 0), (1, 1),
+                                   (0, 5), (3, 0)], ids=str)
+@pytest.mark.parametrize("arm", LOOP_ARMS)
+def test_diag_loops_kernel_matches_plain_on_gpu(arm, trips, cuda_device):
+    """B8-loops at 1/100 of the JAX tool's trip counts, and with no
+    iteration, one and three (the nested arm also with an empty inner
+    loop), from a random start and over a random table: bit-equal to the
+    plain version; with no iteration, acc0 + x (x for copy and scalar)."""
     from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_loops as L8
     from opencl_montecarlo_path_tracing_tpu_torch.tools import (
         diag_loops as TL8)
-    rng = np.random.RandomState(5)
-    x, acc0 = (torch.from_numpy(rng.rand(8, 128).astype(np.float32))
-               .to(cuda_device) for _ in range(2))
-    table = torch.from_numpy(rng.rand(*L8.TABLE_SHAPE).astype(np.float32)
-                             ).to(cuda_device)
-    n1, n2 = TL8.COUNTS[arm]
-    n1 = max(1, n1 // 100)
+    x, acc0, table = loops_inputs(5, cuda_device)
+    if trips == "hundredth":
+        n1, n2 = TL8.COUNTS[arm]
+        n1 = max(1, n1 // 100)
+    else:
+        n1, n2 = trips
     before = L8.LAUNCHES
     out = L8.run(arm, x, n1, n2, acc0, table)
     torch.cuda.synchronize()
     assert L8.LAUNCHES == before + 1
     assert torch.equal(out, L8.run_plain(arm, x, n1, n2, acc0, table))
+    if n1 == 0 or (arm == "nested" and n2 == 0):
+        start = 0.0 if arm in ("copy", "scalar") else acc0
+        assert torch.equal(out, x + start)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arm", LOOP_ARMS[:11])
+def test_diag_loops_kernel_every_element_runs_its_own_chain(arm,
+                                                            cuda_device):
+    """B8-loops from a start drawn for each element in [-1000, 1000): the
+    1,024 outputs are bit-equal to the plain version's and all distinct,
+    so no element took another's chain under the kernel's layout (copy and
+    scalar, which add one value to the tile, are left out)."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_loops as L8
+    x, acc0, table = loops_inputs(11, cuda_device, -1000.0, 1000.0)
+    x = torch.zeros_like(x)
+    n2 = 3 if arm == "nested" else 0
+    out = L8.run(arm, x, 7, n2, acc0, table)
+    torch.cuda.synchronize()
+    assert torch.equal(out, L8.run_plain(arm, x, 7, n2, acc0, table))
+    assert int(torch.unique(out).numel()) == 1024
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [0, 37, 74, 111])
+@pytest.mark.parametrize("arm", ["reduce_full", "reduce_lane", "reduce_sub"])
+def test_diag_loops_reduce_max_shows_in_every_output(arm, shift,
+                                                     cuda_device):
+    """B8-loops' reduce arms on ``reduce_probe``'s tile, where each
+    increment max * 1e-9 is thousands of ulps and every group's max is
+    distinct: bit-equal to the plain version, and every background output
+    names its own group's max, so the exchange across threads, lanes and
+    warps read the right group whole (the shifts put the tile's max in
+    each of the full reduce's warps and the rows' in each lane slot)."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import diag_loops as L8
+    from opencl_montecarlo_path_tracing_tpu_torch.tools import (
+        diag_loops as TL8)
+    assert shift in TL8.PROBE_SHIFTS
+    x, acc0 = (torch.from_numpy(a).to(cuda_device)
+               for a in TL8.reduce_probe(shift))
+    out = L8.run(arm, x, 64, 0, acc0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, L8.run_plain(arm, x, 64, 0, acc0))
+    assert TL8.probe_decodes(arm, out.cpu(), x.cpu(), acc0.cpu(), 64)
 
 
 # spp windows (utils/checkpoint.py): each window a launch keyed on its own
