@@ -126,8 +126,22 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    on it and on the 262,144-triangle sheet at 512x512x4, bidirectional,
    metropolis and metropolis_vlpgrid on it at 256x256x16 (each render
    exactly L1, or L2a and L2b, and B4's walk), each timed over 3 runs;
-   ``accel="dda"`` (the uniform-grid walk) on a band, held against the
-   kernel under the contract;
+10b. the DDA route (kernels B11 and B11w, ``mega_grid``): trianglegrid
+   ``accel="dda"`` at 512x512x64 on the 20,736 sheet and the demo torus
+   (B11 once a render, nothing else), timed over 3 runs with the split of
+   host preparation, grid build and kernel, its tally (walks, cells,
+   pairs) and bound; each frame's samples 0-7 held under the contract to
+   the tier-1 DDA wavefront, whose every walk is B11w, and the
+   ``accel="auto"`` film printed beside it (not held: where the
+   reference's break rule ends a walk before its hit, the DDA's film is
+   not the brute-force one); on rows 248-255 of the sheet the plain DDA
+   film (every walk recorded) against B11 and B2/B3 under the contract,
+   the B11w wavefront's band bit-equal to it, and B11w on every recorded
+   walk bit-equal to the plain walk; B11w on the sheet's 512x512 camera
+   rays against the plain walk, bit for bit, timed with its tally; the
+   tier-1 DDA route (a 9-light copy at 256x256x4: B11w only, two
+   launches a sample) against the tier-1 super film (B7) under the
+   contract;
 11. B5 (``mega_simple``) vs its plain version under the simple family's
    contract (utils/crn.py ``SIMPLE``: p95 < 1e-5, ties on < 2%, and max
    abs 2e-5 where no pixel ties): the GPU tests' cases at 5, 0 and 1
@@ -158,7 +172,7 @@ Phases, each of which raises on failure (nothing is caught and skipped):
 16. B8-dda (``diag_dda``, closest and occlusion): ``tools/diag_dda.py`` at
    512x512 on the demo scene and the 5k and 20,736-triangle sheets - the
    cell-list walk, the Morton take-list twin, the shadow arm of each, the
-   dense scan and the per-lane DDA - every kernel call then held against
+   dense scan and the per-lane DDA (B11w) - every kernel call then held against
    its plain version (bit-equal maps), and cell == Morton == dense; on the
    20k sheet's cell lists (the closest call and each light's occlusion
    call) the counting launches' tally (``ops/diag_dda.py::STAT_NAMES``:
@@ -211,7 +225,7 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    one's.  Every rank of a check must launch its kernel (and a VLP
    render's ranks their light pass's kernels).
 
-Every path phase (5, 6, 7, 10, 12, 13) and each diagnostic's run (14-16)
+Every path phase (5, 6, 7, 10, 10b, 12, 13) and each diagnostic's run (14-16)
 sets all launch counts to 0 just before it and reads them just after; the
 counts in the ``kernels`` line come from those runs, from phase 18's
 staged render (the light pass's) and from phase 19's sharded renders,
@@ -222,7 +236,10 @@ and its operations over 3.345e13 FP32 ops/s (132 SMs x 128 lanes x 1.98
 GHz, one multiply or add an instruction: the kernels build with
 --fmad=false), counting the (ray, triangle) pairs this run's data needs
 (B4, on either route: the pairs its culled warps test and the terms its
-lit samples gather, from its counting launch; B6: the live rows; L1 and L2: the
+lit samples gather, from its counting launch; B11 and B11w: the pairs
+their walks test, 46 operations each in the division form, the cells
+they visit and the walks' set-up, from the counting launch, and the
+grid's tables read once; B6: the live rows; L1 and L2: the
 traces they make, from a counting launch, each over the floor, every
 square, sphere and triangle: the yardstick; phase 5b prints beside it
 the bound over the rows the warps test and their box tests); for the
@@ -301,6 +318,20 @@ BAND_CHECK = 64, 2       # its check against the plain light pass: work
 # the slab's 6 differences, 6 products and 6 min / max, 4 min / max across
 # the axes, and the prune's max and 2 products
 BOX_OPS = 25
+
+# B11's and B11w's FP32 operations, counted from csrc/pt_device.cuh: a
+# division-form Moller-Trumbore pair (mt_div: d x e2 9, det 5, the
+# reciprocal 1, o - v0 3, u 6, the q vector 9, v 6, u + v 1, rd 6); a
+# visited cell's step (the crossing's add); a walk's slab test (3
+# reciprocals, 6 differences, 6 products, 10 min / max) and, where the ray
+# enters the grid, its set-up (the entry point 6, the cell indices 6, the
+# crossing steps 6, the first crossings 9)
+DIV_PAIR_OPS = 46
+DDA_SPP = 8            # B11's full frames against the DDA wavefront: the
+#                        first 8 samples of the main path's 64
+CELL_OPS = 1
+WALK_OPS = 25
+ENTER_OPS = 27
 
 SW = SH = 1024         # the simple main path: bench.py:92-94
 SSPP = 256
@@ -398,7 +429,7 @@ def timed_call(fn):
 
 def reset_counts():
     from opencl_montecarlo_path_tracing_tpu_torch.ops import (
-        diag_dda, diag_loops, diag_takelist, gather_vlp, light_pass,
+        diag_dda, diag_loops, diag_takelist, gather_vlp, grid, light_pass,
         mega_simple, mega_super, mega_vlp, tri_closest)
     mega_super.LAUNCHES = mega_super.BLOCKED_LAUNCHES = 0
     mega_vlp.LAUNCHES = gather_vlp.LAUNCHES = tri_closest.LAUNCHES = 0
@@ -407,11 +438,12 @@ def reset_counts():
     diag_takelist.LAUNCHES = diag_loops.LAUNCHES = 0
     light_pass.EMIT_LAUNCHES = light_pass.SEED_LAUNCHES = 0
     light_pass.CHAIN_LAUNCHES = 0
+    grid.MEGA_LAUNCHES = grid.WALK_LAUNCHES = 0
 
 
 def read_counts() -> dict:
     from opencl_montecarlo_path_tracing_tpu_torch.ops import (
-        diag_dda, diag_loops, diag_takelist, gather_vlp, light_pass,
+        diag_dda, diag_loops, diag_takelist, gather_vlp, grid, light_pass,
         mega_simple, mega_super, mega_vlp, tri_closest)
     return {"mega_super": mega_super.LAUNCHES,
             "mega_blocked": mega_super.BLOCKED_LAUNCHES,
@@ -424,7 +456,8 @@ def read_counts() -> dict:
             "diag_loops": diag_loops.LAUNCHES,
             "light_emit": light_pass.EMIT_LAUNCHES,
             "light_mlt_seed": light_pass.SEED_LAUNCHES,
-            "light_mlt_chain": light_pass.CHAIN_LAUNCHES}
+            "light_mlt_chain": light_pass.CHAIN_LAUNCHES,
+            "mega_grid": grid.MEGA_LAUNCHES, "grid_walk": grid.WALK_LAUNCHES}
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
@@ -1885,6 +1918,7 @@ def phase_tri_closest_vs_plain(card: str) -> dict:
     and shadow rays; its film is held there)."""
     import torch
     import opencl_montecarlo_path_tracing_tpu_torch as pt
+    from opencl_montecarlo_path_tracing_tpu_torch.utils.crn import crn_ok
     from opencl_montecarlo_path_tracing_tpu_torch.core import rng as R
     from opencl_montecarlo_path_tracing_tpu_torch.core.camera import (
         make_camera, primary_rays)
@@ -1930,15 +1964,11 @@ def phase_tri_closest_vs_plain(card: str) -> dict:
 def phase_large_mesh_main_paths(card: str) -> dict:
     """trianglegrid (auto) and super on the large meshes (B2/B3); the VLP
     family on large_mesh_scene() at 256x256x16, each render exactly its
-    light pass's kernels (L1, or L2a and L2b) and B4's walk, nothing else;
-    then the DDA walk on a band against the kernel."""
+    light pass's kernels (L1, or L2a and L2b) and B4's walk, nothing
+    else."""
     import torch
     import opencl_montecarlo_path_tracing_tpu_torch as pt
-    from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import DEFAULT
     from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
-    from opencl_montecarlo_path_tracing_tpu_torch.models.trianglegrid import (
-        film_trianglegrid)
-    from opencl_montecarlo_path_tracing_tpu_torch.ops import grid as G
     from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_super as M
     from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
         prep_scene)
@@ -1990,27 +2020,264 @@ def phase_large_mesh_main_paths(card: str) -> dict:
                 make_key(0), scn, w, h, spp, device="cuda"), TIMED_RUNS)
             print(f"  split: first-render host preparation {host_ms:.1f} "
                   f"ms, kernel {k_ms:.2f} ms")
-    # the reference-shaped DDA on the card, on a band, against the kernel
-    scn = prep_scene(large)
-    key = make_key(0)
-    band = dict(row_offset=248, rows=8)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    grid, _ = G.triangle_grid(scn, device="cuda")
-    dda = film_trianglegrid(key, scn, grid, LW, LH, 1, 0, LSPP_GRID, DEFAULT,
-                            device="cuda", **band)
-    torch.cuda.synchronize()
-    dda_s = time.perf_counter() - t0
-    auto = M.film_super_mega(key, scn, LW, LH, 1, spp_total=LSPP_GRID,
-                             device="cuda", **band)
-    failed = []
-    check_crn(f"trianglegrid accel=dda vs auto (B2/B3), {LW}x{LH} rows "
-              f"248-255, sample 0 of {LSPP_GRID} (grid {grid.res}, cap "
-              f"{grid.items.shape[1]}; DDA {dda_s:.1f} s)", dda, auto, 1,
-              failed)
-    if failed:
-        raise RuntimeError("trianglegrid DDA vs kernel contract violated")
     return total
+
+
+def recorded_walks(fn) -> list:
+    """Runs ``fn()`` with the plain walk wrapped so that each call's inputs
+    (o, d, t, m, nx, ny, nz, needs, scn, grid, quirks) and outputs are
+    kept; returns them."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import grid as G
+    calls = []
+    walk = G.traverse_triangles
+
+    def recording(o, d, t, m, nx, ny, nz, needs, scn, grid, quirks,
+                  plain=False):
+        args = tuple(x.clone() for x in (o, d, t, m, nx, ny, nz, needs))
+        out = walk(o, d, t, m, nx, ny, nz, needs, scn, grid, quirks, plain)
+        calls.append((args + (scn, grid, quirks), out))
+        return out
+
+    G.traverse_triangles = recording
+    try:
+        fn()
+    finally:
+        G.traverse_triangles = walk
+    return calls
+
+
+def bits_equal(a, b) -> bool:
+    """Bit-equal tensors (a float32 tensor's bits, so -0.0 != 0.0)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(
+            torch.int32)
+    return torch.equal(a, b)
+
+
+def walk_differences(calls) -> int:
+    """B11w on each recorded plain walk's inputs against its outputs:
+    the number of calls whose (t, m, nx, ny, nz, needs) differ in a bit."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import grid as G
+    bad = 0
+    for (*rays, scn, grid, quirks), want in calls:
+        got = G.traverse_triangles(*rays, scn, grid, quirks)
+        bad += not all(bits_equal(a, b) for a, b in zip(got, want))
+    return bad
+
+
+def grid_bound(st: dict, table_bytes: int, io_bytes: int):
+    """B11 / B11w's bound over this run's tally: the FP32 operations of
+    the tested pairs, the visited cells and the walks' set-up; the bytes
+    of the grid's tables once and the inputs and outputs."""
+    ops = (st["pairs"] * DIV_PAIR_OPS + st["cells"] * CELL_OPS
+           + st["walks"] * WALK_OPS + st["entered"] * ENTER_OPS)
+    return bound(ops, table_bytes + io_bytes)
+
+
+def table_bytes(tab) -> int:
+    return sum(int(x.numel()) * x.element_size() for x in (
+        tab.grid.items, tab.grid.counts, tab.tri, tab.frame))
+
+
+def phase_grid_dda(card: str) -> dict:
+    """The trianglegrid variant's DDA route on the card (kernels B11 and
+    B11w): the main paths ``accel="dda"`` at 512x512x64 on the 20,736 sheet
+    and the demo torus (B11 once a render, nothing else), timed with the
+    split of host preparation, grid build and kernel, each compared with
+    the ``accel="auto"`` film (B2/B3, B1; printed: the DDA's break rule
+    makes the sheet's differ) and held on samples 0-7 to the tier-1 DDA
+    wavefront (every walk B11w) under the contract; B11's tally and
+    bound; on rows 248-255 of the sheet (sample 0 of 64) the plain DDA
+    film (the eager walk, every call recorded) against B11 and B2/B3 under
+    the contract, the tier-1 wavefront's band with B11w bit-equal to it
+    and B11w on every recorded walk's inputs bit-equal to its outputs;
+    B11w on the sheet's 512x512 camera rays against the plain walk, bit
+    for bit, timed with its tally; the tier-1 DDA route (a 9-light copy
+    at 256x256x4: B11w only, two launches a sample) against the tier-1
+    super film (B7) under the contract."""
+    import torch
+    import opencl_montecarlo_path_tracing_tpu_torch as pt
+    from opencl_montecarlo_path_tracing_tpu_torch.utils.crn import crn_ok
+    from opencl_montecarlo_path_tracing_tpu_torch.core import rng as R
+    from opencl_montecarlo_path_tracing_tpu_torch.core.camera import (
+        make_camera, primary_rays)
+    from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import DEFAULT
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.models import common as C
+    from opencl_montecarlo_path_tracing_tpu_torch.models.trianglegrid import (
+        film_trianglegrid)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import grid as G
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_super as M
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
+        prep_scene)
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        demo_scene, large_mesh_scene)
+    key = make_key(0)
+    large = large_mesh_scene()
+    failed = []
+    out = {"launches": 0}
+    for name, scene in (("sheet", large), ("demo torus", demo_scene()[0])):
+        film, ms, counts = timed_renders(lambda: pt.render(
+            "trianglegrid", scene, LW, LH, spp=LSPP_GRID, seed=0,
+            accel="dda", device="cuda"))
+        if not only(counts, "mega_grid"):
+            raise RuntimeError(f"trianglegrid accel=dda on {name}: launches "
+                               f"{counts} in {TIMED_RUNS} renders, want "
+                               "mega_grid once each, nothing else")
+        out["launches"] += counts["mega_grid"]
+        f = film.cpu().numpy()
+        mean = float(f.mean()) / LSPP_GRID
+        if f.shape != (LH, LW, 3) or not np.isfinite(f).all() or mean <= 0:
+            raise RuntimeError(f"accel=dda: bad film {f.shape}, mean/spp "
+                               f"{mean}")
+        # against accel="auto" (B2/B3, B1): printed, not held - where the
+        # reference's DDA ends a walk before the ray's hit (its break rule,
+        # trianglegrid/pathtracer.ocl:195, with the running t at the
+        # floor's distance), the DDA route's film is not the brute-force
+        # one (tests/test_torch_grid_walk.py::
+        # test_break_rule_ends_a_walk_before_its_hit)
+        auto = pt.render("trianglegrid", scene, LW, LH, spp=LSPP_GRID,
+                         seed=0, device="cuda")
+        _, st = crn_ok(f, auto.cpu().numpy(), LSPP_GRID)
+        print(f"  B11 vs accel=auto on {name} ({scene.n_triangles} "
+              f"triangles), {LW}x{LH}x{LSPP_GRID}: p99.5 {st['q']:.3e}, "
+              f"pixels past 1e-4 {st['tie_frac'] * 100:.3f}%, max_abs_film "
+              f"{st['max_abs']:.3e} (not held: the DDA's own semantics)")
+        # held: the DDA route's film, against the tier-1 DDA wavefront
+        # whose every walk is B11w (bit-equal to the plain walk, below)
+        scn = prep_scene(scene)
+        tab = G.triangle_tables(scn, device="cuda")
+        wave = film_trianglegrid(key, scn, tab.grid, LW, LH, DDA_SPP, 0,
+                                 LSPP_GRID, DEFAULT, device="cuda")
+        mega = G.film_grid_mega(key, scn, tab, LW, LH, DDA_SPP, 0,
+                                LSPP_GRID, device="cuda")
+        err = check_crn(f"B11 vs the DDA wavefront (B11w walks) on {name}, "
+                        f"{LW}x{LH}, samples 0-{DDA_SPP - 1} of {LSPP_GRID}",
+                        mega, wave, DDA_SPP, failed)
+        # the split: a fresh Scene's preparation, its grid build (the host
+        # sizing and the pair build on the card), the kernel alone
+        fresh = []
+        t0 = time.perf_counter()
+        for _ in range(TIMED_RUNS):
+            fresh.append(prep_scene(dataclasses.replace(scene)))
+        host_ms = (time.perf_counter() - t0) * 1e3 / TIMED_RUNS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for scn in fresh:
+            tab = G.triangle_tables(scn, device="cuda")
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3 / TIMED_RUNS
+        k_ms = time_ms(lambda: G.film_grid_mega(
+            key, scn, tab, LW, LH, LSPP_GRID, device="cuda"), TIMED_RUNS)
+        st = G.mega_grid_stats(key, scn, tab, LW, LH, LSPP_GRID,
+                               device="cuda")
+        b_ms, b_by = grid_bound(st, table_bytes(tab), LW * LH * 12)
+        mpaths = LW * LH * LSPP_GRID / (ms / 1e3) / 1e6
+        print(f"main path: trianglegrid accel=dda {LW}x{LH}x{LSPP_GRID} on "
+              f"{name}: {ms:.1f} ms/render, {mpaths:.1f} Mpaths/s ({card}); "
+              f"film mean/spp {mean:.4f}, launches {counts}")
+        print(f"  split: first-render host preparation {host_ms:.1f} ms, "
+              f"grid build {build_ms:.1f} ms (grid {tab.grid.res}, cap "
+              f"{tab.grid.items.shape[1]}), kernel {k_ms:.2f} ms")
+        print(f"  B11 tally: {st}; {st['pairs'] / max(1, st['walks']):.1f} "
+              f"pairs and {st['cells'] / max(1, st['walks']):.1f} cells a "
+              f"walk; bound {b_ms:.4f} ms ({b_by}), {b_ms / k_ms * 100:.1f}% "
+              "of the kernel's time")
+        if name == "sheet":
+            out.update(ms=k_ms, bound_ms=b_ms, bound_by=b_by, max_abs=err,
+                       scn=scn, tab=tab)
+
+    # the plain DDA on a band of the sheet: the eager walk, recorded
+    scn, tab = out.pop("scn"), out.pop("tab")
+    band = dict(row_offset=248, rows=8)
+    plain = {}
+
+    def run_plain():
+        plain["film"], plain["ms"] = timed_call(lambda: film_trianglegrid(
+            key, scn, tab.grid, LW, LH, 1, 0, LSPP_GRID, DEFAULT,
+            device="cuda", plain=True, **band))
+    calls = recorded_walks(run_plain)
+    reset_counts()
+    mega_band = G.film_grid_mega(key, scn, tab, LW, LH, 1, 0, LSPP_GRID,
+                                 device="cuda", **band)
+    wave_band = film_trianglegrid(key, scn, tab.grid, LW, LH, 1, 0,
+                                  LSPP_GRID, DEFAULT, device="cuda", **band)
+    blocked = M.film_super_mega(key, scn, LW, LH, 1, spp_total=LSPP_GRID,
+                                device="cuda", **band)
+    torch.cuda.synchronize()
+    bc = {k: v for k, v in read_counts().items() if v}
+    if bc != {"mega_grid": 1, "grid_walk": 2, "mega_blocked": 1}:
+        raise RuntimeError(f"the band's launches {bc}")
+    tag = (f"{LW}x{LH} rows 248-255, sample 0 of {LSPP_GRID} (grid "
+           f"{tab.grid.res}, cap {tab.grid.items.shape[1]}; plain DDA "
+           f"{plain['ms'] / 1e3:.1f} s)")
+    out["max_abs"] = max(out["max_abs"], check_crn(
+        f"B11 vs the plain DDA, {tag}", mega_band, plain["film"], 1, failed))
+    check_crn(f"B2/B3 vs the plain DDA, {tag}", blocked, plain["film"], 1,
+              failed)
+    bad = walk_differences(calls)
+    same = bits_equal(wave_band, plain["film"])
+    print(f"  B11w on the band's {len(calls)} recorded plain walks: "
+          f"{len(calls) - bad} bit-equal; the tier-1 wavefront's band "
+          f"(B11w) {'bit-equal' if same else 'DIFFERS'} to the plain film")
+    if bad or not same:
+        failed.append("B11w vs the plain walk on the band")
+    out["plain_ms"] = plain["ms"]
+
+    # B11w on the sheet's 512x512 camera rays (sample 0 of 64)
+    ii, jj = C.pixel_grid(LW, LH, device="cuda")
+    ray_id = (jj * LW + ii).to(torch.int64) * LSPP_GRID
+    o, d = primary_rays(make_camera(z_sign=-1.0), ii, jj,
+                        *R.randn_draws(key, ray_id, C.SITE_CAMERA, 4))
+    n = o.shape[0]
+    t = torch.full((n,), 1e9, dtype=torch.float32, device="cuda")
+    m = torch.zeros(n, dtype=torch.int32, device="cuda")
+    z = torch.zeros(n, dtype=torch.float32, device="cuda")
+    needs = torch.zeros(n, dtype=torch.bool, device="cuda")
+    args = (o, d, t, m, z, z, z, needs)
+    w_ms = time_ms(lambda: G.grid_walk(*args, tab, DEFAULT), 10)
+    got = G.grid_walk(*args, tab, DEFAULT)
+    want, wp_ms = timed_call(lambda: G.traverse_triangles(
+        *args, scn, tab.grid, DEFAULT, plain=True))
+    same = all(bits_equal(a, b) for a, b in zip(got, want))
+    w_err = max_abs(got[0], want[0])
+    stats = torch.zeros(len(G.STAT_NAMES), dtype=torch.int64, device="cuda")
+    G.grid_walk(*args, tab, DEFAULT, stats)
+    wst = dict(zip(G.STAT_NAMES, stats.tolist()))
+    wb_ms, wb_by = grid_bound(wst, table_bytes(tab), n * (24 + 2 * 21))
+    print(f"  B11w on the sheet's {n} camera rays: {w_ms:.3f} ms, plain "
+          f"PyTorch {wp_ms:.1f} ms, {'bit-equal' if same else 'DIFFERS'}; "
+          f"tally {wst}; bound {wb_ms:.4f} ms ({wb_by}) ({card})")
+    if not same:
+        failed.append("B11w vs the plain walk on the camera rays")
+
+    # the tier-1 DDA route: outside the super kernels' gate, B11w only
+    nine = nine_lights(large)
+    w, h, spp = BW, BH, TIER1_SPP
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    film = pt.render("trianglegrid", nine, w, h, spp=spp, seed=0,
+                     accel="dda", device="cuda")
+    torch.cuda.synchronize()
+    t_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    launched = {k: v for k, v in counts.items() if v}
+    if launched != {"grid_walk": 2 * spp}:
+        raise RuntimeError(f"tier-1 DDA route (9 lights): launches {counts}")
+    b7 = pt.render("super", nine, w, h, spp=spp, seed=0, device="cuda")
+    check_crn(f"tier-1 trianglegrid accel=dda (B11w), 9 lights, {w}x{h}x"
+              f"{spp} vs tier-1 super (B7)", film, b7, spp, failed)
+    print(f"tier-1 DDA route: {t_ms:.1f} ms ({card}), launches {launched}")
+    out["walk"] = {"launches": counts["grid_walk"], "max_abs": w_err,
+                   "ms": w_ms, "plain_ms": wp_ms, "bound_ms": wb_ms,
+                   "bound_by": wb_by}
+    if failed:
+        raise RuntimeError(f"the DDA route: {failed}")
+    return out
 
 
 def display_diff(a, b, spp) -> np.ndarray:
@@ -2712,12 +2979,15 @@ def phase_diag_dda(card: str) -> tuple[dict, dict]:
     n_closest = sum(len(r["closest"]) for r in runs) * (1 + TD.REPEATS)
     n_occ = sum(len(a) for r in runs for a in r["shadow"].values()) * (
         1 + TD.REPEATS)
-    if (counts["diag_dda_closest"], counts["diag_dda_occ"]) != (
-            n_closest, n_occ) or any(
+    # the per-lane DDA arm: B11w (ops/grid.py::traverse_triangles)
+    n_walk = sum(r["dda_ms"] is not None for r in runs) * (1 + TD.REPEATS)
+    if (counts["diag_dda_closest"], counts["diag_dda_occ"],
+            counts["grid_walk"]) != (n_closest, n_occ, n_walk) or any(
             v for k, v in counts.items()
-            if k not in ("diag_dda_closest", "diag_dda_occ")):
+            if k not in ("diag_dda_closest", "diag_dda_occ", "grid_walk")):
         raise RuntimeError(f"diag_dda run: launches {counts}, want "
-                           f"{n_closest} closest and {n_occ} occlusion")
+                           f"{n_closest} closest, {n_occ} occlusion and "
+                           f"{n_walk} grid walks")
     worst_c = worst_o = 0.0
     failed = []
     for r in runs:
@@ -2762,7 +3032,7 @@ def phase_diag_dda(card: str) -> tuple[dict, dict]:
                   f"{'-' if lists_s is None else f'{lists_s:.2f}'} |")
         print(f"  {r['tag']}: cell/Morton closest+shadow "
               f"{r['totals']['morton'] / r['totals']['cell']:.2f}x, per-lane "
-              f"DDA (plain) {r['dda_ms']:.1f} ms, host: tables "
+              f"DDA (B11w) {r['dda_ms']:.1f} ms, host: tables "
               f"{hs['cells'] + hs['morton']:.2f} s, shadow lists "
               f"{hs['shadow_lists']:.2f} s")
     # the rows of the kernels line: the 20k sheet's cell-list calls
@@ -3328,6 +3598,7 @@ def main() -> int:
     b4w = phase(phase_vlp_walk_vs_plain, gt, card)
     b7 = phase(phase_tri_closest_vs_plain, card)
     lp = phase(phase_large_mesh_main_paths, card)
+    gd = phase(phase_grid_dda, card)
     b5 = phase(phase_simple_kernel_vs_plain, gt, card)
     sp = phase(phase_simple_main_path, card)
     npth = phase(phase_nodof_main_path, card)
@@ -3340,6 +3611,8 @@ def main() -> int:
     print(f"smoke: {time.perf_counter() - t0:.1f} s")
     src = f"{PKG}/csrc"
     ref = "opencl_montecarlo_path_tracing_tpu/ops"
+    GRID_XLA = ("opencl_montecarlo_path_tracing_tpu/models/trianglegrid.py:"
+                f"85-91 / {ref}/grid.py:261 (none: XLA under jax.jit)")
 
     def row(name, source, replaces, launches, k):
         """``replaces``: the TPU kernel's file (from the repository root)
@@ -3377,7 +3650,11 @@ def main() -> int:
         row("diag_loops", "diag_loops.cu",
             "tools/diag_loops.py:47, :70, :85, :103, :119, :136",
             b8_loops["launches"], b8_loops),
-        # no pl.pallas_call: the JAX package's light pass is XLA under jit
+        # no pl.pallas_call: the JAX package's DDA route and its light pass
+        # are XLA under jit
+        row("mega_grid", "mega_grid.cu", GRID_XLA, gd["launches"], gd),
+        row("grid_walk", "mega_grid.cu", GRID_XLA, gd["walk"]["launches"],
+            gd["walk"]),
         row("light_emit", "light_pass.cu",
             f"{ref}/vlp.py:76 (none: XLA under jax.jit)",
             vp["light"]["light_emit"] + b6["light_emit"] + lp["light_emit"]

@@ -9,7 +9,8 @@
 // their box predicates, a large mesh's block tables with the culled walk of
 // a warp of rays over them (B2/B3, and B4 past 512 triangles), the
 // warp-cooperative closest hit (one ray a warp: the full scan and the
-// culled walk), and the 4-material shading.
+// culled walk), the uniform triangle grid's DDA walk (B11 and B11w), and
+// the 4-material shading.
 //
 // Everything sits in an anonymous namespace, so every translation unit
 // that includes this header gets its own internal copy and the kernels
@@ -806,6 +807,211 @@ __device__ __forceinline__ int warp_walk_closest(
     }
   }
   return best;
+}
+
+// The uniform triangle grid of the trianglegrid variant (ops/grid.py::
+// triangle_grid) and its per-ray 3-D DDA walk (kernels B11 and B11w,
+// csrc/mega_grid.cu): the cells' item lists (`cap` ids a cell, -1 padded,
+// `counts` live), the (N, 12) triangle table (v0 e0 | e0 e2 | e2 n as
+// three float4 a row) and the frame: vmin, vmax = vmin + cell_size * res
+// (computed by the wrapper as ops/grid.py::traverse_triangles does) and
+// the cell size, 9 floats in device memory.
+struct Grid {
+  const float4* tri;
+  const int* items;
+  const int* counts;
+  float vmin[3], vmax[3], cs[3];
+  int rx, ry, rz, cap;
+};
+
+// min / max that propagate NaN, as torch.minimum / jnp.minimum do (and as
+// ATen's CUDA kernels write them); fminf / fmaxf would drop it.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+
+// Moller-Trumbore in the division form (ops/intersect.py::_mt_test, the
+// reference's own and the DDA's): the reciprocal of det, then u, v and the
+// distance rd as products with it, in _mt_test's operation order.  Returns
+// whether the pair hits (before the running-t compare); rd is set then.
+__device__ __forceinline__ bool mt_div(float4 a, float4 b, float4 c,
+                                       float ox, float oy, float oz,
+                                       float dx, float dy, float dz,
+                                       bool neg_t, float& rd) {
+  const float e0x = a.w, e0y = b.x, e0z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = c.x;
+  const float pvx = dy * e2z - dz * e2y;
+  const float pvy = dz * e2x - dx * e2z;
+  const float pvz = dx * e2y - dy * e2x;
+  const float det = e0x * pvx + e0y * pvy + e0z * pvz;
+  if (!(fabsf(det) >= kEps)) return false;
+  const float inv = 1.0f / det;
+  const float tvx = ox - a.x, tvy = oy - a.y, tvz = oz - a.z;
+  const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
+  if (!(u >= 0.0f && u <= 1.0f)) return false;
+  const float qvx = tvy * e0z - tvz * e0y;
+  const float qvy = tvz * e0x - tvx * e0z;
+  const float qvz = tvx * e0y - tvy * e0x;
+  const float v = (dx * qvx + dy * qvy + dz * qvz) * inv;
+  if (!(v >= 0.0f && u + v <= 1.0f)) return false;
+  rd = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
+  return neg_t || rd > kEps;
+}
+
+// One axis's cell of a point: floor((p - vmin) / cell), cast, clamped to
+// [0, r - 1] (traverse_triangles' cell_of).
+__device__ __forceinline__ int grid_cell(float p, float v, float c, int r) {
+  return min(max((int)floorf((p - v) / c), 0), r - 1);
+}
+
+// The 3-D DDA of TraceRay (trianglegrid/pathtracer.ocl:157-198) for one
+// ray, in ops/grid.py::traverse_triangles' arithmetic: the slab entry t0
+// and exit t1 with NaN-propagating min / max (a ray parallel to an axis
+// whose origin lies on a grid plane gets a NaN and never enters), the
+// entry cell, the per-axis crossing distances, then at most rx + ry + rz +
+// 2 steps: `visit(cell)` tests the cell (true ends the walk), the axis of
+// the smallest next crossing steps, and the walk ends when the running
+// distance `t` (read after the visit) lies before that crossing - after
+// the step, so one extra cell may be visited - or the index leaves the
+// grid.  The plain version's inactive lanes never update, so ending the
+// loop there gives the same result.  Returns whether the ray entered.
+template <class Visit>
+__device__ __forceinline__ bool grid_dda(const Grid& G, float ox, float oy,
+                                         float oz, float dx, float dy,
+                                         float dz, const float& t,
+                                         Visit&& visit) {
+  const float invx = 1.0f / dx, invy = 1.0f / dy, invz = 1.0f / dz;
+  const float ax = (G.vmin[0] - ox) * invx, bx = (G.vmax[0] - ox) * invx;
+  const float ay = (G.vmin[1] - oy) * invy, by = (G.vmax[1] - oy) * invy;
+  const float az = (G.vmin[2] - oz) * invz, bz = (G.vmax[2] - oz) * invz;
+  const float ex0 = min_nan(ax, bx), ex1 = max_nan(ax, bx);
+  const float ey0 = min_nan(ay, by), ey1 = max_nan(ay, by);
+  const float ez0 = min_nan(az, bz), ez1 = max_nan(az, bz);
+  const float t0 = max_nan(max_nan(ex0, ey0), ez0);
+  const float t1 = min_nan(min_nan(ex1, ey1), ez1);
+  if (!(t0 <= t1)) return false;
+  const bool inside = ox >= G.vmin[0] && ox <= G.vmax[0] &&
+                      oy >= G.vmin[1] && oy <= G.vmax[1] &&
+                      oz >= G.vmin[2] && oz <= G.vmax[2];
+  const float px = inside ? ox : ox + dx * t0;
+  const float py = inside ? oy : oy + dy * t0;
+  const float pz = inside ? oz : oz + dz * t0;
+  const int rx = G.rx, ry = G.ry, rz = G.rz;
+  int ix = grid_cell(px, G.vmin[0], G.cs[0], rx);
+  int iy = grid_cell(py, G.vmin[1], G.cs[1], ry);
+  int iz = grid_cell(pz, G.vmin[2], G.cs[2], rz);
+  const float dlx = (ex1 - ex0) / (float)rx;
+  const float dly = (ey1 - ey0) / (float)ry;
+  const float dlz = (ez1 - ez0) / (float)rz;
+  const bool posx = dx > 0.0f, posy = dy > 0.0f, posz = dz > 0.0f;
+  float nxx = posx ? ex0 + (float)(ix + 1) * dlx
+                   : ex0 + (float)rx * dlx - (float)ix * dlx;
+  float nxy = posy ? ey0 + (float)(iy + 1) * dly
+                   : ey0 + (float)ry * dly - (float)iy * dly;
+  float nxz = posz ? ez0 + (float)(iz + 1) * dlz
+                   : ez0 + (float)rz * dlz - (float)iz * dlz;
+  const int plane = rx * ry, ncells = plane * rz;
+  const int steps = rx + ry + rz + 2;
+  for (int s = 0; s < steps; ++s) {
+    if (visit(min(max(iz * plane + iy * rx + ix, 0), ncells - 1))) break;
+    const bool selx = nxx <= nxy && nxx <= nxz;
+    const bool sely = !selx && nxy <= nxz;
+    if (selx) {
+      nxx = nxx + dlx;
+      if (t < nxx) break;
+      ix += posx ? 1 : -1;
+      if (ix == (posx ? rx : -1)) break;
+    } else if (sely) {
+      nxy = nxy + dly;
+      if (t < nxy) break;
+      iy += posy ? 1 : -1;
+      if (iy == (posy ? ry : -1)) break;
+    } else {
+      nxz = nxz + dlz;
+      if (t < nxz) break;
+      iz += posz ? 1 : -1;
+      if (iz == (posz ? rz : -1)) break;
+    }
+  }
+  return true;
+}
+
+// The live slots of grid cell c in ascending order: each pair's
+// division-form test, and `on_hit(rd, row's last float4: e2.z, normal)`
+// for each pair that hits; true from on_hit ends the scan and is
+// returned.  `T` is the kernel's tally: cell(), pair() (and enter(), which
+// the walks below call).
+template <class T, class OnHit>
+__device__ __forceinline__ bool grid_cell_scan(const Grid& G, int c, float ox,
+                                               float oy, float oz, float dx,
+                                               float dy, float dz,
+                                               bool neg_t, T& tally,
+                                               OnHit&& on_hit) {
+  const int cnt = __ldg(G.counts + c);
+  const int* it = G.items + (long long)c * G.cap;
+  tally.cell();
+  for (int k = 0; k < cnt; ++k) {
+    const int tri = __ldg(it + k);
+    if (tri < 0) continue;
+    tally.pair();
+    const float4* r = G.tri + 3ll * tri;
+    const float4 e = __ldg(r + 2);
+    float rd;
+    if (mt_div(__ldg(r), __ldg(r + 1), e, ox, oy, oz, dx, dy, dz, neg_t,
+               rd) &&
+        on_hit(rd, e))
+      return true;
+  }
+  return false;
+}
+
+// Closest hit over the grid's triangles (traverse_triangles for one ray):
+// a pair replaces the running hit h when its distance is strictly below
+// h.t (the first found wins a tie; a triangle spanning cells is tested
+// again in each).
+template <class T>
+__device__ __forceinline__ void grid_closest(const Grid& G, float ox,
+                                             float oy, float oz, float dx,
+                                             float dy, float dz, bool neg_t,
+                                             PreHit& h, T& tally) {
+  if (grid_dda(G, ox, oy, oz, dx, dy, dz, h.t, [&](int c) {
+        return grid_cell_scan(G, c, ox, oy, oz, dx, dy, dz, neg_t, tally,
+                              [&](float rd, float4 e) {
+                                if (rd < h.t) {
+                                  h.t = rd;
+                                  h.m = 4;
+                                  h.nx = e.y;
+                                  h.ny = e.z;
+                                  h.nz = e.w;
+                                  h.needs = false;
+                                }
+                                return false;
+                              });
+      }))
+    tally.enter();
+}
+
+// Any hit below t_limit over the grid's triangles: the closest walk from a
+// running distance of t_limit ends at its first pair below it, so the walk
+// that stops at the first such pair visits the same cells in the same
+// order and finds a hit exactly when the closest walk would.
+template <class T>
+__device__ __forceinline__ bool grid_occluded(const Grid& G, float ox,
+                                              float oy, float oz, float dx,
+                                              float dy, float dz,
+                                              float t_limit, bool neg_t,
+                                              T& tally) {
+  bool occ = false;
+  if (grid_dda(G, ox, oy, oz, dx, dy, dz, t_limit, [&](int c) {
+        return occ = grid_cell_scan(
+                   G, c, ox, oy, oz, dx, dy, dz, neg_t, tally,
+                   [&](float rd, float4) { return rd < t_limit; });
+      }))
+    tally.enter();
+  return occ;
 }
 
 // Sky colour (1 - dz)^4 * (0.7, 0.6, 1) (pathtracer.ocl:160).

@@ -21,8 +21,20 @@ equal to the JAX package's exactly:
 ``triangle_grid`` builds the triangle grid of a scene with the reference's
 resolution heuristic (.c:476-483), and ``traverse_triangles`` walks it per
 ray with the 3-D DDA of TraceRay (ocl:157-198), testing each visited
-cell's triangles in the division form of Moller-Trumbore - plain PyTorch,
-as the JAX package's walk is plain XLA (no Pallas kernel).
+cell's triangles in the division form of Moller-Trumbore.  The JAX
+package compiles that walk as one XLA program (no Pallas kernel); its
+port's form on the card is two hand-written CUDA kernels
+(``csrc/mega_grid.cu``):
+
+* B11w ``grid_walk``: the walk of given rays, one thread a ray - what
+  ``traverse_triangles`` launches for CUDA tensors, bit-equal to the
+  plain walk below (reached on the CPU and through ``plain=True``);
+* B11 ``film_grid_mega``: the whole mirror-free ``super`` sample step
+  over the grid in one launch (``accel="dda"`` inside the super kernels'
+  gate), held to the plain DDA film under the CRN contract.
+
+``triangle_tables`` caches a scene's grid with the tables the kernels
+read (``GridTables``) once per prepared scene, modifier, build and device.
 """
 
 from __future__ import annotations
@@ -34,9 +46,18 @@ import torch
 
 from ..core.quirks import Quirks, DEFAULT
 from ..utils import debug as dbg
-from .intersect import SceneArrays, _tri_table, _mt_test
+from .intersect import SceneArrays, _tri_table, _mt_test, derived
 
 MAX_NELS_PER_CELL = 62  # reference cap (.ocl:1)
+
+#: Launches of kernel B11 (``film_grid_mega``) and of kernel B11w
+#: (``grid_walk``) since the last reset (each wrapper adds one per launch
+#: and nowhere else).
+MEGA_LAUNCHES = 0
+WALK_LAUNCHES = 0
+#: The slots of both kernels' work tally (csrc/mega_grid.cu, Tally): grid
+#: walks, walks that enter the grid, cells visited, pairs tested.
+STAT_NAMES = ("walks", "entered", "cells", "pairs")
 
 
 class UniformGrid(NamedTuple):
@@ -251,14 +272,223 @@ def triangle_grid(scn: SceneArrays, modifier: float = 3.0,
     return grid, (vmin.astype(np.float32), vmax.astype(np.float32))
 
 
+class GridTables(NamedTuple):
+    """A triangle grid with what its kernels read, on one device."""
+    grid: UniformGrid
+    tri: torch.Tensor     # (N, 12) float32: ops/intersect.py::_tri_table
+    frame: torch.Tensor   # (9,) float32: vmin, vmax, cell size
+
+
+def grid_frame(grid: UniformGrid) -> torch.Tensor:
+    """(9,) float32 on the grid's device: vmin, vmax, cell_size, with vmax
+    = vmin + cell_size * res computed as :func:`traverse_triangles` does."""
+    res = torch.tensor(grid.res, dtype=torch.float32,
+                       device=grid.vmin.device)
+    vmax = grid.vmin + grid.cell_size * res
+    return torch.cat([grid.vmin, vmax, grid.cell_size]).contiguous()
+
+
+def grid_tables(scn: SceneArrays, grid: UniformGrid, device) -> GridTables:
+    """``grid`` on ``device`` with the scene's triangle table (built once
+    per prepared scene and device) and the grid's frame."""
+    device = torch.device(device)
+    tri = derived(scn, "grid.tri_table", device,
+                  lambda s: torch.from_numpy(_tri_table(s)).to(device))
+    g = grid._replace(items=grid.items.to(device).contiguous(),
+                      counts=grid.counts.to(device).contiguous(),
+                      vmin=grid.vmin.to(device), cell_size=grid.cell_size.to(
+                          device))
+    return GridTables(g, tri, grid_frame(g))
+
+
+def triangle_tables(scn: SceneArrays, modifier: float = 3.0,
+                    device_build: bool = True, device="cpu") -> GridTables:
+    """The scene's triangle grid (:func:`triangle_grid`) and its kernels'
+    tables on ``device``, built once per prepared scene, modifier, build
+    and device (the host sizing and the build are paid on the first
+    render, as the JAX package pays them once per compile)."""
+    device = torch.device(device)
+
+    def make(s):
+        grid, _ = triangle_grid(s, modifier=modifier,
+                                device_build=device_build, device=device)
+        return grid_tables(s, grid, device)
+    name = f"grid.triangle_tables/{float(modifier)!r}/{bool(device_build)}"
+    return derived(scn, name, device, make)
+
+
+def _launch_error(lib, what: str, err: int):
+    msg = lib.mega_grid_error_string(err).decode()
+    raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def _grid_args(tab: GridTables, dev) -> tuple:
+    """The kernels' grid arguments; the tables must lie on ``dev``."""
+    from .mega_super import _check
+    g = tab.grid
+    _check((("tri", tab.tri), ("frame", tab.frame)), dev)
+    for name, a in (("items", g.items), ("counts", g.counts)):
+        if a.device != dev or a.dtype != torch.int32 \
+                or not a.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor on "
+                             f"{dev}")
+    return (tab.tri.data_ptr(), g.items.data_ptr(), g.counts.data_ptr(),
+            tab.frame.data_ptr(), *g.res, int(g.items.shape[1]))
+
+
+def grid_walk(o, d, t, m, nx, ny, nz, needs_norm, tables: GridTables,
+              quirks: Quirks = DEFAULT, stats=None):
+    """Kernel B11w: :func:`traverse_triangles` for each ray, one thread a
+    ray; returns new (t, m, nx, ny, nz, needs) of the rays' shape.
+    ``stats`` (a zeroed (4,) int64 tensor, or None) makes it the counting
+    instantiation, which adds its ``STAT_NAMES`` tally there.  On CPU
+    tensors: the plain walk (no tally)."""
+    global WALK_LAUNCHES
+    dev = o.device
+    if dev.type == "cpu":
+        return _walk_plain(o, d, t, m, nx, ny, nz, needs_norm, tables.tri,
+                           tables.grid, quirks)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    shape = o.shape[:-1]
+    n = int(np.prod(shape, dtype=np.int64))
+    if n >= 1 << 31:
+        raise ValueError(f"{n} rays exceed the int32 index")
+
+    def col(x, dtype):
+        out = torch.empty(n, dtype=dtype, device=dev)
+        out.copy_(torch.broadcast_to(torch.as_tensor(x, device=dev), shape)
+                  .reshape(-1))
+        return out
+    o2 = o.reshape(-1, 3).to(torch.float32).contiguous()
+    d2 = d.reshape(-1, 3).to(torch.float32).contiguous()
+    t2, nx2, ny2, nz2 = (col(x, torch.float32) for x in (t, nx, ny, nz))
+    m2 = col(m, torch.int32)
+    needs2 = col(needs_norm, torch.bool)
+    args = _grid_args(tables, dev)
+    from ..utils.build import load
+    from .mega_super import _stream
+    lib = load()
+    with torch.cuda.device(dev):
+        err = lib.grid_walk_launch(
+            *args, o2.data_ptr(), d2.data_ptr(), t2.data_ptr(),
+            m2.data_ptr(), nx2.data_ptr(), ny2.data_ptr(), nz2.data_ptr(),
+            needs2.data_ptr(), n, int(bool(quirks.accept_negative_t)),
+            None if stats is None else stats.data_ptr(), _stream(dev))
+    if err != 0:
+        _launch_error(lib, "grid_walk", err)
+    WALK_LAUNCHES += 1
+    return tuple(x.reshape(shape) for x in (t2, m2, nx2, ny2, nz2, needs2))
+
+
+def film_grid_mega(key, scn: SceneArrays, tables: GridTables, width: int,
+                   height: int, spp: int, spp_offset: int = 0,
+                   spp_total: int | None = None, quirks: Quirks = DEFAULT,
+                   row_offset: int = 0, rows: int | None = None,
+                   device="cuda", stats=None):
+    """Pre-ambient (rows, W, 3) float32 film of the band [row_offset,
+    row_offset+rows) with global samples [spp_offset, spp_offset+spp) of
+    spp_total, every trace walking the grid of ``tables``, on ``device``.
+
+    On a CUDA device: one launch of kernel B11; raises
+    ``NotImplementedError`` for a scene outside the super kernels' gate
+    (> 8 lights, > 2^20 triangles).  On the CPU: the plain DDA wavefront
+    (models/trianglegrid.py::film_trianglegrid, ``plain=True``).
+    ``stats`` as in :func:`grid_walk`."""
+    global MEGA_LAUNCHES
+    from . import mega_super as M
+    device = torch.device(device)
+    if spp_total is None:
+        spp_total = spp
+    if rows is None:
+        rows = height
+    if device.type == "cpu":
+        from ..models.trianglegrid import film_trianglegrid
+        return film_trianglegrid(key, scn, tables.grid, width, height, spp,
+                                 spp_offset, spp_total, quirks,
+                                 row_offset=row_offset, rows=rows,
+                                 device=device, plain=True)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    reason = M.unsupported_reason(scn)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    width, rows, spp = int(width), int(rows), int(spp)
+    if width <= 0 or rows <= 0 or spp < 0:
+        raise ValueError(f"bad film shape/spp: {rows}x{width}, spp={spp}")
+    if rows * width >= 1 << 31:
+        raise ValueError(f"{rows}x{width} pixels exceed the int32 index")
+    out = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
+    device = out.device
+    buf = derived(scn, "grid.scene_buffer", device, lambda s: torch.from_numpy(
+        M.pack_scene(s, triangles=False)[0]).to(device))
+    M._check((("scene", buf), ("out", out)), device)
+    args = _grid_args(tables, device)
+    from ..utils.build import load
+    lib = load()
+    with torch.cuda.device(device):
+        err = lib.mega_grid_launch(
+            buf.data_ptr(), int(scn.lights.shape[0]),
+            int(scn.sphere_centers.shape[0]), int(scn.square_k.shape[0]),
+            *args, M._u32_arg("k0", key[0]), M._u32_arg("k1", key[1]),
+            M._u32_arg("spp_offset", spp_offset),
+            M._u32_arg("spp_total", spp_total),
+            M._u32_arg("row_offset", row_offset), rows, width, spp,
+            int(bool(quirks.accept_negative_t)),
+            int(bool(quirks.shadow_carry_t)), out.data_ptr(),
+            None if stats is None else stats.data_ptr(), M._stream(device))
+    if err != 0:
+        _launch_error(lib, "mega_grid", err)
+    MEGA_LAUNCHES += 1
+    return out
+
+
+def mega_grid_stats(key, scn: SceneArrays, tables: GridTables, width: int,
+                    height: int, spp: int, spp_offset: int = 0,
+                    spp_total: int | None = None, quirks: Quirks = DEFAULT,
+                    row_offset: int = 0, rows: int | None = None,
+                    device="cuda") -> dict:
+    """B11's work over one render of this configuration (one launch of the
+    counting instantiation; the film is discarded): the ``STAT_NAMES``
+    tally - grid walks (camera rays and cast shadow rays), walks that
+    enter the grid, cells visited, pairs tested."""
+    stats = torch.zeros(len(STAT_NAMES), dtype=torch.int64, device=device)
+    film_grid_mega(key, scn, tables, width, height, spp, spp_offset,
+                   spp_total, quirks, row_offset, rows, device, stats)
+    return dict(zip(STAT_NAMES, stats.tolist()))
+
+
 def traverse_triangles(o, d, t, m, nx, ny, nz, needs_norm,
                        scn: SceneArrays, grid: UniformGrid,
-                       quirks: Quirks = DEFAULT):
+                       quirks: Quirks = DEFAULT, plain: bool = False):
     """Walk the grid per ray, testing the (<= cap) triangles of each
     visited cell; updates the running (t, m, normal, needs) exactly like
     the brute-force scan.  Faithful to TraceRay's DDA (ocl:157-198),
     including its break conditions (the running-t check comes after
-    stepping ``next``, so one extra cell may be visited)."""
+    stepping ``next``, so one extra cell may be visited).
+
+    On CUDA tensors: kernel B11w (:func:`grid_walk`), unless ``plain``;
+    on the CPU, or with ``plain=True``, the plain PyTorch walk below."""
+    if o.device.type == "cuda" and not plain:
+        tab = grid_tables(scn, grid, o.device)
+        stats = None
+        if dbg.enabled():
+            stats = torch.zeros(len(STAT_NAMES), dtype=torch.int64,
+                                device=o.device)
+        out = grid_walk(o, d, t, m, nx, ny, nz, needs_norm, tab, quirks,
+                        stats)
+        if stats is not None:
+            dbg.dprint("[grid DDA] rays={r} entered={e} cells_visited={v} "
+                       "tri_hits={h}", r=out[0].numel(), e=stats[1],
+                       v=stats[2], h=(out[1] == 4).sum())
+        return out
+    return _walk_plain(o, d, t, m, nx, ny, nz, needs_norm,
+                       torch.from_numpy(_tri_table(scn)), grid, quirks)
+
+
+def _walk_plain(o, d, t, m, nx, ny, nz, needs_norm, table, grid, quirks):
+    """The plain walk of :func:`traverse_triangles` over the (N, 12)
+    triangle table ``table``, on the rays' device."""
     ox, oy, oz = o.unbind(-1)
     dx, dy, dz = d.unbind(-1)
     dev = o.device
@@ -267,7 +497,7 @@ def traverse_triangles(o, d, t, m, nx, ny, nz, needs_norm,
     cs = grid.cell_size.to(dev)
     vmax = vmin + cs * torch.as_tensor([rx, ry, rz], dtype=torch.float32,
                                        device=dev)
-    table = torch.from_numpy(_tri_table(scn)).to(dev)
+    table = table.to(dev)
     items = grid.items.to(dev)
     counts = grid.counts.to(dev)
     cap = items.shape[1]

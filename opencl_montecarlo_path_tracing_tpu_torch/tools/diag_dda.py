@@ -16,8 +16,9 @@ tile's list of boxes and tests their triangle rows against the tile's rays:
                      points to each light, over lists built from the
                      segments, for both structures;
   dense scan         every 128-row block (meshes of <= 25,000 triangles);
-  per-lane DDA       ops/grid.py::traverse_triangles, plain PyTorch
-                     (<= 25,000 triangles).
+  per-lane DDA       ops/grid.py::traverse_triangles: kernel B11w on
+                     the card, plain PyTorch on the CPU (<= 25,000
+                     triangles).
 
 It prints each arm's best time of 3 warm calls and the checks: cell and
 Morton closest-hit maps agree (hit masks equal, the largest relative
@@ -213,7 +214,7 @@ def run_scene(tag: str, size: int, device) -> dict:
     ones = torch.ones(R, dtype=torch.bool, device=device)
     out, res["dda_ms"] = _bench(lambda: traverse_triangles(
         of, df, big, m0, zero, zero, zero, ones, scn, grid)[0], device, size,
-        "per-lane DDA (plain)")
+        "per-lane DDA")
     t_x = _np(out).reshape(size, size)
     hx = t_x < 1e30
     both = hit & hx

@@ -51,6 +51,7 @@ import torch
 from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
     DEFAULT, REFERENCE, REFERENCE_LMEM, Quirks)
 from opencl_montecarlo_path_tracing_tpu_torch.ops import gather_vlp as G6
+from opencl_montecarlo_path_tracing_tpu_torch.ops import grid as GR
 from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_simple as M5
 from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_super as M
 from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_vlp as M4
@@ -129,6 +130,106 @@ def carry_scene() -> Scene:
         square_kj=np.zeros((0, 2), np.float32),
         triangles=np.zeros((0, 3, 3), np.float32),
         lights=np.array([[25.0, -75.0, 300.0, 400.0]], np.float32))
+
+
+# the grid walk's cases (kernel B11w here; its NumPy twin, the plain walk
+# and the JAX package's walk in tests/test_torch_grid_walk.py): scenes,
+# camera windows of a 512x512 frame that see each mesh (rows, cols, step)
+GRID_SCENES = {"torus": window_torus, "sheet": lambda: sheet_scene(12, 8)}
+GRID_WINDOWS = {"torus": ((130, 168), (0, 64), 1),
+                "sheet": ((0, 512), (0, 512), 97)}
+GRID_KINDS = ["camera", "shadow", "short", "planes", "inside"]
+
+
+def grid_camera_rays(name):
+    """Primary rays (numpy) of the window of GRID_WINDOWS[name]."""
+    from opencl_montecarlo_path_tracing_tpu_torch.core import rng as R
+    from opencl_montecarlo_path_tracing_tpu_torch.core.camera import (
+        make_camera, primary_rays)
+    from opencl_montecarlo_path_tracing_tpu_torch.models import common as C
+    (r0, r1), (c0, c1), step = GRID_WINDOWS[name]
+    ii, jj = C.pixel_grid(512, 512)
+    keep = ((jj >= r0) & (jj < r1) & (ii >= c0) & (ii < c1))
+    ii, jj = ii[keep][::step], jj[keep][::step]
+    ray_id = (jj * 512 + ii).to(torch.int64) * 4 + 1
+    r = R.randn_draws((7, 11), ray_id, C.SITE_CAMERA, 4)
+    o, d = primary_rays(make_camera(z_sign=-1.0), ii, jj, *r)
+    return o.numpy(), d.numpy()
+
+
+def grid_rays(name, kind, scn, grid):
+    """(o, d, t) float32 numpy of a grid case over ``grid`` (the scene's
+    triangle grid): ``camera`` rays from t = 1e9; ``shadow`` rays from the
+    camera rays' closest hits (the plain DDA trace, on the CPU) to each
+    light, jittered, t = 1e9; ``short`` camera rays seeded with a t short
+    of most hits; ``planes`` rays with a 0.0 or -0.0 component (two on
+    every fifth) whose origin lies on a grid plane (the box's faces, where
+    the slab meets 0 * inf, and inner planes); ``inside`` origins inside
+    the grid, random directions."""
+    import functools
+    from opencl_montecarlo_path_tracing_tpu_torch.models import (
+        trianglegrid as TG)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import grid as G
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
+        trace_ray)
+    f32, big = np.float32, np.float32(1e9)
+    g = np.random.default_rng(5)
+    frame = G.grid_frame(grid).cpu().numpy()
+    vmin, vmax, cs = frame[0:3], frame[3:6], frame[6:9]
+    res = np.asarray(grid.res)
+    if kind in ("camera", "short", "shadow"):
+        o, d = grid_camera_rays(name)
+        t = np.full(len(o), big, f32)
+        if kind == "short":
+            t = g.uniform(2, 60, len(o)).astype(f32)
+        if kind == "shadow":
+            tr = trace_ray(torch.from_numpy(o), torch.from_numpy(d), scn,
+                           tri_override=functools.partial(
+                               TG._override, scn=scn, grid=grid,
+                               quirks=DEFAULT, plain=True))
+            x = o + d * tr.t.numpy()[:, None]
+            x = x[tr.material.numpy() != 0]
+            ls = []
+            for light in scn.lights:
+                jit = np.concatenate([g.random((len(x), 2)),
+                                      np.zeros((len(x), 1))], 1)
+                ls.append(light[:3] + jit.astype(f32) - x)
+            d = np.concatenate(ls).astype(f32)
+            d /= np.sqrt((d * d).sum(1, keepdims=True))
+            o = np.concatenate([x] * len(scn.lights)).astype(f32)
+            t = np.full(len(o), big, f32)
+        return o.astype(f32), d.astype(f32), t
+    n = 600
+    if kind == "inside":
+        o = g.uniform(vmin, vmax, (n, 3)).astype(f32)
+        d = g.normal(size=(n, 3))
+    else:   # planes
+        o = g.uniform(vmin - 2 * cs, vmax + 2 * cs, (n, 3)).astype(f32)
+        d = g.normal(size=(n, 3))
+        ax = np.arange(n) % 3
+        k = g.integers(0, res[ax] + 1)
+        plane = vmin[ax] + cs[ax] * k.astype(f32)
+        plane = np.where(k == 0, vmin[ax], plane)
+        plane = np.where(k == res[ax], vmax[ax], plane)
+        o[np.arange(n), ax] = plane
+        d[np.arange(n), ax] = 0.0
+        r5 = np.arange(0, n, 5)
+        d[r5, (ax[r5] + 1) % 3] = 0.0
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(f32)
+    if kind == "planes":
+        d[np.arange(n), ax] = np.where(np.arange(n) % 2, f32(-0.0), f32(0.0))
+    return o, d, np.full(n, big, f32)
+
+
+def grid_state(n, seed=3):
+    """A running hit before the triangle stage (numpy): m 0, 1 or 3, a
+    normal, needs on some rays (the walk keeps them where it finds
+    nothing)."""
+    g = np.random.default_rng(seed)
+    m = g.choice(np.array([0, 1, 3], np.int32), n)
+    nrm = g.normal(size=(n, 3)).astype(np.float32)
+    needs = g.random(n) < 0.3
+    return m, nrm, needs
 
 
 QUIRKS = {"default": DEFAULT, "reference": REFERENCE,
@@ -720,16 +821,17 @@ def test_tri_closest_kernel_matches_plain_on_gpu(neg_t, cuda_device):
 @pytest.mark.gpu
 def test_render_routes_launch_their_kernels(cuda_device):
     """super on a 1800-triangle sheet launches B2/B3; trianglegrid's auto
-    accel launches it too and its DDA launches nothing and renders the
-    same film under the contract; bidirectional on a 2048-triangle sheet
-    launches B4 once (its walk over the block tables) and neither B7 nor
-    B6; a 9-light copy of that sheet (outside B4's gate) runs the tier-1
-    route with B7 and B6 and no B4."""
+    accel launches it too and its DDA launches B11 once (and no B11w) and
+    renders the same film under the contract; bidirectional on a
+    2048-triangle sheet launches B4 once (its walk over the block tables)
+    and neither B7 nor B6; a 9-light copy of that sheet (outside B4's
+    gate) runs the tier-1 route with B7 and B6 and no B4."""
     import opencl_montecarlo_path_tracing_tpu_torch as pt
     from opencl_montecarlo_path_tracing_tpu_torch.ops import gather_vlp as G
     sheet = sheet_scene(30, 30)
     counts = lambda: (M.LAUNCHES, M.BLOCKED_LAUNCHES, B7.LAUNCHES,  # noqa
-                      M4.LAUNCHES, G.LAUNCHES)
+                      M4.LAUNCHES, G.LAUNCHES, GR.MEGA_LAUNCHES,
+                      GR.WALK_LAUNCHES)
     c0 = counts()
     film = pt.render("super", sheet, 64, 64, spp=2, seed=1,
                      device=cuda_device)
@@ -742,7 +844,7 @@ def test_render_routes_launch_their_kernels(cuda_device):
     dda = pt.render("trianglegrid", sheet, 64, 64, spp=2, seed=1,
                     accel="dda", device=cuda_device)
     torch.cuda.synchronize()
-    assert counts() == (c0[0], c0[1] + 1) + c0[2:]
+    assert counts() == (c0[0], c0[1] + 1) + c0[2:5] + (c0[5] + 1, c0[6])
     ok, st = crn_ok(auto, dda, 2)
     assert ok, st
     c0 = counts()
@@ -750,7 +852,7 @@ def test_render_routes_launch_their_kernels(cuda_device):
                      seed=2, n_vlp=64, device=cuda_device)
     torch.cuda.synchronize()
     # 2,048 triangles: B4 walks the block tables; no B7, no B6
-    assert counts() == c0[:3] + (c0[3] + 1, c0[4])
+    assert counts() == c0[:3] + (c0[3] + 1,) + c0[4:]
     assert film.shape == (64, 64, 3) and torch.isfinite(film).all()
     nine = sheet_scene(32, 32)
     nine = Scene(sphere_centers=nine.sphere_centers, square_kj=nine.square_kj,
@@ -762,9 +864,164 @@ def test_render_routes_launch_their_kernels(cuda_device):
     torch.cuda.synchronize()
     # 9 lights: the tier-1 route, its traces on B7 (>= 2,048 triangles)
     c1 = counts()
-    assert c1[:2] == c0[:2] and c1[3] == c0[3]
+    assert c1[:2] == c0[:2] and c1[3] == c0[3] and c1[5:] == c0[5:]
     assert c1[2] > c0[2] and c1[4] > c0[4]
     assert film.shape == (64, 64, 3) and torch.isfinite(film).all()
+
+
+def walk_bit_equal(o, d, t, m, nrm, needs, scn, grid, quirks, device):
+    """B11w (``traverse_triangles`` on CUDA tensors: one launch) == the
+    plain walk (``plain=True``) on the card, bit for bit on t, m, the
+    normal and needs; returns the rays that hit a triangle."""
+    def to(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    args = (to(o), to(d), to(t), to(m), to(nrm[:, 0]), to(nrm[:, 1]),
+            to(nrm[:, 2]), to(needs))
+    before = GR.WALK_LAUNCHES
+    got = GR.traverse_triangles(*args, scn, grid, quirks)
+    torch.cuda.synchronize()
+    assert GR.WALK_LAUNCHES == before + 1
+    want = GR.traverse_triangles(*args, scn, grid, quirks, plain=True)
+    assert GR.WALK_LAUNCHES == before + 1
+    for name, a, b in zip(("t", "m", "nx", "ny", "nz", "needs"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+    return int((got[1] == 4).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qname", ["default", "reference"])
+@pytest.mark.parametrize("kind", GRID_KINDS)
+@pytest.mark.parametrize("name", list(GRID_SCENES))
+def test_grid_walk_bit_equal_plain(name, kind, qname, cuda_device):
+    """B11w == the plain walk, bit for bit: the cases that
+    tests/test_torch_grid_walk.py holds the kernel's NumPy twin to, on the
+    grid built on the card."""
+    scn = prep_scene(GRID_SCENES[name]())
+    grid, _ = GR.triangle_grid(scn, device=cuda_device)
+    o, d, t = grid_rays(name, kind, scn, grid)
+    m, nrm, needs = grid_state(len(o))
+    hits = walk_bit_equal(o, d, t, m, nrm, needs, scn, grid, QUIRKS[qname],
+                          cuda_device)
+    assert hits > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["camera", "shadow"])
+def test_grid_walk_bit_equal_plain_on_1800_sheet(kind, cuda_device):
+    """B11w == the plain walk on a 1,800-triangle sheet's camera rays
+    (every 97th pixel of 512x512) and their shadow rays."""
+    scn = prep_scene(sheet_scene(30, 30))
+    grid, _ = GR.triangle_grid(scn, device=cuda_device)
+    o, d, t = grid_rays("sheet", kind, scn, grid)
+    m, nrm, needs = grid_state(len(o), seed=9)
+    hits = walk_bit_equal(o, d, t, m, nrm, needs, scn, grid, DEFAULT,
+                          cuda_device)
+    assert hits > 0.05 * len(o)
+
+
+@pytest.mark.gpu
+def test_grid_walk_debug_hook_on_gpu(cuda_device, monkeypatch, capsys):
+    """PT_KERNEL_DEBUG=1: the walk on CUDA tensors (B11w's counting
+    launch) prints the plain walk's statistics line, the same counts."""
+    scn = prep_scene(sheet_scene(30, 30))
+    grid, _ = GR.triangle_grid(scn, device=cuda_device)
+    o, d, t = grid_rays("sheet", "camera", scn, grid)
+    m, nrm, needs = grid_state(len(o))
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+                 for a in (o, d, t, m, nrm[:, 0], nrm[:, 1], nrm[:, 2],
+                           needs))
+    monkeypatch.setenv("PT_KERNEL_DEBUG", "1")
+    GR.traverse_triangles(*args, scn, grid, DEFAULT)
+    kernel = capsys.readouterr().out
+    GR.traverse_triangles(*args, scn, grid, DEFAULT, plain=True)
+    assert "[grid DDA] rays=" in kernel
+    assert kernel == capsys.readouterr().out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qname", ["default", "reference_lmem"])
+def test_mega_grid_holds_to_plain_dda_and_blocked(qname, cuda_device):
+    """B11 at 64x64x2 on the 1,800-triangle sheet: one launch, no B11w;
+    its film under the contract against the plain DDA film (every trace
+    plain PyTorch) and against B2/B3's; REFERENCE_LMEM's carried shadow
+    distance too."""
+    from opencl_montecarlo_path_tracing_tpu_torch.models import (
+        trianglegrid as TG)
+    scn = prep_scene(sheet_scene(30, 30))
+    quirks = QUIRKS[qname]
+    tab = GR.triangle_tables(scn, 3.0, True, cuda_device)
+    before = GR.MEGA_LAUNCHES, GR.WALK_LAUNCHES
+    got = GR.film_grid_mega((1, 0), scn, tab, 64, 64, 2, quirks=quirks,
+                            device=cuda_device)
+    torch.cuda.synchronize()
+    plain = TG.film_trianglegrid((1, 0), scn, tab.grid, 64, 64, 2, 0, 2,
+                                 quirks, device=cuda_device, plain=True)
+    assert (GR.MEGA_LAUNCHES, GR.WALK_LAUNCHES) == (before[0] + 1, before[1])
+    blocked = M.film_super_mega((1, 0), scn, 64, 64, 2, quirks=quirks,
+                                device=cuda_device)
+    assert got.shape == (64, 64, 3) and torch.isfinite(got).all()
+    for want in (plain, blocked):
+        ok, st = crn_ok(got, want, 2)
+        assert ok, st
+    st = GR.mega_grid_stats((1, 0), scn, tab, 64, 64, 2, quirks=quirks,
+                            device=cuda_device)
+    assert st["walks"] >= 64 * 64 * 2 and 0 < st["entered"] <= st["walks"]
+    assert st["cells"] >= st["entered"] and st["pairs"] > 0
+
+
+@pytest.mark.gpu
+def test_dda_render_launches_mega_grid_once(cuda_device):
+    """api.render("trianglegrid", accel="dda") inside the gate: exactly one
+    B11 launch a render and nothing else; the grid is built once for the
+    prepared scene."""
+    import opencl_montecarlo_path_tracing_tpu_torch as pt
+    sheet = sheet_scene(30, 30)
+    counts = lambda: (M.LAUNCHES, M.BLOCKED_LAUNCHES, B7.LAUNCHES,  # noqa
+                      GR.MEGA_LAUNCHES, GR.WALK_LAUNCHES)
+    c0 = counts()
+    for _ in range(3):
+        film = pt.render("trianglegrid", sheet, 48, 40, spp=2, seed=4,
+                         accel="dda", device=cuda_device)
+    torch.cuda.synchronize()
+    assert counts() == c0[:3] + (c0[3] + 3, c0[4])
+    assert film.shape == (40, 48, 3) and torch.isfinite(film).all()
+    scn = prep_scene(sheet)
+    assert GR.triangle_tables(scn, 3.0, True, cuda_device) is \
+        GR.triangle_tables(scn, 3.0, True, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("accel", ["dda", "auto"])
+def test_dda_past_the_gate_walks_with_b11w(accel, cuda_device):
+    """A 9-light copy of the 1,800-triangle sheet (outside the super
+    kernels' gate) renders the tier-1 DDA wavefront on the card, whose
+    every walk is B11w (two launches a sample: the camera rays, then every
+    light's shadow rays in one), no B11, B1, B2/B3 or B7; its film is the
+    plain DDA film's bit for bit."""
+    import opencl_montecarlo_path_tracing_tpu_torch as pt
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.models import (
+        trianglegrid as TG)
+    base = sheet_scene(30, 30)
+    nine = Scene(sphere_centers=base.sphere_centers,
+                 square_kj=base.square_kj, triangles=base.triangles,
+                 lights=np.tile(base.lights, (5, 1))[:9])
+    scn = prep_scene(nine)
+    assert TG.route(scn, 5, accel, cuda_device) == "wavefront"
+    counts = lambda: (M.LAUNCHES, M.BLOCKED_LAUNCHES, B7.LAUNCHES,  # noqa
+                      GR.MEGA_LAUNCHES, GR.WALK_LAUNCHES)
+    c0 = counts()
+    film = pt.render("trianglegrid", nine, 32, 24, spp=2, seed=6,
+                     accel=accel, device=cuda_device)
+    torch.cuda.synchronize()
+    assert counts() == c0[:4] + (c0[4] + 4,)
+    tab = GR.triangle_tables(scn, 3.0, True, cuda_device)
+    plain = TG.film_trianglegrid(make_key(6), scn, tab.grid, 32, 24, 2, 0,
+                                 2, DEFAULT, device=cuda_device, plain=True)
+    assert torch.equal(film, plain)
 
 
 @pytest.mark.gpu
