@@ -130,7 +130,12 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    ``accel="dda"`` at 512x512x64 on the 20,736 sheet and the demo torus
    (B11 once a render, nothing else), timed over 3 runs with the split of
    host preparation, grid build and kernel, its tally (walks, cells,
-   pairs) and bound; each frame's samples 0-7 held under the contract to
+   pairs) and bound, and the counting launch's read-out (its film
+   bit-equal to the kernel's): warp-paid cell steps and SIMT efficiency
+   of camera and shadow walks, the warp steps a per-lane schedule across
+   walks would pay, empty cells, pair rounds and pair SIMT efficiency,
+   and the clock64 split of the warps' cycles (``grid_split``); each
+   frame's samples 0-7 held under the contract to
    the tier-1 DDA wavefront, whose every walk is B11w, and the
    ``accel="auto"`` film printed beside it (not held: where the
    reference's break rule ends a walk before its hit, the DDA's film is
@@ -138,10 +143,12 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    film (every walk recorded) against B11 and B2/B3 under the contract,
    the B11w wavefront's band bit-equal to it, and B11w on every recorded
    walk bit-equal to the plain walk; B11w on the sheet's 512x512 camera
-   rays against the plain walk, bit for bit, timed with its tally; the
-   tier-1 DDA route (a 9-light copy at 256x256x4: B11w only, two
-   launches a sample) against the tier-1 super film (B7) under the
-   contract;
+   rays against the plain walk, bit for bit, timed (events, and device
+   time a call) with its tally and read-out; the tier-1 DDA route (a
+   9-light copy at 256x256x4: B11w only, two launches a sample) against
+   the tier-1 super film (B7) under the contract, and B11w on its first
+   shadow call's recorded inputs (589,824 rays, light-major), timed with
+   its tally and read-out;
 11. B5 (``mega_simple``) vs its plain version under the simple family's
    contract (utils/crn.py ``SIMPLE``: p95 < 1e-5, ties on < 2%, and max
    abs 2e-5 where no pixel ties): the GPU tests' cases at 5, 0 and 1
@@ -2068,6 +2075,22 @@ def walk_differences(calls) -> int:
     return bad
 
 
+def walk_tally(rays, tab, want, quirks=None) -> tuple[dict, bool]:
+    """B11w's counting launch on ``rays`` (o, d, t, m, nx, ny, nz, needs):
+    (its tally, whether its outputs equal ``want`` bit for bit)."""
+    import torch
+    from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import DEFAULT
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import grid as G
+    stats = torch.zeros(len(G.STAT_NAMES), dtype=torch.int64, device="cuda")
+    got = G.grid_walk(*rays, tab, quirks or DEFAULT, stats)
+    return (dict(zip(G.STAT_NAMES, stats.tolist())),
+            all(bits_equal(a, b) for a, b in zip(got, want)))
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def grid_bound(st: dict, table_bytes: int, io_bytes: int):
     """B11 / B11w's bound over this run's tally: the FP32 operations of
     the tested pairs, the visited cells and the walks' set-up; the bytes
@@ -2082,6 +2105,39 @@ def table_bytes(tab) -> int:
         tab.grid.items, tab.grid.counts, tab.tri, tab.frame))
 
 
+def grid_split(st: dict) -> list[str]:
+    """Lines reading a B11 / B11w counting launch's tally (ops/grid.py::
+    STAT_NAMES): the warp-paid cell steps and SIMT efficiency of camera
+    and shadow walks, the warp steps a per-lane schedule across samples
+    and walks would pay, the empty cells, and the clock64 split of the
+    warps' cycles."""
+    cam, sh = st["cam_warp_steps"], st["shadow_warp_steps"]
+    lines = [
+        f"warp steps: camera {cam}, shadow {sh}; SIMT efficiency (lane "
+        f"cells / 32 x warp steps) camera "
+        f"{st['cam_cells'] / max(1, 32 * cam):.4f}, shadow "
+        f"{st['shadow_cells'] / max(1, 32 * sh):.4f}",
+        f"per-lane schedule: {st['sched_all']} warp steps, "
+        f"{st['sched_all'] / max(1, cam + sh):.4f} of the lockstep's "
+        f"(camera walks alone {st['sched_cam'] / max(1, cam):.4f}, shadow "
+        f"walks alone {st['sched_shadow'] / max(1, sh):.4f})",
+        f"empty cells {st['empty']} of {st['cells']} visited "
+        f"({st['empty'] / max(1, st['cells']) * 100:.2f}%); pair "
+        f"iterations {st['warp_pair_iters']}, pair SIMT efficiency "
+        f"{st['pairs'] / max(1, 32 * st['warp_pair_iters']):.4f}"]
+    names = (("camera+pre_tri", "clk_camera"), ("set-up", "clk_setup"),
+             ("empty iterations", "clk_empty"),
+             ("occupied: loads", "clk_occ_loads"),
+             ("occupied: pairs", "clk_pairs"),
+             ("occupied: step", "clk_occ_step"),
+             ("shadow set-up", "clk_shadow"), ("shading", "clk_shade"))
+    k = max(1, st["clk_kernel"])
+    lines.append("clock64 split of the warps' cycles: " + ", ".join(
+        f"{n} {st[c] / k * 100:.1f}%" for n, c in names)
+        + f" (kernel {st['clk_kernel']} warp-cycles)")
+    return lines
+
+
 def phase_grid_dda(card: str) -> dict:
     """The trianglegrid variant's DDA route on the card (kernels B11 and
     B11w): the main paths ``accel="dda"`` at 512x512x64 on the 20,736 sheet
@@ -2089,15 +2145,19 @@ def phase_grid_dda(card: str) -> dict:
     split of host preparation, grid build and kernel, each compared with
     the ``accel="auto"`` film (B2/B3, B1; printed: the DDA's break rule
     makes the sheet's differ) and held on samples 0-7 to the tier-1 DDA
-    wavefront (every walk B11w) under the contract; B11's tally and
-    bound; on rows 248-255 of the sheet (sample 0 of 64) the plain DDA
-    film (the eager walk, every call recorded) against B11 and B2/B3 under
-    the contract, the tier-1 wavefront's band with B11w bit-equal to it
+    wavefront (every walk B11w) under the contract; B11's tally, bound
+    and read-out (``grid_split``), its counting launch's film bit-equal to
+    the kernel's; on rows 248-255 of the sheet (sample 0 of 64) the plain
+    DDA film (the eager walk, every call recorded) against B11 and B2/B3
+    under the contract, the tier-1 wavefront's band with B11w bit-equal to
+    it
     and B11w on every recorded walk's inputs bit-equal to its outputs;
     B11w on the sheet's 512x512 camera rays against the plain walk, bit
-    for bit, timed with its tally; the tier-1 DDA route (a 9-light copy
-    at 256x256x4: B11w only, two launches a sample) against the tier-1
-    super film (B7) under the contract."""
+    for bit, timed (events and device time) with its tally; the tier-1
+    DDA route (a 9-light copy at 256x256x4: B11w only, two launches a
+    sample) against the tier-1 super film (B7) under the contract, and
+    B11w on its first shadow call's recorded inputs, timed and tallied,
+    its counting launch bit-equal to the route's walk."""
     import torch
     import opencl_montecarlo_path_tracing_tpu_torch as pt
     from opencl_montecarlo_path_tracing_tpu_torch.utils.crn import crn_ok
@@ -2172,8 +2232,16 @@ def phase_grid_dda(card: str) -> dict:
         build_ms = (time.perf_counter() - t0) * 1e3 / TIMED_RUNS
         k_ms = time_ms(lambda: G.film_grid_mega(
             key, scn, tab, LW, LH, LSPP_GRID, device="cuda"), TIMED_RUNS)
-        st = G.mega_grid_stats(key, scn, tab, LW, LH, LSPP_GRID,
-                               device="cuda")
+        # the counting launch: its tally and split, and its film bit-equal
+        # to the timed kernel's (the lockstep walk is the same walk)
+        stats = torch.zeros(len(G.STAT_NAMES), dtype=torch.int64,
+                            device="cuda")
+        counted, c_ms = timed_call(lambda: G.film_grid_mega(
+            key, scn, tab, LW, LH, LSPP_GRID, device="cuda", stats=stats))
+        st = dict(zip(G.STAT_NAMES, stats.tolist()))
+        if not bits_equal(counted, G.film_grid_mega(
+                key, scn, tab, LW, LH, LSPP_GRID, device="cuda")):
+            failed.append(f"B11's counting launch's film on {name}")
         b_ms, b_by = grid_bound(st, table_bytes(tab), LW * LH * 12)
         mpaths = LW * LH * LSPP_GRID / (ms / 1e3) / 1e6
         print(f"main path: trianglegrid accel=dda {LW}x{LH}x{LSPP_GRID} on "
@@ -2185,7 +2253,9 @@ def phase_grid_dda(card: str) -> dict:
         print(f"  B11 tally: {st}; {st['pairs'] / max(1, st['walks']):.1f} "
               f"pairs and {st['cells'] / max(1, st['walks']):.1f} cells a "
               f"walk; bound {b_ms:.4f} ms ({b_by}), {b_ms / k_ms * 100:.1f}% "
-              "of the kernel's time")
+              f"of the kernel's time; the counting launch {c_ms:.2f} ms")
+        for line in grid_split(st):
+            print(f"  B11 {name}: {line}")
         if name == "sheet":
             out.update(ms=k_ms, bound_ms=b_ms, bound_by=b_by, max_abs=err,
                        scn=scn, tab=tab)
@@ -2239,20 +2309,25 @@ def phase_grid_dda(card: str) -> dict:
     needs = torch.zeros(n, dtype=torch.bool, device="cuda")
     args = (o, d, t, m, z, z, z, needs)
     w_ms = time_ms(lambda: G.grid_walk(*args, tab, DEFAULT), 10)
+    w_dev, _ = device_ms(lambda: G.grid_walk(*args, tab, DEFAULT), 10,
+                         "grid_walk_kernel")
     got = G.grid_walk(*args, tab, DEFAULT)
     want, wp_ms = timed_call(lambda: G.traverse_triangles(
         *args, scn, tab.grid, DEFAULT, plain=True))
     same = all(bits_equal(a, b) for a, b in zip(got, want))
     w_err = max_abs(got[0], want[0])
-    stats = torch.zeros(len(G.STAT_NAMES), dtype=torch.int64, device="cuda")
-    G.grid_walk(*args, tab, DEFAULT, stats)
-    wst = dict(zip(G.STAT_NAMES, stats.tolist()))
+    wst, counted_same = walk_tally(args, tab, got)
     wb_ms, wb_by = grid_bound(wst, table_bytes(tab), n * (24 + 2 * 21))
-    print(f"  B11w on the sheet's {n} camera rays: {w_ms:.3f} ms, plain "
-          f"PyTorch {wp_ms:.1f} ms, {'bit-equal' if same else 'DIFFERS'}; "
-          f"tally {wst}; bound {wb_ms:.4f} ms ({wb_by}) ({card})")
+    print(f"  B11w on the sheet's {n} camera rays: {w_ms:.3f} ms on events, "
+          f"device {fmt_ms(w_dev)} ms a call, plain PyTorch {wp_ms:.1f} ms, "
+          f"{'bit-equal' if same else 'DIFFERS'}; tally {wst}; bound "
+          f"{wb_ms:.4f} ms ({wb_by}) ({card})")
+    for line in grid_split(wst):
+        print(f"  B11w camera rays: {line}")
     if not same:
         failed.append("B11w vs the plain walk on the camera rays")
+    if not counted_same:
+        failed.append("B11w's counting launch on the camera rays")
 
     # the tier-1 DDA route: outside the super kernels' gate, B11w only
     nine = nine_lights(large)
@@ -2265,6 +2340,27 @@ def phase_grid_dda(card: str) -> dict:
     torch.cuda.synchronize()
     t_ms = (time.perf_counter() - t0) * 1e3
     counts = read_counts()
+    # B11w on the route's first shadow call (sample 0: every light's rays
+    # in one call, light-major: a warp's 32 rays are 32 pixels of one row
+    # and one light), timed and tallied on its recorded inputs
+    calls = recorded_walks(lambda: pt.render(
+        "trianglegrid", nine, w, h, spp=1, seed=0, accel="dda",
+        device="cuda"))
+    (*rays, wscn, wgrid, quirks), want = calls[1]
+    ntab = G.walk_tables(wscn, wgrid, "cuda")
+    s_ms = time_ms(lambda: G.grid_walk(*rays, ntab, quirks), 10)
+    s_dev, _ = device_ms(lambda: G.grid_walk(*rays, ntab, quirks), 10,
+                         "grid_walk_kernel")
+    sst, s_same = walk_tally(rays, ntab, want, quirks)
+    print(f"  B11w on the tier-1 route's shadow call ({rays[0].shape[0]} "
+          f"rays, {int(nine.lights.shape[0])} lights x {w}x{h}): "
+          f"{s_ms:.3f} ms on events, device {fmt_ms(s_dev)} ms a call; "
+          f"{'bit-equal' if s_same else 'DIFFERS'} to the route's walk; "
+          f"tally {sst} ({card})")
+    for line in grid_split(sst):
+        print(f"  B11w shadow call: {line}")
+    if not s_same:
+        failed.append("B11w's counting launch on the tier-1 shadow call")
     launched = {k: v for k, v in counts.items() if v}
     if launched != {"grid_walk": 2 * spp}:
         raise RuntimeError(f"tier-1 DDA route (9 lights): launches {counts}")

@@ -16,24 +16,37 @@
 // ray per light (grid_occluded, the any-hit walk whose boolean equals the
 // plain closest-hit trace's material != 0; under shadow_carry_t the
 // sequential closest-hit traces seeded with the carried distance), the
-// 4-material shading, spp accumulation.  B11w runs grid_closest on given
-// (o, d, t, m, n, needs): the arithmetic is ops/grid.py::
-// traverse_triangles' in its order, so it equals the plain walk bit for
-// bit; B11's film holds to the plain DDA film under the CRN contract
+// 4-material shading, spp accumulation.  B11w walks given (o, d, t, m, n,
+// needs) (pt_device.cuh::grid_walk): each ray's hit is ops/grid.py::
+// traverse_triangles' for it, so it equals the plain walk bit for bit;
+// B11's film holds to the plain DDA film under the CRN contract
 // (utils/crn.py).  Against B2/B3's it holds wherever the walk reaches the
 // ray's hit: the reference's break rule (ocl:195) ends some walks before
 // it, and the DDA's film keeps that.
 //
 // What bounds it on an H100: FP32 issue in the pair tests (46 operations a
 // (ray, triangle) pair, the division counted once) and the DDA steps; the
-// grid (the 20,736 sheet: 58,750 cells x 32 ids, 7.5 MB, and the 1 MB
-// triangle table) stays in the 50 MB L2, read through the read-only
-// path.  The walk is per lane: no warp votes, each lane ends at its own
-// cell, so a warp pays for its longest walk.  One thread a pixel, a warp
-// on a compact 8x4 patch (B2/B3's layout) so that its rays cross the same
-// cells; B11w takes rays in the caller's order, 256 a block.  The counting
-// instantiation (kStats) tallies traces, traces that enter the grid,
-// visited cells and tested pairs: the bound's work.  Built with
+// grid (the 20,736 sheet: 58,750 cells, 108k cell-major rows, 5.2 MB)
+// stays in the 50 MB L2, read through the read-only path.  A clock64
+// split of the counting launch (PERF.md, PR 16) put 62% of a warp's
+// cycles in occupied cells, pair tests and their loads, 26% in empty
+// steps, and showed warps paying 2.6x the pair tests they need; the walk
+// is residency-bound (a prefetch of the next row, 122 registers, ran
+// slower than none).  So the tables are ops/grid.py::grid_tables': an
+// occupancy bitmap (an empty cell costs its bit and its step; B11 stages
+// it in shared memory) and each cell's triangle rows copied in cell order
+// (a pair's row depends on its cell and slot: no item id is loaded).  B11
+// walks each lane at its own pace (pt_device.cuh::grid_closest /
+// grid_occluded), one thread a pixel, a warp on a compact 8x4 patch
+// (B2/B3's layout) so that its rays cross the same cells, 64 registers.
+// B11w walks a warp's 32 rays (the caller's order, 256 a block) in
+// lockstep and pools the pairs of its lanes' occupied cells, dealt out 32
+// a round (pt_device.cuh::grid_walk), so that a warp pays a round for
+// each 32 pairs instead of its lanes' largest cell; in B11's register
+// budget the pool costs more residency than it saves.  The counting
+// instantiation (kStats) runs the lockstep walk on every lane (B11's
+// without the pool), tallies the bound's work and the split
+// (ops/grid.py::STAT_NAMES), and gives the same film.  Built with
 // --fmad=false and without fast math, like B1-B5.
 
 #include "pt_device.cuh"
@@ -45,72 +58,211 @@ constexpr int kTileH = 8;             // warp w on the 8 x 4 patch (w&1, w>>1)
 constexpr int kBlock = kTileW * kTileH;
 constexpr int kWalkBlock = 256;       // B11w: rays a block
 
-// Work tally of the counting instantiation: [0] grid walks, [1] walks
-// that enter the grid, [2] cells visited, [3] (ray, triangle) pairs
-// tested; each thread adds its counts to the stats buffer at the end.
-constexpr int kStatSlots = 4;
+// Work tally of the counting instantiation (ops/grid.py::STAT_NAMES):
+//  [0] grid walks, [1] walks that enter the grid, [2] cells visited, [3]
+//  (ray, triangle) pairs the sequential slot-order scan tests (for an
+//  any-hit walk up to its first hit) - the bound's work;
+//  [4] / [5] warp-paid cell steps of camera / shadow walks (one an
+//  iteration of the warp's walk), [6] / [7] the lanes' cells of camera /
+//  shadow walks (SIMT efficiency = lane cells / (32 x warp steps));
+//  [8] / [9] / [10] the warp steps a per-lane schedule across samples and
+//  walks would pay (for each warp, its lanes' largest sum of cells over
+//  their camera walks / shadow walks / all walks);
+//  [11] visited cells with no triangle (their occupancy bit clear);
+//  [12..20] clock64 cycles summed over warps (lane 0's stamps at warp-
+//  uniform points of grid_walk): the camera ray and pre_tri (B11w:
+//  reading its inputs), the walks' DDA set-up, iterations in which every
+//  walking lane's cell is empty (its bit and step), in the others the
+//  loads (the cells' spans and rows), the pair arithmetic and the merge
+//  and step, the shadow set-up (light sampling, occluded_pre), the
+//  shading (B11w: writing its outputs), and the whole kernel;
+//  [21] the warps' rounds of pooled pairs (pair SIMT efficiency = pairs /
+//  (32 x these)).
+constexpr int kStatSlots = 22;
+enum StatSlot : int {
+  kWalks, kEntered, kCells, kPairs, kCamSteps, kShadowSteps, kCamCells,
+  kShadowCells, kSchedCam, kSchedShadow, kSchedAll, kEmpty, kClkCamera,
+  kClkSetup, kClkEmpty, kClkOccLoads, kClkPairs, kClkOccStep, kClkShadow,
+  kClkShade, kClkKernel, kWarpPairs
+};
 
+// Waits for `v` (a loaded value) before the next stamp: a warp-wide OR
+// that reads it, which the compiler cannot drop.
+__device__ __forceinline__ void wait_for(unsigned v) {
+  unsigned r;
+  asm volatile("redux.sync.or.b32 %0, %1, %2;" : "=r"(r) : "r"(v), "r"(kAll));
+  (void)r;
+}
+
+// The counting instantiation's tally (every lane of the warp runs the
+// kernel to its end; lane 0's warp-level slots are the ones flushed).
 template <bool kStats>
 struct Tally {
-  unsigned long long v[kStatSlots] = {};
-  __device__ __forceinline__ void walk() { v[0] += 1; }
-  __device__ __forceinline__ void enter() { v[1] += 1; }
-  __device__ __forceinline__ void cell() { v[2] += 1; }
-  __device__ __forceinline__ void pair() { v[3] += 1; }
+  unsigned walks = 0, entered = 0, cells = 0, pairs = 0, empty = 0;
+  unsigned cam = 0, shadow = 0;        // this lane's cells, by walk kind
+  unsigned long long w[kStatSlots] = {};   // lane 0's warp-level slots
+  long long last = 0;                  // the last clock64 stamp
+  bool is_shadow = false;              // the kind of the current walk
+  // the warp's clock since the last stamp goes to `slot`
+  __device__ __forceinline__ void clock_to(int slot) {
+    __syncwarp();
+    const long long now = clock64();
+    w[slot] += (unsigned long long)(now - last);
+    last = now;
+  }
+  __device__ __forceinline__ void start() {
+    __syncwarp();
+    last = clock64();
+    w[kClkKernel] = (unsigned long long)last;
+  }
+  // a walk of kind `shadow` begins; the time before it goes to `slot`
+  __device__ __forceinline__ void begin(bool shadow_walk, int slot) {
+    is_shadow = shadow_walk;
+    clock_to(slot);
+  }
+  // grid_walk's hooks
+  __device__ __forceinline__ void walk(bool live, bool go) {
+    walks += live;
+    entered += go;
+  }
+  __device__ __forceinline__ void step() {
+    w[is_shadow ? kShadowSteps : kCamSteps] += 1;
+  }
+  __device__ __forceinline__ void cell(bool full) {
+    cells += 1;
+    empty += !full;
+    (is_shadow ? shadow : cam) += 1;
+  }
+  __device__ __forceinline__ void pairs_of_cell(int n) { pairs += n; }
+  __device__ __forceinline__ void round() { w[kWarpPairs] += 1; }
+  __device__ __forceinline__ void loaded(unsigned v) {
+    wait_for(v);
+    clock_to(kClkOccLoads);
+  }
+  __device__ __forceinline__ void stamp(int stage) {
+    clock_to(kClkSetup + stage);   // WalkStage's order is the slots'
+  }
+  // warp sums of the lanes' counts and lane 0's slots into `stats`
   __device__ __forceinline__ void flush(unsigned long long* stats) {
-    for (int i = 0; i < kStatSlots; ++i)
-      if (v[i]) atomicAdd(stats + i, v[i]);
+    clock_to(kClkShade);
+    w[kClkKernel] = (unsigned long long)last - w[kClkKernel];
+    const unsigned lane_sum[] = {walks, entered, cells, pairs, cam, shadow,
+                                 empty};
+    const int lane_slot[] = {kWalks, kEntered, kCells, kPairs, kCamCells,
+                             kShadowCells, kEmpty};
+    for (int i = 0; i < 7; ++i)
+      w[lane_slot[i]] = __reduce_add_sync(kAll, lane_sum[i]);
+    w[kSchedCam] = __reduce_max_sync(kAll, cam);
+    w[kSchedShadow] = __reduce_max_sync(kAll, shadow);
+    w[kSchedAll] = __reduce_max_sync(kAll, cam + shadow);
+    if ((threadIdx.x & 31) == 0)
+      for (int i = 0; i < kStatSlots; ++i)
+        if (w[i]) atomicAdd(stats + i, w[i]);
   }
 };
 
 template <>
 struct Tally<false> {
-  __device__ __forceinline__ void walk() {}
-  __device__ __forceinline__ void enter() {}
+  __device__ __forceinline__ void enter() {}   // the per-lane walk's
   __device__ __forceinline__ void cell() {}
   __device__ __forceinline__ void pair() {}
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void begin(bool, int) {}
+  __device__ __forceinline__ void clock_to(int) {}
+  __device__ __forceinline__ void walk(bool, bool) {}
+  __device__ __forceinline__ void step() {}
+  __device__ __forceinline__ void cell(bool) {}
+  __device__ __forceinline__ void pairs_of_cell(int) {}
+  __device__ __forceinline__ void round() {}
+  __device__ __forceinline__ void loaded(unsigned) {}
+  __device__ __forceinline__ void stamp(int) {}
   __device__ __forceinline__ void flush(unsigned long long*) {}
 };
 
 // The kernel's parameters of the grid: the frame lies in device memory
-// (the wrapper computes vmax there) and is read into the Grid at entry.
+// (the wrapper computes vmax there) and is staged in shared memory.
 struct GridArgs {
-  const float4* tri;
-  const int* items;
-  const int* counts;
+  const float4* rows;
+  const int2* span;
+  const unsigned* occ;  // the occupancy bitmap, `words` words
   const float* frame;   // vmin.xyz, vmax.xyz, cell size.xyz
-  int rx, ry, rz, cap;
+  int rx, ry, rz, words;
 };
 
-__device__ __forceinline__ Grid load_grid(const GridArgs& a) {
+// B11 stages the occupancy bitmap in shared memory up to this many words
+// (16 KiB: 131,072 cells; the 20,736-triangle sheet's grid takes 1,836),
+// so that the 8 blocks an SM runs keep their residency; a larger grid's
+// bitmap, and B11w's (a block walks 256 rays once: staging costs more
+// than it saves), is read from device memory (32 cells a word, in L1).
+constexpr int kOccSmemWords = 4096;
+constexpr int kFrameFloats = 12;   // the frame's 9, padded to 16 bytes
+
+__host__ __device__ __forceinline__ int occ_smem_words(int words) {
+  return words <= kOccSmemWords ? words : 0;
+}
+
+// The grid of the kernel's arguments with its frame and, when `stage_occ`
+// and it fits, its bitmap copied by the block's threads to `smem`
+// (kFrameFloats, then the bitmap); the caller syncs the block.
+__device__ __forceinline__ Grid load_grid(const GridArgs& a, float* smem,
+                                          bool stage_occ) {
   Grid G;
-  G.tri = a.tri;
-  G.items = a.items;
-  G.counts = a.counts;
-  for (int i = 0; i < 3; ++i) {
-    G.vmin[i] = __ldg(a.frame + i);
-    G.vmax[i] = __ldg(a.frame + 3 + i);
-    G.cs[i] = __ldg(a.frame + 6 + i);
+  G.rows = a.rows;
+  G.span = a.span;
+  G.occ = a.occ;
+  if (threadIdx.x < 9) smem[threadIdx.x] = __ldg(a.frame + threadIdx.x);
+  G.frame = smem;
+  unsigned* bits = reinterpret_cast<unsigned*>(smem + kFrameFloats);
+  if (stage_occ && occ_smem_words(a.words)) {
+    for (int i = threadIdx.x; i < a.words; i += blockDim.x)
+      bits[i] = __ldg(a.occ + i);
+    G.occ = bits;
   }
   G.rx = a.rx;
   G.ry = a.ry;
   G.rz = a.rz;
-  G.cap = a.cap;
   return G;
 }
 
-// Closest hit over floor, squares, spheres and the grid's triangles,
-// seeded with t0; lanes that are not `active` skip the walk.
+// B11w's inputs besides the rays: the running hit's columns, each with
+// its element stride (0: one value broadcast to every ray).
+struct WalkIn {
+  const float* t;
+  const int* m;
+  const float *nx, *ny, *nz;
+  const unsigned char* needs;
+  int st, sm, snx, sny, snz, sneeds;
+};
+
+// B11's walks: the per-lane walk (pt_device.cuh::grid_closest,
+// grid_occluded) on the lanes that walk, each at its own pace (kNest: the
+// camera walks, whose lanes then test their occupied cells together); the
+// counting instantiation runs its lockstep twin (grid_walk without the
+// pool) on every lane.
+template <bool kNest, bool kStats>
+__device__ __forceinline__ void b11_closest(const Grid& G, Tally<kStats>& T,
+                                            bool active, float ox, float oy,
+                                            float oz, float dx, float dy,
+                                            float dz, bool neg_t, PreHit& h) {
+  if constexpr (kStats)
+    grid_walk<false, false, kNest>(G, nullptr, active, ox, oy, oz, dx, dy,
+                                   dz, neg_t, h, T);
+  else if (active)
+    grid_closest<kNest>(G, ox, oy, oz, dx, dy, dz, neg_t, h, T);
+}
+
 template <bool kStats>
-__device__ Hit trace_grid(const Scene& S, const Grid& G, float ox, float oy,
-                          float oz, float dx, float dy, float dz, float t0,
-                          bool neg_t, bool active, Tally<kStats>& T) {
-  PreHit h = pre_tri(S, ox, oy, oz, dx, dy, dz, t0, neg_t, 3);
-  if (active) {
-    T.walk();
-    grid_closest(G, ox, oy, oz, dx, dy, dz, neg_t, h, T);
-  }
-  return finish(h);
+__device__ __forceinline__ bool b11_occluded(const Grid& G, Tally<kStats>& T,
+                                             bool active, float ox, float oy,
+                                             float oz, float dx, float dy,
+                                             float dz, bool neg_t) {
+  PreHit limit{kBig, 0, 0.0f, 0.0f, 0.0f, false};
+  if constexpr (kStats)
+    return grid_walk<true, false, false>(G, nullptr, active, ox, oy, oz, dx,
+                                         dy, dz, neg_t, limit, T);
+  else
+    return active &&
+           grid_occluded(G, ox, oy, oz, dx, dy, dz, kBig, neg_t, T);
 }
 
 template <bool kStats>
@@ -123,9 +275,10 @@ mega_grid_kernel(const float* __restrict__ scene, int nl, int ns, int nq,
                  unsigned long long* __restrict__ stats) {
   Tally<kStats> T;
   extern __shared__ float4 smem4[];
-  const Scene S = stage_scene(scene, reinterpret_cast<float*>(smem4), 0, nl,
-                              ns, nq);
-  const Grid G = load_grid(ga);
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Scene S = stage_scene(scene, smem, 0, nl, ns, nq);
+  const Grid G = load_grid(
+      ga, smem + ((scene_floats(0, nl, ns, nq) + 3) & ~3), true);
   __syncthreads();
   const bool neg_t = neg_t_flag != 0;
   const bool carry_t = carry_t_flag != 0;
@@ -133,22 +286,28 @@ mega_grid_kernel(const float* __restrict__ scene, int nl, int ns, int nq,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ii_i = blockIdx.x * kTileW + (warp & 1) * 8 + (lane & 7);
   const int jj_row = blockIdx.y * kTileH + (warp >> 1) * 4 + (lane >> 3);
-  if (ii_i >= width || jj_row >= rows) return;   // no warp-wide step below
+  // every lane runs to the end (grid_walk is warp-wide); lanes past the
+  // film's edge walk nothing and write nothing
+  const bool in_film = ii_i < width && jj_row < rows;
   const uint32_t row_u = (uint32_t)jj_row + row_offset;
   const uint32_t pixel_index = row_u * (uint32_t)width + (uint32_t)ii_i;
   const float ii = (float)ii_i;
   const float jj = (float)(int)row_u;
+  T.start();
 
   float fr = 0.0f, fg = 0.0f, fb = 0.0f;
   for (int s = 0; s < spp; ++s) {
+    T.clock_to(kClkShade);
     const uint32_t s32 = (uint32_t)s + spp_offset;
     const uint32_t ray_id = pixel_index * spp_total + s32;
     const Ray ry = primary_ray(S, k0, k1, ray_id, ii, jj);
     const float ox = ry.ox, oy = ry.oy, oz = ry.oz;
     const float dx = ry.dx, dy = ry.dy, dz = ry.dz;
 
-    const Hit h = trace_grid(S, G, ox, oy, oz, dx, dy, dz, kBig, neg_t, true,
-                             T);
+    PreHit h0 = pre_tri(S, ox, oy, oz, dx, dy, dz, kBig, neg_t, 3);
+    T.begin(false, kClkCamera);
+    b11_closest<true>(G, T, in_film, ox, oy, oz, dx, dy, dz, neg_t, h0);
+    const Hit h = finish(h0);
 
     // direct light for floor (1) and diffuse (3) hits: one shadow ray
     // per light, cast only where the shading uses it
@@ -174,19 +333,19 @@ mega_grid_kernel(const float* __restrict__ scene, int nl, int ns, int nq,
       const float lamb = ldx * h.nx + ldy * h.ny + ldz * h.nz;
       // lamb < 0 zeroes the contribution; the reference short-circuits
       // the shadow trace there, so the carried t is left as it was
-      const bool cast = lit && lamb >= 0.0f;
+      const bool cast = in_film && lit && lamb >= 0.0f;
       bool occ;
       if (carry_t) {
-        const Hit hs = trace_grid(S, G, x, y, z, ldx, ldy, ldz, t_run, neg_t,
-                                  cast, T);
+        PreHit hs = pre_tri(S, x, y, z, ldx, ldy, ldz, t_run, neg_t, 3);
+        T.begin(true, kClkShadow);
+        b11_closest<false>(G, T, cast, x, y, z, ldx, ldy, ldz, neg_t, hs);
         occ = hs.m != 0;
         if (cast) t_run = hs.t;
       } else {
         occ = cast && occluded_pre(S, x, y, z, ldx, ldy, ldz, kBig, neg_t);
-        if (cast && !occ) {
-          T.walk();
-          occ = grid_occluded(G, x, y, z, ldx, ldy, ldz, kBig, neg_t, T);
-        }
+        T.begin(true, kClkShadow);
+        if (b11_occluded(G, T, cast && !occ, x, y, z, ldx, ldy, ldz, neg_t))
+          occ = true;
       }
       if (cast && !occ) {
         const float dqx = lx - x, dqy = ly - y, dqz = lz - z;
@@ -194,6 +353,7 @@ mega_grid_kernel(const float* __restrict__ scene, int nl, int ns, int nq,
         ti = ti + lamb * fminf(li / dist2, 1.0f);
       }
     }
+    T.clock_to(kClkShadow);
     float sr, sgc, sb;
     if (h.m == 0) {
       shade_sky(dz, sr, sgc, sb);
@@ -209,103 +369,141 @@ mega_grid_kernel(const float* __restrict__ scene, int nl, int ns, int nq,
     fg = fg + sgc;
     fb = fb + sb;
   }
-  float* o = out + 3 * ((long long)jj_row * width + ii_i);
-  o[0] = fr * kExposure;
-  o[1] = fg * kExposure;
-  o[2] = fb * kExposure;
+  if (in_film) {
+    float* o = out + 3 * ((long long)jj_row * width + ii_i);
+    o[0] = fr * kExposure;
+    o[1] = fg * kExposure;
+    o[2] = fb * kExposure;
+  }
   T.flush(stats);
 }
 
 // B11w: the grid walk of ray i over (o, d) (n, 3) and the running hit (t,
-// m, n, needs) (n,), updated in place.
+// m, n, needs), each read at element i * its stride (0: one value for
+// every ray), into the fresh outputs (n,).
 template <bool kStats>
 __global__ void __launch_bounds__(kWalkBlock)
 grid_walk_kernel(GridArgs ga, const float* __restrict__ o,
-                 const float* __restrict__ d, float* __restrict__ t,
-                 int* __restrict__ m, float* __restrict__ nx,
-                 float* __restrict__ ny, float* __restrict__ nz,
-                 unsigned char* __restrict__ needs, int n,
+                 const float* __restrict__ d, WalkIn in,
+                 float* __restrict__ t_out, int* __restrict__ m_out,
+                 float* __restrict__ nx_out, float* __restrict__ ny_out,
+                 float* __restrict__ nz_out,
+                 unsigned char* __restrict__ needs_out, int n,
                  int neg_t_flag, unsigned long long* __restrict__ stats) {
-  const long long i = (long long)blockIdx.x * kWalkBlock + threadIdx.x;
-  if (i >= n) return;
+  extern __shared__ float4 smem_grid[];
+  __shared__ unsigned long long keys[kWalkBlock];   // grid_walk's
+  const Grid G = load_grid(ga, reinterpret_cast<float*>(smem_grid), false);
+  __syncthreads();
+  // every lane runs to the end (grid_walk is warp-wide); lanes past n walk
+  // ray n - 1's input and write nothing
+  const long long i0 = (long long)blockIdx.x * kWalkBlock + threadIdx.x;
+  const bool live = i0 < n;
+  const long long i = live ? i0 : n - 1;
   Tally<kStats> T;
-  const Grid G = load_grid(ga);
-  PreHit h{t[i], m[i], nx[i], ny[i], nz[i], needs[i] != 0};
-  T.walk();
-  grid_closest(G, o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
-               d[3 * i + 1], d[3 * i + 2], neg_t_flag != 0, h, T);
-  t[i] = h.t;
-  m[i] = h.m;
-  nx[i] = h.nx;
-  ny[i] = h.ny;
-  nz[i] = h.nz;
-  needs[i] = h.needs ? 1 : 0;
+  T.start();
+  PreHit h{__ldg(in.t + i * in.st), __ldg(in.m + i * in.sm),
+           __ldg(in.nx + i * in.snx), __ldg(in.ny + i * in.sny),
+           __ldg(in.nz + i * in.snz), __ldg(in.needs + i * in.sneeds) != 0};
+  T.begin(false, kClkCamera);
+  grid_walk<false, true, false>(G, keys + (threadIdx.x & ~31), live,
+                                o[3 * i], o[3 * i + 1], o[3 * i + 2],
+                                d[3 * i], d[3 * i + 1], d[3 * i + 2],
+                                neg_t_flag != 0, h, T);
+  if (live) {
+    t_out[i] = h.t;
+    m_out[i] = h.m;
+    nx_out[i] = h.nx;
+    ny_out[i] = h.ny;
+    nz_out[i] = h.nz;
+    needs_out[i] = h.needs ? 1 : 0;
+  }
   T.flush(stats);
 }
 
-GridArgs grid_args(const float* tri, const int* items, const int* counts,
-                   const float* frame, int rx, int ry, int rz, int cap) {
+GridArgs grid_args(const float* rows, const int* span, const void* occ,
+                   const float* frame, int rx, int ry, int rz) {
   GridArgs a;
-  a.tri = reinterpret_cast<const float4*>(tri);
-  a.items = items;
-  a.counts = counts;
+  a.rows = reinterpret_cast<const float4*>(rows);
+  a.span = reinterpret_cast<const int2*>(span);
+  a.occ = reinterpret_cast<const unsigned*>(occ);
   a.frame = frame;
   a.rx = rx;
   a.ry = ry;
   a.rz = rz;
-  a.cap = cap;
+  a.words = (int)(((long long)rx * ry * rz + 31) / 32);
   return a;
+}
+
+// Raises a kernel's dynamic shared memory limit where `smem` passes 48 KiB.
+template <class K>
+int allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
 
 // Launch B11 on `stream`; returns cudaGetLastError() (0 on success).
 // `scene` is ops/mega_super.py::pack_scene's buffer without triangles;
-// `tri`, `items`, `counts` and `frame` are ops/grid.py::grid_tables' device
+// `tri_rows`, `span`, `occ` and `frame` are ops/grid.py::grid_tables' device
 // tensors; `stats`, when not null, points to kStatSlots zeroed uint64
 // counters: the counting instantiation runs and adds its Tally there.
 extern "C" int mega_grid_launch(const float* scene, int nl, int ns, int nq,
-                                const float* tri, const int* items,
-                                const int* counts, const float* frame,
-                                int rx, int ry, int rz, int cap, unsigned k0,
-                                unsigned k1, unsigned spp_offset,
-                                unsigned spp_total, unsigned row_offset,
-                                int rows, int width, int spp, int neg_t,
-                                int carry_t, float* out, void* stats,
-                                void* stream) {
+                                const float* tri_rows, const int* span,
+                                const void* occ, const float* frame, int rx,
+                                int ry, int rz, unsigned k0, unsigned k1,
+                                unsigned spp_offset, unsigned spp_total,
+                                unsigned row_offset, int rows, int width,
+                                int spp, int neg_t, int carry_t, float* out,
+                                void* stats, void* stream) {
   if ((long long)rows * width <= 0) return 0;
-  const size_t smem = sizeof(float) * (size_t)(12 + nl * 4 + ns * 3 + 2 * nq);
+  const GridArgs ga = grid_args(tri_rows, span, occ, frame, rx, ry, rz);
+  // the triangle-free scene (pt_device.cuh::scene_floats(0, ...)) to a
+  // 16-byte boundary, the frame, the bitmap
+  const size_t smem =
+      sizeof(float) * (size_t)(((12 + nl * 4 + ns * 3 + 2 * nq + 3) & ~3) +
+                               kFrameFloats + occ_smem_words(ga.words));
   auto kernel = stats ? mega_grid_kernel<true> : mega_grid_kernel<false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int e = allow_smem(kernel, smem);
+  if (e != 0) return e;
   const dim3 grid((unsigned)((width + kTileW - 1) / kTileW),
                   (unsigned)((rows + kTileH - 1) / kTileH));
   kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-      scene, nl, ns, nq,
-      grid_args(tri, items, counts, frame, rx, ry, rz, cap), k0, k1,
-      spp_offset, spp_total, row_offset, rows, width, spp, neg_t, carry_t,
-      out, reinterpret_cast<unsigned long long*>(stats));
+      scene, nl, ns, nq, ga, k0, k1, spp_offset, spp_total, row_offset,
+      rows, width, spp, neg_t, carry_t, out,
+      reinterpret_cast<unsigned long long*>(stats));
   return (int)cudaGetLastError();
 }
 
-// Launch B11w over n rays on `stream`; the hit arrays are updated in place
-// (`needs` is a bool tensor's bytes).  Returns cudaGetLastError().
-extern "C" int grid_walk_launch(const float* tri, const int* items,
-                                const int* counts, const float* frame,
-                                int rx, int ry, int rz, int cap,
-                                const float* o, const float* d, float* t,
-                                int* m, float* nx, float* ny, float* nz,
-                                void* needs, int n, int neg_t,
+// Launch B11w over n rays on `stream`: (t, m, nx, ny, nz, needs) are read
+// at element i * their stride (`needs` a bool tensor's bytes), the walk's
+// hit is written to the fresh (n,) outputs.  Returns cudaGetLastError().
+extern "C" int grid_walk_launch(const float* tri_rows, const int* span,
+                                const void* occ, const float* frame, int rx,
+                                int ry, int rz, const float* o,
+                                const float* d, const float* t, int st,
+                                const int* m, int sm, const float* nx,
+                                int snx, const float* ny, int sny,
+                                const float* nz, int snz, const void* needs,
+                                int sneeds, float* t_out, int* m_out,
+                                float* nx_out, float* ny_out, float* nz_out,
+                                void* needs_out, int n, int neg_t,
                                 void* stats, void* stream) {
   if (n <= 0) return 0;
+  const GridArgs ga = grid_args(tri_rows, span, occ, frame, rx, ry, rz);
+  const size_t smem = sizeof(float) * kFrameFloats;   // the bitmap unstaged
   auto kernel = stats ? grid_walk_kernel<true> : grid_walk_kernel<false>;
+  const int e = allow_smem(kernel, smem);
+  if (e != 0) return e;
+  const WalkIn in{t, m, nx, ny, nz,
+                  reinterpret_cast<const unsigned char*>(needs), st, sm, snx,
+                  sny, snz, sneeds};
   const unsigned blocks = (unsigned)((n + kWalkBlock - 1) / kWalkBlock);
-  kernel<<<blocks, kWalkBlock, 0, (cudaStream_t)stream>>>(
-      grid_args(tri, items, counts, frame, rx, ry, rz, cap), o, d, t, m, nx,
-      ny, nz, reinterpret_cast<unsigned char*>(needs), n, neg_t,
+  kernel<<<blocks, kWalkBlock, smem, (cudaStream_t)stream>>>(
+      ga, o, d, in,
+      t_out, m_out, nx_out, ny_out, nz_out,
+      reinterpret_cast<unsigned char*>(needs_out), n, neg_t,
       reinterpret_cast<unsigned long long*>(stats));
   return (int)cudaGetLastError();
 }

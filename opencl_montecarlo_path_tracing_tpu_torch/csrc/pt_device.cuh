@@ -811,17 +811,18 @@ __device__ __forceinline__ int warp_walk_closest(
 
 // The uniform triangle grid of the trianglegrid variant (ops/grid.py::
 // triangle_grid) and its per-ray 3-D DDA walk (kernels B11 and B11w,
-// csrc/mega_grid.cu): the cells' item lists (`cap` ids a cell, -1 padded,
-// `counts` live), the (N, 12) triangle table (v0 e0 | e0 e2 | e2 n as
-// three float4 a row) and the frame: vmin, vmax = vmin + cell_size * res
-// (computed by the wrapper as ops/grid.py::traverse_triangles does) and
-// the cell size, 9 floats in device memory.
+// csrc/mega_grid.cu), in ops/grid.py::grid_tables' form: the triangle
+// rows of every cell's item list copied in cell order (the (N, 12) table's
+// v0 e0 | e0 e2 | e2 n as three float4 a row), each cell's (first row,
+// rows), its occupancy bit, and the frame: vmin, vmax = vmin +
+// cell_size * res (computed as ops/grid.py::traverse_triangles does) and
+// the cell size, 9 floats.
 struct Grid {
-  const float4* tri;
-  const int* items;
-  const int* counts;
-  float vmin[3], vmax[3], cs[3];
-  int rx, ry, rz, cap;
+  const float4* rows;
+  const int2* span;
+  const unsigned* occ;   // bit c set where cell c has a triangle
+  const float* frame;
+  int rx, ry, rz;
 };
 
 // min / max that propagate NaN, as torch.minimum / jnp.minimum do (and as
@@ -867,97 +868,167 @@ __device__ __forceinline__ int grid_cell(float p, float v, float c, int r) {
   return min(max((int)floorf((p - v) / c), 0), r - 1);
 }
 
-// The 3-D DDA of TraceRay (trianglegrid/pathtracer.ocl:157-198) for one
-// ray, in ops/grid.py::traverse_triangles' arithmetic: the slab entry t0
-// and exit t1 with NaN-propagating min / max (a ray parallel to an axis
-// whose origin lies on a grid plane gets a NaN and never enters), the
-// entry cell, the per-axis crossing distances, then at most rx + ry + rz +
-// 2 steps: `visit(cell)` tests the cell (true ends the walk), the axis of
-// the smallest next crossing steps, and the walk ends when the running
-// distance `t` (read after the visit) lies before that crossing - after
-// the step, so one extra cell may be visited - or the index leaves the
-// grid.  The plain version's inactive lanes never update, so ending the
-// loop there gives the same result.  Returns whether the ray entered.
-template <class Visit>
-__device__ __forceinline__ bool grid_dda(const Grid& G, float ox, float oy,
-                                         float oz, float dx, float dy,
-                                         float dz, const float& t,
-                                         Visit&& visit) {
+// One ray's walk state in the 3-D DDA of TraceRay (trianglegrid/
+// pathtracer.ocl:157-198): the cell, each axis's next crossing distance
+// and crossing step, the direction's signs, and the steps left of the
+// rx + ry + rz + 2 the walk may take.
+struct Dda {
+  int ix, iy, iz;
+  float nxx, nxy, nxz;
+  float dlx, dly, dlz;
+  int left;
+  bool posx, posy, posz;
+};
+
+// The walk's set-up in ops/grid.py::traverse_triangles' arithmetic: the
+// slab entry t0 and exit t1 with NaN-propagating min / max (a ray parallel
+// to an axis whose origin lies on a grid plane gets a NaN and never
+// enters), the entry cell and the per-axis crossing distances.  Returns
+// whether the ray enters the grid.
+__device__ __forceinline__ bool dda_start(const Grid& G, float ox, float oy,
+                                          float oz, float dx, float dy,
+                                          float dz, Dda& W) {
+  const float* vmin = G.frame;
+  const float* vmax = G.frame + 3;
+  const float* cs = G.frame + 6;
   const float invx = 1.0f / dx, invy = 1.0f / dy, invz = 1.0f / dz;
-  const float ax = (G.vmin[0] - ox) * invx, bx = (G.vmax[0] - ox) * invx;
-  const float ay = (G.vmin[1] - oy) * invy, by = (G.vmax[1] - oy) * invy;
-  const float az = (G.vmin[2] - oz) * invz, bz = (G.vmax[2] - oz) * invz;
+  const float ax = (vmin[0] - ox) * invx, bx = (vmax[0] - ox) * invx;
+  const float ay = (vmin[1] - oy) * invy, by = (vmax[1] - oy) * invy;
+  const float az = (vmin[2] - oz) * invz, bz = (vmax[2] - oz) * invz;
   const float ex0 = min_nan(ax, bx), ex1 = max_nan(ax, bx);
   const float ey0 = min_nan(ay, by), ey1 = max_nan(ay, by);
   const float ez0 = min_nan(az, bz), ez1 = max_nan(az, bz);
   const float t0 = max_nan(max_nan(ex0, ey0), ez0);
   const float t1 = min_nan(min_nan(ex1, ey1), ez1);
   if (!(t0 <= t1)) return false;
-  const bool inside = ox >= G.vmin[0] && ox <= G.vmax[0] &&
-                      oy >= G.vmin[1] && oy <= G.vmax[1] &&
-                      oz >= G.vmin[2] && oz <= G.vmax[2];
+  const bool inside = ox >= vmin[0] && ox <= vmax[0] && oy >= vmin[1] &&
+                      oy <= vmax[1] && oz >= vmin[2] && oz <= vmax[2];
   const float px = inside ? ox : ox + dx * t0;
   const float py = inside ? oy : oy + dy * t0;
   const float pz = inside ? oz : oz + dz * t0;
   const int rx = G.rx, ry = G.ry, rz = G.rz;
-  int ix = grid_cell(px, G.vmin[0], G.cs[0], rx);
-  int iy = grid_cell(py, G.vmin[1], G.cs[1], ry);
-  int iz = grid_cell(pz, G.vmin[2], G.cs[2], rz);
-  const float dlx = (ex1 - ex0) / (float)rx;
-  const float dly = (ey1 - ey0) / (float)ry;
-  const float dlz = (ez1 - ez0) / (float)rz;
-  const bool posx = dx > 0.0f, posy = dy > 0.0f, posz = dz > 0.0f;
-  float nxx = posx ? ex0 + (float)(ix + 1) * dlx
-                   : ex0 + (float)rx * dlx - (float)ix * dlx;
-  float nxy = posy ? ey0 + (float)(iy + 1) * dly
-                   : ey0 + (float)ry * dly - (float)iy * dly;
-  float nxz = posz ? ez0 + (float)(iz + 1) * dlz
-                   : ez0 + (float)rz * dlz - (float)iz * dlz;
-  const int plane = rx * ry, ncells = plane * rz;
-  const int steps = rx + ry + rz + 2;
-  for (int s = 0; s < steps; ++s) {
-    if (visit(min(max(iz * plane + iy * rx + ix, 0), ncells - 1))) break;
-    const bool selx = nxx <= nxy && nxx <= nxz;
-    const bool sely = !selx && nxy <= nxz;
-    if (selx) {
-      nxx = nxx + dlx;
-      if (t < nxx) break;
-      ix += posx ? 1 : -1;
-      if (ix == (posx ? rx : -1)) break;
-    } else if (sely) {
-      nxy = nxy + dly;
-      if (t < nxy) break;
-      iy += posy ? 1 : -1;
-      if (iy == (posy ? ry : -1)) break;
-    } else {
-      nxz = nxz + dlz;
-      if (t < nxz) break;
-      iz += posz ? 1 : -1;
-      if (iz == (posz ? rz : -1)) break;
-    }
-  }
+  W.ix = grid_cell(px, vmin[0], cs[0], rx);
+  W.iy = grid_cell(py, vmin[1], cs[1], ry);
+  W.iz = grid_cell(pz, vmin[2], cs[2], rz);
+  W.dlx = (ex1 - ex0) / (float)rx;
+  W.dly = (ey1 - ey0) / (float)ry;
+  W.dlz = (ez1 - ez0) / (float)rz;
+  W.posx = dx > 0.0f;
+  W.posy = dy > 0.0f;
+  W.posz = dz > 0.0f;
+  W.nxx = W.posx ? ex0 + (float)(W.ix + 1) * W.dlx
+                 : ex0 + (float)rx * W.dlx - (float)W.ix * W.dlx;
+  W.nxy = W.posy ? ey0 + (float)(W.iy + 1) * W.dly
+                 : ey0 + (float)ry * W.dly - (float)W.iy * W.dly;
+  W.nxz = W.posz ? ez0 + (float)(W.iz + 1) * W.dlz
+                 : ez0 + (float)rz * W.dlz - (float)W.iz * W.dlz;
+  W.left = rx + ry + rz + 2;
   return true;
 }
 
-// The live slots of grid cell c in ascending order: each pair's
-// division-form test, and `on_hit(rd, row's last float4: e2.z, normal)`
-// for each pair that hits; true from on_hit ends the scan and is
-// returned.  `T` is the kernel's tally: cell(), pair() (and enter(), which
-// the walks below call).
+// The current cell's index, clamped into the grid.
+__device__ __forceinline__ int dda_cell(const Grid& G, const Dda& W) {
+  const int plane = G.rx * G.ry;
+  return min(max(W.iz * plane + W.iy * G.rx + W.ix, 0), plane * G.rz - 1);
+}
+
+// One step after a visit: the axis of the smallest next crossing steps,
+// and the walk ends when the running distance `t` (read after the visit)
+// lies before that crossing - after the step, so one extra cell may be
+// visited - when the index leaves the grid, or after rx + ry + rz + 2
+// visits.  Returns whether the walk goes on.
+__device__ __forceinline__ bool dda_advance(const Grid& G, Dda& W, float t) {
+  const bool selx = W.nxx <= W.nxy && W.nxx <= W.nxz;
+  const bool sely = !selx && W.nxy <= W.nxz;
+  if (selx) {
+    W.nxx = W.nxx + W.dlx;
+    if (t < W.nxx) return false;
+    W.ix += W.posx ? 1 : -1;
+    if (W.ix == (W.posx ? G.rx : -1)) return false;
+  } else if (sely) {
+    W.nxy = W.nxy + W.dly;
+    if (t < W.nxy) return false;
+    W.iy += W.posy ? 1 : -1;
+    if (W.iy == (W.posy ? G.ry : -1)) return false;
+  } else {
+    W.nxz = W.nxz + W.dlz;
+    if (t < W.nxz) return false;
+    W.iz += W.posz ? 1 : -1;
+    if (W.iz == (W.posz ? G.rz : -1)) return false;
+  }
+  return --W.left > 0;
+}
+
+// Whether grid cell c holds a triangle: its bit in the occupancy bitmap
+// (shared memory when the kernel staged it there, else device memory).
+__device__ __forceinline__ bool cell_occupied(const Grid& G, int c) {
+  return (G.occ[c >> 5] >> (c & 31)) & 1u;
+}
+
+__device__ __forceinline__ void take_hit(PreHit& h, float rd, float4 e) {
+  if (rd < h.t) {
+    h.t = rd;
+    h.m = 4;
+    h.nx = e.y;
+    h.ny = e.z;
+    h.nz = e.w;
+    h.needs = false;
+  }
+}
+
+// The 3-D DDA for one ray (kernel B11's walk, each lane at its own pace):
+// set-up, then `visit(cell)` on each occupied cell (true ends the walk)
+// and a step after every cell, until the walk ends; an empty cell costs
+// its bit and its step.  With kNest an inner loop steps over each run of
+// empty cells, so that a warp's lanes cross their runs each at its own
+// pace and test their next occupied cells together (each lane's cells
+// and steps are the same: an empty cell changes no running distance).
+// The plain version's inactive lanes never update, so ending the loop
+// there gives the same result.  `T` counts every visited cell (cell()).
+// Returns whether the ray entered.
+template <bool kNest, class T, class Visit>
+__device__ __forceinline__ bool grid_dda(const Grid& G, float ox, float oy,
+                                         float oz, float dx, float dy,
+                                         float dz, const float& t, T& tally,
+                                         Visit&& visit) {
+  Dda W;
+  if (!dda_start(G, ox, oy, oz, dx, dy, dz, W)) return false;
+  if constexpr (kNest) {
+    for (;;) {
+      int c = dda_cell(G, W);
+      tally.cell();
+      while (!cell_occupied(G, c)) {
+        if (!dda_advance(G, W, t)) return true;
+        c = dda_cell(G, W);
+        tally.cell();
+      }
+      if (visit(c) || !dda_advance(G, W, t)) return true;
+    }
+  } else {
+    do {
+      const int c = dda_cell(G, W);
+      tally.cell();
+      if (cell_occupied(G, c) && visit(c)) break;
+    } while (dda_advance(G, W, t));
+    return true;
+  }
+}
+
+// The pairs of occupied grid cell c in slot order: each pair's
+// division-form test on the cell's copy of the triangle's row, and
+// `on_hit(rd, row's last float4: e2.z, normal)` for each pair that hits;
+// true from on_hit ends the scan and is returned.  A pair's row depends
+// only on (c, slot): no item id is read.
 template <class T, class OnHit>
 __device__ __forceinline__ bool grid_cell_scan(const Grid& G, int c, float ox,
                                                float oy, float oz, float dx,
                                                float dy, float dz,
                                                bool neg_t, T& tally,
                                                OnHit&& on_hit) {
-  const int cnt = __ldg(G.counts + c);
-  const int* it = G.items + (long long)c * G.cap;
-  tally.cell();
-  for (int k = 0; k < cnt; ++k) {
-    const int tri = __ldg(it + k);
-    if (tri < 0) continue;
+  const int2 sp = __ldg(G.span + c);
+  const float4* r = G.rows + 3ll * sp.x;
+  for (int k = 0; k < sp.y; ++k, r += 3) {
     tally.pair();
-    const float4* r = G.tri + 3ll * tri;
     const float4 e = __ldg(r + 2);
     float rd;
     if (mt_div(__ldg(r), __ldg(r + 1), e, ox, oy, oz, dx, dy, dz, neg_t,
@@ -971,23 +1042,16 @@ __device__ __forceinline__ bool grid_cell_scan(const Grid& G, int c, float ox,
 // Closest hit over the grid's triangles (traverse_triangles for one ray):
 // a pair replaces the running hit h when its distance is strictly below
 // h.t (the first found wins a tie; a triangle spanning cells is tested
-// again in each).
-template <class T>
+// again in each).  kNest as in grid_dda.
+template <bool kNest, class T>
 __device__ __forceinline__ void grid_closest(const Grid& G, float ox,
                                              float oy, float oz, float dx,
                                              float dy, float dz, bool neg_t,
                                              PreHit& h, T& tally) {
-  if (grid_dda(G, ox, oy, oz, dx, dy, dz, h.t, [&](int c) {
+  if (grid_dda<kNest>(G, ox, oy, oz, dx, dy, dz, h.t, tally, [&](int c) {
         return grid_cell_scan(G, c, ox, oy, oz, dx, dy, dz, neg_t, tally,
                               [&](float rd, float4 e) {
-                                if (rd < h.t) {
-                                  h.t = rd;
-                                  h.m = 4;
-                                  h.nx = e.y;
-                                  h.ny = e.z;
-                                  h.nz = e.w;
-                                  h.needs = false;
-                                }
+                                take_hit(h, rd, e);
                                 return false;
                               });
       }))
@@ -1005,13 +1069,196 @@ __device__ __forceinline__ bool grid_occluded(const Grid& G, float ox,
                                               float t_limit, bool neg_t,
                                               T& tally) {
   bool occ = false;
-  if (grid_dda(G, ox, oy, oz, dx, dy, dz, t_limit, [&](int c) {
+  if (grid_dda<false>(G, ox, oy, oz, dx, dy, dz, t_limit, tally,
+                     [&](int c) {
         return occ = grid_cell_scan(
                    G, c, ox, oy, oz, dx, dy, dz, neg_t, tally,
                    [&](float rd, float4) { return rd < t_limit; });
       }))
     tally.enter();
   return occ;
+}
+
+// The key of a closest-hit pair (rd below its ray's t, so not NaN) in slot
+// k: the smaller key is the smaller distance, then the smaller slot, and
+// -0 and +0 are one distance - the order in which the sequential scan's
+// `rd < t` keeps the first of equal distances.
+__device__ __forceinline__ unsigned long long hit_key(float rd, int k) {
+  const unsigned b = __float_as_uint(rd == 0.0f ? 0.0f : rd);
+  const unsigned o = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return ((unsigned long long)o << 32) | (unsigned)k;
+}
+
+// The stages of a warp's walk, for the counting tally's clock64 stamps.
+enum WalkStage : int {
+  kStageSetup,   // dda_start
+  kStageEmpty,   // an iteration in which every walking lane's cell is empty
+  kStageLoads,   // an occupied iteration's spans and rows
+  kStagePairs,   // its pair arithmetic
+  kStageStep     // its merge and step
+};
+
+// The DDA walk of the 32 rays of a warp in lockstep, every lane calling it
+// (`live` lanes walk; kernel B11w's walk, and the counting instantiation
+// of B11's): each iteration each walking lane reads its cell's bit; where
+// any lane's cell is occupied the lanes on occupied cells test their
+// pairs, then each walking lane steps (dda_advance); with kNest the lanes
+// on empty cells first step on, together, until each is on an occupied
+// cell or done (grid_dda's inner loop).  With kPool the warp
+// pools the pairs of all its lanes' cells and deals them out 32 a round
+// (pair p of the pool to lane p % 32, which tests it against its owner's
+// ray, shuffled from the owner; the hits merged per owner in `keys`, the
+// warp's 32 slots of shared memory - unused without kPool), so that it
+// pays a round for each 32
+// pairs of its lanes' cells; without, each lane tests its own cell's
+// pairs slot by slot, and the warp pays its lanes' largest cell (as B11's
+// per-lane walk does).  Closest hit (kAny false): a pair below the
+// owner's h.t at the cell hits, the owner keeps the least key (hit_key:
+// the smallest distance, then the first slot) and takes that pair - its
+// rd recomputed, bit for bit - as the sequential slot-order scan of
+// ops/grid.py::traverse_triangles would (its strict `rd < t` keeps the
+// first of equal distances).  Any hit (kAny): a pair below h.t ends the
+// owner's walk, which the sequential scan would have ended at its first
+// such pair.  Each lane's cells and its break decisions are the
+// sequential walk's.  `T` is the kernel's tally: walk(), step() (an
+// iteration of the warp), cell() (a cell a lane moves onto),
+// pairs_of_cell() (the sequential scan's pairs: the cell's, or for kAny
+// up to the first hit), round() (a round of pair tests), loaded() and
+// stamp() (the counting instantiation's clock split; no-ops elsewhere).
+// Returns whether a pair hit (kAny).
+template <bool kAny, bool kPool, bool kNest, class T>
+__device__ __forceinline__ bool grid_walk(const Grid& G,
+                                          unsigned long long* keys,
+                                          bool live, float ox, float oy,
+                                          float oz, float dx, float dy,
+                                          float dz, bool neg_t, PreHit& h,
+                                          T& tally) {
+  const int lane = threadIdx.x & 31;
+  Dda W;
+  bool go = live && dda_start(G, ox, oy, oz, dx, dy, dz, W);
+  tally.walk(live, go);
+  tally.stamp(kStageSetup);
+  int c = 0;
+  bool full = false;
+  auto visit = [&]() {   // the lane moves onto the cell of W
+    c = dda_cell(G, W);
+    full = cell_occupied(G, c);
+    tally.cell(full);
+  };
+  if (go) visit();
+  bool hit = false;
+  while (__any_sync(kAll, go)) {
+    if constexpr (kNest) {
+      while (__any_sync(kAll, go && !full)) {
+        tally.step();
+        if (go && !full && (go = dda_advance(G, W, h.t))) visit();
+        tally.stamp(kStageEmpty);
+      }
+      if (!__any_sync(kAll, go)) break;
+    }
+    tally.step();
+    const bool mine = go && full;
+    const bool any = __any_sync(kAll, mine);
+    if (any) {
+      int2 sp = make_int2(0, 0);
+      if (mine) sp = __ldg(G.span + c);
+      const float t = h.t;
+      unsigned long long best = ~0ull;
+      if constexpr (kPool) {
+        // the pool: lane l's pairs are [excl_l, excl_l + n_l) of `total`
+        int incl = sp.y;
+#pragma unroll
+        for (int s = 1; s < 32; s <<= 1) {
+          const int v = __shfl_up_sync(kAll, incl, s);
+          if (lane >= s) incl += v;
+        }
+        const int total = __shfl_sync(kAll, incl, 31);
+        const int excl = incl - sp.y;
+        keys[lane] = ~0ull;
+        __syncwarp();
+        tally.stamp(kStageLoads);
+        for (int base = 0; base < total; base += 32) {
+          // pair p's owner: the last lane whose pairs start at or before p
+          const int p = base + lane;
+          int l = 0;
+#pragma unroll
+          for (int s = 16; s > 0; s >>= 1)
+            if (__shfl_sync(kAll, excl, l + s) <= p) l += s;
+          const int k = p - __shfl_sync(kAll, excl, l);
+          const int row = __shfl_sync(kAll, sp.x, l) + k;
+          const float rox = __shfl_sync(kAll, ox, l);
+          const float roy = __shfl_sync(kAll, oy, l);
+          const float roz = __shfl_sync(kAll, oz, l);
+          const float rdx = __shfl_sync(kAll, dx, l);
+          const float rdy = __shfl_sync(kAll, dy, l);
+          const float rdz = __shfl_sync(kAll, dz, l);
+          const float rt = __shfl_sync(kAll, t, l);
+          float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), b = a, e = a;
+          if (p < total) {
+            const float4* r = G.rows + 3ll * row;
+            a = __ldg(r);
+            b = __ldg(r + 1);
+            e = __ldg(r + 2);
+          }
+          tally.loaded(__float_as_uint(a.x) ^ __float_as_uint(b.x) ^
+                       __float_as_uint(e.x));
+          float rd;
+          if (p < total && mt_div(a, b, e, rox, roy, roz, rdx, rdy, rdz,
+                                  neg_t, rd) &&
+              rd < rt)
+            atomicMin(keys + l,
+                      kAny ? (unsigned long long)k : hit_key(rd, k));
+          tally.round();
+          tally.stamp(kStagePairs);
+        }
+        __syncwarp();
+        best = keys[lane];
+        __syncwarp();   // the slots are set anew at the next occupied cell
+      } else {
+        const int kmax = __reduce_max_sync(kAll, (unsigned)sp.y);
+        tally.stamp(kStageLoads);
+        const float4* r = G.rows + 3ll * sp.x;
+        for (int k = 0; k < kmax; ++k, r += 3) {
+          const bool test = k < sp.y && !(kAny && best != ~0ull);
+          float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), b = a, e = a;
+          if (test) {
+            a = __ldg(r);
+            b = __ldg(r + 1);
+            e = __ldg(r + 2);
+          }
+          tally.loaded(__float_as_uint(a.x) ^ __float_as_uint(b.x) ^
+                       __float_as_uint(e.x));
+          float rd;
+          if (test && mt_div(a, b, e, ox, oy, oz, dx, dy, dz, neg_t, rd) &&
+              rd < t) {
+            const unsigned long long key =
+                kAny ? (unsigned long long)k : hit_key(rd, k);
+            best = key < best ? key : best;
+          }
+          tally.round();
+          tally.stamp(kStagePairs);
+        }
+      }
+      const int kb = (int)(unsigned)best;
+      tally.pairs_of_cell(best == ~0ull || !kAny ? sp.y : kb + 1);
+      if (best != ~0ull) {
+        if (kAny) {
+          hit = true;
+          go = false;
+        } else {
+          const float4* r = G.rows + 3ll * (sp.x + kb);
+          const float4 e = __ldg(r + 2);
+          float rd;
+          mt_div(__ldg(r), __ldg(r + 1), e, ox, oy, oz, dx, dy, dz, neg_t,
+                 rd);
+          take_hit(h, rd, e);
+        }
+      }
+    }
+    if (go && (go = dda_advance(G, W, h.t))) visit();
+    tally.stamp(any ? kStageStep : kStageEmpty);
+  }
+  return hit;
 }
 
 // Sky colour (1 - dz)^4 * (0.7, 0.6, 1) (pathtracer.ocl:160).

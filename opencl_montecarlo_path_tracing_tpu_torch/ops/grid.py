@@ -26,7 +26,8 @@ package compiles that walk as one XLA program (no Pallas kernel); its
 port's form on the card is two hand-written CUDA kernels
 (``csrc/mega_grid.cu``):
 
-* B11w ``grid_walk``: the walk of given rays, one thread a ray - what
+* B11w ``grid_walk``: the walk of given rays, one thread a ray, a warp
+  testing the pairs of its lanes' cells together - what
   ``traverse_triangles`` launches for CUDA tensors, bit-equal to the
   plain walk below (reached on the CPU and through ``plain=True``);
 * B11 ``film_grid_mega``: the whole mirror-free ``super`` sample step
@@ -34,7 +35,9 @@ port's form on the card is two hand-written CUDA kernels
   gate), held to the plain DDA film under the CRN contract.
 
 ``triangle_tables`` caches a scene's grid with the tables the kernels
-read (``GridTables``) once per prepared scene, modifier, build and device.
+read (``GridTables``: the frame, the occupancy bitmap, each cell's
+triangle rows in cell order) once per prepared scene, modifier, build and
+device; ``walk_tables`` those of the grid the tier-1 wavefront walks.
 """
 
 from __future__ import annotations
@@ -56,8 +59,23 @@ MAX_NELS_PER_CELL = 62  # reference cap (.ocl:1)
 MEGA_LAUNCHES = 0
 WALK_LAUNCHES = 0
 #: The slots of both kernels' work tally (csrc/mega_grid.cu, Tally): grid
-#: walks, walks that enter the grid, cells visited, pairs tested.
-STAT_NAMES = ("walks", "entered", "cells", "pairs")
+#: walks, walks that enter the grid, cells visited, pairs tested (the
+#: bound's work); the warp-paid cell steps and the lanes' cells of camera
+#: and shadow walks (B11w: every walk is a camera walk); the warp steps a
+#: per-lane schedule across samples and walks would pay (each warp's
+#: largest lane sum of camera / shadow / all cells); visited empty cells;
+#: clock64 cycles summed over warps: the camera ray and pre_tri (B11w: its
+#: inputs), the walks' set-up, all-empty iterations, the occupied
+#: iterations' loads, pair arithmetic and step, the shadow set-up, the
+#: shading (B11w: its outputs), the kernel; the warps' rounds of pair
+#: tests (B11's lanes each test their own cell: a warp pays its lanes'
+#: largest; B11w's warps pool theirs, 32 a round).
+STAT_NAMES = ("walks", "entered", "cells", "pairs", "cam_warp_steps",
+              "shadow_warp_steps", "cam_cells", "shadow_cells", "sched_cam",
+              "sched_shadow", "sched_all", "empty", "clk_camera",
+              "clk_setup", "clk_empty", "clk_occ_loads", "clk_pairs",
+              "clk_occ_step", "clk_shadow", "clk_shade", "clk_kernel",
+              "warp_pair_iters")
 
 
 class UniformGrid(NamedTuple):
@@ -277,6 +295,9 @@ class GridTables(NamedTuple):
     grid: UniformGrid
     tri: torch.Tensor     # (N, 12) float32: ops/intersect.py::_tri_table
     frame: torch.Tensor   # (9,) float32: vmin, vmax, cell size
+    occ: torch.Tensor     # (ceil(ncells / 32),) int32: occupancy_bits
+    rows: torch.Tensor    # (sum of the counts, 12) float32: cell_rows
+    span: torch.Tensor    # (ncells, 2) int32: cell_rows
 
 
 def grid_frame(grid: UniformGrid) -> torch.Tensor:
@@ -288,9 +309,42 @@ def grid_frame(grid: UniformGrid) -> torch.Tensor:
     return torch.cat([grid.vmin, vmax, grid.cell_size]).contiguous()
 
 
+def occupancy_bits(counts: torch.Tensor) -> torch.Tensor:
+    """The grid's occupancy bitmap on ``counts``' device: int32 word c // 32
+    holds bit c % 32 set where cell c has a triangle (``counts[c] > 0``),
+    the bits past the last cell clear."""
+    n = int(counts.numel())
+    words = (n + 31) // 32
+    bits = torch.zeros(words * 32, dtype=torch.int64, device=counts.device)
+    bits[:n] = (counts.reshape(-1) > 0).to(torch.int64)
+    shift = torch.arange(32, dtype=torch.int64, device=counts.device)
+    w = (bits.view(words, 32) << shift).sum(dim=1)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def cell_rows(grid: UniformGrid, tri: torch.Tensor) -> tuple:
+    """The triangle rows the kernels read, cell-major: for each cell in
+    index order the rows of ``tri`` (``_tri_table``) of its live slots
+    (slot k < count, id >= 0: the pairs the plain walk tests) in slot
+    order, and each cell's (first row, rows) as an (ncells, 2) int32
+    tensor, on ``tri``'s device.  A pair's row then depends on its cell
+    and slot alone."""
+    items = grid.items.to(tri.device)
+    counts = grid.counts.to(tri.device)
+    slot = torch.arange(items.shape[1], device=tri.device)
+    live = (slot[None, :] < counts[:, None]) & (items >= 0)
+    n = live.sum(dim=1)
+    if int(n.sum()) >= 1 << 31:
+        raise ValueError("the grid's slots exceed the int32 row index")
+    span = torch.stack([torch.cumsum(n, 0) - n, n], dim=1)
+    rows = tri[items[live].to(torch.int64)]
+    return rows.contiguous(), span.to(torch.int32).contiguous()
+
+
 def grid_tables(scn: SceneArrays, grid: UniformGrid, device) -> GridTables:
     """``grid`` on ``device`` with the scene's triangle table (built once
-    per prepared scene and device) and the grid's frame."""
+    per prepared scene and device), the grid's frame, its occupancy bitmap
+    and its cell-major rows."""
     device = torch.device(device)
     tri = derived(scn, "grid.tri_table", device,
                   lambda s: torch.from_numpy(_tri_table(s)).to(device))
@@ -298,7 +352,26 @@ def grid_tables(scn: SceneArrays, grid: UniformGrid, device) -> GridTables:
                       counts=grid.counts.to(device).contiguous(),
                       vmin=grid.vmin.to(device), cell_size=grid.cell_size.to(
                           device))
-    return GridTables(g, tri, grid_frame(g))
+    return GridTables(g, tri, grid_frame(g), occupancy_bits(g.counts),
+                      *cell_rows(g, tri))
+
+
+_WALK_TABLES: dict = {}
+
+
+def walk_tables(scn: SceneArrays, grid: UniformGrid, device) -> GridTables:
+    """:func:`grid_tables` of ``grid`` (the very object) on ``device``,
+    kept for the last few (scene, grid, device): the tier-1 wavefront
+    passes the same grid to every walk."""
+    device = torch.device(device)
+    key = (id(scn), id(grid), str(device))
+    hit = _WALK_TABLES.get(key)
+    if hit is None or hit[0] is not scn or hit[1] is not grid:
+        hit = (scn, grid, grid_tables(scn, grid, device))
+        _WALK_TABLES[key] = hit
+        while len(_WALK_TABLES) > 4:
+            del _WALK_TABLES[next(iter(_WALK_TABLES))]
+    return hit[2]
 
 
 def triangle_tables(scn: SceneArrays, modifier: float = 3.0,
@@ -325,60 +398,92 @@ def _launch_error(lib, what: str, err: int):
 def _grid_args(tab: GridTables, dev) -> tuple:
     """The kernels' grid arguments; the tables must lie on ``dev``."""
     from .mega_super import _check
-    g = tab.grid
-    _check((("tri", tab.tri), ("frame", tab.frame)), dev)
-    for name, a in (("items", g.items), ("counts", g.counts)):
+    rx, ry, rz = tab.grid.res
+    _check((("rows", tab.rows), ("frame", tab.frame)), dev)
+    for name, a, n in (("span", tab.span, 2 * rx * ry * rz),
+                       ("occ", tab.occ, (rx * ry * rz + 31) // 32)):
         if a.device != dev or a.dtype != torch.int32 \
-                or not a.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous int32 tensor on "
-                             f"{dev}")
-    return (tab.tri.data_ptr(), g.items.data_ptr(), g.counts.data_ptr(),
-            tab.frame.data_ptr(), *g.res, int(g.items.shape[1]))
+                or not a.is_contiguous() or a.numel() != n:
+            raise ValueError(f"{name} must be a contiguous int32 tensor of "
+                             f"{n} on {dev}")
+    return (tab.rows.data_ptr(), tab.span.data_ptr(), tab.occ.data_ptr(),
+            tab.frame.data_ptr(), rx, ry, rz)
+
+
+def _column(x, shape, n: int, dtype, dev) -> tuple:
+    """(tensor, element stride) through which B11w reads ``x`` broadcast
+    to ``shape`` as n values: stride 0 where one value serves every ray,
+    else the stride of a one-dimensional view (a copy only where the
+    dtype differs or no such view exists)."""
+    x = torch.as_tensor(x, device=dev)
+    if x.dtype != dtype:
+        x = x.to(dtype)
+    b = torch.broadcast_to(x, shape)
+    if n <= 1 or all(st == 0 for st in b.stride()):
+        return x, 0
+    try:
+        flat = b.view(n)
+    except RuntimeError:
+        flat = b.reshape(n).contiguous()
+    if flat.stride(0) >= 1 << 31:
+        flat = flat.contiguous()
+    return flat, flat.stride(0)
 
 
 def grid_walk(o, d, t, m, nx, ny, nz, needs_norm, tables: GridTables,
               quirks: Quirks = DEFAULT, stats=None):
     """Kernel B11w: :func:`traverse_triangles` for each ray, one thread a
-    ray; returns new (t, m, nx, ny, nz, needs) of the rays' shape.
-    ``stats`` (a zeroed (4,) int64 tensor, or None) makes it the counting
-    instantiation, which adds its ``STAT_NAMES`` tally there.  On CPU
-    tensors: the plain walk (no tally)."""
+    ray; returns new (t, m, nx, ny, nz, needs) of the rays' shape.  The
+    kernel reads each of t, m, nx, ny, nz and needs in place through its
+    element stride (0 broadcasts one value, a scalar or a one-element
+    tensor) and writes fresh outputs: one allocation a column, one launch.
+    ``stats`` (a zeroed ``(len(STAT_NAMES),)`` int64 tensor, or None) makes
+    it the counting instantiation, which adds its ``STAT_NAMES`` tally
+    there.  On CPU tensors: the plain walk (no tally)."""
     global WALK_LAUNCHES
     dev = o.device
+    shape = o.shape[:-1]
+    f32 = torch.float32
     if dev.type == "cpu":
-        return _walk_plain(o, d, t, m, nx, ny, nz, needs_norm, tables.tri,
-                           tables.grid, quirks)
+        cols = (torch.as_tensor(x).to(dt) for x, dt in zip(
+            (t, m, nx, ny, nz, needs_norm),
+            (f32, torch.int32, f32, f32, f32, torch.bool)))
+        return tuple(torch.broadcast_to(x, shape) for x in _walk_plain(
+            o, d, *cols, tables.tri, tables.grid, quirks))
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    shape = o.shape[:-1]
     n = int(np.prod(shape, dtype=np.int64))
     if n >= 1 << 31:
         raise ValueError(f"{n} rays exceed the int32 index")
-
-    def col(x, dtype):
-        out = torch.empty(n, dtype=dtype, device=dev)
-        out.copy_(torch.broadcast_to(torch.as_tensor(x, device=dev), shape)
-                  .reshape(-1))
-        return out
     o2 = o.reshape(-1, 3).to(torch.float32).contiguous()
     d2 = d.reshape(-1, 3).to(torch.float32).contiguous()
-    t2, nx2, ny2, nz2 = (col(x, torch.float32) for x in (t, nx, ny, nz))
-    m2 = col(m, torch.int32)
-    needs2 = col(needs_norm, torch.bool)
+    tc, st = _column(t, shape, n, f32, dev)
+    mc, sm = _column(m, shape, n, torch.int32, dev)
+    nxc, nyc, nzc = (_column(x, shape, n, f32, dev) for x in (nx, ny, nz))
+    needc, sneeds = _column(needs_norm, shape, n, torch.bool, dev)
+    if stats is not None and (stats.dtype != torch.int64 or stats.device
+                              != dev or stats.numel() != len(STAT_NAMES)):
+        raise ValueError(f"stats must be {len(STAT_NAMES)} int64 counters "
+                         f"on {dev}")
+    outs = [torch.empty(n, dtype=dt, device=dev)
+            for dt in (f32, torch.int32, f32, f32, f32, torch.bool)]
     args = _grid_args(tables, dev)
     from ..utils.build import load
     from .mega_super import _stream
     lib = load()
     with torch.cuda.device(dev):
         err = lib.grid_walk_launch(
-            *args, o2.data_ptr(), d2.data_ptr(), t2.data_ptr(),
-            m2.data_ptr(), nx2.data_ptr(), ny2.data_ptr(), nz2.data_ptr(),
-            needs2.data_ptr(), n, int(bool(quirks.accept_negative_t)),
+            *args, o2.data_ptr(), d2.data_ptr(), tc.data_ptr(), st,
+            mc.data_ptr(), sm, *(x for c in (nxc, nyc, nzc)
+                                  for x in (c[0].data_ptr(), c[1])),
+            needc.data_ptr(), sneeds,
+            *(x.data_ptr() for x in outs), n,
+            int(bool(quirks.accept_negative_t)),
             None if stats is None else stats.data_ptr(), _stream(dev))
     if err != 0:
         _launch_error(lib, "grid_walk", err)
     WALK_LAUNCHES += 1
-    return tuple(x.reshape(shape) for x in (t2, m2, nx2, ny2, nz2, needs2))
+    return tuple(x.view(shape) for x in outs)
 
 
 def film_grid_mega(key, scn: SceneArrays, tables: GridTables, width: int,
@@ -470,7 +575,7 @@ def traverse_triangles(o, d, t, m, nx, ny, nz, needs_norm,
     On CUDA tensors: kernel B11w (:func:`grid_walk`), unless ``plain``;
     on the CPU, or with ``plain=True``, the plain PyTorch walk below."""
     if o.device.type == "cuda" and not plain:
-        tab = grid_tables(scn, grid, o.device)
+        tab = walk_tables(scn, grid, o.device)
         stats = None
         if dbg.enabled():
             stats = torch.zeros(len(STAT_NAMES), dtype=torch.int64,

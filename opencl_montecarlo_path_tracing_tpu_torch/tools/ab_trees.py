@@ -2,7 +2,7 @@
 bit for bit, and their times.
 
     python -m opencl_montecarlo_path_tracing_tpu_torch.tools.ab_trees \
-        --set films|light_pass|dda|diag --trees OLD NEW [--runs 10]
+        --set films|light_pass|dda|diag|grid --trees OLD NEW [--runs 10]
 
 Each tree is the root of a checkout (an older commit unpacked with
 ``git archive`` into a git-ignored directory, and ``.``).  The trees run
@@ -46,6 +46,17 @@ workloads through the wrappers' arguments every version takes:
     and the device time a call of the arm's kernel (B8-prim: the
     ``takelist_kernel`` launches, not the wrapper's fill of the count;
     B8-loops: every kernel the call launches, which is the arm's alone).
+
+``grid``
+    The trianglegrid DDA route's kernels through ``ops/grid.py``: B11
+    (``film_grid_mega``) on the 20,736-triangle sheet and the demo torus
+    at 512x512x64 under the default quirks, and on the sheet at
+    512x512x2 under the reference quirks; B11w (``grid_walk``) on the
+    sheet's 512x512 camera rays (sample 0 of 64, from t = 1e9), and
+    ``traverse_triangles`` on the tier-1 DDA route's first shadow call
+    (a 9-light copy of the sheet at 256x256, recorded from a one-sample
+    render).  Films: every film and every walk output.  Times: B11 on
+    CUDA events; B11w on events and its kernel's device time a call.
 
 Event times are the mean of ``--runs`` calls after a warm-up.  A turn
 writes its films to a ``.npz`` file and prints one JSON line of times.
@@ -265,8 +276,82 @@ def diag_turn(runs: int) -> tuple[dict, dict]:
     return {k: v.cpu().numpy() for k, v in films.items()}, times
 
 
+def grid_turn(runs: int) -> tuple[dict, dict]:
+    """The ``grid`` set: (films and walk outputs, times in ms)."""
+    import dataclasses
+    import torch
+    import opencl_montecarlo_path_tracing_tpu_torch as pt
+    from opencl_montecarlo_path_tracing_tpu_torch.core import rng as R
+    from opencl_montecarlo_path_tracing_tpu_torch.core.camera import (
+        make_camera, primary_rays)
+    from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
+        DEFAULT, REFERENCE)
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.models import common as C
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import grid as G
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
+        prep_scene)
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        demo_scene, large_mesh_scene)
+    key, spp = make_key(0), 64
+    films, times = {}, {}
+
+    def walk_times(name, fn, runs):
+        times[f"{name} events"] = event_ms(fn, runs)
+        times[f"{name} device"] = device_ms(fn, runs, "grid_walk_kernel")
+
+    sheet = large_mesh_scene()
+    for name, scene in (("sheet", sheet), ("torus", demo_scene()[0])):
+        scn = prep_scene(scene)
+        tab = G.triangle_tables(scn, device="cuda")
+        fn = lambda: G.film_grid_mega(key, scn, tab, W, H, spp,  # noqa
+                                      device="cuda")
+        films[f"B11 {name} {W}x{H}x{spp}"] = fn()
+        times[f"B11 {name} {W}x{H}x{spp}"] = event_ms(fn, max(1, runs // 2))
+    scn = prep_scene(sheet)
+    tab = G.triangle_tables(scn, device="cuda")
+    films[f"B11 sheet reference {W}x{H}x2"] = G.film_grid_mega(
+        key, scn, tab, W, H, 2, spp_total=spp, quirks=REFERENCE,
+        device="cuda")
+    ii, jj = C.pixel_grid(W, H, device="cuda")
+    ray_id = (jj * W + ii).to(torch.int64) * spp
+    o, d = primary_rays(make_camera(z_sign=-1.0), ii, jj,
+                        *R.randn_draws(key, ray_id, C.SITE_CAMERA, 4))
+    n = o.shape[0]
+    z = torch.zeros(n, dtype=torch.float32, device="cuda")
+    args = (o, d, torch.full((n,), 1e9, dtype=torch.float32, device="cuda"),
+            torch.zeros(n, dtype=torch.int32, device="cuda"), z, z, z,
+            torch.zeros(n, dtype=torch.bool, device="cuda"))
+    fn = lambda: G.grid_walk(*args, tab, DEFAULT)  # noqa: E731
+    for k, v in zip(("t", "m", "nx", "ny", "nz", "needs"), fn()):
+        films[f"B11w camera rays {k}"] = v
+    walk_times(f"B11w sheet camera rays {n}", fn, runs)
+    # the tier-1 DDA route's first shadow call, recorded
+    nine = dataclasses.replace(sheet, lights=np.tile(sheet.lights,
+                                                     (5, 1))[:9])
+    calls, walk = [], G.traverse_triangles
+
+    def recording(*a, **kw):
+        calls.append((a, kw))
+        return walk(*a, **kw)
+    G.traverse_triangles = recording
+    try:
+        pt.render("trianglegrid", nine, 256, 256, spp=1, seed=0, accel="dda",
+                  device="cuda")
+    finally:
+        G.traverse_triangles = walk
+    a, kw = calls[1]
+    a = tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+    fn = lambda: walk(*a, **kw)  # noqa: E731
+    for k, v in zip(("t", "m", "nx", "ny", "nz", "needs"), fn()):
+        films[f"B11w tier-1 shadow call {k}"] = v
+    walk_times(f"B11w tier-1 shadow call {a[0].shape[0]}", fn, runs)
+    torch.cuda.synchronize()
+    return {k: v.cpu().numpy() for k, v in films.items()}, times
+
+
 SETS = {"films": films_turn, "light_pass": light_pass_turn, "dda": dda_turn,
-        "diag": diag_turn}
+        "diag": diag_turn, "grid": grid_turn}
 
 
 def run_turn(name: str, tree: str, out: str, runs: int) -> dict:

@@ -1,11 +1,13 @@
-"""Times the design alternatives that kernels B8-prim and B8-loops were
-chosen over, on one CUDA GPU.
+"""Times the design alternatives that kernels B8-prim and B8-loops, and
+the trianglegrid DDA route's B11 and B11w, were chosen over, on one CUDA
+GPU.
 
     python -m opencl_montecarlo_path_tracing_tpu_torch.tools.diag_variants \
-        [--runs 10] [--only NAME ...] [--json PATH]
+        [--set diag|grid] [--runs 10] [--only NAME ...] [--json PATH]
 
-Each variant is this package with one edit to ``csrc/diag_loops.cu`` or
-``csrc/diag_takelist.cu`` (``VARIANTS``):
+Each variant is this package with one edit to its set's sources
+(``VARIANTS``).  ``--set diag`` (the default), ``csrc/diag_loops.cu`` or
+``csrc/diag_takelist.cu``:
 
 ``blk32``       the element-wise arms in 32 blocks of 32 threads (kept: 8
                 of 128);
@@ -22,16 +24,42 @@ Each variant is this package with one edit to ``csrc/diag_loops.cu`` or
 ``ahead2``      B8-prim's shared reads (threshold, flag, list entry) two
                 iterations ahead (kept: one).
 
+``--set grid``, ``csrc/pt_device.cuh`` or ``csrc/mega_grid.cu``:
+
+``ownpairs``    B11w's lanes each test their own cell's pairs, the warp
+                paying its lanes' largest cell (kept: the warp pools its
+                lanes' pairs and deals them out 32 a round);
+``pool11``, ``pool11lb7``, ``pool11lb8``
+                B11 walks the warp's rays in lockstep with the pool too,
+                with no minimum of blocks an SM, or held to 7 or 8 (kept:
+                each lane walks at its own pace, testing its own pairs);
+``poolcam``     B11's camera walks pooled (kept: each lane testing its
+                own pairs);
+``flatcam``     B11's camera walks one step a cell, the warp's lanes
+                stepping together (kept: an inner loop steps over each
+                run of empty cells, each lane at its own pace, so that
+                the lanes test their occupied cells together; B11's
+                shadow walks and B11w step one cell at a time);
+``counts``      a cell's occupancy read from its span in device memory
+                (kept: its bit in the occupancy bitmap);
+``gbits``       B11 reads the bitmap from device memory (kept: staged in
+                shared memory up to 16 KiB);
+``sbits``       B11w stages the bitmap in shared memory (kept: read from
+                device memory);
+``lb8``         B11 held to 8 blocks an SM (64 registers; kept: no
+                minimum).
+
 The package is copied into a temporary directory once for each variant
 and the edit applied there; an edit whose text is no longer in the source
 stops the tool.  Then the kept tree, every variant and the kept tree
-again run in turn, each turn one process of ``ab_trees.py --set diag``
-(which builds that copy's kernels): both kernels' arms at the tools'
-counts, device time a call.  Every variant's outputs must equal the kept
-tree's bit for bit.  Printed: for each variant the arms it changes, the
-kept tree's device ms (the mean of its two turns), the variant's, and
-variant / kept; the command exits 1 if a variant fails to build or run or
-its outputs differ.
+again run in turn, each turn one process of ``ab_trees.py --set SET``
+(which builds that copy's kernels): ``diag``, both kernels' arms at the
+tools' counts, device time a call; ``grid``, B11's renders on events and
+B11w's calls in device time.  Every variant's outputs must equal the kept
+tree's bit for bit.  Printed: for each variant the times it changes, the
+kept tree's (the mean of its two turns), the variant's, and variant /
+kept; the command exits 1 if a variant fails to build or run or its
+outputs differ.
 """
 
 from __future__ import annotations
@@ -50,6 +78,11 @@ import numpy as np
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _AB = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ab_trees.py")
 LOOPS, PRIM = "diag_loops.cu", "diag_takelist.cu"
+DEVICE, GRID = "pt_device.cuh", "mega_grid.cu"
+FILES = {"diag": (LOOPS, PRIM), "grid": (DEVICE, GRID)}
+GRID_TIMES = ("B11 sheet 512x512x64", "B11 torus 512x512x64",
+              "B11w sheet camera rays 262144 device",
+              "B11w tier-1 shadow call 589824 device")
 ELEMENTWISE = ("flat1", "flat4", "flat16", "flat64", "chunk32", "chunk128",
                "nested", "bcast")
 
@@ -232,30 +265,123 @@ def ahead2(src: dict) -> None:
         entry2 = vlist[i + 3];""", 1)
 
 
-#: name: (edit of the sources, the arms it changes)
+def ownpairs(src: dict) -> None:
+    src[GRID] = _sub(src[GRID], "grid_walk<false, true, false>(G, keys + "
+                     "(threadIdx.x & ~31)", "grid_walk<false, false, false>("
+                     "G, keys + (threadIdx.x & ~31)", 1)
+
+
+_B11_KEYS = """// a warp's 32 slots for the pooled walk
+__device__ __forceinline__ unsigned long long* b11_keys() {
+  __shared__ unsigned long long keys[kBlock];
+  return keys + (threadIdx.x & ~31);
+}
+
+template <bool kNest, bool kStats>
+__device__ __forceinline__ void b11_closest("""
+
+
+def pool11(src: dict) -> None:
+    s = _sub(src[GRID], "template <bool kNest, bool kStats>\n__device__ "
+             "__forceinline__ void b11_closest(", _B11_KEYS, 1)
+    s = _sub(s, "  if constexpr (kStats)\n    grid_walk<false, false, kNest>"
+             "(G, nullptr,", "  if constexpr (true)\n    grid_walk<false, "
+             "true, kNest>(G, b11_keys(),", 1)
+    src[GRID] = _sub(s, "  if constexpr (kStats)\n    return grid_walk<true, "
+                     "false, false>(G, nullptr,", "  if constexpr (true)\n"
+                     "    return grid_walk<true, true, false>(G, b11_keys(),",
+                     1)
+
+
+def pool11_blocks(blocks: int):
+    def edit(src: dict) -> None:
+        pool11(src)
+        min_blocks(blocks)(src)
+    return edit
+
+
+def poolcam(src: dict) -> None:
+    s = _sub(src[GRID], "template <bool kNest, bool kStats>\n__device__ "
+             "__forceinline__ void b11_closest(", _B11_KEYS, 1)
+    src[GRID] = _sub(s, "    b11_closest<true>(G, T, in_film, ox, oy, oz, dx, "
+                     "dy, dz, neg_t, h0);", "    grid_walk<false, true, "
+                     "false>(G, b11_keys(), in_film, ox, oy, oz, dx, dy, dz, "
+                     "neg_t, h0, T);", 1)
+
+
+def flatcam(src: dict) -> None:
+    src[GRID] = _sub(src[GRID], "    b11_closest<true>(", "    b11_closest"
+                     "<false>(", 1)
+
+
+def counts(src: dict) -> None:
+    src[DEVICE] = _sub(
+        src[DEVICE], "  return (G.occ[c >> 5] >> (c & 31)) & 1u;",
+        "  return __ldg(reinterpret_cast<const int*>(G.span + c) + 1) > 0;",
+        1)
+
+
+def gbits(src: dict) -> None:
+    src[GRID] = _sub(src[GRID], "ga, smem + ((scene_floats(0, nl, ns, nq) + "
+                     "3) & ~3), true);", "ga, smem + ((scene_floats(0, nl, "
+                     "ns, nq) + 3) & ~3), false);", 1)
+
+
+def sbits(src: dict) -> None:
+    s = _sub(src[GRID], "load_grid(ga, reinterpret_cast<float*>(smem_grid), "
+             "false);", "load_grid(ga, reinterpret_cast<float*>(smem_grid), "
+             "true);", 1)
+    src[GRID] = _sub(s, "  const size_t smem = sizeof(float) * kFrameFloats;",
+                     "  const size_t smem = sizeof(float) * (size_t)("
+                     "kFrameFloats + occ_smem_words(ga.words));", 1)
+
+
+def min_blocks(blocks: int):
+    def edit(src: dict) -> None:
+        src[GRID] = _sub(src[GRID], "__global__ void __launch_bounds__("
+                         "kBlock)\nmega_grid_kernel", "__global__ void "
+                         f"__launch_bounds__(kBlock, {blocks})\n"
+                         "mega_grid_kernel", 1)
+    return edit
+
+
+#: name: (set, edit of the sources, the times it changes)
 VARIANTS = {
-    "blk32": (blk32, [f"loops {a}" for a in ELEMENTWISE]),
-    "full1": (full_warps(1), ["loops reduce_full"]),
-    "full8": (full_warps(8), ["loops reduce_full"]),
-    "full32": (full_warps(32), ["loops reduce_full"]),
-    "copy_tma": (copy_tma(1), ["loops copy"]),
-    "copy_tma16": (copy_tma(16), ["loops copy"]),
-    "cmp32": (cmp32, ["prim anycond", "prim takelist"]),
-    "ahead2": (ahead2, ["prim anycond", "prim scalarcond",
-                        "prim takelist"]),
+    "blk32": ("diag", blk32,
+              [f"loops {a} device" for a in ELEMENTWISE]),
+    "full1": ("diag", full_warps(1), ["loops reduce_full device"]),
+    "full8": ("diag", full_warps(8), ["loops reduce_full device"]),
+    "full32": ("diag", full_warps(32), ["loops reduce_full device"]),
+    "copy_tma": ("diag", copy_tma(1), ["loops copy device"]),
+    "copy_tma16": ("diag", copy_tma(16), ["loops copy device"]),
+    "cmp32": ("diag", cmp32, ["prim anycond device",
+                              "prim takelist device"]),
+    "ahead2": ("diag", ahead2, ["prim anycond device",
+                                "prim scalarcond device",
+                                "prim takelist device"]),
+    "ownpairs": ("grid", ownpairs, GRID_TIMES[2:]),
+    "pool11": ("grid", pool11, GRID_TIMES[:2]),
+    "pool11lb7": ("grid", pool11_blocks(7), GRID_TIMES[:2]),
+    "pool11lb8": ("grid", pool11_blocks(8), GRID_TIMES[:2]),
+    "poolcam": ("grid", poolcam, GRID_TIMES[:2]),
+    "flatcam": ("grid", flatcam, GRID_TIMES[:2]),
+    "counts": ("grid", counts, GRID_TIMES),
+    "gbits": ("grid", gbits, GRID_TIMES[:2]),
+    "sbits": ("grid", sbits, GRID_TIMES[2:]),
+    "lb8": ("grid", min_blocks(8), GRID_TIMES[:2]),
 }
 
 
-def make_tree(root: str, name: str, edit) -> str:
+def make_tree(root: str, name: str, edit, files=()) -> str:
     """A copy of the package under ``root/name`` with ``edit`` applied to
-    its diag sources; returns the tree's root."""
+    its sources ``files``; returns the tree's root."""
     tree = os.path.join(root, name)
     dst = os.path.join(tree, os.path.basename(_PKG))
     shutil.copytree(_PKG, dst, ignore=shutil.ignore_patterns(
         "_build", "__pycache__"))
     if edit is not None:
         csrc = os.path.join(dst, "csrc")
-        src = {f: open(os.path.join(csrc, f)).read() for f in (LOOPS, PRIM)}
+        src = {f: open(os.path.join(csrc, f)).read() for f in files}
         edit(src)
         for f, text in src.items():
             with open(os.path.join(csrc, f), "w") as fh:
@@ -263,12 +389,40 @@ def make_tree(root: str, name: str, edit) -> str:
     return tree
 
 
-def turn(tree: str, out: str, runs: int):
-    """(times, None) of one ``ab_trees --set diag`` turn in ``tree``, or
+def registers(tree: str, source: str) -> list:
+    """(kernel, registers, spill store bytes) of each entry function of
+    ``source`` in ``tree``'s last build log (ptxas -v)."""
+    import glob
+    logs = sorted(glob.glob(os.path.join(
+        tree, os.path.basename(_PKG), "_build", "build-*.log")),
+        key=os.path.getmtime)
+    if not logs:
+        return []
+    text = open(logs[-1]).read()
+    part = text.split(f"== {source}\n", 1)[-1].split("\n== ", 1)[0]
+    out, name, spill = [], None, 0
+    for line in part.splitlines():
+        m = re.search(r"Compiling entry function .*?\d([a-z_]+_kernel)"
+                      r"ILb(\d)", line)
+        if m:
+            name = f"{m.group(1)}<{'true' if m.group(2) == '1' else 'false'}>"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
+
+
+def turn(tree: str, out: str, runs: int, set_name: str = "diag"):
+    """(times, None) of one ``ab_trees --set SET`` turn in ``tree``, or
     (None, the error's last lines)."""
     proc = subprocess.run(
-        [sys.executable, _AB, "--set", "diag", "--runs", str(runs), "--one",
-         tree, out], cwd=tree, capture_output=True, text=True, timeout=900)
+        [sys.executable, _AB, "--set", set_name, "--runs", str(runs),
+         "--one", tree, out], cwd=tree, capture_output=True, text=True,
+        timeout=900)
     if proc.returncode != 0:
         return None, "\n".join((proc.stdout + proc.stderr).splitlines()[-15:])
     return json.loads(proc.stdout.strip().splitlines()[-1]), None
@@ -276,21 +430,25 @@ def turn(tree: str, out: str, runs: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--set", choices=sorted(FILES), default="diag")
     ap.add_argument("--runs", type=int, default=10)
     ap.add_argument("--only", nargs="+", choices=sorted(VARIANTS))
     ap.add_argument("--json", help="write every turn's times here")
     args = ap.parse_args(argv)
-    names = args.only or list(VARIANTS)
+    names = args.only or [n for n, v in VARIANTS.items()
+                          if v[0] == args.set]
+    if any(VARIANTS[n][0] != args.set for n in names):
+        ap.error(f"--only names a variant outside --set {args.set}")
     order = ["kept"] + names + ["kept"]
     times, failed = {}, []
     with tempfile.TemporaryDirectory() as tmp:
         trees = {"kept": make_tree(tmp, "kept", None)}
         for n in names:
-            trees[n] = make_tree(tmp, n, VARIANTS[n][0])
+            trees[n] = make_tree(tmp, n, VARIANTS[n][1], FILES[args.set])
         films = {}
         for i, name in enumerate(order):
             out = os.path.join(tmp, f"turn{i}.npz")
-            t, err = turn(trees[name], out, args.runs)
+            t, err = turn(trees[name], out, args.runs, args.set)
             if t is None:
                 print(f"{name}: FAILED\n{err}", flush=True)
                 failed.append(name)
@@ -311,22 +469,30 @@ def main(argv=None) -> int:
                 print(f"{name}: outputs differ from the kept tree's: "
                       f"{differ}")
                 failed.append(name)
+        regs = {name: registers(trees[name], GRID) for name in trees
+                if args.set == "grid"}
     if args.json:
         with open(args.json, "w") as fh:
             json.dump(times, fh, indent=1)
     kept = times.get("kept", [])
-    print(f"device ms a call (kept: the mean of {len(kept)} turns; "
-          f"{args.runs} calls a turn):")
+    print(f"ms a call (kept: the mean of {len(kept)} turns; {args.runs} "
+          "calls a turn):")
     for name in names:
         if name not in times:
             continue
-        for arm in VARIANTS[name][1]:
-            k = np.mean([t[f"{arm} device"] for t in kept])
-            v = times[name][0][f"{arm} device"]
-            spread = (f" (kept turns {kept[0][f'{arm} device']:.4f} / "
-                      f"{kept[-1][f'{arm} device']:.4f})")
-            print(f"  {name} {arm}: kept {k:.4f}, variant {v:.4f}, "
+        for key in VARIANTS[name][2]:
+            if any(t.get(key) is None for t in kept + times[name]):
+                print(f"  {name} {key}: not measured")
+                continue
+            k = np.mean([t[key] for t in kept])
+            v = times[name][0][key]
+            spread = (f" (kept turns {kept[0][key]:.4f} / "
+                      f"{kept[-1][key]:.4f})")
+            print(f"  {name} {key}: kept {k:.4f}, variant {v:.4f}, "
                   f"variant / kept {v / k:.3f}{spread}")
+    for name, found in regs.items():
+        print(f"ptxas {name}: " + ", ".join(
+            f"{k} {r} registers, {sp} B spills" for k, r, sp in found))
     print(f"failed or differing: {failed or 'none'}")
     return 1 if failed else 0
 

@@ -78,11 +78,12 @@ _SIGNATURES = {
                                     _F, _F, _P, _P, _P, _P, _P, _P, _I,
                                     _P]),
     "light_pass_error_string": (ctypes.c_char_p, [_I]),
-    "mega_grid_launch": (_I, [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+    "mega_grid_launch": (_I, [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
                               _U, _U, _U, _U, _U, _I, _I, _I, _I, _I, _P, _P,
                               _P]),
-    "grid_walk_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-                              _P, _P, _P, _P, _I, _I, _P, _P]),
+    "grid_walk_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P,
+                              _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P,
+                              _P, _P, _P, _I, _I, _P, _P]),
     "mega_grid_error_string": (ctypes.c_char_p, [_I]),
 }
 

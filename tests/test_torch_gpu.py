@@ -1025,6 +1025,128 @@ def test_dda_past_the_gate_walks_with_b11w(accel, cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("row", [248, 480])
+@pytest.mark.parametrize("qname", ["default", "reference_lmem"])
+def test_mega_grid_band_bit_equal_to_the_dda_wavefront(qname, row,
+                                                       cuda_device):
+    """B11 on 8 rows of a 512x512 frame of the 1,800-triangle sheet
+    (samples 0-1 of 4) against the DDA wavefront's band whose every walk
+    is B11w: rows 248-255 see the sheet, whose shading is the same
+    arithmetic on both sides, bit for bit; rows 480-487 see the floor and
+    cast shadow rays, whose light sampling and shading the eager
+    wavefront rounds differently, under the contract (as phase 10b holds
+    whole frames); and on both bands == its counting launch's film (the
+    lockstep walk that takes the tally), bit for bit."""
+    from opencl_montecarlo_path_tracing_tpu_torch.models import (
+        trianglegrid as TG)
+    scn = prep_scene(sheet_scene(30, 30))
+    quirks = QUIRKS[qname]
+    tab = GR.triangle_tables(scn, 3.0, True, cuda_device)
+    band = dict(row_offset=row, rows=8)
+    got = GR.film_grid_mega((5, 0), scn, tab, 512, 512, 2, 0, 4, quirks,
+                            device=cuda_device, **band)
+    wave = TG.film_trianglegrid((5, 0), scn, tab.grid, 512, 512, 2, 0, 4,
+                                quirks, device=cuda_device, **band)
+    stats = torch.zeros(len(GR.STAT_NAMES), dtype=torch.int64,
+                        device=cuda_device)
+    counted = GR.film_grid_mega((5, 0), scn, tab, 512, 512, 2, 0, 4, quirks,
+                                device=cuda_device, stats=stats, **band)
+    assert got.shape == (8, 512, 3) and got.var() > 1e-5
+    if row == 248:
+        assert torch.equal(got, wave)
+    else:
+        ok, st = crn_ok(got, wave, 2)
+        assert ok, st
+    assert torch.equal(got, counted)
+
+
+@pytest.mark.gpu
+def test_grid_walk_takes_broadcast_inputs(cuda_device):
+    """B11w with a Python-scalar t, a 0-d m, one-element normals and a 0-d
+    needs (stride 0) == B11w with the columns materialised == the plain
+    walk, bit for bit, on the 1,800-triangle sheet's camera rays; a
+    strided view of t reads through its stride."""
+    scn = prep_scene(sheet_scene(30, 30))
+    grid, _ = GR.triangle_grid(scn, device=cuda_device)
+    tab = GR.grid_tables(scn, grid, cuda_device)
+    o, d, _ = grid_rays("sheet", "camera", scn, grid)
+    o = torch.from_numpy(o).to(cuda_device)
+    d = torch.from_numpy(d).to(cuda_device)
+    n = o.shape[0]
+
+    def dev(*a, **kw):
+        return torch.tensor(*a, device=cuda_device, **kw)
+    one = (1e9, dev(3, dtype=torch.int32), dev([0.0]), dev([0.0]),
+           dev([1.0]), dev(True))
+    full = (torch.full((n,), 1e9, device=cuda_device),
+            torch.full((n,), 3, dtype=torch.int32, device=cuda_device),
+            torch.zeros(n, device=cuda_device),
+            torch.zeros(n, device=cuda_device),
+            torch.ones(n, device=cuda_device),
+            torch.ones(n, dtype=torch.bool, device=cuda_device))
+    wide = torch.full((2 * n,), 1e9, device=cuda_device)[::2]
+    before = GR.WALK_LAUNCHES
+    a = GR.grid_walk(o, d, *one, tab, DEFAULT)
+    b = GR.grid_walk(o, d, *full, tab, DEFAULT)
+    c = GR.grid_walk(o, d, wide, *full[1:], tab, DEFAULT)
+    torch.cuda.synchronize()
+    assert GR.WALK_LAUNCHES == before + 3
+    want = GR.traverse_triangles(o, d, *full, scn, grid, DEFAULT, plain=True)
+    for x, y, z, w in zip(a, b, c, want):
+        assert x.shape == (n,) and x.dtype == w.dtype
+        if x.dtype == torch.float32:
+            x, y, z, w = (v.view(torch.int32) for v in (x, y, z, w))
+        assert torch.equal(x, w) and torch.equal(y, w) and torch.equal(z, w)
+    assert int((b[1] == 4).sum()) > 0.05 * n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qname", ["default", "reference_lmem"])
+def test_grid_tallies_are_consistent(qname, cuda_device):
+    """The counting launches' tallies (ops/grid.py::STAT_NAMES) hold
+    together: B11 on rows 448-511 of a 512x512x2 frame of the
+    1,800-triangle sheet (the floor shows there: shadow walks) - the lanes'
+    camera and shadow cells sum to the visited cells, the empty cells are
+    among them, lane cells <= 32 x warp steps and pairs <= 32 x pair
+    iterations, a per-lane schedule pays no more warp steps than the
+    lockstep and no fewer than its largest lane's, the clock split sums to
+    the kernel's cycles; B11w on the sheet's camera rays: every walk a
+    camera walk, the same bounds."""
+    scn = prep_scene(sheet_scene(30, 30))
+    tab = GR.triangle_tables(scn, 3.0, True, cuda_device)
+    st = GR.mega_grid_stats((1, 0), scn, tab, 512, 512, 2,
+                            quirks=QUIRKS[qname], row_offset=448, rows=64,
+                            device=cuda_device)
+    o, d, t = grid_rays("sheet", "camera", scn, tab.grid)
+    m, nrm, needs = grid_state(len(o))
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+            for a in (o, d, t, m, nrm[:, 0], nrm[:, 1], nrm[:, 2], needs)]
+    stats = torch.zeros(len(GR.STAT_NAMES), dtype=torch.int64,
+                        device=cuda_device)
+    counted = GR.grid_walk(*args, tab, QUIRKS[qname], stats)
+    plain = GR.grid_walk(*args, tab, QUIRKS[qname])
+    for x, y in zip(counted, plain):
+        assert torch.equal(x, y)
+    wst = dict(zip(GR.STAT_NAMES, stats.tolist()))
+    assert wst["walks"] == len(o) and wst["shadow_cells"] == 0
+    assert wst["shadow_warp_steps"] == 0 and wst["sched_shadow"] == 0
+    clocks = [k for k in GR.STAT_NAMES if k.startswith("clk_")
+              and k != "clk_kernel"]
+    for s in (st, wst):
+        assert s["walks"] >= s["entered"] > 0 and s["pairs"] > 0
+        assert s["cam_cells"] + s["shadow_cells"] == s["cells"]
+        assert 0 < s["empty"] < s["cells"]
+        assert s["cam_cells"] <= 32 * s["cam_warp_steps"]
+        assert s["shadow_cells"] <= 32 * s["shadow_warp_steps"]
+        assert s["pairs"] <= 32 * s["warp_pair_iters"]
+        assert s["sched_all"] <= s["cam_warp_steps"] + s["shadow_warp_steps"]
+        assert s["sched_all"] >= max(s["sched_cam"], s["sched_shadow"])
+        assert s["sched_all"] * 32 >= s["cells"]
+        assert sum(s[k] for k in clocks) == s["clk_kernel"] > 0
+    assert st["walks"] > 512 * 64 * 2 and st["shadow_cells"] > 0
+
+
+@pytest.mark.gpu
 def test_mesh_past_the_gate_renders_the_tier1_route(cuda_device):
     """2^20 + 2048 triangles: outside the super kernels' gate, the film is
     the tier-1 wavefront on the card, whose traces are B7 - decided before
