@@ -1706,42 +1706,104 @@ def blocked_split(st: dict, n: int) -> str:
             f" row scans {100 * st['scan_cycles'] / kc:.1f}%")
 
 
+#: The block design's bound on B4's walk route over its own need (the
+#: pairs of the 32-row sub-blocks each ray's own box test passed) and
+#: the gathered terms, on the 20,736 sheet at 256x256x16, as this script
+#: measured it while the walk read B2/B3's block tables (PERF.md, B9).
+BLOCK_OWN_NEED_MS = 0.3996
+
+
 def walk_bound(st: dict, R: int, nt: int, nl: int, n_live: int,
                nbytes: float) -> dict:
     """B4's walk route's bounds from its tally over ``R`` samples: over its
-    own need (the pairs of the sub-blocks each ray's own test passes) and
-    the terms its lit samples gather (the kernels line's), over the pairs
-    its warps test (a lane re-tests rows a neighbour's ray needed), and the
-    yardstick (every camera ray and cast against every triangle, a term for
-    every sample and live VLP)."""
+    own work (the kernels line's): the pairs its lanes test, a visited
+    cell each, the walks' set-up (and more where a walk enters the grid)
+    and the terms its lit samples gather, each table read once; over the
+    pairs its warps pay (32 a pair iteration: a lane idles while a
+    neighbour tests a longer cell); and the yardstick (every camera ray
+    and cast against every triangle, a term for every sample and live
+    VLP)."""
     gather = st["gather_pairs"] * GATHER_PAIR_OPS
-    own = bound(st["own_need"] * PAIR_OPS + gather, nbytes)
-    tested = bound(st["tested"] * PAIR_OPS + gather, nbytes)
+    walk = (st["cells"] * CELL_OPS + st["walks"] * WALK_OPS
+            + st["entered"] * ENTER_OPS)
+    own = bound(st["pairs"] * PAIR_OPS + walk + gather, nbytes)
+    tested = bound(st["tested"] * PAIR_OPS + walk + gather, nbytes)
     yard = bound((R + st["lit"] * nl) * nt * PAIR_OPS
                  + R * n_live * GATHER_PAIR_OPS, nbytes)
     return {"bound_ms": own[0], "bound_by": own[1], "tested_ms": tested[0],
             "yard_ms": yard[0]}
 
 
+def walk_split(st: dict) -> str:
+    """B4's walk route's tally (``vlp_stats``) read: cells, empty cells and
+    pairs a walk, pair SIMT efficiency, and the clock64 split of the
+    walks' cycles."""
+    w = max(st["walks"], 1)
+    k = max(sum(st[c] for c in ("clk_setup", "clk_empty", "clk_loads",
+                                "clk_pairs", "clk_step")), 1)
+    empty = 100 * st["empty"] / max(st["cells"], 1)
+    return (f"{st['walks']} walks ({st['entered']} enter the grid): "
+            f"{st['cells'] / w:.1f} cells ({empty:.1f}% empty) and "
+            f"{st['pairs'] / w:.1f} pairs a walk, pair SIMT "
+            f"efficiency {st['pairs'] / max(st['tested'], 1):.3f}; the "
+            "walks' cycles: " + ", ".join(
+                f"{n} {100 * st[c] / k:.1f}%" for n, c in (
+                    ("set-up", "clk_setup"), ("empty steps", "clk_empty"),
+                    ("occupied loads", "clk_loads"),
+                    ("pairs", "clk_pairs"), ("end tests and steps",
+                                             "clk_step"))))
+
+
+def first_render_tables(scene) -> str:
+    """A fresh Scene's host preparation on its first VLP render past
+    2,048 triangles: prep_scene, B4's exact grid, and the block tables
+    L1 / L2's culled walk reads (ms, host clock between device syncs)."""
+    import torch
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import exact_grid as X
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_super as M
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
+        prep_scene)
+    out, scn = [], None
+    for name, step in (
+            ("prep_scene", lambda: prep_scene(dataclasses.replace(scene))),
+            ("the exact grid", lambda: X.exact_grid(scn, "cuda")),
+            ("the block tables", lambda: M.block_tables(scn, "cuda"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = step()
+        torch.cuda.synchronize()
+        scn = got if scn is None else scn
+        out.append(f"{name} {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    return "fresh Scene: " + ", ".join(out)
+
+
 def phase_vlp_walk_vs_plain(gt, card: str) -> dict:
-    """B4's walk route (past 512 triangles, over B2/B3's block tables)
-    against its plain version under the CRN contract: the 1,800-triangle
-    sheet of tests/test_torch_gpu.py and the 20,736 sheet at 512x512,
-    samples 0-1 of 4, the 262,144 sheet on rows 248-279 (its plain film is
-    slow), each with the emitted table (dense) and the Metropolis table
+    """B4's walk route (past 512 triangles, the exact grid's walk) against
+    its plain version under the CRN contract: the 1,800-triangle sheet of
+    tests/test_torch_gpu.py and the 20,736 sheet at 512x512, samples 0-1
+    of 4 (rows 256-511 on the 20,736 sheet, where its DDA's break rule
+    ends walks early), the 262,144 sheet on rows 248-279 (its plain film
+    is slow), each with the emitted table (dense) and the Metropolis table
     (grid), the default quirks, and the reference quirks on the 20,736
-    sheet; ``force_walk`` against the shared-memory route on the bench
-    tables (max abs 2e-5 where no pixel ties), and the two routes timed in
-    turns at 512x512x256 on those tables; then the walk at the large-mesh
-    VLP paths' shape (256x256x16 on the 20,736 sheet), held against its
-    plain film under the contract and timed beside it, with its tally and
-    its bounds.  Returns the kernels line's row for the walk."""
+    sheet; the emitted table on the meshes the exact grid exists for - 96
+    triangles through one cell (``fan_scene``, rows 192-319), every hit an
+    exact tie (``tie_scene``) and rows 248-255 of the 1,048,576 sheet;
+    ``force_walk``
+    against the shared-memory route on the bench tables (max abs 2e-5
+    where no pixel ties), and the two routes timed in turns at
+    512x512x256 on those tables; then the walk at the large-mesh VLP
+    paths' shape (256x256x16) on the 20,736, 262,144 and 1,048,576
+    sheets, timed with its tally and its bounds (the 20,736 sheet's held
+    against its plain film under the contract and timed beside it), and
+    each sheet's tables on a fresh Scene.  Returns the kernels line's row
+    for the walk (the 20,736 sheet's)."""
     import torch
     from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
         DEFAULT, REFERENCE)
     from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
     from opencl_montecarlo_path_tracing_tpu_torch.models.metropolis import (
         mlt_vlps)
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import exact_grid as X
     from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_vlp as M
     from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as V
     from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
@@ -1751,16 +1813,33 @@ def phase_vlp_walk_vs_plain(gt, card: str) -> dict:
     print("B4 mega_vlp walk route vs plain:")
     key = make_key(0)
     worst, failed = 0.0, []
-    sheets = [(prep_scene(gt.sheet_scene(30, 30)), {}, (DEFAULT,)),
-              (prep_scene(large_mesh_scene()), {}, (DEFAULT, REFERENCE)),
-              (prep_scene(large_mesh_scene(512, 256)),
-               dict(row_offset=248, rows=32), (DEFAULT,))]
-    for scn, band, quirk_sets in sheets:
+    both, dense = ("dense", "grid"), ("dense",)
+    large = {nm: large_mesh_scene(*nm)
+             for nm in ((144, 72), (512, 256), (1024, 512))}
+    sheets = [(gt.sheet_scene(30, 30), {}, (DEFAULT,), both),
+              (large[144, 72], dict(row_offset=256, rows=256),
+               (DEFAULT, REFERENCE), both),
+              (large[512, 256], dict(row_offset=248, rows=32), (DEFAULT,),
+               both),
+              (gt.fan_scene(), dict(row_offset=192, rows=128), (DEFAULT,),
+               dense),
+              (gt.tie_scene(), {}, (DEFAULT,), dense),
+              (large[1024, 512], dict(row_offset=248, rows=8), (DEFAULT,),
+               dense)]
+    for scene, band, quirk_sets, kinds in sheets:
+        scn = prep_scene(scene)
         nt = int(scn.tri_v0.shape[0])
+        xg = X.exact_grid(scn, "cuda")
+        print(f"  {nt} triangles: grid {xg.res}, {xg.ids.shape[0]} pairs, "
+              f"largest cell {int(xg.span[:, 1].max())}, "
+              f"{X.table_bytes(xg) / 1e6:.1f} MB of tables")
         emitted = V.emit_vlps(key, scn, 512, device="cuda")
-        ml = mlt_vlps(key, scn, 512, 8, device="cuda")
-        grid = V.build_vlp_grid(ml, V.vlp_grid_static_res(int(ml.shape[0])))
-        for tname, vlps, g in (("dense", emitted, None), ("grid", ml, grid)):
+        if "grid" in kinds:
+            ml = mlt_vlps(key, scn, 512, 8, device="cuda")
+            grid = V.build_vlp_grid(ml, V.vlp_grid_static_res(
+                int(ml.shape[0])))
+        for tname in kinds:
+            vlps, g = (emitted, None) if tname == "dense" else (ml, grid)
             for q in quirk_sets:
                 kw = dict(spp_total=4, grid=g, quirks=q, device="cuda",
                           **band)
@@ -1794,45 +1873,63 @@ def phase_vlp_walk_vs_plain(gt, card: str) -> dict:
     if failed:
         raise RuntimeError(f"B4 walk route vs plain violated: {failed}")
 
-    # the walk at the large-mesh VLP paths' launch: 256x256x16 on 20,736
-    scn = sheets[1][0]
-    nt, nl = int(scn.tri_v0.shape[0]), int(scn.lights.shape[0])
-    vlps = V.emit_vlps(key, scn, 512, device="cuda")
-    n_live = int((vlps[:, 3] > 0).sum())
-    film = M.film_vlp_mega(key, scn, vlps, BW, BH, BSPP, device="cuda")
-    want, p_ms = timed_call(lambda: M.film_vlp_mega_plain(
-        key, scn, vlps, BW, BH, BSPP, device="cuda"))
-    worst = max(worst, check_crn(
-        f"sheet {nt}, dense ({n_live} live), default quirks, {BW}x{BH}x"
-        f"{BSPP} (plain {p_ms / 1e3:.1f} s)", film, want, BSPP, failed))
-    if failed:
-        raise RuntimeError(f"B4 walk route vs plain violated: {failed}")
-    k_ms = time_ms(lambda: M.film_vlp_mega(key, scn, vlps, BW, BH, BSPP,
-                                           device="cuda"), 10)
-    st = M.vlp_stats(key, scn, vlps, BW, BH, BSPP)
-    R = BW * BH * BSPP
-    b = walk_bound(st, R, nt, nl, n_live,
-                   nt * 64 + vlps.shape[0] * 32 + BW * BH * 12)
-    ws = R / 32
-    print(f"  sheet {nt}, {BW}x{BH}x{BSPP} ({n_live} live VLPs): kernel "
-          f"{k_ms:.3f} ms, plain PyTorch {p_ms:.1f} ms; bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']}; its own need and "
-          "gathered terms, "
-          f"{100 * b['bound_ms'] / k_ms:.1f}% of the kernel's time), over "
-          f"its tested pairs {b['tested_ms']:.4f} ms "
-          f"({100 * b['tested_ms'] / k_ms:.1f}%), yardstick "
-          f"{b['yard_ms']:.4f} ms ({card})")
-    print(f"    a sample: {st['tested'] / R:.1f} tested pairs, "
-          f"{st['own_need'] / R:.1f} own need; lit {st['lit']}, casts "
-          f"{st['casts']} ({st['casts_tri']} reach the triangles), gather "
-          f"terms {st['gather_pairs']}; a warp-sample: "
-          f"{st['node_tests'] / ws:.1f} node, {st['block_tests'] / ws:.1f} "
-          f"block and {st['sub_tests'] / ws:.1f} sub-block box tests; "
-          f"split {vlp_split(st)}")
-    if not st["tested"] >= st["own_need"] > 0:
-        raise RuntimeError(f"B4 walk tally inconsistent: {st}")
-    return {"max_abs": worst, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+    # the walk at the large-mesh VLP paths' launch, 256x256x16, on the
+    # three sheets; the 20,736 sheet's row is the kernels line's
+    row = None
+    for scene in large.values():
+        scn = prep_scene(scene)
+        nt, nl = int(scn.tri_v0.shape[0]), int(scn.lights.shape[0])
+        vlps = V.emit_vlps(key, scn, 512, device="cuda")
+        n_live = int((vlps[:, 3] > 0).sum())
+        film = M.film_vlp_mega(key, scn, vlps, BW, BH, BSPP, device="cuda")
+        p_ms = None
+        if nt == 20736:
+            want, p_ms = timed_call(lambda: M.film_vlp_mega_plain(
+                key, scn, vlps, BW, BH, BSPP, device="cuda"))
+            worst = max(worst, check_crn(
+                f"sheet {nt}, dense ({n_live} live), default quirks, "
+                f"{BW}x{BH}x{BSPP} (plain {p_ms / 1e3:.1f} s)", film, want,
+                BSPP, failed))
+            if failed:
+                raise RuntimeError(f"B4 walk route vs plain violated: "
+                                   f"{failed}")
+        def launch():
+            return M.film_vlp_mega(key, scn, vlps, BW, BH, BSPP,
+                                   device="cuda")
+        ev_ms = time_ms(launch, 10)
+        # the kernel's own time: a call's events also hold the wrapper's
+        # host work (the VLP table's ~20 torch ops), as long as the launch
+        d_ms, _ = device_ms(launch, 10, "mega_vlp_kernel", same_work=True)
+        k_ms = ev_ms if d_ms is None else d_ms
+        st = M.vlp_stats(key, scn, vlps, BW, BH, BSPP)
+        R = BW * BH * BSPP
+        xg = X.exact_grid(scn, "cuda")
+        b = walk_bound(st, R, nt, nl, n_live,
+                       X.table_bytes(xg) + vlps.shape[0] * 32
+                       + BW * BH * 12)
+        print(f"  sheet {nt}, {BW}x{BH}x{BSPP} ({n_live} live VLPs): kernel "
+              f"{fmt_ms(d_ms)} ms of device time a launch, {ev_ms:.4f} ms a "
+              "call on events" + (f", plain PyTorch {p_ms:.1f} ms"
+                                  if p_ms is not None else "")
+              + f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}; its own "
+              "work and gathered terms, "
+              f"{100 * b['bound_ms'] / k_ms:.1f}% of the kernel's time), over"
+              f" the pairs its warps pay {b['tested_ms']:.4f} ms "
+              f"({100 * b['tested_ms'] / k_ms:.1f}%), yardstick "
+              f"{b['yard_ms']:.4f} ms" + (
+                  f", the block design's own-need bound {BLOCK_OWN_NEED_MS}"
+                  " ms" if nt == 20736 else "") + f" ({card})")
+        print(f"    lit {st['lit']}, casts {st['casts']} ({st['casts_tri']} "
+              f"reach the triangles), gather terms {st['gather_pairs']}; "
+              f"{walk_split(st)}; split {vlp_split(st)}")
+        print(f"    {first_render_tables(scene)}")
+        if not (st["tested"] >= st["pairs"] > 0 and st["walks"]
+                == BW * BH * BSPP + st["casts_tri"]):
+            raise RuntimeError(f"B4 walk tally inconsistent: {st}")
+        if nt == 20736:
+            row = {"max_abs": worst, "ms": k_ms, "plain_ms": p_ms,
+                   "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+    return row
 
 
 def b7_agreement(name, calls, min_hits: float) -> tuple[float, bool]:

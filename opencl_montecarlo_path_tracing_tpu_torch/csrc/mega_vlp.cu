@@ -49,19 +49,25 @@
 //
 // Past 512 triangles (the kWalk instantiation; `force_walk` in the wrapper
 // picks it on any mesh) the table does not fit shared memory beside a VLP
-// chunk: shared memory holds only the scene without triangles and the VLP
-// chunk, and the camera ray's closest hit and each light's capped shadow
-// ray walk B2/B3's block tables (ops/tri_blocks.py::walk_tables, the
-// tensors ops/mega_super.py::block_tables caches per scene) in place in
-// device memory, through pt_device.cuh's walk_closest / walk_occluded -
-// B2/B3's own walk: the node tree, Morton blocks and 32-row sub-blocks
-// behind conservative per-warp votes, exact ties to the lowest original
-// index, carried from -1.  The lanes that vote are the same as above
-// (inside pixels for the camera rays, lit samples for the shadow rays),
-// and the gather, shading, RNG sites and spp loop are the same code.  The
-// film is the same function; the walk visits the triangles in another
-// order, so it is held to the plain version under the CRN contract, not
-// bit for bit.
+// chunk: shared memory holds only the scene without triangles, the grid's
+// frame and the VLP chunk, and the camera ray's closest hit and each
+// light's capped shadow ray walk an exact uniform grid of the mesh
+// (ops/exact_grid.py: every (cell, triangle) overlap, the rows cell-major
+// with their original indices, an occupancy bitmap; built once per
+// prepared scene) in device memory, one lane a ray, through
+// pt_device.cuh::exact_walk: a 3-D DDA that ends when the running best
+// lies before the current cell's exit (a shadow ray at its first hit, or
+// past its cap), exact ties to the lowest original index, carried from -1.
+// The walks step over runs of empty cells in an inner loop, each lane at
+// its own pace, so that a warp's lanes test their occupied cells
+// together.  Why a grid: on the 20,736-triangle sheet a walk tests ~32
+// pairs, where a walk of B2/B3's block tables behind per-warp votes
+// tested ~326 a sample (PERF.md, B9).  The lanes that walk are those
+// that voted above (inside pixels for the camera rays, lit samples for
+// the shadow rays), and the gather, shading, RNG sites and spp loop are
+// the same code.  The film is the same function; the walk visits the
+// triangles in another order, so it is held to the plain version under
+// the CRN contract, not bit for bit.
 
 #include "pt_device.cuh"
 
@@ -74,47 +80,77 @@ constexpr int kTriRows = 32;    // triangle rows a culled block
 
 // Work tally of the counting instantiation (kStats).  Cycle slots
 // (clock64, the warp's: lane 0's reading) [kCamRest] the camera trace's
-// floor, squares and spheres, [kCamTri] its triangle blocks (votes and
-// scans), [kGather] the VLP gather, [kShadowRest] the shadow rays' floor,
-// squares and spheres, [kShadowTri] their triangle blocks, [kStage] the
-// VLP table's staging with its __syncthreads, [kKernel] the whole kernel;
-// count slots (summed over lanes) [kLit] lit hits (floor, diffuse),
-// [kCasts] shadow rays cast (a lit hit and a light), [kCastsTri] casts
-// that reach the triangles (not occluded by the floor, squares or
-// spheres), [kTested] (ray, triangle) pairs the warps test (32 lanes x the
-// rows a warp scans), [kGatherPairs] (lit sample, VLP) terms gathered (in
-// grid mode those in the shading point's cell); the walk's warp counts
-// (lane 0's; 0 on the shared-memory route) [kNodeTests], [kBlockTests],
-// [kSubTests] box tests of tree nodes, blocks and 32-row sub-blocks,
-// [kOwnNeed] the walk's own need: the real rows of the sub-blocks whose
-// box each lane's own test passes.  The timed instantiations keep none of
-// it.
+// floor, squares and spheres, [kCamTri] its triangles (the shared-memory
+// route's votes and scans, or the walk), [kGather] the VLP gather,
+// [kShadowRest] the shadow rays' floor, squares and spheres, [kShadowTri]
+// their triangles, [kStage] the VLP table's staging with its
+// __syncthreads, [kKernel] the whole kernel; count slots (summed over
+// lanes) [kLit] lit hits (floor, diffuse), [kCasts] shadow rays cast (a
+// lit hit and a light), [kCastsTri] casts that reach the triangles (not
+// occluded by the floor, squares or spheres), [kTested] (ray, triangle)
+// pairs the warps pay (32 lanes x the rows a warp scans, or on the walk x
+// its pair iterations), [kGatherPairs] (lit sample, VLP) terms gathered
+// (in grid mode those in the shading point's cell); on the walk route (0
+// on the other), summed over lanes, [kWalks] grid walks (camera rays of
+// inside pixels, casts that reach the triangles), [kEntered] walks that
+// enter the grid, [kCells] cells visited, [kEmpty] visited cells with no
+// triangle, [kPairs] (ray, triangle) pairs the lanes test (the bound's
+// work); lane 0's clock64 split of the walks' cycles (warp-uniform stamps
+// of the lockstep walk, pt_device.cuh's WalkStage): [kClkSetup] the DDA
+// set-up, [kClkEmpty] iterations in which no lane tests a pair (empty
+// cells and their steps), [kClkLoads] the occupied cells' row loads,
+// [kClkPairs] the pair arithmetic, [kClkStep] the occupied cells' end
+// tests and steps.  The timed instantiations keep none of it.
 enum Slot {
   kCamRest, kCamTri, kGather, kShadowRest, kShadowTri, kStage, kKernel,
   kLit, kCasts, kCastsTri, kTested, kGatherPairs,
-  kNodeTests, kBlockTests, kSubTests, kOwnNeed, kStatSlots
+  kWalks, kEntered, kCells, kEmpty, kPairs,
+  kClkSetup, kClkEmpty, kClkLoads, kClkPairs, kClkStep, kStatSlots
 };
+
+// Waits for `v` (a loaded value) before the next stamp: a warp-wide OR
+// that reads it, which the compiler cannot drop.
+__device__ __forceinline__ void wait_for(unsigned v) {
+  unsigned r;
+  asm volatile("redux.sync.or.b32 %0, %1, %2;" : "=r"(r) : "r"(v), "r"(kAll));
+  (void)r;
+}
 
 template <bool kStats>
 struct Tally {
+  static constexpr bool kLockstep = true;
   unsigned long long v[kStatSlots] = {};
+  long long last = 0;   // the last stamp of the walk's clock split
   __device__ __forceinline__ void add(int slot, long long n) { v[slot] += n; }
   __device__ __forceinline__ long long clock() { return clock64(); }
-  // the hooks of pt_device.cuh's walk (the warp's counts, and a lane's
-  // share of the tested pairs)
-  __device__ __forceinline__ void walk_node() { v[kNodeTests] += 1; }
-  __device__ __forceinline__ void walk_block() { v[kBlockTests] += 1; }
-  __device__ __forceinline__ void walk_sub(bool sneed, int rows) {
-    v[kSubTests] += 1;
-    v[kOwnNeed] += (unsigned long long)__popc(__ballot_sync(kAll, sneed)) *
-                   (unsigned)rows;
+  // the hooks of pt_device.cuh::exact_walk
+  __device__ __forceinline__ void begin() {
+    __syncwarp();
+    last = clock64();
   }
-  __device__ __forceinline__ void walk_scan(long long) {
-    v[kTested] += kSubRows;
+  __device__ __forceinline__ void walk(bool live, bool go) {
+    v[kWalks] += live;
+    v[kEntered] += go;
+  }
+  __device__ __forceinline__ void cell(bool full) {
+    v[kCells] += 1;
+    v[kEmpty] += !full;
+  }
+  __device__ __forceinline__ void pairs(int n) { v[kPairs] += n; }
+  __device__ __forceinline__ void round() { v[kTested] += 1; }
+  __device__ __forceinline__ void stamp(int stage) {
+    __syncwarp();
+    const long long now = clock64();
+    v[kClkSetup + stage] += (unsigned long long)(now - last);
+    last = now;
+  }
+  __device__ __forceinline__ void loaded(unsigned x) {
+    wait_for(x);
+    stamp(kStageLoads);
   }
   // every lane of the warp calls it once, at the end
   __device__ __forceinline__ void flush(unsigned long long* stats) {
-    for (int i = kLit; i <= kGatherPairs; ++i)
+    for (int i = kLit; i <= kPairs; ++i)
       for (int o = 16; o > 0; o >>= 1) v[i] += __shfl_xor_sync(kAll, v[i], o);
     if ((threadIdx.x & 31) != 0) return;
     for (int i = 0; i < kStatSlots; ++i) atomicAdd(stats + i, v[i]);
@@ -123,12 +159,16 @@ struct Tally {
 
 template <>
 struct Tally<false> {
+  static constexpr bool kLockstep = false;
   __device__ __forceinline__ void add(int, long long) {}
   __device__ __forceinline__ long long clock() { return 0; }
-  __device__ __forceinline__ void walk_node() {}
-  __device__ __forceinline__ void walk_block() {}
-  __device__ __forceinline__ void walk_sub(bool, int) {}
-  __device__ __forceinline__ void walk_scan(long long) {}
+  __device__ __forceinline__ void begin() {}
+  __device__ __forceinline__ void walk(bool, bool) {}
+  __device__ __forceinline__ void cell(bool) {}
+  __device__ __forceinline__ void pairs(int) {}
+  __device__ __forceinline__ void round() {}
+  __device__ __forceinline__ void stamp(int) {}
+  __device__ __forceinline__ void loaded(unsigned) {}
   __device__ __forceinline__ void flush(unsigned long long*) {}
 };
 
@@ -140,9 +180,9 @@ struct TriBlocks {
 };
 
 // The triangles of an instantiation: the shared-memory table's blocks, or
-// past 512 triangles (kWalk) B2/B3's block tables in device memory.
+// past 512 triangles (kWalk) the exact grid in device memory.
 template <bool kWalk> struct TriSource { using type = TriBlocks; };
-template <> struct TriSource<true> { using type = Mesh; };
+template <> struct TriSource<true> { using type = XGrid; };
 template <bool kWalk> using Tris = typename TriSource<kWalk>::type;
 
 // Closest hit over floor, squares, spheres and the triangle blocks
@@ -159,8 +199,8 @@ __device__ Hit trace_vlp(const Scene& S, const Tris<kWalk>& B, float ox,
   if constexpr (kWalk) {
     float bn = h.t, bd = 1.0f;
     int bi = -1;
-    walk_closest(B, ray_inv(ox, oy, oz, dx, dy, dz), ox, oy, oz, dx, dy, dz,
-                 neg_t, active, bn, bd, bi, h, T);
+    exact_walk<false, true>(B, active, ox, oy, oz, dx, dy, dz, neg_t, 0.0f,
+                            bn, bd, bi, h, T);
     h.t = bn / bd;
   } else if (S.ntp) {
     const RayInv ri = ray_inv(ox, oy, oz, dx, dy, dz);
@@ -209,8 +249,8 @@ __device__ Hit trace_vlp(const Scene& S, const Tris<kWalk>& B, float ox,
 
 // Any-hit occlusion below t_limit over floor, squares, spheres and the
 // triangle blocks (pt_device.cuh::occluded's arithmetic), or the walk, for
-// `cast` lanes (the others return false).  The walk ends when every
-// casting lane is occluded.
+// `cast` lanes (the others return false).  The block scan ends when every
+// casting lane is occluded, a lane's walk at its first hit.
 template <bool kStats, bool kCull, bool kWalk>
 __device__ bool occluded_vlp(const Scene& S, const Tris<kWalk>& B, float ox,
                              float oy, float oz, float dx, float dy,
@@ -221,8 +261,12 @@ __device__ bool occluded_vlp(const Scene& S, const Tris<kWalk>& B, float ox,
   const long long c1 = T.clock();
   T.add(kCastsTri, cast && !occ);
   if constexpr (kWalk) {
-    walk_occluded(B, ray_inv(ox, oy, oz, dx, dy, dz), ox, oy, oz, dx, dy, dz,
-                  t_limit, neg_t, cast, occ, T);
+    float bn = 0.0f, bd = 1.0f;
+    int bi = -1;
+    PreHit unused{};
+    occ = exact_walk<true, true>(B, cast && !occ, ox, oy, oz, dx, dy, dz,
+                                  neg_t, t_limit, bn, bd, bi, unused, T) ||
+          occ;
   } else if (S.ntp) {
     const RayInv ri = ray_inv(ox, oy, oz, dx, dy, dz);
     const float4* rows = reinterpret_cast<const float4*>(S.tri);
@@ -266,6 +310,15 @@ __device__ __forceinline__ void stage_rows(const float4* __restrict__ src,
   for (int i = threadIdx.x; i < n4; i += blockDim.x) dst[i] = src[i];
 }
 
+// Floats of shared memory the walk's grid frame takes (its 9, padded to
+// 16 bytes), between the scene and the VLP rows.
+constexpr int kFrameFloats = 12;
+
+template <bool kWalk>
+__host__ __device__ __forceinline__ int frame_floats() {
+  return kWalk ? kFrameFloats : 0;
+}
+
 template <bool kStats, bool kCull, bool kWalk>
 __global__ void __launch_bounds__(kBlock)
 mega_vlp_kernel(const float* __restrict__ scene, int ntp, int nl, int ns,
@@ -282,8 +335,14 @@ mega_vlp_kernel(const float* __restrict__ scene, int ntp, int nl, int ns,
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const Scene S = stage_scene(scene, smem, ntp, nl, ns, nq);
-  // the VLP rows follow the scene, float4-aligned
-  float* vsm = smem + ((scene_floats(ntp, nl, ns, nq) + 3) & ~3);
+  // the walk's grid frame follows the scene, float4-aligned, then the VLP
+  // rows
+  float* fsm = smem + ((scene_floats(ntp, nl, ns, nq) + 3) & ~3);
+  if constexpr (kWalk) {
+    if (threadIdx.x < 9) fsm[threadIdx.x] = __ldg(B.g.frame + threadIdx.x);
+    B.g.frame = fsm;
+  }
+  float* vsm = fsm + frame_floats<kWalk>();
   const float4* vsm4 = reinterpret_cast<const float4*>(vsm);
   const float4* vlp4 = reinterpret_cast<const float4*>(vlp);
   const int n_live = min(max(*n_live_ptr, 0), nvp);
@@ -449,7 +508,7 @@ int launch(const float* scene, int ntp, int nl, int ns, int nq,
            float* out, unsigned long long* stats, cudaStream_t stream) {
   const int scene_n = ntp * 12 + 12 + nl * 4 + ns * 3 + 2 * nq;
   const size_t smem =
-      sizeof(float) * ((size_t)((scene_n + 3) & ~3) +
+      sizeof(float) * ((size_t)((scene_n + 3) & ~3) + frame_floats<kWalk>() +
                        (size_t)min(chunk, nvp) * stride);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -472,50 +531,55 @@ int launch(const float* scene, int ntp, int nl, int ns, int nq,
 // the (nvp, stride) float32 table, stride 8 (dense) or 12 (grid mode, with
 // `gridp` the 9 grid floats; NULL in dense mode); `n_live` a device int32;
 // `chunk` the rows staged in shared memory at a time (all of them once a
-// launch when n_live <= chunk).  The triangles: with `rows_tbl` NULL, the
+// launch when n_live <= chunk).  The triangles: with `grid_rows` NULL, the
 // shared-memory route - `scene` holds ntp triangle rows and `boxes`
 // n_boxes records of 2 float4 (lo.xyz and a row count as int bits, hi.xyz
 // and 0): the mesh's box, then its blocks of 32 rows; `cull` 0 scans every
 // triangle block (the cull-free instantiation, the same film).  With
-// `rows_tbl` set, the walk: `scene` holds no triangles (ntp 0) and
-// `rows_tbl`, `boxes` (n_boxes blocks), `subs` and `nodes` (n_nodes) are
-// ops/tri_blocks.py::walk_tables' tables; `cull` must be 1.  `stats`, when
-// not null, points to kStatSlots zeroed uint64 counters: the counting
+// `grid_rows` set, the walk: `scene` holds no triangles (ntp 0, `boxes`
+// unused) and the grid_* arguments are ops/exact_grid.py::ExactGrid's
+// tables - the cell-major rows (12 floats each), each cell's (first row,
+// rows), the occupancy bitmap, each row's original index, the 9-float
+// frame - over rx x ry x rz cells; `cull` must be 1.  `stats`, when not
+// null, points to kStatSlots zeroed uint64 counters: the counting
 // instantiation runs and adds its Tally there.
 extern "C" int mega_vlp_launch(const float* scene, int ntp, int nl, int ns,
                                int nq, const float* boxes, int n_boxes,
-                               const float* rows_tbl, const float* subs,
-                               const float* nodes, int n_nodes,
-                               unsigned k0, unsigned k1, unsigned spp_offset,
-                               unsigned spp_total, unsigned row_offset,
-                               int rows, int width, int spp, int neg_t,
-                               const float* vlp, int nvp, int stride,
-                               int chunk, const int* n_live,
+                               const float* grid_rows, const int* grid_span,
+                               const int* grid_occ, const int* grid_ids,
+                               const float* grid_frame, int rx, int ry,
+                               int rz, unsigned k0, unsigned k1,
+                               unsigned spp_offset, unsigned spp_total,
+                               unsigned row_offset, int rows, int width,
+                               int spp, int neg_t, const float* vlp, int nvp,
+                               int stride, int chunk, const int* n_live,
                                const float* gridp, float inv_nl, int cull,
                                float* out, void* stats, void* stream) {
   if ((long long)rows * width <= 0) return 0;
-  if ((stride != 8 && stride != 12) || chunk < 1 || nvp < 1 ||
-      boxes == nullptr)
+  if ((stride != 8 && stride != 12) || chunk < 1 || nvp < 1)
     return (int)cudaErrorInvalidValue;
   auto* st = reinterpret_cast<unsigned long long*>(stats);
   auto* s = (cudaStream_t)stream;
-  if (rows_tbl != nullptr) {
-    if (ntp != 0 || !cull || n_boxes < 1 || n_nodes < 1 || subs == nullptr ||
-        nodes == nullptr)
+  if (grid_rows != nullptr) {
+    if (ntp != 0 || !cull || rx < 1 || ry < 1 || rz < 1 ||
+        grid_span == nullptr || grid_occ == nullptr || grid_ids == nullptr ||
+        grid_frame == nullptr)
       return (int)cudaErrorInvalidValue;
-    Mesh M;
-    M.rows = reinterpret_cast<const float4*>(rows_tbl);
-    M.boxes = reinterpret_cast<const float4*>(boxes);
-    M.subs = reinterpret_cast<const float4*>(subs);
-    M.nodes = reinterpret_cast<const float4*>(nodes);
-    M.n_blocks = n_boxes;
-    M.n_nodes = n_nodes;
+    XGrid X;
+    X.g.rows = reinterpret_cast<const float4*>(grid_rows);
+    X.g.span = reinterpret_cast<const int2*>(grid_span);
+    X.g.occ = reinterpret_cast<const unsigned*>(grid_occ);
+    X.g.frame = grid_frame;
+    X.g.rx = rx;
+    X.g.ry = ry;
+    X.g.rz = rz;
+    X.ids = grid_ids;
     auto kernel = stats ? launch<true, true, true> : launch<false, true, true>;
-    return kernel(scene, ntp, nl, ns, nq, M, k0, k1, spp_offset, spp_total,
+    return kernel(scene, ntp, nl, ns, nq, X, k0, k1, spp_offset, spp_total,
                   row_offset, rows, width, spp, neg_t, vlp, nvp, stride,
                   chunk, n_live, gridp, inv_nl, out, st, s);
   }
-  if (n_boxes < 1 || (n_boxes - 1) * kTriRows < ntp)
+  if (boxes == nullptr || n_boxes < 1 || (n_boxes - 1) * kTriRows < ntp)
     return (int)cudaErrorInvalidValue;
   const TriBlocks B{reinterpret_cast<const float4*>(boxes), n_boxes - 1};
   auto kernel =

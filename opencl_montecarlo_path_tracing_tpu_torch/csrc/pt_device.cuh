@@ -7,10 +7,10 @@
 // non-triangle stage, the capped any-hit occlusion test and its
 // non-triangle stage, the NaN-safe slab test of the per-warp culls and
 // their box predicates, a large mesh's block tables with the culled walk of
-// a warp of rays over them (B2/B3, and B4 past 512 triangles), the
-// warp-cooperative closest hit (one ray a warp: the full scan and the
-// culled walk), the uniform triangle grid's DDA walk (B11 and B11w), and
-// the 4-material shading.
+// a warp of rays over them (B2/B3), the warp-cooperative closest hit (one
+// ray a warp: the full scan and the culled walk), the uniform triangle
+// grid's DDA walk (B11 and B11w), the exact grid's walk (B4 past 512
+// triangles), and the 4-material shading.
 //
 // Everything sits in an anonymous namespace, so every translation unit
 // that includes this header gets its own internal copy and the kernels
@@ -496,8 +496,7 @@ __device__ __forceinline__ bool box_occ(float4 lo, float4 hi,
 }
 
 // The block tables of a large mesh (ops/tri_blocks.py::walk_tables), walked
-// by kernels B2/B3, by B4 past 512 triangles and by the light pass's culled
-// trace: 4 float4 per row
+// by kernels B2/B3 and by the light pass's culled trace: 4 float4 per row
 // (v0.xyz e0.x | e0.yz e2.xy | e2.z n.xyz | index bits, pad), 2 per block
 // box (lo.xyz 0 | hi.xyz 0), 2 per sub-block (lo.xyz row count | hi.xyz
 // 0), 2 per tree node in depth-first order: a macro leaf (lo.xyz block
@@ -551,7 +550,7 @@ __device__ __forceinline__ void scan_closest(const float4* rows, float ox,
 }
 
 // The culled walk of a warp of rays, one a lane, over a mesh's block
-// tables (kernels B2/B3, and B4 past 512 triangles).  The warp walks the
+// tables (kernels B2/B3).  The warp walks the
 // node tree without a stack: a node no lane needs is skipped with its
 // subtree (the node stores the index after it), so the walk grows with
 // the tree's depth, not with the macro count.  In a taken macro the warp
@@ -1257,6 +1256,207 @@ __device__ __forceinline__ bool grid_walk(const Grid& G,
     }
     if (go && (go = dda_advance(G, W, h.t))) visit();
     tally.stamp(any ? kStageStep : kStageEmpty);
+  }
+  return hit;
+}
+
+// The exact grid of kernel B4's walk route (ops/exact_grid.py): a Grid's
+// tables over every (cell, triangle) pair, no per-cell cap, and each
+// cell-major row's original triangle index.  Its walk (exact_walk) is
+// exact where grid_dda keeps the reference's quirks:
+// the set-up starts at the line's entry under neg_t (hits behind the
+// origin count there), an axis whose slab meets 0 * inf is unconstrained
+// (slab_axis), and the walk ends when its running best distance lies
+// before the current cell's exit, less a margin of kTermRel (|exit| + 1)
+// that keeps rounding from ending it early - not after dda_advance's
+// break rule.  A triangle is in every cell its box overlaps, and a hit's
+// point lies in its box, so a hit that could still beat the best lies in
+// a cell the walk has yet to visit.
+struct XGrid {
+  Grid g;
+  const int* ids;
+};
+
+constexpr float kTermRel = 1e-4f;   // ops/exact_grid.py::TERM_REL
+
+// The exact walk's set-up (ops/exact_grid.py::walk_start): the slab entry
+// t0 and exit t1, the entry cell (at the origin when it lies in the box,
+// except under neg_t; else at the line's entry) and the per-axis crossing
+// distances, in dda_start's arithmetic.  An axis with no slab (a zero
+// direction component: its entry is -inf) gets a crossing of +inf, not
+// dda_start's NaN (-inf + inf), which would break the choice of the axis
+// to step.  Returns whether the walk has cells to visit.
+__device__ __forceinline__ bool exact_start(const Grid& G, float ox, float oy,
+                                            float oz, float dx, float dy,
+                                            float dz, bool neg_t, Dda& W) {
+  const float* vmin = G.frame;
+  const float* vmax = G.frame + 3;
+  const float* cs = G.frame + 6;
+  float ex0, ex1, ey0, ey1, ez0, ez1;
+  slab_axis(vmin[0], vmax[0], ox, 1.0f / dx, ex0, ex1);
+  slab_axis(vmin[1], vmax[1], oy, 1.0f / dy, ey0, ey1);
+  slab_axis(vmin[2], vmax[2], oz, 1.0f / dz, ez0, ez1);
+  const float t0 = fmaxf(fmaxf(ex0, ey0), ez0);
+  const float t1 = fminf(fminf(ex1, ey1), ez1);
+  if (!(t0 <= t1) || (!neg_t && t1 < 0.0f)) return false;
+  const bool from_o = !neg_t && ox >= vmin[0] && ox <= vmax[0] &&
+                      oy >= vmin[1] && oy <= vmax[1] && oz >= vmin[2] &&
+                      oz <= vmax[2];
+  const float px = from_o ? ox : ox + dx * t0;
+  const float py = from_o ? oy : oy + dy * t0;
+  const float pz = from_o ? oz : oz + dz * t0;
+  const int rx = G.rx, ry = G.ry, rz = G.rz;
+  W.ix = grid_cell(px, vmin[0], cs[0], rx);
+  W.iy = grid_cell(py, vmin[1], cs[1], ry);
+  W.iz = grid_cell(pz, vmin[2], cs[2], rz);
+  W.dlx = (ex1 - ex0) / (float)rx;
+  W.dly = (ey1 - ey0) / (float)ry;
+  W.dlz = (ez1 - ez0) / (float)rz;
+  W.posx = dx > 0.0f;
+  W.posy = dy > 0.0f;
+  W.posz = dz > 0.0f;
+  W.nxx = W.posx ? ex0 + (float)(W.ix + 1) * W.dlx
+                 : ex0 + (float)rx * W.dlx - (float)W.ix * W.dlx;
+  W.nxy = W.posy ? ey0 + (float)(W.iy + 1) * W.dly
+                 : ey0 + (float)ry * W.dly - (float)W.iy * W.dly;
+  W.nxz = W.posz ? ez0 + (float)(W.iz + 1) * W.dlz
+                 : ez0 + (float)rz * W.dlz - (float)W.iz * W.dlz;
+  const float inf = __int_as_float(0x7f800000);
+  if (W.nxx != W.nxx) W.nxx = inf;
+  if (W.nxy != W.nxy) W.nxy = inf;
+  if (W.nxz != W.nxz) W.nxz = inf;
+  return true;
+}
+
+// The current cell's exit (the least next crossing) less the margin: a
+// hit at or before it beats every cell the walk has not visited.
+__device__ __forceinline__ float exact_exit(const Dda& W) {
+  const float ex = fminf(fminf(W.nxx, W.nxy), W.nxz);
+  return ex - kTermRel * (fabsf(ex) + 1.0f);
+}
+
+// One step onto the next cell, along the axis of the smallest next
+// crossing (dda_advance's choice, without its break rule).  Returns
+// whether the walk is still in the grid; each step moves one index one
+// way, so a walk leaves it within rx + ry + rz steps (dda_advance's step
+// count is not needed).
+__device__ __forceinline__ bool exact_step(const Grid& G, Dda& W) {
+  const bool selx = W.nxx <= W.nxy && W.nxx <= W.nxz;
+  const bool sely = !selx && W.nxy <= W.nxz;
+  if (selx) {
+    W.ix += W.posx ? 1 : -1;
+    if (W.ix == (W.posx ? G.rx : -1)) return false;
+    W.nxx = W.nxx + W.dlx;
+  } else if (sely) {
+    W.iy += W.posy ? 1 : -1;
+    if (W.iy == (W.posy ? G.ry : -1)) return false;
+    W.nxy = W.nxy + W.dly;
+  } else {
+    W.iz += W.posz ? 1 : -1;
+    if (W.iz == (W.posz ? G.rz : -1)) return false;
+    W.nxz = W.nxz + W.dlz;
+  }
+  return true;
+}
+
+// The exact walk of a warp's rays, one a lane, every lane calling it
+// (`active` lanes walk): each lane moves onto its cell, tests the cell's
+// pairs in slot order when its bit is set, then ends or steps; with kNest
+// the lanes on empty cells first step on, each at its own pace, until
+// each is on an occupied cell or done, so that the warp's lanes test their
+// occupied cells together (B4's camera and shadow walks).  Closest hit (kAny false):
+// a pair replaces the det-scaled running best (bn, bd) when
+// tn_s * bd < bn * dd, or on an exact tie when its original index is below
+// bi (carried from -1, so a tie with a floor or sphere hit is never
+// stolen: walk_closest's rule); the index is loaded only on a tie.  The
+// walk ends once bn <= exact_exit * bd.  Any hit (kAny): a pair below
+// t_limit ends the walk; so does a cell whose exit, less the margin, is
+// at or past t_limit.  `T` is the kernel's tally: kLockstep (the counting
+// instantiation: each occupied step runs its lanes' largest pair count,
+// so that the clock64 stamps fall at warp-uniform points), begin() (the
+// walk's first stamp), walk(live, entered), cell(occupied), pairs(n) (the
+// lane's pairs tested),
+// round() (a pair iteration of the warp), loaded(v) and stamp(stage).
+// Returns the any-hit flag (kAny).
+template <bool kAny, bool kNest, class T>
+__device__ __forceinline__ bool exact_walk(const XGrid& X, bool active,
+                                           float ox, float oy, float oz,
+                                           float dx, float dy, float dz,
+                                           bool neg_t, float t_limit,
+                                           float& bn, float& bd, int& bi,
+                                           PreHit& h, T& tally) {
+  const Grid& G = X.g;
+  tally.begin();
+  Dda W;
+  bool go = active && exact_start(G, ox, oy, oz, dx, dy, dz, neg_t, W);
+  tally.walk(active, go);
+  tally.stamp(kStageSetup);
+  int c = 0;
+  bool full = false;
+  auto visit = [&]() {   // the lane moves onto the cell of W
+    c = dda_cell(G, W);
+    full = cell_occupied(G, c);
+    tally.cell(full);
+  };
+  // whether the walk goes on past the current cell
+  auto onward = [&]() {
+    const float thr = exact_exit(W);
+    if (kAny ? thr >= t_limit : bn <= thr * bd) return false;
+    return exact_step(G, W);
+  };
+  if (go) visit();
+  bool hit = false;
+  while (__any_sync(kAll, go)) {
+    if constexpr (kNest) {
+      while (__any_sync(kAll, go && !full)) {
+        if (go && !full && (go = onward())) visit();
+        tally.stamp(kStageEmpty);
+      }
+      if (!__any_sync(kAll, go)) break;
+    }
+    const bool mine = go && full;
+    int2 sp = make_int2(0, 0);
+    if (mine) sp = __ldg(G.span + c);
+    const int kn = T::kLockstep ? (int)__reduce_max_sync(kAll, (unsigned)sp.y)
+                                : sp.y;
+    const float4* r = G.rows + 3ll * sp.x;
+    for (int k = 0; k < kn; ++k, r += 3) {
+      const bool test = k < sp.y && !hit;
+      float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), b = a, e = a;
+      if (test) {
+        a = __ldg(r);
+        b = __ldg(r + 1);
+        e = __ldg(r + 2);
+      }
+      tally.loaded(__float_as_uint(a.x) ^ __float_as_uint(b.x) ^
+                   __float_as_uint(e.x));
+      if (test) {
+        tally.pairs(1);
+        const Quads q = row_quads(a, b, e, ox, oy, oz, dx, dy, dz);
+        if constexpr (kAny) {
+          hit = quads_valid(q, neg_t) && q.tn_s < t_limit * q.dd;
+        } else {
+          const float num = q.tn_s * bd;
+          const float den = bn * q.dd;
+          if (quads_valid(q, neg_t) &&
+              (num < den || (num == den && __ldg(X.ids + sp.x + k) < bi))) {
+            bn = q.tn_s;
+            bd = q.dd;
+            bi = __ldg(X.ids + sp.x + k);
+            h.m = 4;
+            h.nx = e.y;
+            h.ny = e.z;
+            h.nz = e.w;
+            h.needs = false;
+          }
+        }
+      }
+      tally.round();
+      tally.stamp(kStagePairs);
+      if (!T::kLockstep && hit) break;
+    }
+    if (go && (go = !hit && onward())) visit();
+    tally.stamp(mine ? kStageStep : kStageEmpty);
   }
   return hit;
 }

@@ -136,15 +136,17 @@ def build_grid_cellscan(aabb_min, aabb_max, vmin, cell_size, res,
                        res=(rx, ry, rz), vmin=vmin, cell_size=cell_size)
 
 
-def grid_resolution(vmin, vmax, n_items: int, modifier: float = 3.0):
-    """Host-side resolution heuristic (trianglegrid .c:476-483)."""
+def grid_resolution(vmin, vmax, n_items: int, modifier: float = 3.0,
+                    max_res: int = 128):
+    """Host-side resolution heuristic (trianglegrid .c:476-483), each axis
+    clamped at ``max_res`` (the reference's 128)."""
     size = np.asarray(vmax, np.float64) - np.asarray(vmin, np.float64)
     vol = float(size[0] * size[1] * size[2])
     if vol <= 0 or n_items == 0:
         return (1, 1, 1)
     cr = np.cbrt(modifier * n_items / vol)
     res = np.floor(size * cr).astype(np.int64)
-    return tuple(int(max(1, min(r, 128))) for r in res)
+    return tuple(int(max(1, min(r, max_res))) for r in res)
 
 
 def build_grid_pairs(aabb_min, aabb_max, vmin, cell_size, res,
@@ -525,8 +527,7 @@ def film_grid_mega(key, scn: SceneArrays, tables: GridTables, width: int,
         raise ValueError(f"{rows}x{width} pixels exceed the int32 index")
     out = torch.empty((rows, width, 3), dtype=torch.float32, device=device)
     device = out.device
-    buf = derived(scn, "grid.scene_buffer", device, lambda s: torch.from_numpy(
-        M.pack_scene(s, triangles=False)[0]).to(device))
+    buf = M.scene_buffer(scn, device, triangles=False)[0]
     M._check((("scene", buf), ("out", out)), device)
     args = _grid_args(tables, device)
     from ..utils.build import load

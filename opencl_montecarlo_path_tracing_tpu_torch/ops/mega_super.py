@@ -89,13 +89,16 @@ def pack_scene(scn: SceneArrays, triangles: bool = True
     return buf, ntp
 
 
-def scene_buffer(scn: SceneArrays, device) -> tuple:
+def scene_buffer(scn: SceneArrays, device, triangles: bool = True) -> tuple:
     """(``pack_scene`` buffer, padded triangle count) on ``device``, built
-    once per prepared scene and device (B4's and the light pass's scene)."""
+    once per prepared scene and device (B4's and the light pass's scene;
+    with ``triangles=False`` the triangle-free one B4's walk and B11
+    read)."""
     def make(s):
-        buf, ntp = pack_scene(s)
+        buf, ntp = pack_scene(s, triangles=triangles)
         return torch.from_numpy(buf).to(device), ntp
-    return derived(scn, "mega_super.scene_buffer", device, make)
+    name = "mega_super.scene_buffer" + ("" if triangles else "/bare")
+    return derived(scn, name, device, make)
 
 
 def film_super_mega_plain(key, scn: SceneArrays, width: int, height: int,

@@ -26,9 +26,10 @@ before the launch:
   :func:`tri_block_boxes`; ``cull=False`` launches the instantiation that
   scans every block (the same film, for the tests);
 * past 512 triangles (or with ``force_walk=True``, for the tests) shared
-  memory holds the scene without triangles, and the traces walk B2/B3's
-  block tables in device memory - ``mega_super.block_tables``, the same
-  tensors B2/B3 and the light pass read, built once per prepared scene.
+  memory holds the scene without triangles, and each lane walks its
+  camera ray and its shadow rays through the exact uniform grid of
+  ``ops/exact_grid.py`` in device memory (every (cell, triangle) overlap,
+  no cap; built once per prepared scene and device).
 
 :func:`vlp_stats` launches the counting instantiation of either route.
 
@@ -46,9 +47,10 @@ import torch
 
 from ..core.quirks import Quirks, DEFAULT
 from ..models import common as C
+from .exact_grid import exact_grid
 from .intersect import SceneArrays, derived
 from .mega_super import (MAX_LIGHTS, MAX_SMEM_TRIANGLES, _check, _stream,
-                         _u32_arg, block_tables, scene_buffer)
+                         _u32_arg, scene_buffer)
 from .vlp import live_first, vlp_aabbs
 
 #: Launches of the CUDA kernel since the last reset (the wrapper adds one
@@ -86,7 +88,7 @@ def unsupported_reason(scn: SceneArrays, quirks: Quirks = DEFAULT,
 
 
 def uses_walk(scn: SceneArrays, force_walk: bool = False) -> bool:
-    """Whether ``film_vlp_mega`` walks B2/B3's block tables (past
+    """Whether ``film_vlp_mega`` walks the exact grid (past
     ``MAX_SMEM_TRIANGLES``, or forced on any mesh with triangles), else
     stages the triangle table in shared memory."""
     nt = int(scn.tri_v0.shape[0])
@@ -158,19 +160,17 @@ def tri_block_boxes(scn: SceneArrays) -> np.ndarray:
 
 
 def kernel_inputs(scn: SceneArrays, device, walk: bool = False) -> tuple:
-    """(scene buffer, padded triangle count, boxes, rows, subs, nodes) on
-    ``device``, built once per prepared scene and device.  The shared-memory
-    route: ``mega_super.scene_buffer`` and :func:`tri_block_boxes`, no
-    tables (None).  The walk route: the tensors of
-    ``mega_super.block_tables``, the very objects B2/B3 and the light pass
-    read - the scene without triangles (0 rows), the block boxes, rows,
-    sub-block boxes and node tree."""
+    """(scene buffer, padded triangle count, boxes, grid) on ``device``,
+    built once per prepared scene and device.  The shared-memory route:
+    ``mega_super.scene_buffer`` and :func:`tri_block_boxes`, no grid
+    (None).  The walk route: the scene without triangles (0 rows), no
+    boxes (None) and the ``exact_grid.ExactGrid`` of the mesh."""
     if walk:
-        buf, rows, boxes, subs, nodes = block_tables(scn, device)
-        return buf, 0, boxes, rows, subs, nodes
+        return (*scene_buffer(scn, device, triangles=False), None,
+                exact_grid(scn, device))
     boxes = derived(scn, "mega_vlp.tri_block_boxes", device,
                     lambda s: torch.from_numpy(tri_block_boxes(s)).to(device))
-    return (*scene_buffer(scn, device), boxes, None, None, None)
+    return (*scene_buffer(scn, device), boxes, None)
 
 
 def film_vlp_mega_plain(key, scn: SceneArrays, vlps, width: int,
@@ -209,7 +209,7 @@ def film_vlp_mega(key, scn: SceneArrays, vlps, width: int, height: int,
     the kernel stages at a time (default: ``VLP_SMEM_BYTES`` of rows) and
     ``cull=False`` launches the shared-memory route's instantiation without
     the triangle cull; the film depends on neither.  ``force_walk=True``
-    (for the tests) walks the block tables on a mesh of <= 512 triangles
+    (for the tests) walks the exact grid on a mesh of <= 512 triangles
     too: the same film up to the triangles' visiting order."""
     device = torch.device(device)
     if spp_total is None:
@@ -264,15 +264,23 @@ def _launch(key, scn: SceneArrays, vlps, grid, spp, spp_offset, spp_total,
     if walk and not cull:
         raise ValueError("cull=False names the shared-memory route's "
                          "cull-free instantiation; the walk has none")
-    buf, ntp, boxes, rows_t, subs, nodes = kernel_inputs(scn, device, walk)
+    buf, ntp, boxes, xg = kernel_inputs(scn, device, walk)
     tab, n_live, gridp = vlp_table(torch.as_tensor(vlps, device=device),
                                    grid)
     stride = DENSE_STRIDE if gridp is None else GRID_STRIDE
-    tables = (("rows", rows_t), ("subs", subs), ("nodes", nodes)) \
-        if walk else ()
-    _check((("scene", buf), ("triangle boxes", boxes), ("vlp table", tab),
-            ("out", out)) + tables
+    tris = ((("grid rows", xg.rows), ("grid frame", xg.frame)) if walk
+            else (("triangle boxes", boxes),))
+    _check((("scene", buf), ("vlp table", tab), ("out", out)) + tris
            + ((("grid", gridp),) if gridp is not None else ()), device)
+    if walk:
+        ncells = xg.res[0] * xg.res[1] * xg.res[2]
+        for name, a, n in (("span", xg.span, 2 * ncells),
+                           ("occ", xg.occ, (ncells + 31) // 32),
+                           ("ids", xg.ids, int(xg.rows.shape[0]))):
+            if a.device != device or a.dtype != torch.int32 \
+                    or not a.is_contiguous() or a.numel() != n:
+                raise ValueError(f"grid {name} must be a contiguous int32 "
+                                 f"tensor of {n} on {device}")
     if n_live.device != device or n_live.dtype != torch.int32:
         raise ValueError(f"n_live must be an int32 tensor on {device}")
     if tab.shape[1] != stride or tab.shape[0] >= 1 << 27:
@@ -289,10 +297,12 @@ def _launch(key, scn: SceneArrays, vlps, grid, spp, spp_offset, spp_total,
     with torch.cuda.device(device):
         err = lib.mega_vlp_launch(
             buf.data_ptr(), ntp, nl, int(scn.sphere_centers.shape[0]),
-            int(scn.square_k.shape[0]), boxes.data_ptr(),
-            int(boxes.shape[0]), *((rows_t.data_ptr(), subs.data_ptr(),
-                                    nodes.data_ptr(), int(nodes.shape[0]))
-                                   if walk else (None, None, None, 0)),
+            int(scn.square_k.shape[0]),
+            *((None, 0, xg.rows.data_ptr(), xg.span.data_ptr(),
+               xg.occ.data_ptr(), xg.ids.data_ptr(), xg.frame.data_ptr(),
+               *xg.res) if walk else
+              (boxes.data_ptr(), int(boxes.shape[0]), None, None, None,
+               None, None, 0, 0, 0)),
             _u32_arg("k0", key[0]),
             _u32_arg("k1", key[1]), _u32_arg("spp_offset", spp_offset),
             _u32_arg("spp_total", spp_total),
@@ -311,8 +321,9 @@ def _launch(key, scn: SceneArrays, vlps, grid, spp, spp_offset, spp_total,
 #: B4's work tally, in the order of its slots (csrc/mega_vlp.cu, Slot).
 STAT_NAMES = ("cam_rest", "cam_tri", "gather", "shadow_rest", "shadow_tri",
               "stage", "kernel", "lit", "casts", "casts_tri", "tested",
-              "gather_pairs", "node_tests", "block_tests", "sub_tests",
-              "own_need")
+              "gather_pairs", "walks", "entered", "cells", "empty", "pairs",
+              "clk_setup", "clk_empty", "clk_loads", "clk_pairs",
+              "clk_step")
 
 
 def vlp_stats(key, scn: SceneArrays, vlps, width: int, height: int,
@@ -328,8 +339,9 @@ def vlp_stats(key, scn: SceneArrays, vlps, width: int, height: int,
       surface (the shading gathers and casts there); ``casts``: their
       shadow rays, one a light; ``casts_tri``: those not occluded by the
       floor, squares or spheres, which reach the triangles;
-    * ``tested``: (ray, triangle) pairs the warps test (32 lanes x the
-      rows a warp scans, camera and shadow rays);
+    * ``tested``: (ray, triangle) pairs the warps pay (32 lanes x the
+      rows a warp scans, or on the walk route x its pair iterations,
+      camera and shadow rays);
     * ``gather_pairs``: (lit sample, live VLP) terms gathered (in grid mode
       those of the shading point's cell);
     * clock64 cycles summed over warps: ``cam_rest`` / ``cam_tri``, the
@@ -338,11 +350,17 @@ def vlp_stats(key, scn: SceneArrays, vlps, width: int, height: int,
       likewise for the shadow rays; ``stage``, the VLP table's staging
       with its syncs; ``kernel``, the whole kernel (the rest - threefry,
       camera, shading - is ``kernel`` less the others);
-    * on the walk route (0 on the other), summed over warps:
-      ``node_tests``, ``block_tests`` and ``sub_tests``, box tests of tree
-      nodes, blocks and 32-row sub-blocks; ``own_need``, the walk's own
-      need - the real rows of the sub-blocks whose box each ray's own test
-      passes, at most ``tested``."""
+    * on the walk route (0 on the other), summed over lanes: ``walks``
+      (the camera rays of the film's pixels and the casts that reach the
+      triangles), ``entered`` (those that enter the grid), ``cells``
+      visited, ``empty`` cells among them, ``pairs`` the lanes test (at
+      most ``tested``); and the warps' clock64 cycles of the walks, split:
+      ``clk_setup`` (the DDA set-up), ``clk_empty`` (iterations in which
+      no lane tests a pair: empty cells and their steps), ``clk_loads``
+      and ``clk_pairs`` (the occupied cells' row loads and pair
+      arithmetic), ``clk_step`` (their end tests and steps).  The counting
+      instantiation walks a warp's lanes in lockstep (each occupied step
+      runs its lanes' largest cell); its film is the timed one's."""
     device = torch.device(device)
     if spp_total is None:
         spp_total = spp

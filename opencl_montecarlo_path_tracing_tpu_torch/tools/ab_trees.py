@@ -2,7 +2,8 @@
 bit for bit, and their times.
 
     python -m opencl_montecarlo_path_tracing_tpu_torch.tools.ab_trees \
-        --set films|light_pass|dda|diag|grid --trees OLD NEW [--runs 10]
+        --set films|walk|light_pass|dda|diag|grid --trees OLD NEW \
+        [--runs 10]
 
 Each tree is the root of a checkout (an older commit unpacked with
 ``git archive`` into a git-ignored directory, and ``.``).  The trees run
@@ -17,9 +18,18 @@ workloads through the wrappers' arguments every version takes:
     (``film_vlp_mega``) on the VLP main paths' tables - the demo's and
     ``dense_vlp_scene()``'s emitted tables, the demo's Metropolis table
     dense and with its grid - at 512x512, samples 0-1 of 256, culled and
-    cull-free, under the default and the reference quirks.  Times: B2/B3
-    at 512x512x4 on each sheet, B4's render pass at 512x512x256 on each
-    table.
+    cull-free, under the default and the reference quirks; and the
+    ``walk`` set.  Times: B2/B3 at 512x512x4 on each sheet, B4's render
+    pass at 512x512x256 on each table, and the ``walk`` set's.
+``walk``
+    B4's walk route (past 512 triangles) at the large-mesh VLP paths'
+    launch, 256x256x16 with the emitted table (512 work items a light), on
+    the 20,736-, 262,144- and 1,048,576-triangle sheets under the default
+    quirks and on the 20,736 sheet under the reference quirks.  Its films
+    are held to the first OLD turn's under the CRN contract
+    (``utils/crn.py``), not bit for bit: a redesigned walk may visit the
+    triangles in another order.  Times: each launch on CUDA events and its
+    kernel's device time a launch.
 ``light_pass``
     L1, L2a and L2b through ``ops/light_pass.py`` on ``demo_scene()`` and
     on the 20,736-triangle sheet, at the main paths' 512 work items /
@@ -61,8 +71,9 @@ workloads through the wrappers' arguments every version takes:
 Event times are the mean of ``--runs`` calls after a warm-up.  A turn
 writes its films to a ``.npz`` file and prints one JSON line of times.
 Then every turn's films are compared with the first OLD turn's, bit for
-bit, and each time's mean OLD / NEW ratio is printed; the command exits 1
-if a film differs or a turn fails.
+bit (the walk route's under the CRN contract, :func:`films_agree`), and
+each time's mean OLD / NEW ratio is printed; the command exits 1 if a
+film differs or a turn fails.
 """
 
 from __future__ import annotations
@@ -78,6 +89,9 @@ import numpy as np
 
 W = H = 512
 VSPP = 256
+WALK_W = WALK_H = 256   # the large-mesh VLP paths' launch
+WALK_SPP = 16
+WALK_PREFIX = "B4 walk "   # films held under the CRN contract
 N, ROUNDS = 512, 8
 KERNELS = {"L1": "light_emit_kernel", "L2a": "light_mlt_seed_kernel",
            "L2b": "light_mlt_chain_kernel"}
@@ -117,6 +131,51 @@ def device_ms(fn, runs: int, kernel: str | None):
     if not ev:
         return None
     return sum(ev) / 1e3 / (runs if kernel is None else len(ev))
+
+
+def films_agree(key: str, a: np.ndarray, b: np.ndarray) -> tuple:
+    """(agree, how) of two turns' ``key`` outputs: the walk route's films
+    under the CRN contract of ``WALK_SPP`` samples, every other output bit
+    for bit."""
+    if not key.startswith(WALK_PREFIX):
+        return bool(np.array_equal(a, b)), None
+    from opencl_montecarlo_path_tracing_tpu_torch.utils.crn import crn_ok
+    ok, st = crn_ok(a, b, WALK_SPP)
+    return ok, st
+
+
+def walk_turn(runs: int) -> tuple[dict, dict]:
+    """The ``walk`` set: (films, times in ms)."""
+    import torch
+    from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
+        DEFAULT, REFERENCE)
+    from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_vlp as M4
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as V
+    from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
+        prep_scene)
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        large_mesh_scene)
+    key = make_key(0)
+    films, times = {}, {}
+    shape = f"{WALK_W}x{WALK_H}x{WALK_SPP}"
+    for nm in ((144, 72), (512, 256), (1024, 512)):
+        scn = prep_scene(large_mesh_scene(*nm))
+        nt = int(scn.tri_v0.shape[0])
+        vlps = V.emit_vlps(key, scn, 512, device="cuda")
+        quirk_sets = (("default", DEFAULT),) + (
+            (("reference", REFERENCE),) if nt == 20736 else ())
+        for qn, q in quirk_sets:
+            films[f"{WALK_PREFIX}sheet {nt} {qn} {shape}"] = \
+                M4.film_vlp_mega(key, scn, vlps, WALK_W, WALK_H, WALK_SPP,
+                                 quirks=q, device="cuda")
+        fn = lambda: M4.film_vlp_mega(  # noqa: E731
+            key, scn, vlps, WALK_W, WALK_H, WALK_SPP, device="cuda")
+        times[f"{WALK_PREFIX}sheet {nt} {shape}"] = event_ms(fn, runs)
+        times[f"{WALK_PREFIX}sheet {nt} {shape} device"] = device_ms(
+            fn, runs, "mega_vlp_kernel")
+    torch.cuda.synchronize()
+    return {k: v.cpu().numpy() for k, v in films.items()}, times
 
 
 def films_turn(runs: int) -> tuple[dict, dict]:
@@ -168,7 +227,9 @@ def films_turn(runs: int) -> tuple[dict, dict]:
             lambda: M4.film_vlp_mega(key, scn, vlps, W, H, VSPP, grid=g,
                                      device="cuda"), runs)
     torch.cuda.synchronize()
-    return {k: v.cpu().numpy() for k, v in films.items()}, times
+    films = {k: v.cpu().numpy() for k, v in films.items()}
+    wf, wt = walk_turn(runs)
+    return {**films, **wf}, {**times, **wt}
 
 
 def light_pass_turn(runs: int) -> tuple[dict, dict]:
@@ -350,8 +411,9 @@ def grid_turn(runs: int) -> tuple[dict, dict]:
     return {k: v.cpu().numpy() for k, v in films.items()}, times
 
 
-SETS = {"films": films_turn, "light_pass": light_pass_turn, "dda": dda_turn,
-        "diag": diag_turn, "grid": grid_turn}
+SETS = {"films": films_turn, "walk": walk_turn,
+        "light_pass": light_pass_turn, "dda": dda_turn, "diag": diag_turn,
+        "grid": grid_turn}
 
 
 def run_turn(name: str, tree: str, out: str, runs: int) -> dict:
@@ -400,8 +462,17 @@ def main(argv=None) -> int:
             times[tag].append(t)
             files.append(out)
         first = np.load(files[0])
-        differ = sorted({k for f in files[1:] for k in first.files
-                         if not np.array_equal(first[k], np.load(f)[k])})
+        differ = set()
+        for i, f in enumerate(files[1:], 1):
+            other = np.load(f)
+            for k in first.files:
+                ok, st = films_agree(k, first[k], other[k])
+                if st is not None:
+                    print(f"turn {i} {k} against turn 0 (CRN contract): "
+                          f"{'ok' if ok else 'VIOLATED'} {st}")
+                if not ok:
+                    differ.add(k)
+        differ = sorted(differ)
         print(f"films: {len(first.files)} a turn; differing from the first "
               f"OLD turn's: {differ or 'none'}")
     for k in times["OLD"][0]:

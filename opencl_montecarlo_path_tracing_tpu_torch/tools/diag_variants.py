@@ -1,9 +1,9 @@
-"""Times the design alternatives that kernels B8-prim and B8-loops, and
-the trianglegrid DDA route's B11 and B11w, were chosen over, on one CUDA
-GPU.
+"""Times the design alternatives that kernels B8-prim and B8-loops, the
+trianglegrid DDA route's B11 and B11w, and B4's walk route (B9) were
+chosen over, on one CUDA GPU.
 
     python -m opencl_montecarlo_path_tracing_tpu_torch.tools.diag_variants \
-        [--set diag|grid] [--runs 10] [--only NAME ...] [--json PATH]
+        [--set diag|grid|walk] [--runs 10] [--only NAME ...] [--json PATH]
 
 Each variant is this package with one edit to its set's sources
 (``VARIANTS``).  ``--set diag`` (the default), ``csrc/diag_loops.cu`` or
@@ -49,6 +49,22 @@ Each variant is this package with one edit to its set's sources
 ``lb8``         B11 held to 8 blocks an SM (64 registers; kept: no
                 minimum).
 
+``--set walk``, ``csrc/mega_vlp.cu``, ``csrc/pt_device.cuh`` or
+``ops/exact_grid.py`` (B4's walk route, through ``ab_trees --set walk``):
+
+``walklb8``, ``walklb10``
+                B4 held to 8 or 10 blocks an SM (at most 64 or 51
+                registers; kept: no minimum);
+``walkflat``    the camera walks one step a cell, the warp's lanes
+                stepping together (kept: an inner loop over each run of
+                empty cells);
+``walkflatsh``  the shadow walks one step a cell (kept: the inner loop);
+``walkgv``      the VLP grid's 9 floats read from shared memory on the
+                walk route (kept: held in registers);
+``walkmod1``, ``walkmod2``, ``walkmod8``, ``walkmod16``
+                the grid's resolution heuristic at 1, 2, 8 or 16 cells a
+                triangle (kept: ``exact_grid.EXACT_MODIFIER``).
+
 The package is copied into a temporary directory once for each variant
 and the edit applied there; an edit whose text is no longer in the source
 stops the tool.  Then the kept tree, every variant and the kept tree
@@ -59,7 +75,8 @@ B11w's calls in device time.  Every variant's outputs must equal the kept
 tree's bit for bit.  Printed: for each variant the times it changes, the
 kept tree's (the mean of its two turns), the variant's, and variant /
 kept; the command exits 1 if a variant fails to build or run or its
-outputs differ.
+outputs differ (the walk route's films: beyond the CRN contract,
+``ab_trees.films_agree``).
 """
 
 from __future__ import annotations
@@ -75,14 +92,22 @@ import tempfile
 
 import numpy as np
 
+from .ab_trees import films_agree
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _AB = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ab_trees.py")
 LOOPS, PRIM = "diag_loops.cu", "diag_takelist.cu"
 DEVICE, GRID = "pt_device.cuh", "mega_grid.cu"
-FILES = {"diag": (LOOPS, PRIM), "grid": (DEVICE, GRID)}
+VLP, EXACT = "mega_vlp.cu", "ops/exact_grid.py"   # a "/": package-relative
+FILES = {"diag": (LOOPS, PRIM), "grid": (DEVICE, GRID),
+         "walk": (DEVICE, VLP, EXACT)}
+#: the set's kernel source, whose ptxas lines are printed
+SOURCE = {"grid": GRID, "walk": VLP}
 GRID_TIMES = ("B11 sheet 512x512x64", "B11 torus 512x512x64",
               "B11w sheet camera rays 262144 device",
               "B11w tier-1 shadow call 589824 device")
+WALK_TIMES = tuple(f"B4 walk sheet {n} 256x256x16 device"
+                   for n in (20736, 262144, 1048576))
 ELEMENTWISE = ("flat1", "flat4", "flat16", "flat64", "chunk32", "chunk128",
                "nested", "bcast")
 
@@ -345,6 +370,49 @@ def min_blocks(blocks: int):
     return edit
 
 
+def walk_blocks(blocks: int):
+    def edit(src: dict) -> None:
+        src[VLP] = _sub(src[VLP], "__global__ void __launch_bounds__(kBlock)"
+                        "\nmega_vlp_kernel", "__global__ void "
+                        f"__launch_bounds__(kBlock, {blocks})\n"
+                        "mega_vlp_kernel", 1)
+    return edit
+
+
+def walkflat(src: dict) -> None:
+    src[VLP] = _sub(src[VLP], "exact_walk<false, true>(", "exact_walk<false, "
+                    "false>(", 1)
+
+
+def walkflatsh(src: dict) -> None:
+    src[VLP] = _sub(src[VLP], "exact_walk<true, true>(", "exact_walk<true, "
+                    "false>(", 1)
+
+
+def walkgv(src: dict) -> None:
+    s = _sub(src[VLP], "constexpr int kFrameFloats = 12;",
+             "constexpr int kFrameFloats = 24;", 1)
+    s = _sub(s, "    B.g.frame = fsm;\n", "    B.g.frame = fsm;\n"
+             "    if (threadIdx.x >= 12 && threadIdx.x < 21)\n"
+             "      fsm[threadIdx.x] = gridp ? gridp[threadIdx.x - 12] : "
+             "0.0f;\n", 1)
+    src[VLP] = _sub(s, """  float gv[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) gv[i] = grid_mode ? gridp[i] : 0.0f;""",
+                    """  float gvr[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i)
+    gvr[i] = !kWalk && grid_mode ? gridp[i] : 0.0f;
+  const float* gv = kWalk ? fsm + 12 : gvr;""", 1)
+
+
+def walk_modifier(modifier: float):
+    def edit(src: dict) -> None:
+        src[EXACT] = re.sub(r"\nEXACT_MODIFIER = [0-9.]+\n",
+                            f"\nEXACT_MODIFIER = {modifier!r}\n", src[EXACT])
+    return edit
+
+
 #: name: (set, edit of the sources, the times it changes)
 VARIANTS = {
     "blk32": ("diag", blk32,
@@ -369,6 +437,15 @@ VARIANTS = {
     "gbits": ("grid", gbits, GRID_TIMES[:2]),
     "sbits": ("grid", sbits, GRID_TIMES[2:]),
     "lb8": ("grid", min_blocks(8), GRID_TIMES[:2]),
+    "walklb8": ("walk", walk_blocks(8), WALK_TIMES),
+    "walklb10": ("walk", walk_blocks(10), WALK_TIMES),
+    "walkflat": ("walk", walkflat, WALK_TIMES),
+    "walkflatsh": ("walk", walkflatsh, WALK_TIMES),
+    "walkgv": ("walk", walkgv, WALK_TIMES),
+    "walkmod1": ("walk", walk_modifier(1.0), WALK_TIMES),
+    "walkmod2": ("walk", walk_modifier(2.0), WALK_TIMES),
+    "walkmod8": ("walk", walk_modifier(8.0), WALK_TIMES),
+    "walkmod16": ("walk", walk_modifier(16.0), WALK_TIMES),
 }
 
 
@@ -380,11 +457,12 @@ def make_tree(root: str, name: str, edit, files=()) -> str:
     shutil.copytree(_PKG, dst, ignore=shutil.ignore_patterns(
         "_build", "__pycache__"))
     if edit is not None:
-        csrc = os.path.join(dst, "csrc")
-        src = {f: open(os.path.join(csrc, f)).read() for f in files}
+        path = {f: os.path.join(dst, f) if "/" in f
+                else os.path.join(dst, "csrc", f) for f in files}
+        src = {f: open(path[f]).read() for f in files}
         edit(src)
         for f, text in src.items():
-            with open(os.path.join(csrc, f), "w") as fh:
+            with open(path[f], "w") as fh:
                 fh.write(text)
     return tree
 
@@ -403,9 +481,11 @@ def registers(tree: str, source: str) -> list:
     out, name, spill = [], None, 0
     for line in part.splitlines():
         m = re.search(r"Compiling entry function .*?\d([a-z_]+_kernel)"
-                      r"ILb(\d)", line)
+                      r"I((?:Lb\d)+)", line)
         if m:
-            name = f"{m.group(1)}<{'true' if m.group(2) == '1' else 'false'}>"
+            flags = ("true" if b == "1" else "false"
+                     for b in re.findall(r"Lb(\d)", m.group(2)))
+            name = f"{m.group(1)}<{', '.join(flags)}>"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = int(m.group(1))
@@ -464,13 +544,13 @@ def main(argv=None) -> int:
                 continue
             f = np.load(films[name])
             differ = [k for k in base.files
-                      if not np.array_equal(base[k], f[k])]
+                      if not films_agree(k, base[k], f[k])[0]]
             if differ:
                 print(f"{name}: outputs differ from the kept tree's: "
                       f"{differ}")
                 failed.append(name)
-        regs = {name: registers(trees[name], GRID) for name in trees
-                if args.set == "grid"}
+        regs = {name: registers(trees[name], SOURCE[args.set])
+                for name in trees if args.set in SOURCE}
     if args.json:
         with open(args.json, "w") as fh:
             json.dump(times, fh, indent=1)

@@ -42,9 +42,10 @@ _SIGNATURES = {
     "mega_super_launch": (_I, [_P, _I, _I, _I, _I, _U, _U, _U, _U, _U,
                                _I, _I, _I, _I, _I, _P, _P]),
     "mega_super_error_string": (ctypes.c_char_p, [_I]),
-    "mega_vlp_launch": (_I, [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _I,
-                             _U, _U, _U, _U, _U, _I, _I, _I, _I, _P, _I,
-                             _I, _I, _P, _P, _F, _I, _P, _P, _P]),
+    "mega_vlp_launch": (_I, [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P,
+                             _P, _I, _I, _I, _U, _U, _U, _U, _U, _I, _I,
+                             _I, _I, _P, _I, _I, _I, _P, _P, _F, _I, _P,
+                             _P, _P]),
     "mega_vlp_error_string": (ctypes.c_char_p, [_I]),
     "gather_vlp_launch": (_I, [_P, _P, _P, _P, _I, _I, _P, _P]),
     "gather_vlp_error_string": (ctypes.c_char_p, [_I]),

@@ -92,6 +92,46 @@ def sheet_scene(n_major: int, n_minor: int) -> Scene:
                  lights=base.lights)
 
 
+def fan_scene() -> Scene:
+    """B4's walk route on an overfull cell: 96 triangles fanned around a
+    point 10 units down the camera's axis (radius 1.2, each wedge 0.002
+    further back than the last), facing the camera, in front of a
+    2,400-triangle sheet (2,496 triangles: the plain version's traces
+    take B7's matmul form); every wedge holds the fan's centre, so that
+    cell keeps 96 pairs where the reference grid keeps 62."""
+    from opencl_montecarlo_path_tracing_tpu_torch.core.camera import (
+        make_camera)
+    cam = make_camera(z_sign=-1.0)
+    up, right, eyo, pos = (np.asarray(x, np.float64) for x in (
+        cam.up, cam.right, cam.eye_offset, cam.pos))
+    c = up * 256 + right * 256 + eyo
+    c /= np.linalg.norm(c)
+    u = up / np.linalg.norm(up)
+    v = np.cross(c, u)
+    p = pos + 10.0 * c
+    a = np.linspace(0, 2 * np.pi, 97)
+    rim = [p + 1.2 * (np.cos(t) * u + np.sin(t) * v) for t in a]
+    fan = np.stack([np.stack([p, rim[k] + 0.002 * k * c,
+                              rim[k + 1] + 0.002 * k * c])
+                    for k in range(96)]).astype(np.float32)
+    base = sheet_scene(40, 30)
+    return Scene(sphere_centers=base.sphere_centers,
+                 square_kj=base.square_kj,
+                 triangles=np.concatenate([fan, base.triangles]),
+                 lights=base.lights)
+
+
+def tie_scene() -> Scene:
+    """B4's walk route on exact ties: the 1,800-triangle sheet twice, each
+    triangle again at index + 1,800 with the same row (every hit ties; the
+    lower index wins in both the walk and the brute force)."""
+    base = sheet_scene(30, 30)
+    return Scene(sphere_centers=base.sphere_centers,
+                 square_kj=base.square_kj,
+                 triangles=np.concatenate([base.triangles] * 2),
+                 lights=base.lights)
+
+
 def soup_scene() -> Scene:
     """tests/test_megakernel.py::test_megakernel_blocked_random_soup's
     scene: random triangles on the view ray of pixel (20, 150), zero-area
@@ -643,29 +683,73 @@ def test_vlp_force_walk_matches_smem_route(name, cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["fan", "ties", "sheet1048576_band"])
+def test_vlp_walk_matches_plain_on_hard_meshes(case, cuda_device):
+    """B4's walk route against its plain version under the CRN contract on
+    the meshes that the exact grid exists for: 96 triangles through one
+    cell (``fan_scene``), every hit an exact tie (``tie_scene``), and rows
+    248-255 of the 1,048,576-triangle sheet, 512x512 samples 0-1 of 4,
+    the default and the reference quirks; one launch each."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as TV
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        large_mesh_scene)
+    scene, band = {"fan": (fan_scene, {}), "ties": (tie_scene, {}),
+                   "sheet1048576_band": (lambda: large_mesh_scene(1024, 512),
+                                         dict(row_offset=248, rows=8))}[case]
+    scn = prep_scene(scene())
+    assert M4.uses_walk(scn)
+    key = (0, 0)
+    vlps = TV.emit_vlps(key, scn, 512, device=cuda_device)
+    for q in (DEFAULT, REFERENCE):
+        kw = dict(spp_total=4, quirks=q, device=cuda_device, **band)
+        before = M4.LAUNCHES
+        got = M4.film_vlp_mega(key, scn, vlps, 512, 512, 2, **kw)
+        torch.cuda.synchronize()
+        assert M4.LAUNCHES == before + 1
+        want = M4.film_vlp_mega_plain(key, scn, vlps, 512, 512, 2, **kw)
+        ok, st = crn_ok(got, want, 2)
+        assert ok, (q, st)
+        assert float(want.mean()) > 0
+
+
+@pytest.mark.gpu
 def test_vlp_walk_stats_are_consistent(cuda_device):
-    """The walk's counting launch on the 20,736 sheet: the warps test at
-    least the pairs the rays' own sub-block tests need (32 x 32 a scanned
-    sub-block), a lit hit casts one ray a light and gathers one term a live
-    VLP, the walk tests boxes at every level, and the film is untouched by
-    the count; on the shared-memory route the walk's slots stay 0."""
+    """The walk's counting launch on the 20,736 sheet: a walk for every
+    camera ray of the frame and every cast that reaches the triangles,
+    the lanes' pairs at most the pairs their warps pay (32 a pair
+    iteration), empty cells among those visited, every stage of the
+    clock64 split counted, a lit hit casting one ray a light and gathering
+    one term a live VLP, and the film untouched by the count; on the
+    shared-memory route the walk's slots stay 0, and ``force_walk`` on
+    the demo counts the same lit hits, casts and terms."""
     from opencl_montecarlo_path_tracing_tpu_torch.ops import vlp as TV
     scn, key, vlps, _ = sheet_tables((144, 72), "dense", cuda_device)
+    film = M4.film_vlp_mega(key, scn, vlps, 256, 256, 2, spp_total=16,
+                            device=cuda_device)
     st = M4.vlp_stats(key, scn, vlps, 256, 256, 2, spp_total=16)
+    again = M4.film_vlp_mega(key, scn, vlps, 256, 256, 2, spp_total=16,
+                             device=cuda_device)
+    assert torch.equal(film, again)
     n_live = int((vlps[:, 3] > 0).sum())
-    assert st["tested"] >= st["own_need"] > 0
-    assert st["tested"] % (32 * 32) == 0
-    assert st["node_tests"] > 0 and st["block_tests"] > 0
-    assert st["sub_tests"] > 0
+    assert st["walks"] == 256 * 256 * 2 + st["casts_tri"]
+    assert st["walks"] >= st["entered"] > 0
+    assert st["tested"] >= st["pairs"] > 0 and st["tested"] % 32 == 0
+    assert st["cells"] > st["empty"] > 0
+    for k in ("clk_setup", "clk_empty", "clk_loads", "clk_pairs",
+              "clk_step"):
+        assert st[k] > 0, k
+    assert sum(st[k] for k in ("clk_setup", "clk_empty", "clk_loads",
+                               "clk_pairs", "clk_step")) <= (
+        st["cam_tri"] + st["shadow_tri"])
     assert st["casts"] == st["lit"] * int(scn.lights.shape[0])
     assert st["gather_pairs"] == st["lit"] * n_live
     demo = prep_scene(demo_scene()[0])
     dv = TV.emit_vlps(key, demo, 512, device=cuda_device)
     sm = M4.vlp_stats(key, demo, dv, 512, 512, 1, spp_total=8)
-    assert sm["tested"] > 0 and sm["own_need"] == sm["node_tests"] == 0
+    assert sm["tested"] > 0 and sm["walks"] == sm["cells"] == 0
     fw = M4.vlp_stats(key, demo, dv, 512, 512, 1, spp_total=8,
                       force_walk=True)
-    assert fw["tested"] >= fw["own_need"] > 0
+    assert fw["tested"] >= fw["pairs"] > 0
     for k in ("lit", "casts", "casts_tri", "gather_pairs"):
         assert fw[k] == sm[k], k
 

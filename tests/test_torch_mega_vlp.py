@@ -58,6 +58,7 @@ from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (
     DEFAULT, REFERENCE, REFERENCE_LMEM)
 from opencl_montecarlo_path_tracing_tpu_torch.models import (
     bidirectional as TB, metropolis as TM)
+from opencl_montecarlo_path_tracing_tpu_torch.ops import exact_grid as XG
 from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_super as MS
 from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_vlp as M
 from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import prep_scene
@@ -246,24 +247,26 @@ def test_gate():
 
 
 def test_walk_route_reads_the_cached_block_tables():
-    """Past 512 triangles the wrapper's inputs are the very tensors of
-    ``mega_super.block_tables`` that B2/B3 and the light pass read (one
-    host preparation per prepared scene and device), the scene without
-    triangles; up to 512 the scene buffer and the 32-row block boxes."""
+    """Past 512 triangles the wrapper's inputs are the scene without
+    triangles and the very ``exact_grid.ExactGrid`` object that
+    ``exact_grid.exact_grid`` caches (one host preparation per prepared
+    scene and device), no block boxes; up to 512 the scene buffer and the
+    32-row block boxes, no grid."""
     scn = prep_scene(sheet_scene(30, 30))
     inputs = M.kernel_inputs(scn, "cpu", walk=True)
-    buf, rows, boxes, subs, nodes = MS.block_tables(scn, "cpu")
-    assert inputs[1] == 0
-    for got, want in zip(inputs[:1] + inputs[2:], (buf, boxes, rows, subs,
-                                                   nodes)):
-        assert got is want
+    buf, ntp, boxes, xg = inputs
+    assert ntp == 0 and boxes is None
+    assert xg is XG.exact_grid(scn, "cpu")
+    assert isinstance(xg, XG.ExactGrid)
     assert all(a is b for a, b in zip(M.kernel_inputs(scn, "cpu", True),
                                       inputs))
     assert buf.numel() == MS.pack_scene(scn, triangles=False)[0].size
+    assert xg.rows.shape == (xg.ids.shape[0], 12)
+    assert int(xg.span[:, 1].sum()) == xg.ids.shape[0]
     small = prep_scene(small_scene())
     buf, ntp, boxes, *tables = M.kernel_inputs(small, "cpu")
     assert buf is MS.scene_buffer(small, "cpu")[0] and ntp == 8
-    assert boxes.shape == (2, 8) and tables == [None, None, None]
+    assert boxes.shape == (2, 8) and tables == [None]
 
 
 @pytest.mark.parametrize("variant,scene", [
