@@ -1,0 +1,10 @@
+"""Puts the checkout's root on ``sys.path`` so that the tests import the
+benchmark as the command does (``benchmark.harness``, ...)."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
