@@ -16,6 +16,7 @@ import torch
 from .core.rng import make_key
 from .core.quirks import Quirks, DEFAULT
 from .scene.scene import Scene
+from .utils.profiling import span
 
 VARIANTS = ("simplecpu", "simple", "super", "superlmem", "nodof",
             "trianglegrid", "bidirectional", "metropolis",
@@ -43,6 +44,25 @@ def render(variant: str, scene: Scene | None = None, width: int = 512,
     instead.  ``simplecpu`` is the reference's CPU tracer: it renders on
     the host whatever ``device`` says, and its film is then moved there.
     """
+    with span("pt.render"):
+        with span("pt.route"):
+            film = _film(variant, scene, width, height, spp, seed, quirks,
+                         device, kw)
+        if variant == "nodof":
+            with span("pt.readback"):
+                return film.cpu().numpy()
+        if as_rgba8:
+            from .ops.reduce import quantize_film
+            with span("pt.quantize"):
+                img = quantize_film(film, wrap=quirks.wrap_uint8)
+            with span("pt.readback"):
+                return img.cpu().numpy()
+        return film
+
+
+def _film(variant, scene, width, height, spp, seed, quirks, device, kw):
+    """:func:`render`'s film on ``device`` (``nodof``: its RGBA8 image,
+    which its reduction quantises on the device)."""
     key = make_key(seed)
     if variant == "simplecpu":
         from .models.common import check_device
@@ -59,9 +79,9 @@ def render(variant: str, scene: Scene | None = None, width: int = 512,
         sg = int(round(np.sqrt(spp)))
         if sg * sg != spp:
             raise ValueError("nodof needs a square spp (sample grid)")
-        return render_sample_parallel(key, scene, width, height,
+        film = render_sample_parallel(key, scene, width, height,
                                       sample_grid=sg, quirks=quirks,
-                                      device=device, **kw).cpu().numpy()
+                                      device=device, **kw)
     elif variant in ("super", "superlmem"):
         from .models.super import render_super
         film = render_super(key, scene, width, height, spp=spp,
@@ -82,7 +102,4 @@ def render(variant: str, scene: Scene | None = None, width: int = 512,
                                  quirks=quirks, device=device, **kw)
     else:
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
-    if as_rgba8:
-        from .ops.reduce import quantize_film
-        return quantize_film(film, wrap=quirks.wrap_uint8).cpu().numpy()
     return film

@@ -30,6 +30,7 @@ Semantics preserved exactly (with Quirks toggles, see core/quirks.py):
 
 from __future__ import annotations
 
+from time import perf_counter_ns
 from typing import NamedTuple
 
 import numpy as np
@@ -37,6 +38,7 @@ import torch
 
 from ..core.quirks import Quirks, DEFAULT
 from ..scene.scene import Scene
+from ..utils.profiling import count, span
 
 _EPS = float(np.float32(0.01))
 _BIG = float(np.float32(1e9))
@@ -111,12 +113,26 @@ def _triangle_weights(v0, e0, e2):
 _CACHE_SIZE = 8
 _PREPARED: dict = {}
 _DERIVED: dict = {}
+# Nanoseconds of the builds nested in each build under way, innermost
+# last: a build counts its own time less theirs.
+_NESTED_NS: list = []
 
 
-def _memo(cache: dict, owner, key, make):
+def _memo(cache: dict, owner, key, name: str, make):
     hit = cache.pop(key, None)
     if hit is None:
-        hit = (owner, make())
+        _NESTED_NS.append(0)
+        t0 = perf_counter_ns()
+        try:
+            with span("pt.build"):
+                hit = (owner, make())
+        finally:
+            ns = perf_counter_ns() - t0
+            nested = _NESTED_NS.pop()
+        if _NESTED_NS:
+            _NESTED_NS[-1] += ns
+        count("build." + name)
+        count("build_ns." + name, ns - nested)
         while len(cache) >= _CACHE_SIZE:
             cache.pop(next(iter(cache)))
     cache[key] = hit
@@ -126,13 +142,14 @@ def _memo(cache: dict, owner, key, make):
 def derived(scn: SceneArrays, name: str, device, make):
     """``make(scn)``, computed once per prepared scene, ``name`` and
     ``device`` (least recently used entries go first)."""
-    return _memo(_DERIVED, scn, (id(scn), name, str(device)),
+    return _memo(_DERIVED, scn, (id(scn), name, str(device)), name,
                  lambda: make(scn))
 
 
 def prep_scene(scene: Scene) -> SceneArrays:
     """The scene's SoA arrays (cached per Scene object)."""
-    return _memo(_PREPARED, scene, id(scene), lambda: _prep_scene(scene))
+    return _memo(_PREPARED, scene, id(scene), "prep_scene",
+                 lambda: _prep_scene(scene))
 
 
 def _prep_scene(scene: Scene) -> SceneArrays:

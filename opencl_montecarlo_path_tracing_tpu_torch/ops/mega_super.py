@@ -33,6 +33,7 @@ import torch
 from ..core.camera import make_camera
 from ..core.quirks import Quirks, DEFAULT
 from ..models import common as C
+from ..utils.profiling import span
 from .intersect import SceneArrays, _tri_table, derived
 
 #: Launches of the B1 kernel since the last reset (the wrapper adds one
@@ -146,6 +147,17 @@ def film_super_mega(key, scn: SceneArrays, width: int, height: int,
         return film_super_mega_plain(key, scn, width, height, spp,
                                      spp_offset, spp_total, quirks,
                                      row_offset, rows, device)
+    blocked = uses_blocked(scn, force_blocked)
+    route = "mega_blocked" if blocked else "mega_super"
+    with span("pt.kernel." + route):
+        return _film_cuda(key, scn, width, rows, spp, spp_offset, spp_total,
+                          quirks, row_offset, device, blocked)
+
+
+def _film_cuda(key, scn, width, rows, spp, spp_offset, spp_total, quirks,
+               row_offset, device, blocked):
+    """``film_super_mega`` on a non-CPU ``device``: the checks, ``out``
+    and one launch of B2/B3 (``blocked``) or B1."""
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     reason = unsupported_reason(scn)
@@ -167,7 +179,7 @@ def film_super_mega(key, scn: SceneArrays, width: int, height: int,
             _u32_arg("row_offset", row_offset), rows, width, spp,
             int(bool(quirks.accept_negative_t)),
             int(bool(quirks.shadow_carry_t)))
-    if uses_blocked(scn, force_blocked):
+    if blocked:
         _launch_blocked(scn, args, out, None)
     else:
         _launch_smem(scn, args, out)
@@ -189,8 +201,9 @@ def _stream(device) -> int:
 def _launch_smem(scn: SceneArrays, args, out):
     """One launch of B1 into ``out``."""
     global LAUNCHES
-    buf_np, ntp = pack_scene(scn)
-    buf = torch.from_numpy(buf_np).to(out.device)
+    with span("pt.pack"):
+        buf_np, ntp = pack_scene(scn)
+        buf = torch.from_numpy(buf_np).to(out.device)
     _check((("scene", buf), ("out", out)), out.device)
     from ..utils.build import load
     lib = load()

@@ -13,14 +13,57 @@ it, the JAX package's ``block_until_ready`` semantics.  CUDA events are
 not used: the light passes are bound by host dispatch, and an event-only
 time would hide that dispatch from the report.  ``StageTimer`` keeps the
 reporting format (ms + derived GB/s = data_size / 1e6 / ms).
+
+Besides, the frame path's spans and the program's counters:
+
+* ``span(name)`` marks a block as a ``torch.profiler`` user annotation
+  while a profiler records, and costs one flag check otherwise (no
+  environment variable, no argument: a span is on exactly when a profiler
+  records).  Its events share the profiler's clock with the device's
+  kernels and copies, and its parent is the span that encloses it on the
+  host thread.  The spans: ``pt.render`` (``api.render``, the whole call)
+  and in it ``pt.route`` (the integrator's film: the variant's model,
+  its routing and its launches), ``pt.quantize`` and ``pt.readback`` (the
+  RGBA8 reduction and its copy to the host); ``pt.kernel.<route>`` (the
+  CUDA path of ``film_super_mega``, from entry to return: ``mega_super``
+  for B1, ``mega_blocked`` for B2/B3), ``pt.pack`` (B1's per-launch scene
+  pack and upload), ``pt.build`` (a prepared scene or a derived table
+  built on a cache miss).
+* ``COUNTS`` holds integer tallies by name, always on, read by snapshot
+  (``dict(COUNTS)``); ``count(name, n)`` adds to one.  Each build adds 1
+  to ``build.<name>`` and its own nanoseconds, less those of the builds
+  nested in it, to ``build_ns.<name>`` (``ops/intersect.py::_memo``;
+  ``<name>`` is ``prep_scene`` or the derived table's name), so the
+  ``build_ns`` counters add up to the builds' time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
 import torch
+
+_OFF = contextlib.nullcontext()
+
+#: Integer tallies by name since the process started (see the module's
+#: docstring); never reset by the program.
+COUNTS: dict[str, int] = {}
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to ``COUNTS[name]``."""
+    COUNTS[name] = COUNTS.get(name, 0) + n
+
+
+def span(name: str):
+    """A context manager that records the block as the user annotation
+    ``name`` while a ``torch.profiler`` records, and does nothing
+    otherwise."""
+    if torch.autograd._profiler_enabled():
+        return torch.autograd.profiler.record_function(name)
+    return _OFF
 
 
 @dataclasses.dataclass
@@ -63,23 +106,6 @@ class StageTimer:
     def record(self, name: str, ms: float, *, items: int, item_label: str,
                data_size: int):
         self.stages.append(Stage(name, items, item_label, data_size, ms))
-
-    def trace(self, log_dir: str):
-        """A ``torch.profiler`` profile (host, and the device's kernels on
-        CUDA) around a block, written under ``log_dir`` as a Chrome /
-        TensorBoard trace - the deep-profiling analog of the reference's
-        CL_QUEUE_PROFILING_ENABLE event timing.  Usage:
-
-            with timer.trace("traces"):
-                film = render(...); torch.cuda.synchronize()
-        """
-        from torch.profiler import (ProfilerActivity, profile,
-                                    tensorboard_trace_handler)
-        acts = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        return profile(activities=acts,
-                       on_trace_ready=tensorboard_trace_handler(log_dir))
 
     def report(self) -> str:
         lines = []

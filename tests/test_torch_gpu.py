@@ -435,6 +435,58 @@ def test_render_on_gpu_launches_the_kernel(cuda_device):
     assert torch.isfinite(film).all()
 
 
+def _traced_rgba8_frame(variant, scene, device):
+    """The profiler's events of one 64x64x2 RGBA8 frame on the card."""
+    import opencl_montecarlo_path_tracing_tpu_torch as pt
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        img = pt.render(variant, scene, 64, 64, spp=2, seed=3,
+                        as_rgba8=True, device=device)
+    assert img.shape == (64, 64, 4)
+    return list(prof.events())
+
+
+@pytest.mark.gpu
+def test_frame_spans_on_gpu(cuda_device):
+    """A traced super frame shows ``pt.kernel.mega_super`` with ``pt.pack``
+    inside it, a traced sheet frame ``pt.kernel.mega_blocked`` without
+    one, and a second sheet frame no ``pt.build``; every span's mirror on
+    the device is a user annotation (which the benchmark's trace reduction
+    leaves out of the device's busy time)."""
+    def host(events, name):
+        return [e for e in events if e.name == name
+                and e.device_type.name == "CPU"]
+
+    def inside(inner, outer):
+        return (outer.time_range.start <= inner.time_range.start
+                and inner.time_range.end <= outer.time_range.end)
+
+    sheet = sheet_scene(144, 72)
+    frames = {"super": _traced_rgba8_frame("super", demo_scene()[0],
+                                           cuda_device),
+              "sheet": _traced_rgba8_frame("trianglegrid", sheet,
+                                           cuda_device),
+              "sheet again": _traced_rgba8_frame("trianglegrid", sheet,
+                                                 cuda_device)}
+    (b1,) = host(frames["super"], "pt.kernel.mega_super")
+    (pack,) = host(frames["super"], "pt.pack")
+    assert inside(pack, b1)
+    assert not host(frames["super"], "pt.kernel.mega_blocked")
+    for name in ("sheet", "sheet again"):
+        (b23,) = host(frames[name], "pt.kernel.mega_blocked")
+        assert not host(frames[name], "pt.pack")
+        assert not host(frames[name], "pt.kernel.mega_super")
+        (render,) = host(frames[name], "pt.render")
+        assert inside(b23, render)
+    assert len(host(frames["sheet"], "pt.build")) == 2   # scene, tables
+    assert not host(frames["sheet again"], "pt.build")
+    for events in frames.values():
+        for e in events:
+            if e.name.startswith("pt.") and e.device_type.name != "CPU":
+                assert e.is_user_annotation, (e.name, e.device_type)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", list(VLP_CASES))
 def test_vlp_kernel_matches_plain_on_gpu(name, cuda_device):
