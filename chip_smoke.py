@@ -35,7 +35,7 @@ Phases, each of which raises on failure (nothing is caught and skipped):
 5b. the light pass's kernels (``light_pass``: L1, the emission; L2a,
    the Metropolis seed paths; L2b, the chain and its emission; one warp a
    trace, the full scan below 2,048 triangles, the culled walk over
-   B2/B3's block tables from there) against their plain versions
+   the block tables from there) against their plain versions
    (``plain=True`` on the card), bit for bit, on ``demo_scene()`` and
    ``dense_vlp_scene()`` at 512 work items / chains a light and 8 rounds,
    under the default quirks and under REFERENCE_LMEM (the reused light
@@ -95,15 +95,16 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    sheet at 512x512x4, the 262,144 sheet at 512x512, sample 0 of 4, and
    the 1,048,576 sheet on the top, middle and bottom 16 rows of 512x512,
    samples 0-1 of 4, all under the contract (and max abs 2e-5 where no
-   pixel ties); on each sheet at 512x512x4 the kernel's time and its work
-   tally (``blocked_stats``): the yardstick's needed pairs, this design's
-   own need (pairs of the 32-row sub-blocks each ray's test passes), the
-   pairs the warps test, the box tests of each level and the clock64 split
-   of the cycles into walk and row scans, and beside the yardstick's bound
-   the bound restated over the design's own need and over the tested
-   pairs;
-8b. B4's walk route (``mega_vlp`` past 512 triangles, over B2/B3's
-   block tables) vs its plain version under the contract: the 1,800 and
+   pixel ties); on each sheet at 512x512x4 the kernel's device time (a
+   torch.profiler trace) and event time and its work tally
+   (``blocked_stats``: walks, those that enter the grid, cells, empty
+   cells and pairs a walk, the pairs the warps pay, and the clock64
+   split of the walks' cycles), with the bound over the walk's own work
+   (the kernels line's: its lanes' pairs, a visited cell each, the walks'
+   set-up), over the pairs its warps pay, and beside them the block
+   tree's own-need bound the grid replaced;
+8b. B4's walk route (``mega_vlp`` past 512 triangles, over the exact
+   grid) vs its plain version under the contract: the 1,800 and
    20,736 sheets at 512x512, samples 0-1 of 4, and the 262,144 sheet on
    rows 248-279, each with the emitted (dense) and the Metropolis (grid)
    table, the reference quirks too on the 20,736 sheet; ``force_walk``
@@ -1167,7 +1168,7 @@ def phase_light_pass(gt, card: str) -> dict:
                   f"{o['chain_match'][0]:.4f} (window "
                   f"{o['chain_match'][1]:.4f})")
 
-    # the 20,736-triangle sheet: the culled walk over B2/B3's tables
+    # the 20,736-triangle sheet: the culled walk over the block tables
     n, rounds = n_main, rounds_main
     sheet = prep_scene(large_mesh_scene())
     nl = int(sheet.lights.shape[0])
@@ -1631,7 +1632,7 @@ def phase_blocked_kernel_vs_plain(gt, card: str) -> dict:
     checks = [((144, 72), LSPP, ((0, LH),)),
               ((512, 256), 1, ((0, LH),)),
               ((1024, 512), 2, ((0, 16), (248, 16), (LH - 16, 16)))]
-    p_ms = 0.0
+    p_ms, row = 0.0, None
     for nm, spp, bands in checks:
         scn = prep_scene(large_mesh_scene(*nm))
         nt = int(scn.tri_v0.shape[0])
@@ -1648,62 +1649,70 @@ def phase_blocked_kernel_vs_plain(gt, card: str) -> dict:
                 f"{row_offset + rows - 1}, samples 0-{spp - 1} of {LSPP}: "
                 f"vs tier-1 plain (B7 plain, {ms / 1e3:.1f} s)", a, b, spp,
                 failed, atol=2e-5))
-        # the kernel alone at the super rows' shape (tables cached)
-        k_ms = time_ms(lambda: M.film_super_mega(key, scn, LW, LH, LSPP,
-                                                 device="cuda"), 3)
-        st = M.blocked_stats(key, scn, LW, LH, LSPP)
-        b_ms, b_by = bound(st["needed"] * PAIR_OPS, nt * 64 + LW * LH * 12)
-        print(f"  sheet {nt}, {LW}x{LH}x{LSPP}: kernel {k_ms:.3f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}; {restated_blocked(st, nt, k_ms)}); "
-              f"{blocked_split(st, LW * LH * LSPP)} ({card})")
+        # the kernel at the super rows' shape; the main path's call (the
+        # 20,736 sheet) is the kernels line's
+        main = nm == (144, 72)
+        r = blocked_row(key, scn, card,
+                        f", plain PyTorch {p_ms:.1f} ms" if main else "")
+        row = r if main else row
     if failed:
         raise RuntimeError(f"B2/B3 kernel contract violated: {failed}")
-    # the main path's kernel call: large_mesh_scene() at 512x512x4
-    scn = prep_scene(large_mesh_scene())
+    return {"max_abs": worst, "plain_ms": p_ms, **row}
+
+
+#: The block tree's bound over its own need (the pairs of the 32-row
+#: sub-blocks each ray's own box test passed) on the 20,736 sheet at
+#: 512x512x4, as this script measured it while B2/B3 walked the block
+#: tables (PERF.md, B2).
+BLOCK_TREE_OWN_NEED_MS = 0.4580
+
+
+def blocked_row(key, scn, card: str, extra: str = "") -> dict:
+    """B2/B3 on ``scn`` at the super rows' shape (512x512x4, tables
+    cached): its device time a launch (torch.profiler) and a call's event
+    time, its tally (``blocked_stats``), its bounds - over the walk's own
+    work (its lanes' pairs, a visited cell each, the walks' set-up; the
+    grid's tables and the film each moved once), over the pairs its warps
+    pay, and on the 20,736 sheet the block tree's own-need bound beside
+    them - printed on one line and its split on another; returns the
+    kernels line's fields (ms: the device time where traced)."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import exact_grid as X
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_super as M
     nt = int(scn.tri_v0.shape[0])
-    k_ms = time_ms(lambda: M.film_super_mega(key, scn, LW, LH, LSPP,
-                                             device="cuda"), 5)
+
+    def launch():
+        return M.film_super_mega(key, scn, LW, LH, LSPP, device="cuda")
+    ev_ms = time_ms(launch, 5)
+    d_ms, _ = device_ms(launch, 5, "mega_blocked_kernel", same_work=True)
+    k_ms = ev_ms if d_ms is None else d_ms
     st = M.blocked_stats(key, scn, LW, LH, LSPP)
-    pairs = st["needed"]
-    b_ms, b_by = bound(pairs * PAIR_OPS, nt * 64 + LW * LH * 12)
-    print(f"  sheet {nt}, {LW}x{LH}x{LSPP}: kernel {k_ms:.3f} ms, plain "
-          f"PyTorch {p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}; {pairs} "
-          f"needed pairs, {pairs / (LW * LH * LSPP):.0f} a sample; "
-          f"{restated_blocked(st, nt, k_ms)}) ({card})")
-    return {"max_abs": worst, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-            "bound_by": b_by}
-
-
-def restated_blocked(st: dict, nt: int, k_ms: float) -> str:
-    """B2/B3's bound restated over the work of its own walk (not the
-    yardstick): the pairs of the 32-row sub-blocks each ray's own test
-    passes, and the pairs its warps test; each with the kernel's share."""
-    nbytes = nt * 64 + LW * LH * 12
-    own, _ = bound(st["sub_needed"] * PAIR_OPS, nbytes)
-    tested, _ = bound(st["tested"] * PAIR_OPS, nbytes)
-    return (f"restated over this design's own need {own:.4f} ms, "
-            f"{100 * own / k_ms:.1f}% of the kernel's time; over the "
-            f"pairs its warps test {tested:.4f} ms, "
-            f"{100 * tested / k_ms:.1f}%")
-
-
-def blocked_split(st: dict, n: int) -> str:
-    """B2/B3's work tally (``blocked_stats``) over ``n`` samples: pairs a
-    sample (the yardstick's needed, this design's own need, tested by the
-    warps), box tests a warp-sample by level, and the clock64 split of a
-    warp's cycles."""
-    ws = n / 32
-    kc = max(st["kernel_cycles"], 1)
-    return (f"a sample: {st['needed'] / n:.0f} needed pairs (yardstick), "
-            f"{st['sub_needed'] / n:.0f} this design's own need, "
-            f"{st['tested'] / n:.0f} tested by its warp "
-            f"({st['tested'] / max(st['needed'], 1):.2f}x the yardstick, "
-            f"{st['tested'] / max(st['sub_needed'], 1):.2f}x the own "
-            f"need); a warp-sample: "
-            f"{st['macro_tests'] / ws:.0f} node, {st['block_tests'] / ws:.0f}"
-            f" block and {st['sub_tests'] / ws:.0f} sub-block box tests, "
-            f"{kc / ws:.0f} cycles: walk {100 * st['walk_cycles'] / kc:.1f}%,"
-            f" row scans {100 * st['scan_cycles'] / kc:.1f}%")
+    if not (st["tested"] >= st["pairs"] > 0
+            and st["walks"] == LW * LH * LSPP + st["casts_tri"]):
+        raise RuntimeError(f"B2/B3 tally inconsistent: {st}")
+    xg = X.exact_grid(scn, "cuda")
+    nbytes = X.table_bytes(xg) + LW * LH * 12
+    walk = (st["cells"] * CELL_OPS + st["walks"] * WALK_OPS
+            + st["entered"] * ENTER_OPS)
+    b_ms, b_by = bound(st["pairs"] * PAIR_OPS + walk, nbytes)
+    t_ms, _ = bound(st["tested"] * PAIR_OPS + walk, nbytes)
+    tree = (f", the block tree's own-need bound {BLOCK_TREE_OWN_NEED_MS} ms"
+            if nt == 20736 else "")
+    print(f"  sheet {nt}, {LW}x{LH}x{LSPP}: kernel {fmt_ms(d_ms)} ms of "
+          f"device time a launch, {ev_ms:.3f} ms a call on events{extra}; "
+          f"bound {b_ms:.4f} ms ({b_by}; the walk's own work, "
+          f"{100 * b_ms / k_ms:.1f}% of the kernel's time), over the pairs "
+          f"its warps pay {t_ms:.4f} ms ({100 * t_ms / k_ms:.1f}%){tree}; "
+          f"grid {xg.res}, {X.table_bytes(xg) / 1e6:.1f} MB of tables "
+          f"({card})")
+    kc = max(st["kernel"], 1)
+    print(f"    casts {st['casts']} ({st['casts_tri']} walk), "
+          f"{st['pairs'] / max(st['walks'], 1) / nt:.2e} of the mesh a walk;"
+          f" {walk_split(st)}; the kernel's cycles: camera rest "
+          f"{100 * st['cam_rest'] / kc:.1f}%, camera walk "
+          f"{100 * st['cam_tri'] / kc:.1f}%, shadow rest "
+          f"{100 * st['shadow_rest'] / kc:.1f}%, shadow walks "
+          f"{100 * st['shadow_tri'] / kc:.1f}%")
+    return {"ms": k_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
 #: The block design's bound on B4's walk route over its own need (the
@@ -2073,6 +2082,7 @@ def phase_large_mesh_main_paths(card: str) -> dict:
     import torch
     import opencl_montecarlo_path_tracing_tpu_torch as pt
     from opencl_montecarlo_path_tracing_tpu_torch.core.rng import make_key
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import exact_grid as X
     from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_super as M
     from opencl_montecarlo_path_tracing_tpu_torch.ops.intersect import (
         prep_scene)
@@ -2112,12 +2122,14 @@ def phase_large_mesh_main_paths(card: str) -> dict:
               f"({card}); film mean/spp {mean:.4f}, launches {counts}")
         if want == ("mega_blocked",):
             # the render split: the host preparation a Scene gets once, on
-            # its first render (prep_scene, the block tables; timed on fresh
-            # copies of the Scene), vs the kernel on the prepared scene
+            # its first render (prep_scene, the scene without triangles and
+            # the exact grid; timed on fresh copies of the Scene), vs the
+            # kernel on the prepared scene
             t0 = time.perf_counter()
             for _ in range(TIMED_RUNS):
                 scn = prep_scene(dataclasses.replace(scene))
-                M.block_tables(scn, "cuda")
+                M.scene_buffer(scn, "cuda", triangles=False)
+                X.exact_grid(scn, "cuda")
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - t0) * 1e3 / TIMED_RUNS
             k_ms = time_ms(lambda: M.film_super_mega(

@@ -55,7 +55,7 @@
 //   rounding and ties exactly, so the tables stay bit-equal to the plain
 //   light pass; the scene staged in shared memory once a block up to
 //   kStageTriangles (B1's and B4's tier), past it read in place;
-// - from 2,048 triangles the culled walk over B2/B3's block tables
+// - from 2,048 triangles the culled walk over the Morton block tables
 //   (ops/tri_blocks.py::walk_tables, built once a prepared scene): the
 //   node tree, a macro's sub-block boxes one a lane, a taken sub-block's
 //   rows one a lane (~120-175 rows a trace on a 20,736-triangle sheet);

@@ -1,6 +1,6 @@
 // Super megakernel for large meshes: the whole mirror-free `super` sample
-// step, all spp, in one kernel, over a Morton-blocked triangle table walked
-// behind conservative AABB culls (kernels B2 and B3 of the port).
+// step, all spp, in one kernel, each ray's triangles found by a walk of an
+// exact uniform grid (kernels B2 and B3 of the port).
 //
 // Replaces the TPU kernel opencl_montecarlo_path_tracing_tpu/ops/
 // pallas_super.py::film_super_mega -> _mega_kernel in its blocked tier
@@ -11,48 +11,45 @@
 // -> triangles (division-free Moller-Trumbore, det-scaled running
 // minimum), one jittered shadow ray per light (uncapped any-hit, or under
 // shadow_carry_t sequential closest-hit traces seeded with the carried
-// distance), the 4-material shading, spp accumulation.  The triangles come
-// from ops/tri_blocks.py::walk_tables: the JAX package's Morton blocks of
-// 128 rows, live blocks only (no NaN padding box reaches the kernel, so
-// CUDA's NaN-dropping fminf/fmaxf never meet one), each block with four
-// 32-row sub-blocks, and above the macros of <= 8 blocks a tree of union
-// boxes (8 Morton-consecutive children a node, siblings near to far).
+// distance), the 4-material shading, spp accumulation.
 //
-// Exactness.  A node, block or sub-block is skipped only when no ray of the
-// warp can hit a triangle in it closer than its running best: the per-lane
-// slab test against the padded box, the eps/forward check, and the
-// running-t prune with the TPU kernel's relative slack (_PRUNE_SLACK,
-// pallas_super.py:301-350), all conservative; a 0 * inf in the slab (an
-// axis-parallel ray whose origin lies on a box plane) leaves that axis
-// unconstrained.  Every box lies inside its parent's and a sub-block is
-// padded by its block's pad, so a lane that passes a box passes every box
-// above it.  Scanning rows a lane did not need re-tests them against its
-// strictly closer running minimum, so a warp may scan more than each lane
-// needs and the result does not change.  Blocks are Morton-reordered, so
-// exact cross-multiplied ties (shared mesh edges) go to the lowest
-// original index (_tri_closest_row_blocked, pallas_super.py:222-264),
-// carried as an int starting at -1, so a tie against a floor or sphere hit
-// is never stolen.
+// The triangles are the exact uniform grid of ops/exact_grid.py (the one
+// B4's walk route reads past 512 triangles): every (cell, triangle) pair
+// whose AABB overlaps the cell, no per-cell cap, the rows cell-major with
+// their original indices, an occupancy bitmap and a padded frame, built
+// once per prepared scene and device.  Shared memory holds the scene
+// without triangles and the grid's frame; the tables stay in device
+// memory (the 20,736-triangle sheet's take 6.1 MB, read through L1/L2).
+// Each camera ray and each shadow ray walks the grid, one lane a ray,
+// through pt_device.cuh::exact_walk: a 3-D DDA that tests each occupied
+// cell's pairs in slot order and ends when the running best lies before
+// the current cell's exit less a margin (a shadow ray at its first hit).
 //
-// What bounds it on an H100: FP32 issue in the row scans (~48 operations,
-// ~60 instructions, per tested (ray, triangle) pair) and the slab tests of
-// the walk; the only device-memory traffic is the block table (64 B a
-// triangle, re-read from L1/L2) and the 12-byte film write per pixel.  A
-// warp pays for the union of its lanes' work, so the design keeps that
-// union small.  One thread per pixel, a warp on a compact 8x4 pixel patch
-// (a block of 4 warps on 16x8) so that its rays are coherent and its votes
-// cull.  The walk is pt_device.cuh's walk_closest / walk_occluded, which
-// B4 shares past 512 triangles.  Per trace the warp walks the node tree
-// without a stack: a node no lane needs is skipped with its subtree (the
-// node stores the index after it), so the walk grows with the tree's
-// depth, not with the macro count.  In a taken macro the warp votes on each block, in a taken block on each
-// 32-row sub-block, and scans only the sub-blocks some lane needs
-// (broadcast float4 loads, every lane the same row).  Shadow rays the
-// shading ignores (sky, facing-ratio, back-facing lights) do not vote, and
-// an occlusion walk ends when every voting lane is occluded.  Every lane of
-// a warp runs every walk (ghost pixels past the film edge included), so the
-// votes see all 32 lanes.  Built with --fmad=false and without fast math,
-// like B1.
+// Exactness.  A triangle is in every cell its box overlaps and a hit's
+// point lies in its box, so a hit that could beat the running best lies
+// in a cell the walk has yet to visit; the margin keeps rounding from
+// ending a walk early.  An exact cross-multiplied tie goes to the lowest
+// original index, carried as an int from -1, so a tie against a floor or
+// sphere hit is never stolen: the rule the JAX kernel's Morton-ordered
+// blocks keep (_tri_closest_row_blocked, pallas_super.py:222-264), so the
+// film is the block walk's that this grid replaced.
+//
+// What bounds it on an H100: FP32 issue in the pair tests (~48
+// operations, ~60 instructions, per tested (ray, triangle) pair) and the
+// DDA's steps; the device-memory traffic is the grid's rows (48 B a
+// pair), spans and bitmap, re-read from L1/L2, and the 12-byte film write
+// per pixel.  One thread per pixel, a warp on a compact 8x4 pixel patch (a
+// block of 4 warps on 16x8), so that the lanes' DDAs cross the same cells
+// and their row loads hit the same lines.  The camera walks step over
+// runs of empty cells in an inner loop, each lane at its own pace, so
+// that a warp's lanes test their occupied cells together (B4's
+// schedule); the shadow walks, a few lanes a warp from scattered hit
+// points, step a cell at a time without it, which took a sheet frame's
+// kernel from 15.1 to 10.9 ms on an H100 (PERF.md, B2).  Only the
+// film's pixels walk their camera rays, and only the shadow rays the
+// shading reads walk (lit hits facing the light, not occluded by the
+// floor, squares or spheres).  Built with --fmad=false and without fast
+// math, like B1.
 
 #include "pt_device.cuh"
 
@@ -61,43 +58,70 @@ namespace {
 constexpr int kTileW = 16;            // block tile: 16 x 8 pixels,
 constexpr int kTileH = 8;             // warp w on the 8 x 4 patch (w&1, w>>1)
 constexpr int kBlock = kTileW * kTileH;
+// Floats of shared memory the grid's frame takes (its 9, padded to 16
+// bytes), after the scene.
+constexpr int kFrameFloats = 12;
 
-// Warp-wide work tally of the counting instantiation (kStats): every lane
-// keeps the same counts (they follow warp votes), lane 0 adds them to the
-// stats buffer at the end.  [0] the yardstick's (ray, triangle) pairs: in
-// the 128-row blocks whose box the ray's own test passes when the parent
-// design's near-to-far block walk tests it (replayed for the count:
-// yard_closest, yard_occ), [1] pairs the warp tests (32 lanes x the rows
-// it scans), [2] tree-node box tests (the macro level and above), [3]
-// block and [4] sub-block box tests, clock64 cycles [5] in the walks (box
-// tests, votes and scans) and [6] in the row scans, [7] in the whole
-// kernel less the replays, [8] this walk's own need: the real rows of the
-// 32-row sub-blocks whose box the ray's own test passes.  The timed
-// instantiation keeps none of it.
-constexpr int kStatSlots = 9;
+// Work tally of the counting instantiation (kStats).  Cycle slots
+// (clock64, the warp's: lane 0's reading) [kCamRest] the camera trace's
+// floor, squares and spheres, [kCamTri] its walk, [kShadowRest] the shadow
+// rays' floor, squares and spheres, [kShadowTri] their walks, [kKernel]
+// the whole kernel; count slots (summed over lanes) [kCasts] shadow rays
+// cast (a lit hit facing a light), [kCastsTri] casts that walk the grid
+// (any-hit: those the floor, squares and spheres do not occlude; under
+// shadow_carry_t every cast), [kTested] pair iterations of the warps (32
+// lanes each), [kWalks] walks (camera rays of the film's pixels and the
+// casts that walk), [kEntered] walks that enter the grid, [kCells] cells
+// visited, [kEmpty] visited cells with no triangle, [kPairs] (ray,
+// triangle) pairs the lanes test (the bound's work); lane 0's clock64
+// split of the walks' cycles (warp-uniform stamps of the lockstep walk,
+// pt_device.cuh's WalkStage): [kClkSetup] the DDA set-up, [kClkEmpty]
+// iterations in which no lane tests a pair (empty cells and their steps),
+// [kClkLoads] the occupied cells' row loads, [kClkPairs] the pair
+// arithmetic, [kClkStep] the occupied cells' end tests and steps.  The
+// timed instantiation keeps none of it.
+enum Slot {
+  kCamRest, kCamTri, kShadowRest, kShadowTri, kKernel,
+  kCasts, kCastsTri, kTested, kWalks, kEntered, kCells, kEmpty, kPairs,
+  kClkSetup, kClkEmpty, kClkLoads, kClkPairs, kClkStep, kStatSlots
+};
 
 template <bool kStats>
 struct Tally {
+  static constexpr bool kLockstep = true;
   unsigned long long v[kStatSlots] = {};
-  // slot += rows for each lane whose own test passes
-  __device__ __forceinline__ void need(int slot, bool lane_need, int rows) {
-    v[slot] += (unsigned long long)__popc(__ballot_sync(kAll, lane_need)) *
-               (unsigned)rows;
-  }
+  long long last = 0;   // the last stamp of the walk's clock split
   __device__ __forceinline__ void add(int slot, long long n) { v[slot] += n; }
   __device__ __forceinline__ long long clock() { return clock64(); }
-  // the hooks of pt_device.cuh's walk
-  __device__ __forceinline__ void walk_node() { v[2] += 1; }
-  __device__ __forceinline__ void walk_block() { v[3] += 1; }
-  __device__ __forceinline__ void walk_sub(bool sneed, int rows) {
-    v[4] += 1;
-    need(8, sneed, rows);
+  // the hooks of pt_device.cuh::exact_walk
+  __device__ __forceinline__ void begin() {
+    __syncwarp();
+    last = clock64();
   }
-  __device__ __forceinline__ void walk_scan(long long cycles) {
-    v[1] += 32 * kSubRows;
-    v[6] += cycles;
+  __device__ __forceinline__ void walk(bool live, bool go) {
+    v[kWalks] += live;
+    v[kEntered] += go;
   }
+  __device__ __forceinline__ void cell(bool full) {
+    v[kCells] += 1;
+    v[kEmpty] += !full;
+  }
+  __device__ __forceinline__ void pairs(int n) { v[kPairs] += n; }
+  __device__ __forceinline__ void round() { v[kTested] += 1; }
+  __device__ __forceinline__ void stamp(int stage) {
+    __syncwarp();
+    const long long now = clock64();
+    v[kClkSetup + stage] += (unsigned long long)(now - last);
+    last = now;
+  }
+  __device__ __forceinline__ void loaded(unsigned x) {
+    wait_for(x);
+    stamp(kStageLoads);
+  }
+  // every lane of the warp calls it once, at the end
   __device__ __forceinline__ void flush(unsigned long long* stats) {
+    for (int i = kCasts; i <= kPairs; ++i)
+      for (int o = 16; o > 0; o >>= 1) v[i] += __shfl_xor_sync(kAll, v[i], o);
     if ((threadIdx.x & 31) != 0) return;
     for (int i = 0; i < kStatSlots; ++i) atomicAdd(stats + i, v[i]);
   }
@@ -105,145 +129,93 @@ struct Tally {
 
 template <>
 struct Tally<false> {
-  __device__ __forceinline__ void need(int, bool, int) {}
+  static constexpr bool kLockstep = false;
   __device__ __forceinline__ void add(int, long long) {}
   __device__ __forceinline__ long long clock() { return 0; }
-  __device__ __forceinline__ void walk_node() {}
-  __device__ __forceinline__ void walk_block() {}
-  __device__ __forceinline__ void walk_sub(bool, int) {}
-  __device__ __forceinline__ void walk_scan(long long) {}
+  __device__ __forceinline__ void begin() {}
+  __device__ __forceinline__ void walk(bool, bool) {}
+  __device__ __forceinline__ void cell(bool) {}
+  __device__ __forceinline__ void pairs(int) {}
+  __device__ __forceinline__ void round() {}
+  __device__ __forceinline__ void stamp(int) {}
+  __device__ __forceinline__ void loaded(unsigned) {}
   __device__ __forceinline__ void flush(unsigned long long*) {}
 };
 
-// The yardstick's count of a closest-hit trace (counting instantiation
-// only): the parent design's walk, replayed from the running distance
-// t_pre of the non-triangle stages - every live block in the tables'
-// near-to-far order voted, a taken block's 128 rows scanned.  (That walk
-// also tested each macro of 8 blocks first; a macro box holds its blocks'
-// boxes, so a macro no lane passes holds no block a lane passes, and
-// skipping it changed no count.)  It tallies the pairs of the blocks each
-// lane's own test passes; its scans only evolve the running minimum the
-// prune reads, exactly as that walk did.
-template <bool kStats>
-__device__ void yard_closest(const Mesh& M, const RayInv& ri, float ox,
-                             float oy, float oz, float dx, float dy,
-                             float dz, float t_pre, bool neg_t, bool active,
-                             Tally<kStats>& T) {
-  float bn = t_pre, bd = 1.0f;
-  int bi = -1;
-  PreHit h{};
-  for (int b = 0; b < M.n_blocks; ++b) {
-    const bool need =
-        active && box_closest(__ldg(M.boxes + 2 * b),
-                              __ldg(M.boxes + 2 * b + 1), ri, bn, bd, neg_t);
-    if (!__any_sync(kAll, need)) continue;
-    T.need(0, need, kRowsPerBlock);
-    scan_closest<kRowsPerBlock>(M.rows + 4ll * kRowsPerBlock * b, ox, oy, oz,
-                                dx, dy, dz, neg_t, active, bn, bd, bi, h);
-  }
-}
-
-// The yardstick's count of an occlusion walk (counting instantiation
-// only), from `occ` = the lane's non-triangle result: as yard_closest,
-// each lane's scan ending at its first occluder, the walk when every
-// active lane is occluded.
-template <bool kStats>
-__device__ void yard_occ(const Mesh& M, const RayInv& ri, float ox,
-                         float oy, float oz, float dx, float dy, float dz,
-                         float t_limit, bool neg_t, bool active, bool occ,
-                         Tally<kStats>& T) {
-  for (int b = 0; b < M.n_blocks; ++b) {
-    if (!__any_sync(kAll, active && !occ)) break;
-    const bool need =
-        active && !occ &&
-        box_occ(__ldg(M.boxes + 2 * b), __ldg(M.boxes + 2 * b + 1), ri,
-                t_limit, neg_t);
-    if (!__any_sync(kAll, need)) continue;
-    T.need(0, need, kRowsPerBlock);
-    if (!active || occ) continue;
-    const float4* rows = M.rows + 4ll * kRowsPerBlock * b;
-    for (int i = 0; i < kRowsPerBlock; ++i, rows += 4) {
-      const Quads q = row_quads(__ldg(rows), __ldg(rows + 1), __ldg(rows + 2),
-                                ox, oy, oz, dx, dy, dz);
-      if (quads_valid(q, neg_t) && q.tn_s < t_limit * q.dd) {
-        occ = true;
-        break;
-      }
-    }
-  }
-}
-
-// Closest hit over floor, squares, spheres and the blocked triangles,
-// seeded with t0.  `active` lanes vote and update; the others run the
-// walk for the votes' sake and return garbage.
-template <bool kStats>
-__device__ Hit trace_blocked(const Scene& S, const Mesh& M, float ox,
-                             float oy, float oz, float dx, float dy,
-                             float dz, float t0, bool neg_t, bool active,
-                             Tally<kStats>& T) {
+// Closest hit over floor, squares, spheres and the grid's triangles,
+// seeded with t0, for `active` lanes (the others return the non-triangle
+// hit); kNest is exact_walk's.  `rest` and `tri` are the tally's cycle
+// slots of the two stages.
+template <bool kNest, bool kStats>
+__device__ Hit trace_grid(const Scene& S, const XGrid& X, float ox,
+                          float oy, float oz, float dx, float dy, float dz,
+                          float t0, bool neg_t, bool active, int rest,
+                          int tri, Tally<kStats>& T) {
+  const long long c0 = T.clock();
   PreHit h = pre_tri(S, ox, oy, oz, dx, dy, dz, t0, neg_t, 3);
-  const RayInv ri = ray_inv(ox, oy, oz, dx, dy, dz);
-  const float t_pre = h.t;
+  const long long c1 = T.clock();
   float bn = h.t, bd = 1.0f;
   int bi = -1;
-  const long long w0 = T.clock();
-  walk_closest(M, ri, ox, oy, oz, dx, dy, dz, neg_t, active, bn, bd, bi, h,
-               T);
-  T.add(5, T.clock() - w0);
-  if constexpr (kStats) {
-    const long long y0 = T.clock();
-    yard_closest(M, ri, ox, oy, oz, dx, dy, dz, t_pre, neg_t, active, T);
-    T.add(7, y0 - T.clock());                 // not the kernel's own work
-  }
+  exact_walk<false, kNest>(X, active, ox, oy, oz, dx, dy, dz, neg_t, 0.0f,
+                           bn, bd, bi, h, T);
   h.t = bn / bd;
+  T.add(rest, c1 - c0);
+  T.add(tri, T.clock() - c1);
   return finish(h);
 }
 
 // Any-hit occlusion below t_limit over floor, squares, spheres and the
-// blocked triangles, for `active` lanes (the others return false).  The
-// walk ends when every active lane is occluded.
+// grid's triangles, for `cast` lanes (the others return false); a lane's
+// walk ends at its first hit.
 template <bool kStats>
-__device__ bool occluded_blocked(const Scene& S, const Mesh& M, float ox,
-                                 float oy, float oz, float dx, float dy,
-                                 float dz, float t_limit, bool neg_t,
-                                 bool active, Tally<kStats>& T) {
-  bool occ = active && occluded_pre(S, ox, oy, oz, dx, dy, dz, t_limit,
-                                    neg_t);
-  const RayInv ri = ray_inv(ox, oy, oz, dx, dy, dz);
-  if constexpr (kStats) {
-    const long long y0 = T.clock();
-    yard_occ(M, ri, ox, oy, oz, dx, dy, dz, t_limit, neg_t, active, occ, T);
-    T.add(7, y0 - T.clock());                 // not the kernel's own work
-  }
-  const long long w0 = T.clock();
-  walk_occluded(M, ri, ox, oy, oz, dx, dy, dz, t_limit, neg_t, active, occ,
-                T);
-  T.add(5, T.clock() - w0);
-  return occ;
+__device__ bool occluded_grid(const Scene& S, const XGrid& X, float ox,
+                              float oy, float oz, float dx, float dy,
+                              float dz, float t_limit, bool neg_t,
+                              bool cast, Tally<kStats>& T) {
+  const long long c0 = T.clock();
+  const bool occ =
+      cast && occluded_pre(S, ox, oy, oz, dx, dy, dz, t_limit, neg_t);
+  const long long c1 = T.clock();
+  T.add(kCastsTri, cast && !occ);
+  float bn = 0.0f, bd = 1.0f;
+  int bi = -1;
+  PreHit unused{};
+  const bool hit = exact_walk<true, false>(X, cast && !occ, ox, oy, oz, dx,
+                                           dy, dz, neg_t, t_limit, bn, bd,
+                                           bi, unused, T);
+  T.add(kShadowRest, c1 - c0);
+  T.add(kShadowTri, T.clock() - c1);
+  return occ || hit;
 }
 
-template <bool kStats>
+// kCarry: the shadow_carry_t quirk's closest-hit shadow traces, an
+// instantiation of its own so that the other one carries no third walk.
+template <bool kStats, bool kCarry>
 __global__ void __launch_bounds__(kBlock)
 mega_blocked_kernel(const float* __restrict__ scene, int nl, int ns, int nq,
-                    Mesh M, uint32_t k0, uint32_t k1, uint32_t spp_offset,
+                    XGrid X, uint32_t k0, uint32_t k1, uint32_t spp_offset,
                     uint32_t spp_total, uint32_t row_offset, int rows,
-                    int width, int spp, int neg_t_flag, int carry_t_flag,
+                    int width, int spp, int neg_t_flag,
                     float* __restrict__ out,
                     unsigned long long* __restrict__ stats) {
   Tally<kStats> T;
   const long long k_start = T.clock();
   extern __shared__ float4 smem4[];
-  const Scene S = stage_scene(scene, reinterpret_cast<float*>(smem4), 0, nl,
-                              ns, nq);
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Scene S = stage_scene(scene, smem, 0, nl, ns, nq);
+  // the grid's frame follows the scene, float4-aligned
+  float* fsm = smem + ((scene_floats(0, nl, ns, nq) + 3) & ~3);
+  if (threadIdx.x < 9) fsm[threadIdx.x] = __ldg(X.g.frame + threadIdx.x);
+  X.g.frame = fsm;
   __syncthreads();
   const bool neg_t = neg_t_flag != 0;
-  const bool carry_t = carry_t_flag != 0;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ii_i = blockIdx.x * kTileW + (warp & 1) * 8 + (lane & 7);
   const int jj_row = blockIdx.y * kTileH + (warp >> 1) * 4 + (lane >> 3);
-  // ghost pixels past the film edge render (their lanes vote) and are
-  // not written
+  // ghost pixels past the film edge run every loop (every lane reaches
+  // every warp-wide step of the walks) but walk nothing and are not
+  // written
   const bool inside = ii_i < width && jj_row < rows;
   const uint32_t row_u = (uint32_t)jj_row + row_offset;
   const uint32_t pixel_index = row_u * (uint32_t)width + (uint32_t)ii_i;
@@ -258,12 +230,12 @@ mega_blocked_kernel(const float* __restrict__ scene, int nl, int ns, int nq,
     const float ox = ry.ox, oy = ry.oy, oz = ry.oz;
     const float dx = ry.dx, dy = ry.dy, dz = ry.dz;
 
-    const Hit h =
-        trace_blocked(S, M, ox, oy, oz, dx, dy, dz, kBig, neg_t, true, T);
+    const Hit h = trace_grid<true>(S, X, ox, oy, oz, dx, dy, dz, kBig,
+                                   neg_t, inside, kCamRest, kCamTri, T);
 
     // direct light for floor (1) and diffuse (3) hits: one shadow ray
     // per light, cast only where the shading uses it
-    const bool lit = h.m == 1 || h.m == 3;
+    const bool lit = inside && (h.m == 1 || h.m == 3);
     const float x = ox + dx * h.t;
     const float y = oy + dy * h.t;
     const float z = oz + dz * h.t;
@@ -286,15 +258,18 @@ mega_blocked_kernel(const float* __restrict__ scene, int nl, int ns, int nq,
       // lamb < 0 zeroes the contribution; the reference short-circuits
       // the shadow trace there, so the carried t is left as it was
       const bool cast = lit && lamb >= 0.0f;
+      T.add(kCasts, cast);
       bool occ;
-      if (carry_t) {
-        const Hit hs = trace_blocked(S, M, x, y, z, ldx, ldy, ldz, t_run,
-                                     neg_t, cast, T);
+      if constexpr (kCarry) {
+        T.add(kCastsTri, cast);
+        const Hit hs = trace_grid<false>(S, X, x, y, z, ldx, ldy, ldz,
+                                         t_run, neg_t, cast, kShadowRest,
+                                         kShadowTri, T);
         occ = hs.m != 0;
         if (cast) t_run = hs.t;
       } else {
-        occ = occluded_blocked(S, M, x, y, z, ldx, ldy, ldz, kBig, neg_t,
-                               cast, T);
+        occ = occluded_grid(S, X, x, y, z, ldx, ldy, ldz, kBig, neg_t, cast,
+                            T);
       }
       if (cast && !occ) {
         const float dqx = lx - x, dqy = ly - y, dqz = lz - z;
@@ -323,46 +298,61 @@ mega_blocked_kernel(const float* __restrict__ scene, int nl, int ns, int nq,
     o[1] = fg * kExposure;
     o[2] = fb * kExposure;
   }
-  T.add(7, T.clock() - k_start);
+  T.add(kKernel, T.clock() - k_start);
   T.flush(stats);
 }
 
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  `scene`
-// is ops/mega_super.py::pack_scene's buffer without triangles; `stats`,
-// when not null, points to kStatSlots zeroed uint64 counters: the counting
-// instantiation runs and adds its Tally there.
+// is ops/mega_super.py::pack_scene's buffer without triangles; the grid_*
+// arguments are ops/exact_grid.py::ExactGrid's tables - the cell-major
+// rows (12 floats each), each cell's (first row, rows), the occupancy
+// bitmap, each row's original index, the 9-float frame - over rx x ry x rz
+// cells.  `stats`, when not null, points to kStatSlots zeroed uint64
+// counters: the counting instantiation runs and adds its Tally there.
 extern "C" int mega_blocked_launch(const float* scene, int nl, int ns, int nq,
-                                   const float* rows_tbl, const float* boxes,
-                                   int n_blocks, const float* subs,
-                                   const float* nodes, int n_nodes,
-                                   unsigned k0, unsigned k1,
+                                   const float* grid_rows,
+                                   const int* grid_span, const int* grid_occ,
+                                   const int* grid_ids,
+                                   const float* grid_frame, int rx, int ry,
+                                   int rz, unsigned k0, unsigned k1,
                                    unsigned spp_offset, unsigned spp_total,
                                    unsigned row_offset, int rows, int width,
                                    int spp, int neg_t, int carry_t,
                                    float* out, void* stats, void* stream) {
   if ((long long)rows * width <= 0) return 0;
-  const size_t smem = sizeof(float) * (size_t)(12 + nl * 4 + ns * 3 + 2 * nq);
-  auto kernel = stats ? mega_blocked_kernel<true> : mega_blocked_kernel<false>;
+  if (rx < 1 || ry < 1 || rz < 1 || grid_rows == nullptr ||
+      grid_span == nullptr || grid_occ == nullptr || grid_ids == nullptr ||
+      grid_frame == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) *
+      ((size_t)((12 + nl * 4 + ns * 3 + 2 * nq + 3) & ~3) + kFrameFloats);
+  auto kernel =
+      stats ? (carry_t ? mega_blocked_kernel<true, true>
+                       : mega_blocked_kernel<true, false>)
+            : (carry_t ? mega_blocked_kernel<false, true>
+                       : mega_blocked_kernel<false, false>);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  Mesh M;
-  M.rows = reinterpret_cast<const float4*>(rows_tbl);
-  M.boxes = reinterpret_cast<const float4*>(boxes);
-  M.subs = reinterpret_cast<const float4*>(subs);
-  M.nodes = reinterpret_cast<const float4*>(nodes);
-  M.n_blocks = n_blocks;
-  M.n_nodes = n_nodes;
+  XGrid X;
+  X.g.rows = reinterpret_cast<const float4*>(grid_rows);
+  X.g.span = reinterpret_cast<const int2*>(grid_span);
+  X.g.occ = reinterpret_cast<const unsigned*>(grid_occ);
+  X.g.frame = grid_frame;
+  X.g.rx = rx;
+  X.g.ry = ry;
+  X.g.rz = rz;
+  X.ids = grid_ids;
   const dim3 grid((unsigned)((width + kTileW - 1) / kTileW),
                   (unsigned)((rows + kTileH - 1) / kTileH));
   kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-      scene, nl, ns, nq, M, k0, k1, spp_offset, spp_total, row_offset, rows,
-      width, spp, neg_t, carry_t, out,
-      reinterpret_cast<unsigned long long*>(stats));
+      scene, nl, ns, nq, X, k0, k1, spp_offset, spp_total, row_offset, rows,
+      width, spp, neg_t, out, reinterpret_cast<unsigned long long*>(stats));
   return (int)cudaGetLastError();
 }
 

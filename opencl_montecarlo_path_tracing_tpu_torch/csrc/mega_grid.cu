@@ -8,9 +8,9 @@
 // jax.jit, with ops/grid.py:261 traverse_triangles inside a fori_loop),
 // which the port ran as a Python loop of eager torch ops, ~2x10^5 launches
 // a trace on the 20,736-triangle sheet.  B11 is kernel B2/B3's sample step
-// (csrc/mega_blocked.cu) with the reference's grid in place of the Morton
-// blocks: the triangle-free scene staged in shared memory, pre_tri, then
-// pt_device.cuh::grid_closest (the 3-D DDA of TraceRay,
+// (csrc/mega_blocked.cu) with the reference's grid and walk in place of
+// the exact grid's: the triangle-free scene staged in shared memory,
+// pre_tri, then pt_device.cuh::grid_closest (the 3-D DDA of TraceRay,
 // trianglegrid/pathtracer.ocl:157-198, testing each visited cell's
 // triangles in the division form of Moller-Trumbore), one jittered shadow
 // ray per light (grid_occluded, the any-hit walk whose boolean equals the
@@ -85,14 +85,6 @@ enum StatSlot : int {
   kClkSetup, kClkEmpty, kClkOccLoads, kClkPairs, kClkOccStep, kClkShadow,
   kClkShade, kClkKernel, kWarpPairs
 };
-
-// Waits for `v` (a loaded value) before the next stamp: a warp-wide OR
-// that reads it, which the compiler cannot drop.
-__device__ __forceinline__ void wait_for(unsigned v) {
-  unsigned r;
-  asm volatile("redux.sync.or.b32 %0, %1, %2;" : "=r"(r) : "r"(v), "r"(kAll));
-  (void)r;
-}
 
 // The counting instantiation's tally (every lane of the warp runs the
 // kernel to its end; lane 0's warp-level slots are the ones flushed).

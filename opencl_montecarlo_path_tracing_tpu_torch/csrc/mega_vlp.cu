@@ -61,7 +61,7 @@
 // The walks step over runs of empty cells in an inner loop, each lane at
 // its own pace, so that a warp's lanes test their occupied cells
 // together.  Why a grid: on the 20,736-triangle sheet a walk tests ~32
-// pairs, where a walk of B2/B3's block tables behind per-warp votes
+// pairs, where a walk of the Morton block tables behind per-warp votes
 // tested ~326 a sample (PERF.md, B9).  The lanes that walk are those
 // that voted above (inside pixels for the camera rays, lit samples for
 // the shadow rays), and the gather, shading, RNG sites and spp loop are
@@ -107,14 +107,6 @@ enum Slot {
   kWalks, kEntered, kCells, kEmpty, kPairs,
   kClkSetup, kClkEmpty, kClkLoads, kClkPairs, kClkStep, kStatSlots
 };
-
-// Waits for `v` (a loaded value) before the next stamp: a warp-wide OR
-// that reads it, which the compiler cannot drop.
-__device__ __forceinline__ void wait_for(unsigned v) {
-  unsigned r;
-  asm volatile("redux.sync.or.b32 %0, %1, %2;" : "=r"(r) : "r"(v), "r"(kAll));
-  (void)r;
-}
 
 template <bool kStats>
 struct Tally {

@@ -6,10 +6,10 @@
 // ray, the det-scaled triangle row test, the closest-hit trace and its
 // non-triangle stage, the capped any-hit occlusion test and its
 // non-triangle stage, the NaN-safe slab test of the per-warp culls and
-// their box predicates, a large mesh's block tables with the culled walk of
-// a warp of rays over them (B2/B3), the warp-cooperative closest hit (one
-// ray a warp: the full scan and the culled walk), the uniform triangle
-// grid's DDA walk (B11 and B11w), the exact grid's walk (B4 past 512
+// their box predicates, a large mesh's block tables with the
+// warp-cooperative closest hit over them (one ray a warp: the full scan
+// and the culled walk; the light pass), the uniform triangle grid's DDA
+// walk (B11 and B11w), the exact grid's walk (B2/B3, and B4 past 512
 // triangles), and the 4-material shading.
 //
 // Everything sits in an anonymous namespace, so every translation unit
@@ -434,7 +434,7 @@ __device__ bool occluded(const Scene& S, float ox, float oy, float oz,
 }
 
 // A ray's origin and reciprocal direction, for slab tests against boxes
-// (the per-warp culls of B2/B3, B4 and B5).
+// (the per-warp culls of B4 and B5, the light pass's culled walk).
 struct RayInv {
   float ox, oy, oz, ix, iy, iz;
 };
@@ -468,7 +468,7 @@ __device__ __forceinline__ void slab(float4 lo, float4 hi, const RayInv& r,
   tmax = fminf(fminf(fx, fy), fz);
 }
 
-// The per-warp culls' box predicates (kernels B2/B3 and B4), all
+// The culls' box predicates (kernel B4, the light pass's walk), all
 // conservative: the slab of the padded box, the eps/forward check, and the
 // running-t prune with the TPU kernel's relative slack (_PRUNE_SLACK).
 //
@@ -496,186 +496,21 @@ __device__ __forceinline__ bool box_occ(float4 lo, float4 hi,
 }
 
 // The block tables of a large mesh (ops/tri_blocks.py::walk_tables), walked
-// by kernels B2/B3 and by the light pass's culled trace: 4 float4 per row
-// (v0.xyz e0.x | e0.yz e2.xy | e2.z n.xyz | index bits, pad), 2 per block
-// box (lo.xyz 0 | hi.xyz 0), 2 per sub-block (lo.xyz row count | hi.xyz
-// 0), 2 per tree node in depth-first order: a macro leaf (lo.xyz block
-// count | hi.xyz first block) or an internal node (lo.xyz index of the
-// node after its subtree | hi.xyz -1).
+// by the light pass's culled trace (warp_walk_closest): 4 float4 per row
+// (v0.xyz e0.x | e0.yz e2.xy | e2.z n.xyz | index bits, pad), 2 per
+// sub-block (lo.xyz row count | hi.xyz 0), 2 per tree node in depth-first
+// order: a macro leaf (lo.xyz block count | hi.xyz first block) or an
+// internal node (lo.xyz index of the node after its subtree | hi.xyz -1).
 constexpr int kRowsPerBlock = 128;    // triangles per Morton block
 constexpr int kSubRows = 32;          // rows per sub-block
 constexpr int kSubs = kRowsPerBlock / kSubRows;
 
 struct Mesh {
   const float4* rows;
-  const float4* boxes;
   const float4* subs;
   const float4* nodes;
-  int n_blocks;
   int n_nodes;
 };
-
-// The closest-hit row test of the kRows rows from `rows`: updates the
-// det-scaled running minimum (bn, bd), its original index bi and the
-// hit's material and normal, for `active` lanes.  The row pointer steps
-// by one row, so a row's four loads take immediate offsets from it (rows
-// past the mesh are zero: det = 0 never hits).
-template <int kRows>
-__device__ __forceinline__ void scan_closest(const float4* rows, float ox,
-                                             float oy, float oz, float dx,
-                                             float dy, float dz, bool neg_t,
-                                             bool active, float& bn,
-                                             float& bd, int& bi, PreHit& h) {
-#pragma unroll 2
-  for (int i = 0; i < kRows; ++i, rows += 4) {
-    const float4 a = __ldg(rows);
-    const float4 c = __ldg(rows + 1);
-    const float4 e = __ldg(rows + 2);
-    const int idx = __float_as_int(__ldg(rows + 3).x);
-    const Quads q = row_quads(a, c, e, ox, oy, oz, dx, dy, dz);
-    const float num = q.tn_s * bd;
-    const float den = bn * q.dd;
-    if (active && quads_valid(q, neg_t) &&
-        (num < den || (num == den && idx < bi))) {
-      bn = q.tn_s;
-      bd = q.dd;
-      bi = idx;
-      h.m = 4;
-      h.nx = e.y;
-      h.ny = e.z;
-      h.nz = e.w;
-      h.needs = false;
-    }
-  }
-}
-
-// The culled walk of a warp of rays, one a lane, over a mesh's block
-// tables (kernels B2/B3).  The warp walks the
-// node tree without a stack: a node no lane needs is skipped with its
-// subtree (the node stores the index after it), so the walk grows with
-// the tree's depth, not with the macro count.  In a taken macro the warp
-// votes on each block, in a taken block on each 32-row sub-block, and
-// scans only the sub-blocks some lane needs (broadcast float4 loads,
-// every lane the same row).  A box is skipped only when no lane's ray can
-// hit a triangle in it closer than its running best: box_closest /
-// box_occ, the slab of the padded box, the eps/forward check and the
-// running-t prune with _PRUNE_SLACK, all conservative.  Every box lies
-// inside its parent's and a sub-block is padded by its block's pad, so a
-// lane that passes a box passes every box above it.  Scanning rows a lane
-// did not need re-tests them against its strictly closer running minimum,
-// so the result does not change.  Rows are Morton-ordered, so an exact
-// cross-multiplied tie goes to the lowest original index, carried in bi
-// from -1 so that a tie against a floor or sphere hit is never stolen.
-// Every lane runs every walk and reaches every vote; lanes that are not
-// `active` vote no and keep their state.
-//
-// `T` is the kernel's work tally: clock(), walk_node() and walk_block()
-// (a node's or a block's box test), walk_sub(sneed, rows) (a sub-block's
-// box test, whether the lane's own test passes, its real rows) and
-// walk_scan(cycles) (a sub-block scanned, its clock64 cycles).
-//
-// Closest hit: updates (bn, bd), bi and the hit h of each active lane.
-template <class T>
-__device__ __forceinline__ void walk_closest(
-    const Mesh& M, const RayInv& ri, float ox, float oy, float oz,
-    float dx, float dy, float dz, bool neg_t, bool active, float& bn,
-    float& bd, int& bi, PreHit& h, T& tally) {
-  int ni = 0;
-  while (ni < M.n_nodes) {
-    const float4 lo = __ldg(M.nodes + 2 * ni);
-    const float4 hi = __ldg(M.nodes + 2 * ni + 1);
-    const int first = __float_as_int(hi.w);   // -1: an internal node
-    tally.walk_node();
-    if (!__any_sync(kAll, active && box_closest(lo, hi, ri, bn, bd,
-                                                neg_t))) {
-      ni = first < 0 ? __float_as_int(lo.w) : ni + 1;
-      continue;
-    }
-    ++ni;
-    if (first < 0) continue;                   // descend
-    const int last = first + __float_as_int(lo.w);
-    for (int b = first; b < last; ++b) {
-      const bool need =
-          active && box_closest(__ldg(M.boxes + 2 * b),
-                                __ldg(M.boxes + 2 * b + 1), ri, bn, bd,
-                                neg_t);
-      tally.walk_block();
-      if (!__any_sync(kAll, need)) continue;
-      for (int k = 0; k < kSubs; ++k) {
-        const float4 slo = __ldg(M.subs + 2 * (kSubs * b + k));
-        const float4 shi = __ldg(M.subs + 2 * (kSubs * b + k) + 1);
-        if (__float_as_int(slo.w) == 0) break;  // past the mesh's last row
-        const bool sneed = need && box_closest(slo, shi, ri, bn, bd, neg_t);
-        tally.walk_sub(sneed, __float_as_int(slo.w));
-        if (!__any_sync(kAll, sneed)) continue;
-        const long long s0 = tally.clock();
-        scan_closest<kSubRows>(
-            M.rows + 4 * ((long long)kRowsPerBlock * b + kSubRows * k), ox,
-            oy, oz, dx, dy, dz, neg_t, active, bn, bd, bi, h);
-        tally.walk_scan(tally.clock() - s0);
-      }
-    }
-  }
-}
-
-// Any hit below t_limit: sets `occ` of each active lane whose ray hits a
-// triangle there; the walk ends when every active lane is occluded.
-template <class T>
-__device__ __forceinline__ void walk_occluded(
-    const Mesh& M, const RayInv& ri, float ox, float oy, float oz,
-    float dx, float dy, float dz, float t_limit, bool neg_t, bool active,
-    bool& occ, T& tally) {
-  int ni = 0;
-  while (ni < M.n_nodes) {
-    if (!__any_sync(kAll, active && !occ)) break;
-    const float4 lo = __ldg(M.nodes + 2 * ni);
-    const float4 hi = __ldg(M.nodes + 2 * ni + 1);
-    const int first = __float_as_int(hi.w);
-    tally.walk_node();
-    if (!__any_sync(kAll, active && !occ &&
-                              box_occ(lo, hi, ri, t_limit, neg_t))) {
-      ni = first < 0 ? __float_as_int(lo.w) : ni + 1;
-      continue;
-    }
-    ++ni;
-    if (first < 0) continue;
-    const int last = first + __float_as_int(lo.w);
-    for (int b = first; b < last; ++b) {
-      const bool need =
-          active && !occ &&
-          box_occ(__ldg(M.boxes + 2 * b), __ldg(M.boxes + 2 * b + 1), ri,
-                  t_limit, neg_t);
-      tally.walk_block();
-      if (!__any_sync(kAll, need)) continue;
-      for (int k = 0; k < kSubs; ++k) {
-        const float4 slo = __ldg(M.subs + 2 * (kSubs * b + k));
-        const float4 shi = __ldg(M.subs + 2 * (kSubs * b + k) + 1);
-        if (__float_as_int(slo.w) == 0) break;
-        const bool sneed =
-            need && !occ && box_occ(slo, shi, ri, t_limit, neg_t);
-        tally.walk_sub(sneed, __float_as_int(slo.w));
-        if (!__any_sync(kAll, sneed)) continue;
-        const long long s0 = tally.clock();
-        if (active && !occ) {
-          const float4* rows =
-              M.rows + 4 * ((long long)kRowsPerBlock * b + kSubRows * k);
-#pragma unroll 2
-          for (int i = 0; i < kSubRows; ++i, rows += 4) {
-            const float4 a = __ldg(rows);
-            const float4 c = __ldg(rows + 1);
-            const float4 e = __ldg(rows + 2);
-            const Quads q = row_quads(a, c, e, ox, oy, oz, dx, dy, dz);
-            if (quads_valid(q, neg_t) && q.tn_s < t_limit * q.dd) {
-              occ = true;
-              break;
-            }
-          }
-        }
-        tally.walk_scan(tally.clock() - s0);
-      }
-    }
-  }
-}
 
 // Warp-cooperative closest hit (the light pass, csrc/light_pass.cu): the 32
 // lanes of a warp trace ONE ray, and every lane ends with the same result.
@@ -731,7 +566,7 @@ __device__ __forceinline__ int warp_scan_closest(
 }
 
 // The culled walk over a mesh's block tables, one ray a warp.  The node
-// tree is walked without a stack, as B2/B3 walk it: every lane tests the
+// tree is walked without a stack: every lane tests the
 // same node, and a node whose padded box fails box_closest is skipped
 // with its subtree.  In a taken macro, lane j tests the box of the
 // macro's sub-block j (<= 8 blocks x 4; a sub-block's box lies inside its
@@ -741,8 +576,8 @@ __device__ __forceinline__ int warp_scan_closest(
 // against the closer minimum.  Every test is conservative, so no row that
 // could win is skipped.  Rows are in Morton order, so an exact
 // cross-multiplied tie goes to the lowest original index, carried from -1
-// so that a tie against a floor, square or sphere hit is never stolen (as
-// in B2/B3).  Updates (bn, bd); returns the winning row's position in
+// so that a tie against a floor, square or sphere hit is never stolen.
+// Updates (bn, bd); returns the winning row's position in
 // M.rows, or -1.
 template <class T>
 __device__ __forceinline__ int warp_walk_closest(
@@ -1097,6 +932,14 @@ enum WalkStage : int {
   kStageStep     // its merge and step
 };
 
+// Waits for `v` (a loaded value) before a tally's next clock64 stamp: a warp-wide OR
+// that reads it, which the compiler cannot drop.
+__device__ __forceinline__ void wait_for(unsigned v) {
+  unsigned r;
+  asm volatile("redux.sync.or.b32 %0, %1, %2;" : "=r"(r) : "r"(v), "r"(kAll));
+  (void)r;
+}
+
 // The DDA walk of the 32 rays of a warp in lockstep, every lane calling it
 // (`live` lanes walk; kernel B11w's walk, and the counting instantiation
 // of B11's): each iteration each walking lane reads its cell's bit; where
@@ -1260,10 +1103,10 @@ __device__ __forceinline__ bool grid_walk(const Grid& G,
   return hit;
 }
 
-// The exact grid of kernel B4's walk route (ops/exact_grid.py): a Grid's
-// tables over every (cell, triangle) pair, no per-cell cap, and each
-// cell-major row's original triangle index.  Its walk (exact_walk) is
-// exact where grid_dda keeps the reference's quirks:
+// The exact grid of kernels B2/B3 and of B4's walk route (ops/
+// exact_grid.py): a Grid's tables over every (cell, triangle) pair, no
+// per-cell cap, and each cell-major row's original triangle index.  Its
+// walk (exact_walk) is exact where grid_dda keeps the reference's quirks:
 // the set-up starts at the line's entry under neg_t (hits behind the
 // origin count there), an axis whose slab meets 0 * inf is unconstrained
 // (slab_axis), and the walk ends when its running best distance lies
@@ -1364,20 +1207,19 @@ __device__ __forceinline__ bool exact_step(const Grid& G, Dda& W) {
 // pairs in slot order when its bit is set, then ends or steps; with kNest
 // the lanes on empty cells first step on, each at its own pace, until
 // each is on an occupied cell or done, so that the warp's lanes test their
-// occupied cells together (B4's camera and shadow walks).  Closest hit (kAny false):
-// a pair replaces the det-scaled running best (bn, bd) when
-// tn_s * bd < bn * dd, or on an exact tie when its original index is below
-// bi (carried from -1, so a tie with a floor or sphere hit is never
-// stolen: walk_closest's rule); the index is loaded only on a tie.  The
-// walk ends once bn <= exact_exit * bd.  Any hit (kAny): a pair below
-// t_limit ends the walk; so does a cell whose exit, less the margin, is
-// at or past t_limit.  `T` is the kernel's tally: kLockstep (the counting
-// instantiation: each occupied step runs its lanes' largest pair count,
-// so that the clock64 stamps fall at warp-uniform points), begin() (the
-// walk's first stamp), walk(live, entered), cell(occupied), pairs(n) (the
-// lane's pairs tested),
-// round() (a pair iteration of the warp), loaded(v) and stamp(stage).
-// Returns the any-hit flag (kAny).
+// occupied cells together.  Closest hit (kAny false): a pair replaces the
+// det-scaled running best (bn, bd) when tn_s * bd < bn * dd, or on an
+// exact tie when its original index is below bi (carried from -1, so a
+// tie with a floor or sphere hit is never stolen); the index is loaded
+// only on a tie.  The walk ends once bn <= exact_exit * bd.  Any hit
+// (kAny): a pair below t_limit ends the walk; so does a cell whose exit,
+// less the margin, is at or past t_limit.  `T` is the kernel's tally:
+// kLockstep (the counting instantiation: each occupied step runs its
+// lanes' largest pair count, so that the clock64 stamps fall at
+// warp-uniform points), begin() (the walk's first stamp), walk(live,
+// entered), cell(occupied), pairs(n) (the lane's pairs tested), round()
+// (a pair iteration of the warp), loaded(v) and stamp(stage).  Returns
+// the any-hit flag (kAny).
 template <bool kAny, bool kNest, class T>
 __device__ __forceinline__ bool exact_walk(const XGrid& X, bool active,
                                            float ox, float oy, float oz,

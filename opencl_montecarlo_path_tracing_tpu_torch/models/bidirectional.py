@@ -18,8 +18,8 @@ jittered direction is traced, ocl:195-197).
 Routing of the render pass, decided from the configuration before any
 launch (the JAX package's own routing, bidirectional.py:88-104, with a
 wider gate): on a CUDA device the VLP megakernel (kernel B4,
-``ops/mega_vlp.py``; past 512 triangles its walk over B2/B3's block
-tables) for every configuration but more than 8 lights or
+``ops/mega_vlp.py``; past 512 triangles its walk of the exact grid of
+``ops/exact_grid.py``) for every configuration but more than 8 lights or
 ``max_bounces < 1``, and for those the plain wavefront on the card, whose
 dense gather is kernel B6 for large batches (``ops/vlp.py::gather_vlps``)
 and whose traces of meshes of >= 2048 triangles are kernel B7
@@ -125,7 +125,7 @@ def cuda_route(scn: SceneArrays, quirks: Quirks,
                max_bounces: int = C.MAX_BOUNCES) -> str:
     """How a CUDA device renders the VLP pass of this configuration:
     ``"mega_vlp"`` (kernel B4: up to 512 triangles from shared memory,
-    past that over B2/B3's block tables; any quirks, since the VLP family
+    past that its walk of the exact grid; any quirks, since the VLP family
     reads no quirk B4 lacks) when its gate passes, else ``"tier1"`` for
     more than 8 lights or ``max_bounces < 1`` (the plain wavefront on the
     card, whose large gathers are kernel B6 and whose traces of meshes of

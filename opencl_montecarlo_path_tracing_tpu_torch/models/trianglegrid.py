@@ -88,10 +88,10 @@ def render_trianglegrid(key, scene: Scene | SceneArrays, width: int = 512,
     only accelerates TraceRay).  ``accel`` (the route: :func:`route`):
 
     * ``"auto"``: on a CUDA device inside the super kernels' gate, the
-      super megakernel (ops/mega_super.py: B2/B3's Morton-blocked AABB
-      walk is the port's large-mesh acceleration structure, as the
-      blocked scan is the JAX package's on its accelerator); otherwise the
-      DDA.
+      super megakernel (ops/mega_super.py: B2/B3's walk of the exact
+      uniform grid of ops/exact_grid.py is the port's large-mesh
+      acceleration structure, as the blocked scan is the JAX package's on
+      its accelerator); otherwise the DDA.
     * ``"dda"``: the reference-shaped uniform-grid walk: on a CUDA device
       inside the gate kernel B11, the whole sample step in one launch
       (ops/grid.py::film_grid_mega).

@@ -1,13 +1,18 @@
-"""The exact uniform triangle grid that kernel B4 walks past 512 triangles.
+"""The exact uniform triangle grid that kernels B2/B3 and B4 walk past 512
+triangles.
 
-Kernel B4's walk route (``csrc/mega_vlp.cu``, the ``kWalk``
-instantiation; the bidirectional / metropolis / metropolis_vlpgrid render
-pass on meshes of more than 512 triangles) walks each camera ray and each
-light's capped shadow ray through a uniform grid, one lane a ray, with a
-3-D DDA (``csrc/pt_device.cuh::exact_walk``).  Its
-film is held to the brute-force plain version, so this grid and its walk
-are exact where the trianglegrid variant's (``ops/grid.py``, kernels
-B11 / B11w) keep the reference's quirks:
+Kernels B2/B3 (``csrc/mega_blocked.cu``; the super family and the
+trianglegrid variant's ``accel="auto"`` route on meshes of more than 512
+triangles) and kernel B4's walk route (``csrc/mega_vlp.cu``, the
+``kWalk`` instantiation; the bidirectional / metropolis /
+metropolis_vlpgrid render pass there) walk each camera ray and each
+light's shadow ray - B2/B3's uncapped any hit, or under
+``shadow_carry_t`` a closest hit from the carried distance; B4's capped
+any hit - through a uniform grid, one lane a ray, with a 3-D DDA
+(``csrc/pt_device.cuh::exact_walk``).  Their films are held to the
+brute-force plain versions, so this grid and its walk are exact where
+the trianglegrid variant's DDA (``ops/grid.py``, kernels B11 / B11w)
+keeps the reference's quirks:
 
 * every (cell, triangle) pair whose AABB overlaps the cell is kept - no
   per-cell cap of 62;
@@ -60,8 +65,8 @@ _F = np.float32
 
 
 class ExactGrid(NamedTuple):
-    """An exact triangle grid and the tables kernel B4's walk reads, on one
-    device."""
+    """An exact triangle grid and the tables the kernels' walk reads, on
+    one device."""
     res: tuple            # (rx, ry, rz) Python ints
     frame: torch.Tensor   # (9,) float32: vmin, vmax = vmin + cell * res, cell
     occ: torch.Tensor     # (ceil(ncells / 32),) int32 occupancy bitmap
@@ -159,6 +164,23 @@ def exact_grid(scn: SceneArrays, device) -> ExactGrid:
     device = torch.device(device)
     return derived(scn, "exact_grid.exact_grid", device,
                    lambda s: build_exact_grid(s, device))
+
+
+def check_tables(g: ExactGrid, device) -> None:
+    """Raise ``ValueError`` unless every table is a contiguous tensor on
+    ``device`` of the dtype and size the walk reads (the launchers pass
+    their pointers unchecked)."""
+    ncells = g.res[0] * g.res[1] * g.res[2]
+    npairs = int(g.rows.shape[0])
+    for name, a, dtype, n in (("frame", g.frame, torch.float32, 9),
+                              ("rows", g.rows, torch.float32, 12 * npairs),
+                              ("span", g.span, torch.int32, 2 * ncells),
+                              ("occ", g.occ, torch.int32, (ncells + 31) // 32),
+                              ("ids", g.ids, torch.int32, npairs)):
+        if a.device != device or a.dtype != dtype \
+                or not a.is_contiguous() or a.numel() != n:
+            raise ValueError(f"grid {name} must be a contiguous {dtype} "
+                             f"tensor of {n} on {device}")
 
 
 def table_bytes(g: ExactGrid) -> int:

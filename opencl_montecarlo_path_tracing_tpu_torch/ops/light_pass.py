@@ -27,7 +27,7 @@ warp-uniform; the lanes split the triangle stage:
   full scan, 32 rows a step, a ballot of the candidates and their
   running-minimum update in row order: the sequential scan's result and
   rounding exactly, so the tables are bit-equal to the plain light pass;
-* from 2,048 triangles the culled walk over B2/B3's block tables
+* from 2,048 triangles the culled walk over the Morton block tables
   (``mega_super.block_tables``: the node tree, 32 sub-block boxes one a
   lane, a taken sub-block's rows one a lane), where the plain light
   pass's traces take kernel B7's matmul form: the two agree to rounding,
@@ -149,7 +149,7 @@ def chain_args(key, scn: SceneArrays, n_seedpaths: int, quirks: Quirks,
 
 def triangle_route(scn: SceneArrays) -> str:
     """How the kernels trace this scene's triangles: ``"walk"`` (the
-    culled walk over B2/B3's block tables) from 2,048 triangles, else
+    culled walk over the block tables) from 2,048 triangles, else
     ``"scan"`` (every row, 32 a step)."""
     nt = int(scn.tri_v0.shape[0])
     return "walk" if nt >= _MXU_MIN_TRIANGLES else "scan"

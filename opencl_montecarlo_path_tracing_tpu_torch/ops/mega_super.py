@@ -12,9 +12,10 @@ hand-written CUDA kernel.  Both replace the TPU kernel
 * ``csrc/mega_super.cu`` (B1, the SMEM tier) for <= 512 triangles: the
   whole triangle table in shared memory, scanned by every ray;
 * ``csrc/mega_blocked.cu`` (B2/B3, the blocked and stream tiers) for 513
-  to 2^20 triangles: Morton blocks of 128 triangles
-  (``ops/tri_blocks.py``) walked behind per-warp AABB votes.
-  ``force_blocked`` picks it on any mesh (tests).
+  to 2^20 triangles: each camera and shadow ray, one lane a ray, walks
+  the exact uniform grid of ``ops/exact_grid.py`` (built once per
+  prepared scene and device).  ``force_blocked`` picks it on any mesh
+  (tests).
 
 The gate is the JAX ``supported()``: <= 8 lights and <= 2^20 triangles.
 
@@ -76,7 +77,8 @@ def pack_scene(scn: SceneArrays, triangles: bool = True
     [ntp*12 triangle table][camera up, right, eye_offset, pos]
     [nl*4 lights][ns*3 sphere centres][nq square k][nq square z].
     Padding rows are all zeros: det = 0 never hits.  ``triangles=False``
-    leaves the table out (ntp = 0), as B2/B3 take theirs apart."""
+    leaves the table out (ntp = 0), as B2/B3 and B4's walk find theirs in
+    a grid."""
     nt = int(scn.tri_v0.shape[0]) if triangles else 0
     ntp = -(-nt // _TRI_PAD) * _TRI_PAD
     tbl = np.zeros((ntp, 12), np.float32)
@@ -93,8 +95,8 @@ def pack_scene(scn: SceneArrays, triangles: bool = True
 def scene_buffer(scn: SceneArrays, device, triangles: bool = True) -> tuple:
     """(``pack_scene`` buffer, padded triangle count) on ``device``, built
     once per prepared scene and device (B4's and the light pass's scene;
-    with ``triangles=False`` the triangle-free one B4's walk and B11
-    read)."""
+    with ``triangles=False`` the triangle-free one B2/B3, B4's walk and
+    B11 read)."""
     def make(s):
         buf, ntp = pack_scene(s, triangles=triangles)
         return torch.from_numpy(buf).to(device), ntp
@@ -222,7 +224,8 @@ def _launch_smem(scn: SceneArrays, args, out):
 def block_tables(scn: SceneArrays, device) -> tuple:
     """(scene, rows, boxes, subs, nodes) on ``device``, built once
     per prepared scene: ``pack_scene`` without triangles and the float32
-    tables of ``tri_blocks.walk_tables``."""
+    tables of ``tri_blocks.walk_tables`` (the light pass's culled walk,
+    ``ops/light_pass.py``, reads them past 2,048 triangles)."""
     from .tri_blocks import walk_tables
 
     def make(scn):
@@ -233,21 +236,25 @@ def block_tables(scn: SceneArrays, device) -> tuple:
 
 
 def _launch_blocked(scn: SceneArrays, args, out, stats):
-    """One launch of B2/B3 into ``out``; ``stats`` (a zeroed
-    (``STAT_SLOTS``,) int64 tensor, or None) makes it the counting
-    instantiation, which adds its work tally there (:func:`blocked_stats`)."""
+    """One launch of B2/B3 into ``out`` over the scene without triangles
+    and the exact grid of its mesh; ``stats`` (a zeroed int64 tensor of
+    ``len(STAT_NAMES)`` slots, or None) makes it the counting
+    instantiation, which adds its work tally there
+    (:func:`blocked_stats`)."""
     global BLOCKED_LAUNCHES
-    buf, rows_t, boxes, subs, nodes = block_tables(scn, out.device)
-    _check((("scene", buf), ("rows", rows_t), ("boxes", boxes),
-            ("subs", subs), ("nodes", nodes), ("out", out)), out.device)
+    from .exact_grid import check_tables, exact_grid
+    buf, _ = scene_buffer(scn, out.device, triangles=False)
+    xg = exact_grid(scn, out.device)
+    _check((("scene", buf), ("out", out)), out.device)
+    check_tables(xg, out.device)
     from ..utils.build import load
     lib = load()
     with torch.cuda.device(out.device):
         err = lib.mega_blocked_launch(
             buf.data_ptr(), int(scn.lights.shape[0]),
             int(scn.sphere_centers.shape[0]), int(scn.square_k.shape[0]),
-            rows_t.data_ptr(), boxes.data_ptr(), int(boxes.shape[0]),
-            subs.data_ptr(), nodes.data_ptr(), int(nodes.shape[0]), *args,
+            xg.rows.data_ptr(), xg.span.data_ptr(), xg.occ.data_ptr(),
+            xg.ids.data_ptr(), xg.frame.data_ptr(), *xg.res, *args,
             out.data_ptr(),
             None if stats is None else stats.data_ptr(),
             _stream(out.device))
@@ -258,31 +265,45 @@ def _launch_blocked(scn: SceneArrays, args, out, stats):
     BLOCKED_LAUNCHES += 1
 
 
-#: Slots of B2/B3's work tally (csrc/mega_blocked.cu, Tally).
-STAT_SLOTS = 9
+#: B2/B3's work tally, in the order of its slots (csrc/mega_blocked.cu,
+#: Slot).
+STAT_NAMES = ("cam_rest", "cam_tri", "shadow_rest", "shadow_tri", "kernel",
+              "casts", "casts_tri", "tested", "walks", "entered", "cells",
+              "empty", "pairs", "clk_setup", "clk_empty", "clk_loads",
+              "clk_pairs", "clk_step")
 
 
 def blocked_stats(key, scn: SceneArrays, width: int, height: int, spp: int,
                   spp_offset: int = 0, spp_total: int | None = None,
                   quirks: Quirks = DEFAULT, device="cuda") -> dict:
     """B2/B3's work over one render of this configuration (one launch of
-    the counting instantiation on ``device``; the film is discarded):
+    the counting instantiation on ``device``, on a mesh of any size; the
+    film is discarded):
 
-    * ``needed``: (ray, triangle) pairs in the 128-row blocks whose box the
-      ray's own test passes when the near-to-far block walk of the design
-      the tree replaced (replayed by the counting launch) tests it - the
-      bound's yardstick, unchanged;
-    * ``sub_needed``: this design's own need, the rows of the 32-row
-      sub-blocks whose box the ray's own test passes in the tree walk;
-    * ``tested``: pairs the warps test (32 lanes x the rows a warp scans);
-    * ``macro_tests``: box tests of tree nodes (the macro level and above),
-      ``block_tests`` and ``sub_tests``: of blocks and 32-row sub-blocks;
-    * ``walk_cycles``, ``scan_cycles``, ``kernel_cycles``: clock64 cycles
-      summed over warps, in the walks' box tests and votes, in the row
-      scans, and in the whole kernel."""
+    * ``casts``: shadow rays cast (a floor or diffuse hit facing a light);
+      ``casts_tri``: those that walk the grid (the any-hit rays the floor,
+      squares and spheres do not occlude; under ``shadow_carry_t`` every
+      cast);
+    * summed over lanes: ``walks`` (the camera rays of the film's pixels
+      and ``casts_tri``), ``entered`` (walks that enter the grid),
+      ``cells`` visited, ``empty`` cells among them, ``pairs`` the lanes
+      test (the bound's work; pairs a walk against the mesh's triangles is
+      the rate at which the grid culls), ``tested``: the pairs the warps
+      pay (32 lanes x their pair iterations, at least ``pairs``);
+    * clock64 cycles summed over warps: ``cam_rest`` / ``cam_tri``, the
+      camera trace's floor, squares and spheres / its walk;
+      ``shadow_rest`` / ``shadow_tri`` likewise for the shadow rays;
+      ``kernel``, the whole kernel (the rest - threefry, camera, shading -
+      is ``kernel`` less the others); and the walks' cycles split:
+      ``clk_setup`` (the DDA set-up), ``clk_empty`` (iterations in which
+      no lane tests a pair: empty cells and their steps), ``clk_loads``
+      and ``clk_pairs`` (the occupied cells' row loads and pair
+      arithmetic), ``clk_step`` (their end tests and steps).  The counting
+      instantiation walks a warp's lanes in lockstep (each occupied step
+      runs its lanes' largest cell); its film is the timed one's."""
     device = torch.device(device)
     out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
-    stats = torch.zeros(STAT_SLOTS, dtype=torch.int64, device=device)
+    stats = torch.zeros(len(STAT_NAMES), dtype=torch.int64, device=device)
     args = (_u32_arg("k0", key[0]), _u32_arg("k1", key[1]),
             _u32_arg("spp_offset", spp_offset),
             _u32_arg("spp_total", spp if spp_total is None else spp_total),
@@ -290,8 +311,4 @@ def blocked_stats(key, scn: SceneArrays, width: int, height: int, spp: int,
             int(bool(quirks.accept_negative_t)),
             int(bool(quirks.shadow_carry_t)))
     _launch_blocked(scn, args, out, stats)
-    v = stats.tolist()
-    return {"needed": v[0], "tested": v[1], "macro_tests": v[2],
-            "block_tests": v[3], "sub_tests": v[4],
-            "walk_cycles": v[5] - v[6], "scan_cycles": v[6],
-            "kernel_cycles": v[7], "sub_needed": v[8]}
+    return dict(zip(STAT_NAMES, stats.tolist()))

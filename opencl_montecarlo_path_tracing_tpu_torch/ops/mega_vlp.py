@@ -47,7 +47,7 @@ import torch
 
 from ..core.quirks import Quirks, DEFAULT
 from ..models import common as C
-from .exact_grid import exact_grid
+from .exact_grid import check_tables, exact_grid
 from .intersect import SceneArrays, derived
 from .mega_super import (MAX_LIGHTS, MAX_SMEM_TRIANGLES, _check, _stream,
                          _u32_arg, scene_buffer)
@@ -130,13 +130,13 @@ def vlp_table(vlps, grid=None):
 
 def tri_block_boxes(scn: SceneArrays) -> np.ndarray:
     """(1 + n_blocks, 8) float32 records of the shared-memory route's
-    triangle cull (the walk route reads B2/B3's tables instead),
+    triangle cull (the walk route reads the exact grid instead),
     each lo.xyz, a row count (int32 bits), hi.xyz, 0: the triangles in
     index order, ``TRI_BLOCK_ROWS`` a block, each block's box the bounds of
     its triangles (v0, v0 + e0, v0 + e2 in float32, as
     ``ops/tri_blocks.py`` computes them) padded by 1e-3 x their extent +
-    1e-4, the B2/B3 tables' pad; record 0 the mesh, the union of the
-    blocks' boxes (all zero without triangles)."""
+    1e-4, the Morton block tables' pad; record 0 the mesh, the union of
+    the blocks' boxes (all zero without triangles)."""
     nt = int(scn.tri_v0.shape[0])
     nb = -(-nt // TRI_BLOCK_ROWS)
     v0 = np.asarray(scn.tri_v0, np.float32)
@@ -268,19 +268,11 @@ def _launch(key, scn: SceneArrays, vlps, grid, spp, spp_offset, spp_total,
     tab, n_live, gridp = vlp_table(torch.as_tensor(vlps, device=device),
                                    grid)
     stride = DENSE_STRIDE if gridp is None else GRID_STRIDE
-    tris = ((("grid rows", xg.rows), ("grid frame", xg.frame)) if walk
-            else (("triangle boxes", boxes),))
+    tris = () if walk else (("triangle boxes", boxes),)
     _check((("scene", buf), ("vlp table", tab), ("out", out)) + tris
            + ((("grid", gridp),) if gridp is not None else ()), device)
     if walk:
-        ncells = xg.res[0] * xg.res[1] * xg.res[2]
-        for name, a, n in (("span", xg.span, 2 * ncells),
-                           ("occ", xg.occ, (ncells + 31) // 32),
-                           ("ids", xg.ids, int(xg.rows.shape[0]))):
-            if a.device != device or a.dtype != torch.int32 \
-                    or not a.is_contiguous() or a.numel() != n:
-                raise ValueError(f"grid {name} must be a contiguous int32 "
-                                 f"tensor of {n} on {device}")
+        check_tables(xg, device)
     if n_live.device != device or n_live.dtype != torch.int32:
         raise ValueError(f"n_live must be an int32 tensor on {device}")
     if tab.shape[1] != stride or tab.shape[0] >= 1 << 27:

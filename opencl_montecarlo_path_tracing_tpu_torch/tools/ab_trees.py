@@ -19,8 +19,9 @@ workloads through the wrappers' arguments every version takes:
     ``dense_vlp_scene()``'s emitted tables, the demo's Metropolis table
     dense and with its grid - at 512x512, samples 0-1 of 256, culled and
     cull-free, under the default and the reference quirks; and the
-    ``walk`` set.  Times: B2/B3 at 512x512x4 on each sheet, B4's render
-    pass at 512x512x256 on each table, and the ``walk`` set's.
+    ``walk`` set.  Times: B2/B3 at 512x512x4 on each sheet (events, and
+    its kernel's device time a launch), B4's render pass at 512x512x256
+    on each table, and the ``walk`` set's.
 ``walk``
     B4's walk route (past 512 triangles) at the large-mesh VLP paths'
     launch, 256x256x16 with the emitted table (512 work items a light), on
@@ -202,8 +203,11 @@ def films_turn(runs: int) -> tuple[dict, dict]:
         for qn, q in quirk_sets:
             films[f"B2/B3 sheet {nt} {qn}"] = M.film_super_mega(
                 key, scn, W, H, 4, quirks=q, device="cuda")
-        times[f"B2/B3 sheet {nt} {W}x{H}x4"] = event_ms(
-            lambda: M.film_super_mega(key, scn, W, H, 4, device="cuda"), runs)
+        fn = lambda: M.film_super_mega(  # noqa: E731
+            key, scn, W, H, 4, device="cuda")
+        times[f"B2/B3 sheet {nt} {W}x{H}x4"] = event_ms(fn, runs)
+        times[f"B2/B3 sheet {nt} {W}x{H}x4 device"] = device_ms(
+            fn, runs, "mega_blocked_kernel")
     demo = prep_scene(demo_scene()[0])
     films["B2/B3 forced demo"] = M.film_super_mega(
         key, demo, W, H, 4, device="cuda", force_blocked=True)

@@ -49,9 +49,9 @@ _SIGNATURES = {
     "mega_vlp_error_string": (ctypes.c_char_p, [_I]),
     "gather_vlp_launch": (_I, [_P, _P, _P, _P, _I, _I, _P, _P]),
     "gather_vlp_error_string": (ctypes.c_char_p, [_I]),
-    "mega_blocked_launch": (_I, [_P, _I, _I, _I, _P, _P, _I, _P, _P, _I,
-                                 _U, _U, _U, _U, _U, _I, _I, _I, _I, _I, _P,
-                                 _P, _P]),
+    "mega_blocked_launch": (_I, [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+                                 _I, _I, _U, _U, _U, _U, _U, _I, _I, _I, _I,
+                                 _I, _P, _P, _P]),
     "mega_blocked_error_string": (ctypes.c_char_p, [_I]),
     "tri_closest_launch": (_I, [_P, _I, _P, _I, _I, _P, _P, _P]),
     "tri_closest_error_string": (ctypes.c_char_p, [_I]),

@@ -26,9 +26,12 @@ Besides, the frame path's spans and the program's counters:
   its routing and its launches), ``pt.quantize`` and ``pt.readback`` (the
   RGBA8 reduction and its copy to the host); ``pt.kernel.<route>`` (the
   CUDA path of ``film_super_mega``, from entry to return: ``mega_super``
-  for B1, ``mega_blocked`` for B2/B3), ``pt.pack`` (B1's per-launch scene
-  pack and upload), ``pt.build`` (a prepared scene or a derived table
-  built on a cache miss).
+  for B1, ``mega_blocked`` for B2/B3 and its walk of the exact grid),
+  ``pt.pack`` (B1's per-launch scene pack and upload), ``pt.build`` (a
+  prepared scene or a derived table built on a cache miss: a fresh
+  large-mesh scene's first B2/B3 frame builds ``prep_scene``, the
+  triangle-free ``mega_super.scene_buffer/bare`` and
+  ``exact_grid.exact_grid``).
 * ``COUNTS`` holds integer tallies by name, always on, read by snapshot
   (``dict(COUNTS)``); ``count(name, n)`` adds to one.  Each build adds 1
   to ``build.<name>`` and its own nanoseconds, less those of the builds

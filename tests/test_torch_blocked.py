@@ -4,7 +4,7 @@ plain film against the JAX package's blocked and stream tiers.
 * ``tri_blocks._tri_blocks`` == the JAX ``pallas_super._tri_blocks``
   bit for bit, NaN padding boxes included, on sheets whose block count is
   not a multiple of the macro size; ``large_mesh_scene()`` == the JAX one;
-* ``walk_tables`` - what ``csrc/mega_blocked.cu`` walks - holds every
+* ``walk_tables`` - what the light pass's culled walk reads - holds every
   triangle exactly once with its original index, live blocks only, boxes
   that contain their triangles, and macros (the node tree's leaves) that
   contain their boxes (its sub-blocks and node tree:

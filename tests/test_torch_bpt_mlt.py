@@ -218,7 +218,7 @@ def test_cuda_request_never_falls_back_to_cpu(variant):
 
 def test_cuda_route_is_decided_from_the_configuration():
     """B4 when its gate passes - every quirk set and mesh size, past 512
-    triangles over B2/B3's block tables; the tier-1 wavefront (gather B6,
+    triangles over the exact grid; the tier-1 wavefront (gather B6,
     whose traces of a mesh of >= 2048 triangles are kernel B7) only for
     more than 8 lights or max_bounces < 1."""
     from opencl_montecarlo_path_tracing_tpu_torch.core.quirks import (

@@ -1,10 +1,12 @@
-"""The per-warp culls of kernels B2/B3 and B5 never skip a hit.
+"""The culls of the light pass's walk and of kernels B4 and B5 never skip
+a hit.
 
 The CUDA kernels run only on a GPU, so these tests hold a torch twin of
 each kernel's cull predicate - the same float32 operations in the same
 order, no FMA - against the plain intersection tests on the CPU:
 
-* B2/B3 (``csrc/mega_blocked.cu``, tables from
+* the light pass's culled walk (``csrc/light_pass.cu``,
+  ``pt_device.cuh::warp_walk_closest``, past 2,048 triangles; tables from
   ``ops/tri_blocks.py::walk_tables``): every (ray, triangle) pair that the
   plain row test accepts passes the slab predicate of the triangle's
   32-row sub-block, its 128-row block, its macro and every tree node above
@@ -78,11 +80,11 @@ def slab(lo, hi, o, inv):
     return tmin, tmax
 
 
-# ---------------------------------------------------------------- B2/B3
+# ------------------------------------------- the light pass's culled walk
 
 
 def box_closest(lo, hi, o, inv, bn, bd, neg_t):
-    """mega_blocked.cu::box_closest."""
+    """pt_device.cuh::box_closest."""
     tmin, tmax = slab(lo, hi, o, inv)
     hit = tmax >= tmin
     if not neg_t:
@@ -92,7 +94,7 @@ def box_closest(lo, hi, o, inv, bn, bd, neg_t):
 
 
 def box_occ(lo, hi, o, inv, tl, neg_t):
-    """mega_blocked.cu::box_occ."""
+    """pt_device.cuh::box_occ."""
     tmin, tmax = slab(lo, hi, o, inv)
     hit = tmax >= tmin
     if not neg_t:
@@ -365,8 +367,8 @@ def vlp_cull_rays(scn, boxes, seed=0):
 @pytest.mark.parametrize("name", list(VLP_SCENES))
 def test_tri_block_boxes_hold_their_rows(name):
     """Index-order blocks of 32 rows, each record's count the rows it
-    holds, each box around its triangles' vertices with the B2/B3 pad;
-    record 0 the mesh, the union of the blocks' boxes."""
+    holds, each box around its triangles' vertices with the block tables'
+    pad; record 0 the mesh, the union of the blocks' boxes."""
     scn = prep_scene(VLP_SCENES[name]())
     recs = M4.tri_block_boxes(scn)
     nt = scn.tri_v0.shape[0]

@@ -479,7 +479,8 @@ def test_frame_spans_on_gpu(cuda_device):
         assert not host(frames[name], "pt.kernel.mega_super")
         (render,) = host(frames[name], "pt.render")
         assert inside(b23, render)
-    assert len(host(frames["sheet"], "pt.build")) == 2   # scene, tables
+    # the scene, its triangle-free buffer and the exact grid
+    assert len(host(frames["sheet"], "pt.build")) == 3
     assert not host(frames["sheet again"], "pt.build")
     for events in frames.values():
         for e in events:
@@ -707,7 +708,7 @@ def test_vlp_walk_matches_plain_on_gpu(sheet, table, qname, cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", list(VLP_CASES) + ["demo_emitted"])
 def test_vlp_force_walk_matches_smem_route(name, cuda_device):
-    """``force_walk=True`` walks B2/B3's block tables on the shared-memory
+    """``force_walk=True`` walks the exact grid on the shared-memory
     route's meshes: the same film under the CRN contract and within 2e-5
     where no pixel ties (as B2/B3 forced is held to B1), under the default
     and the reference quirks."""
@@ -904,23 +905,121 @@ def test_blocked_kernel_matches_plain_on_a_1m_band(cuda_device):
     assert ok, st
 
 
-# blocked_stats' "needed" on large_mesh_scene() (20,736 triangles) at
-# 512x512x4, key (0, 0): the count the kernel printed before its node tree
-# and sub-blocks (PERF.md §5), when its walk was the near-to-far macro
-# walk; the counting launch now replays that walk block by block for this
-# yardstick (a macro no lane passed held no block a lane passes)
-NEEDED_20K_512x512x4 = 1036254336
+# B2/B3's grid walk on the benchmark's sheet (large_mesh_scene(): 20,736
+# triangles) against the tier-1 plain film: (name, (w, h, spp), window
+# kwargs).  A band at a non-zero row offset, and a width and a band that
+# are no multiple of the 16 x 8 block tile (ghost lanes in the warps).
+SHEET_BANDS = [
+    ("band_256", (512, 512, 2), dict(spp_total=4, row_offset=256, rows=64)),
+    ("ghost_lanes", (509, 512, 2), dict(spp_total=4, row_offset=301,
+                                        rows=37)),
+]
 
 
 @pytest.mark.gpu
-def test_blocked_stats_needed_keeps_its_definition(cuda_device):
+@pytest.mark.parametrize("qname", ["default", "reference_lmem"])
+@pytest.mark.parametrize("band", SHEET_BANDS, ids=[b[0] for b in SHEET_BANDS])
+def test_blocked_kernel_matches_plain_on_the_sheet(band, qname,
+                                                   cuda_device):
+    """B2/B3 on the 20,736-triangle sheet (its uncapped any-hit shadow
+    rays, and under REFERENCE_LMEM the carried closest-hit ones with
+    negative t) against the tier-1 plain film under the contract; one
+    launch each."""
     from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
         large_mesh_scene)
-    st = M.blocked_stats((0, 0), prep_scene(large_mesh_scene()), 512, 512,
-                         4, device=cuda_device)
-    assert st["needed"] == NEEDED_20K_512x512x4, st
-    assert 0 < st["sub_needed"] <= st["tested"], st
-    assert 0 < st["walk_cycles"] < st["kernel_cycles"], st
+    _, (w, h, spp), kw = band
+    scn = prep_scene(large_mesh_scene())
+    assert M.uses_blocked(scn)
+    kw = dict(kw, quirks=QUIRKS[qname], device=cuda_device)
+    before = M.BLOCKED_LAUNCHES
+    got = M.film_super_mega((2, 0), scn, w, h, spp, **kw)
+    torch.cuda.synchronize()
+    assert M.BLOCKED_LAUNCHES == before + 1
+    want = M.film_super_mega_plain((2, 0), scn, w, h, spp, **kw)
+    assert got.shape == want.shape == (kw["rows"], w, 3)
+    assert want.var() > 1e-5                   # the sheet fills the band
+    ok, st = crn_ok(got, want, spp)
+    assert ok, st
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qname", ["default", "reference_lmem"])
+def test_blocked_kernel_forced_on_the_torus_matches_b1(qname, cuda_device):
+    """``force_blocked`` on the demo scene's 96-triangle torus: the grid
+    walk's film is B1's (which scans every triangle in index order) under
+    the contract, and within 2e-5 where no pixel ties."""
+    scn = prep_scene(demo_scene()[0])
+    assert int(scn.tri_v0.shape[0]) == 96 and not M.uses_blocked(scn)
+    kw = dict(spp_total=4, row_offset=192, rows=128, quirks=QUIRKS[qname],
+              device=cuda_device)
+    before = M.LAUNCHES, M.BLOCKED_LAUNCHES
+    got = M.film_super_mega((3, 0), scn, 512, 512, 2, force_blocked=True,
+                            **kw)
+    want = M.film_super_mega((3, 0), scn, 512, 512, 2, **kw)
+    torch.cuda.synchronize()
+    assert (M.LAUNCHES, M.BLOCKED_LAUNCHES) == (before[0] + 1,
+                                                before[1] + 1)
+    ok, st = crn_ok(got, want, 2)
+    assert ok, st
+    if st["tie_frac"] == 0.0:
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_blocked_kernel_matches_plain_on_a_262k_band(cuda_device):
+    """B2/B3 on an 8-row band of the 262,144-triangle sheet (the stream
+    tier; its grid reaches the 512-cell axis clamp) against the tier-1
+    plain film."""
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        large_mesh_scene)
+    scn = prep_scene(large_mesh_scene(512, 256))
+    kw = dict(spp_total=4, row_offset=248, rows=8, device=cuda_device)
+    before = M.BLOCKED_LAUNCHES
+    got = M.film_super_mega((0, 0), scn, 512, 512, 1, **kw)
+    torch.cuda.synchronize()
+    assert M.BLOCKED_LAUNCHES == before + 1
+    want = M.film_super_mega_plain((0, 0), scn, 512, 512, 1, **kw)
+    assert want.var() > 1e-5                   # the sheet fills the band
+    ok, st = crn_ok(got, want, 1)
+    assert ok, st
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qname", ["default", "reference_lmem"])
+def test_blocked_stats_count_the_walks(qname, cuda_device):
+    """B2/B3's counting launch on the 20,736 sheet: a walk for every
+    camera ray of the film and every cast that reaches the triangles
+    (under REFERENCE_LMEM every cast), a few dozen pairs a walk of the
+    mesh's 20,736 (the cull engages), the lanes' pairs at most the pairs
+    their warps pay (32 a pair iteration), empty cells among those
+    visited, every stage of the clock64 split counted inside the walks'
+    cycles, and the film untouched by the count."""
+    from opencl_montecarlo_path_tracing_tpu_torch.scene.builtin import (
+        large_mesh_scene)
+    scn = prep_scene(large_mesh_scene())
+    q = QUIRKS[qname]
+    # the whole frame: its floor and diffuse hits cast past the spheres
+    # and squares (the top-left quarter's all fall in their shadows)
+    film = M.film_super_mega((0, 0), scn, 512, 512, 1, spp_total=16,
+                             quirks=q, device=cuda_device)
+    st = M.blocked_stats((0, 0), scn, 512, 512, 1, spp_total=16, quirks=q,
+                         device=cuda_device)
+    again = M.film_super_mega((0, 0), scn, 512, 512, 1, spp_total=16,
+                              quirks=q, device=cuda_device)
+    assert torch.equal(film, again)
+    assert st["walks"] == 512 * 512 + st["casts_tri"], st
+    assert 0 < st["casts_tri"] <= st["casts"], st
+    if q.shadow_carry_t:
+        assert st["casts_tri"] == st["casts"], st
+    assert st["walks"] >= st["entered"] > 0, st
+    assert 0 < st["pairs"] < 100 * st["walks"], st
+    assert st["tested"] >= st["pairs"] and st["tested"] % 32 == 0, st
+    assert st["cells"] > st["empty"] > 0, st
+    split = ("clk_setup", "clk_empty", "clk_loads", "clk_pairs", "clk_step")
+    for k in split:
+        assert st[k] > 0, k
+    assert sum(st[k] for k in split) <= st["cam_tri"] + st["shadow_tri"]
+    assert st["cam_tri"] + st["shadow_tri"] < st["kernel"], st
 
 
 @pytest.mark.gpu

@@ -87,8 +87,10 @@ def test_weights_match_jax():
 
 
 def test_scene_and_its_tables_are_prepared_once():
-    """A Scene is prepared once; B7's weights and B2/B3's block tables are
-    built once per prepared scene and device."""
+    """A Scene is prepared once; B7's weights, the light pass's block
+    tables and B2/B3's exact grid are built once per prepared scene and
+    device."""
+    from opencl_montecarlo_path_tracing_tpu_torch.ops import exact_grid as X
     from opencl_montecarlo_path_tracing_tpu_torch.ops import mega_super as M
     scene = sheet_scene(8, 4)
     scn = TI.prep_scene(scene)
@@ -104,6 +106,9 @@ def test_scene_and_its_tables_are_prepared_once():
     assert M.block_tables(scn, "cpu") is tables
     for a, b in zip(M.block_tables(other, "cpu"), tables):
         torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    grid = X.exact_grid(scn, "cpu")
+    assert X.exact_grid(scn, "cpu") is grid
+    assert X.exact_grid(other, "cpu") is not grid
 
 
 def test_weights_reproduce_quads():

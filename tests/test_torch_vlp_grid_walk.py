@@ -1,7 +1,8 @@
-"""Kernel B4's walk route past 512 triangles, modelled on the CPU: the exact
-uniform grid it walks (``ops/exact_grid.py``) and the NumPy twin of its
-walk (``exact_grid.walk_twin``, ``csrc/pt_device.cuh::exact_walk``'s
-operations in their order) held to the JAX package's brute force.
+"""Kernels B2/B3 and kernel B4's walk route past 512 triangles, modelled
+on the CPU: the exact uniform grid they walk (``ops/exact_grid.py``) and
+the NumPy twin of the walk (``exact_grid.walk_twin``,
+``csrc/pt_device.cuh::exact_walk``'s operations in their order) held to
+the JAX package's brute force.
 
 The brute force is the JAX package's own: on meshes below its matmul
 route (2,048 triangles) ``ops/intersect.py``'s ``trace_ray`` and
@@ -18,7 +19,10 @@ ends 3.0% of the walks before their hit), exact ties (duplicate
 triangles, and two coplanar ones whose det-scaled distances tie exactly,
 the higher index met first in an earlier cell), a fan of 96 triangles
 through one cell (the reference grid keeps 62) and rays from outside
-and inside the grid.  The build is held to the JAX package's NumPy
+and inside the grid.  B2/B3's two shadow modes are held the same way on
+the sheet, the tie mesh and the fan, toward the benchmark's two lights:
+the uncapped any hit, and under ``shadow_carry_t`` the closest hit from
+a carried distance.  The build is held to the JAX package's NumPy
 ``build_grid_host`` with its cap at the true occupancy (the same pairs).
 The card's own checks are in ``tests/test_torch_gpu.py``.
 """
@@ -305,6 +309,89 @@ def test_walk_equals_jax_trace_ray_on_hard_meshes(mesh, neg_t):
                                   np.asarray(want))
 
 
+#: The benchmark's two point lights (``benchmark/configs/*.json``: the
+#: upstream super scene's), which kernel B2/B3's shadow rays aim at.
+BENCH_LIGHTS = np.array([[10, 4, 10, 200], [15, 2, 7, 150]], F)
+
+
+@pytest.fixture(scope="module")
+def b23_shadows(sheet):
+    """B2/B3's shadow rays on a mesh ("sheet", "ties" or "fan"), made once
+    a mesh: from the closest hits of its camera rays (the sheet's) or of
+    ``hard_rays`` toward each of ``BENCH_LIGHTS``, jittered as the
+    kernel's are; returns (scene, origins, directions, the brute force's
+    quads for them, the carried distance of each: its camera ray's hit
+    distance, cut to a twentieth on every third ray)."""
+    cache = {}
+
+    def get(mesh):
+        if mesh not in cache:
+            if mesh == "sheet":
+                scn, o, d, quads = sheet
+                o, d, quads = o[::3], d[::3], tuple(q[::3] for q in quads)
+            else:
+                tris = tie_mesh() if mesh == "ties" else fan_mesh()
+                scn = prep_scene(mesh_scene(tris))
+                o, d = hard_rays(scn)
+                quads = jax_quads(o, d, _tri_table(scn))
+            t, i = brute_closest(quads, False)
+            keep = i >= 0
+            so, sd, _ = shadow_rays(o[keep], d[keep], t[keep], BENCH_LIGHTS)
+            carried = np.tile(t[keep], len(BENCH_LIGHTS))
+            carried[::3] *= F(0.05)
+            cache[mesh] = (scn, so, sd, jax_quads(so, sd, _tri_table(scn)),
+                           carried.astype(F))
+        return cache[mesh]
+    return get
+
+
+@pytest.mark.parametrize("neg_t", [False, True],
+                         ids=["default", "reference"])
+@pytest.mark.parametrize("mesh", ["sheet", "ties", "fan"])
+def test_uncapped_shadow_walks_equal_the_brute_force(b23_shadows, mesh,
+                                                     neg_t):
+    """B2/B3's shadow rays without ``shadow_carry_t``: the uncapped any
+    hit (t_limit 1e9, ``occluded(..., kBig, ...)``) toward the
+    benchmark's lights.  The walk's occlusion bit is the brute force's for
+    every ray, some rays are occluded, and an open ray's walk runs on
+    until it leaves the grid (no cap ends it)."""
+    scn, so, sd, quads, _ = b23_shadows(mesh)
+    occ, tally = twin(scn, so, sd, neg_t, t_limit=BIG,
+                      **({} if mesh == "sheet" else dict(modifier=24.0)))
+    want = brute_any(quads, neg_t, np.full(len(so), BIG))
+    np.testing.assert_array_equal(occ, want)
+    assert want.any()
+    if not want.all():
+        assert tally["cells"][~want].mean() >= tally["cells"][want].mean()
+
+
+@pytest.mark.parametrize("neg_t", [False, True],
+                         ids=["default", "reference"])
+@pytest.mark.parametrize("mesh", ["sheet", "ties", "fan"])
+def test_carried_shadow_walks_equal_the_brute_force(b23_shadows, mesh,
+                                                    neg_t):
+    """B2/B3's shadow rays under ``shadow_carry_t``: a closest-hit walk
+    from the carried distance (the running t the previous trace left).
+    The walk's (t, index) is the brute force's scan from the same
+    distance, bit for bit; a triangle before the carried distance wins on
+    some rays, none on others (t stays the carried one, also where a
+    triangle lies beyond it), and exact ties go to the lower index."""
+    scn, so, sd, quads, carried = b23_shadows(mesh)
+    (t, i), tally = twin(scn, so, sd, neg_t, bn0=carried,
+                         **({} if mesh == "sheet" else dict(modifier=24.0)))
+    bt, bi = brute_closest(quads, neg_t, carried)
+    np.testing.assert_array_equal(i, bi)
+    np.testing.assert_array_equal(t, bt)
+    assert (i >= 0).any()
+    np.testing.assert_array_equal(t[i < 0], carried[i < 0])
+    # rays whose triangle lies past the carried distance keep it
+    beyond = brute_any(quads, neg_t, np.full(len(so), BIG)) & (i < 0)
+    assert beyond.any() or neg_t
+    if mesh == "sheet":
+        # the cull engages: a walk tests a few dozen of 20,736 triangles
+        assert tally["pairs"].mean() < 100
+
+
 def test_rays_from_outside_enter_and_miss_as_the_brute_force():
     """Rays that start outside the grid's box (aimed into it, and the
     same rays turned away from it) and rays along grid planes with a zero
@@ -382,3 +469,18 @@ def test_walk_route_inputs_are_the_exact_grid():
     assert X.table_bytes(xg) == sum(
         a.numel() * a.element_size()
         for a in (xg.frame, xg.occ, xg.span, xg.rows, xg.ids))
+
+
+@pytest.mark.parametrize("bad", ["dtype", "size", "device"])
+def test_check_tables_refuses_tables_the_walk_cannot_read(bad):
+    """Both launchers pass the grid's pointers to the kernel unchecked, so
+    ``check_tables`` accepts the cached grid and refuses a table of the
+    wrong dtype, size or device before any launch."""
+    scn = prep_scene(large_mesh_scene(30, 30))
+    xg = X.exact_grid(scn, "cpu")
+    X.check_tables(xg, torch.device("cpu"))
+    broken = {"dtype": xg._replace(ids=xg.ids.to(torch.int64)),
+              "size": xg._replace(span=xg.span[:-1]),
+              "device": xg._replace(frame=xg.frame.to("meta"))}[bad]
+    with pytest.raises(ValueError, match="grid"):
+        X.check_tables(broken, torch.device("cpu"))
